@@ -1,0 +1,73 @@
+"""Carrying fitted models and encoded scorers across from the reference.
+
+The reference's models and scorers are NamedTuples of arrays. Their
+fields, as a dict of numpy arrays keyed by field name (``arrays_of``),
+build the port's objects on a given device -- so a test can fit or encode
+once in the reference and serve the very same weights and codes here.
+Fields the port does not have (streaming ``live`` masks, IVF schedules)
+are ignored.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import scorer as sc
+from repro_torch.core.gleanvec import GleanVecModel
+from repro_torch.core.leanvec_sphering import SpheringModel
+from repro_torch.device import resolve_device
+
+__all__ = ["arrays_of", "sphering_model", "gleanvec_model", "scorer",
+           "SCORERS"]
+
+SCORERS = {cls.__name__: cls for cls in (
+    sc.LinearScorer, sc.GleanVecScorer, sc.QuantizedScorer,
+    sc.GleanVecQuantizedScorer, sc.SortedGleanVecScorer,
+    sc.SortedGleanVecQuantizedScorer)}
+
+# field -> dtype; every other field is float32
+_DTYPES = {"tags": torch.int32, "block_tags": torch.int32,
+           "perm": torch.int32, "inv_perm": torch.int32,
+           "codes": torch.uint8}
+
+
+def arrays_of(obj) -> dict:
+    """``{field: numpy array}`` of a NamedTuple of arrays (None fields
+    left out). Works on any array type numpy can convert."""
+    return {f: np.asarray(getattr(obj, f)) for f in obj._fields
+            if getattr(obj, f) is not None}
+
+
+def _tensor(name, value, device):
+    return torch.as_tensor(np.ascontiguousarray(value),
+                           dtype=_DTYPES.get(name, torch.float32),
+                           device=device)
+
+
+def _build(cls, arrays: dict, device):
+    dev = resolve_device(device)
+    kw = {f: _tensor(f, arrays[f], dev) for f in cls._fields if f in arrays}
+    missing = [f for f in cls._fields
+               if f not in kw and f not in cls._field_defaults]
+    if missing:
+        raise ValueError(f"{cls.__name__} needs fields {missing}")
+    return cls(**kw)
+
+
+def sphering_model(arrays: dict, device=None) -> SpheringModel:
+    """A LeanVec-Sphering model from ``{a, b, p, w, w_pinv}``."""
+    return _build(SpheringModel, arrays, device)
+
+
+def gleanvec_model(arrays: dict, device=None) -> GleanVecModel:
+    """A GleanVec model from ``{centers, a, b, w, w_pinv}``."""
+    return _build(GleanVecModel, arrays, device)
+
+
+def scorer(kind: str, arrays: dict, device=None):
+    """One of the six scorer classes, named as in the reference
+    (``"SortedGleanVecQuantizedScorer"``, ...), from its field arrays."""
+    if kind not in SCORERS:
+        raise ValueError(f"unknown scorer class {kind!r}; one of "
+                         f"{sorted(SCORERS)}")
+    return _build(SCORERS[kind], arrays, device)

@@ -1,0 +1,168 @@
+// Tiled fp32 scan + per-block top-k, shared by ip_topk.cu (plain MIPS) and
+// the sorted layout of gleanvec_sq.cu (one cluster view per tile).
+//
+// A block owns GT_M = 64 queries and one split of the database's row tiles.
+// Rows are grouped in segments of L rows that share ONE query view (the
+// tag-sorted layout's layout block; for plain MIPS L = GT_N and every
+// segment has tag 0), and a tile of GT_N = 128 rows never crosses a
+// segment. Per tile the block computes the (64, 128) score tile with a
+// register-tiled fp32 FMA product (each thread 4 x 8 scores, operands staged
+// through shared memory in depth chunks of GT_K = 32), adds the per-query
+// affine offset of the tile's view, and folds the tile into its per-query
+// top-k lists (topk_common.cuh). The dense (M, N) score matrix never exists.
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "topk_common.cuh"
+
+constexpr int GT_M = 64;
+constexpr int GT_N = 128;
+constexpr int GT_K = 32;
+constexpr int GT_THREADS = 256;
+constexpr int QS_STRIDE = GT_M + 4;
+constexpr int XS_STRIDE = GT_N + 4;
+constexpr int GT_STAGE =
+    (GT_K * (QS_STRIDE + XS_STRIDE) > GT_M * GT_N) ? GT_K * (QS_STRIDE + XS_STRIDE)
+                                                   : GT_M * GT_N;
+
+struct GemmScanArgs {
+  const float* q;       // query m, view t: q + m * q_stride + t * d
+  long long q_stride;
+  int d;
+  const float* qlo;     // optional (M, C) offsets: qlo[m * C + t]
+  int C;
+  const int* seg_tags;  // optional view per segment (default 0)
+  const int* row_ids;   // optional id per row, -1 = masked (default: row)
+  const void* x;        // (N, d) rows, float or uint8
+  int N;
+  int L;                // rows per segment
+  int M;
+  int k;
+  int S;                // splits of the row tiles
+  float* pv;            // (M, S, k) partial lists
+  int* pi;
+};
+
+template <typename XT>
+__global__ void __launch_bounds__(GT_THREADS) gemm_scan_topk_kernel(GemmScanArgs a) {
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  float* lv = reinterpret_cast<float*>(gsmem);  // GT_M * k
+  int* li = reinterpret_cast<int*>(lv + GT_M * a.k);
+  int* tile_ids = li + GT_M * a.k;              // GT_N
+  float* lo_s = reinterpret_cast<float*>(tile_ids + GT_N);  // GT_M
+  float* stage = lo_s + GT_M;                   // 16-byte aligned
+  float* qs = stage;                            // GT_K x QS_STRIDE
+  float* xs = stage + GT_K * QS_STRIDE;         // GT_K x XS_STRIDE
+  float* sc = stage;                            // GT_M x GT_N, after the depth loop
+
+  const int m0 = blockIdx.x * GT_M;
+  const int s = blockIdx.y;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int ty = t >> 4, tx = t & 15;
+  const XT* x = static_cast<const XT*>(a.x);
+
+  for (int e = t; e < GT_M * a.k; e += GT_THREADS) {
+    lv[e] = NEG_INF_F;
+    li[e] = -1;
+  }
+  const int tps = (a.L + GT_N - 1) / GT_N;
+  const long long nseg = (a.N + (long long)a.L - 1) / a.L;
+  const long long T = nseg * tps;
+  const long long t_begin = T * s / a.S, t_end = T * (s + 1) / a.S;
+  __syncthreads();
+
+  for (long long tile = t_begin; tile < t_end; ++tile) {
+    const int seg = (int)(tile / tps), sub = (int)(tile % tps);
+    const long long seg0 = (long long)seg * a.L;
+    const int n0 = (int)(seg0 + (long long)sub * GT_N);
+    const int n1 = (int)min(min((long long)n0 + GT_N, seg0 + a.L), (long long)a.N);
+    const int tag = a.seg_tags ? min(max(a.seg_tags[seg], 0), a.C - 1) : 0;
+    if (t < GT_N) {
+      const int n = n0 + t;
+      tile_ids[t] = n < n1 ? (a.row_ids ? a.row_ids[n] : n) : -1;
+    }
+    if (t < GT_M) {
+      const int m = m0 + t;
+      lo_s[t] = (a.qlo && m < a.M) ? a.qlo[(size_t)m * a.C + tag] : 0.f;
+    }
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    for (int kc = 0; kc < a.d; kc += GT_K) {
+      const int dd = kc + lane;
+#pragma unroll
+      for (int r = 0; r < GT_M / 8; ++r) {
+        const int mm = warp + 8 * r, m = m0 + mm;
+        float val = 0.f;
+        if (m < a.M && dd < a.d)
+          val = a.q[(size_t)m * a.q_stride + (size_t)tag * a.d + dd];
+        qs[lane * QS_STRIDE + mm] = val;
+      }
+#pragma unroll
+      for (int r = 0; r < GT_N / 8; ++r) {
+        const int nn = warp + 8 * r, n = n0 + nn;
+        float val = 0.f;
+        if (n < n1 && dd < a.d) val = static_cast<float>(x[(size_t)n * a.d + dd]);
+        xs[lane * XS_STRIDE + nn] = val;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < GT_K; ++kk) {
+        const float4 qv = *reinterpret_cast<const float4*>(&qs[kk * QS_STRIDE + ty * 4]);
+        const float4 x0 = *reinterpret_cast<const float4*>(&xs[kk * XS_STRIDE + tx * 4]);
+        const float4 x1 =
+            *reinterpret_cast<const float4*>(&xs[kk * XS_STRIDE + 64 + tx * 4]);
+        const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+        const float xa[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qa[i], xa[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i;
+      const float lo = lo_s[r];
+      *reinterpret_cast<float4*>(&sc[r * GT_N + tx * 4]) =
+          make_float4(acc[i][0] + lo, acc[i][1] + lo, acc[i][2] + lo, acc[i][3] + lo);
+      *reinterpret_cast<float4*>(&sc[r * GT_N + 64 + tx * 4]) =
+          make_float4(acc[i][4] + lo, acc[i][5] + lo, acc[i][6] + lo, acc[i][7] + lo);
+    }
+    __syncthreads();
+    for (int r = warp; r < GT_M; r += GT_THREADS / 32)
+      if (m0 + r < a.M)
+        topk_update_row(sc + r * GT_N, tile_ids, n1 - n0, lv + r * a.k, li + r * a.k,
+                        a.k, lane);
+    __syncthreads();
+  }
+
+  for (int e = t; e < GT_M * a.k; e += GT_THREADS) {
+    const int r = e / a.k, j = e % a.k, m = m0 + r;
+    if (m < a.M) {
+      const size_t o = ((size_t)m * a.S + s) * a.k + j;
+      a.pv[o] = lv[e];
+      a.pi[o] = li[e];
+    }
+  }
+}
+
+template <typename XT>
+static cudaError_t launch_gemm_scan(const GemmScanArgs& a, float* out_v, int* out_i,
+                                    cudaStream_t stream) {
+  const size_t smem = (size_t)GT_M * a.k * 8 + GT_N * 4 + GT_M * 4 + GT_STAGE * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_scan_topk_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.M + GT_M - 1) / GT_M, a.S);
+  gemm_scan_topk_kernel<XT><<<grid, GT_THREADS, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_topk_merge(a.pv, a.pi, a.M, a.S, a.k, out_v, out_i, stream);
+}

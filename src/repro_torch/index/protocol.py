@@ -1,0 +1,33 @@
+"""The Index protocol's flat member (port of ``FlatIndex`` from
+``repro/index/protocol.py``):
+
+    qstate = index.prepare_queries(scorer, queries)
+    vals, ids = index.candidates(qstate, scorer, k)   # ids: original space
+    vals, ids = index.search(queries, scorer, k)
+
+IVF, graph and sharded indexes come with later parts of the port.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+__all__ = ["FlatIndex"]
+
+
+@dataclass(frozen=True)
+class FlatIndex:
+    """Exhaustive scan: ``candidates`` is the fused scan + top-k kernel of
+    the scorer (``kernels.scorer_topk_prepared``); on CPU tensors that is
+    the kernel's plain version. The kernels tile the rows themselves, so
+    the reference's ``block`` setting has no counterpart."""
+
+    def prepare_queries(self, scorer, queries):
+        return scorer.prepare_queries(queries)
+
+    def candidates(self, qstate, scorer, k: int):
+        from repro_torch.kernels import scorer_topk_prepared
+        return scorer_topk_prepared(scorer, qstate, k)
+
+    def search(self, queries, scorer, k: int):
+        return self.candidates(self.prepare_queries(scorer, queries),
+                               scorer, k)

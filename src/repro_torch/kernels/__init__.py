@@ -1,0 +1,243 @@
+"""The port's hand-written Hopper kernels and its single lowering point.
+
+Each kernel package holds a CUDA C++ kernel (sources in
+``repro_torch/csrc``), its plain PyTorch version, a wrapper that takes the
+plain version for CPU tensors only and launches the kernel for CUDA
+tensors (or raises), and a launch counter (``<wrapper>.launches``).
+
+``scorer_topk`` / ``scorer_topk_prepared`` map each scorer class of
+:mod:`repro_torch.core.scorer` to its kernel exactly as the reference's
+``repro.kernels.scorer_topk`` does; index code talks to scorers, and
+scorers lower here and nowhere else.
+
+This module also builds the kernels: ``nvcc`` compiles each source into
+its own shared library with a plain C interface (``build``, one compiler
+process per source, all started together) under ``build/kernels/`` at the
+repository root, at first use, and ``load_library`` loads it with
+``ctypes``. Nothing here needs ``nvcc`` or a GPU until a kernel is called
+on a CUDA tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.gleanvec_sq import (gleanvec_sq_topk,
+                                             gleanvec_sq_topk_plain)
+from repro_torch.kernels.ip_topk import ip_topk, ip_topk_plain
+from repro_torch.kernels.kmeans_assign import (kmeans_assign,
+                                               kmeans_assign_plain)
+
+__all__ = ["ip_topk", "ip_topk_plain", "gleanvec_sq_topk",
+           "gleanvec_sq_topk_plain", "kmeans_assign", "kmeans_assign_plain",
+           "scorer_topk", "scorer_topk_prepared", "build", "load_library",
+           "library_path", "KERNEL_SOURCES", "BUILD_DIR", "MAX_K"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+KERNEL_SOURCES = ("ip_topk", "gleanvec_sq", "kmeans_assign")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+
+MAX_K = 128             # largest k the top-k kernels keep per query
+MERGE_MAX = 8192        # most partial candidates the merge kernel sorts
+GEMM_TILE_M = 64        # queries per block of the tiled scan (scan_gemm.cuh)
+GEMM_TILE_N = 128       # rows per tile of the tiled scan
+GATHER_TILE_N = 256     # rows per tile of the gathered GleanVec scan
+
+_LIBS: dict = {}
+
+
+# ---------------------------------------------------------------------------
+# Build and load.
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")
+             if os.environ.get("CUDA_HOME") else None,
+             "/usr/local/cuda/bin/nvcc", shutil.which("nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "repro_torch/csrc at first use and need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+def library_path(name: str) -> Path:
+    """Where ``name``'s library lives; the file name carries a digest of
+    the sources and flags, so an edited source is rebuilt."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=KERNEL_SOURCES) -> dict:
+    """Compile the named kernels that are not built yet, one ``nvcc`` per
+    source, all running at once. Returns {name: seconds} for those built;
+    raises with the compiler's output if one fails. Each compiler's log
+    (with ``-Xptxas -v``'s registers and shared memory) is kept beside the
+    library as ``<library>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = {}
+    try:
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            log_path = Path(f"{out}.log")
+            log = open(log_path, "w")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+            jobs[name] = (proc, log, log_path, tmp, out, time.perf_counter())
+        seconds = {}
+        for name, (proc, log, log_path, tmp, out, t0) in jobs.items():
+            proc.wait()
+            log.close()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name} "
+                                   f"(rc {proc.returncode}):\n"
+                                   f"{log_path.read_text()[-6000:]}")
+            os.replace(tmp, out)
+            seconds[name] = time.perf_counter() - t0
+        return seconds
+    finally:
+        for proc, log, *_ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def load_library(name: str, bind=None):
+    """The loaded library of kernel ``name``, built first if needed.
+    ``bind(lib)`` declares its functions' argument types (once)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        if bind is not None:
+            bind(lib)
+        _LIBS[name] = lib
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# Wrapper helpers shared by the kernel packages.
+# ---------------------------------------------------------------------------
+
+
+def on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU (take the plain version);
+    False when all lie on CUDA; raises on a mix."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"kernel inputs on mixed or unsupported devices: "
+                     f"{sorted(kinds)}")
+
+
+def check_cuda_inputs(name: str, **tensors) -> None:
+    """All inputs contiguous and on the current CUDA device."""
+    cur = torch.cuda.current_device()
+    for arg, t in tensors.items():
+        if t.device.index != cur:
+            raise ValueError(f"{name}: {arg} is on {t.device}, the current "
+                             f"device is cuda:{cur}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def check_k(k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"top-k kernels take 1 <= k <= {MAX_K}, got {k}")
+
+
+def splits(row_tiles: int, query_blocks: int, k: int, blocks_per_sm: int,
+           device) -> int:
+    """How many blocks share one query block's rows: enough for about four
+    waves of resident blocks, no more than there are row tiles, and few
+    enough that the merge kernel sorts at most ``MERGE_MAX`` candidates."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = -(-4 * sms * blocks_per_sm // max(query_blocks, 1))
+    return max(1, min(want, row_tiles, MERGE_MAX // k))
+
+
+def current_stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(name: str, err: int, lib) -> None:
+    if err != 0:
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+
+
+# ---------------------------------------------------------------------------
+# The lowering point: scorer -> kernel.
+# ---------------------------------------------------------------------------
+
+
+def scorer_topk_prepared(scorer, qstate, k: int):
+    """Fused top-k of an already-prepared query state against a scorer's
+    database. Returns (vals (m, k) f32, ids (m, k) i32), ids in the
+    ORIGINAL database space (the sorted scorers pass their permutation to
+    the kernel as ``row_ids``). Mirrors ``repro.kernels.scorer_topk``:
+
+    * ``LinearScorer`` -> ``ip_topk``;
+    * ``QuantizedScorer`` -> ``ip_topk`` over the u8 codes, with the
+      query-constant offset <Aq, lo> added to the values outside;
+    * the GleanVec family (eager, int8, both sorted layouts) ->
+      ``gleanvec_sq_topk``.
+    """
+    from repro_torch.core import scorer as sc
+
+    if isinstance(scorer, sc.LinearScorer):
+        return ip_topk(qstate, scorer.x_low, k)
+    if isinstance(scorer, sc.QuantizedScorer):
+        vals, ids = ip_topk(qstate.q_scaled, scorer.codes, k)
+        return vals + qstate.q_lo[:, None], ids
+    if isinstance(scorer, sc.GleanVecScorer):
+        q_lo = torch.zeros(qstate.shape[:2], dtype=torch.float32,
+                           device=qstate.device)        # no affine term
+        return gleanvec_sq_topk(qstate, q_lo, scorer.tags, scorer.x_low, k)
+    if isinstance(scorer, sc.GleanVecQuantizedScorer):
+        return gleanvec_sq_topk(qstate.q_scaled, qstate.q_lo, scorer.tags,
+                                scorer.codes, k)
+    if isinstance(scorer, sc.SortedGleanVecScorer):
+        q_lo = torch.zeros(qstate.shape[:2], dtype=torch.float32,
+                           device=qstate.device)        # no affine term
+        return gleanvec_sq_topk(qstate, q_lo, scorer.block_tags,
+                                scorer.x_low, k, row_ids=scorer.perm,
+                                layout_block=scorer.layout_block)
+    if isinstance(scorer, sc.SortedGleanVecQuantizedScorer):
+        return gleanvec_sq_topk(qstate.q_scaled, qstate.q_lo,
+                                scorer.block_tags, scorer.codes, k,
+                                row_ids=scorer.perm,
+                                layout_block=scorer.layout_block)
+    raise TypeError(f"no kernel lowering for {type(scorer).__name__}")
+
+
+def scorer_topk(scorer, queries, k: int):
+    """Prepare ``queries (m, D)`` with the scorer, then
+    :func:`scorer_topk_prepared`."""
+    return scorer_topk_prepared(scorer, scorer.prepare_queries(queries), k)

@@ -1,0 +1,157 @@
+"""Fused GleanVec (o int8) scan + top-k: CUDA kernel
+(``csrc/gleanvec_sq.cu``), its plain PyTorch version, and the wrapper.
+
+Port of the top-k variant of ``repro/kernels/gleanvec_sq`` (TPU kernel
+``gleanvec_sq_topk``, body ``_topk_kernel``):
+
+    score[m, n] = <q_scaled[m, tag_n], codes_n> + q_lo[m, tag_n]
+
+``layout_block == 0``: gathered layout, ``tags (N,)`` per row.
+``layout_block > 0``: tag-sorted layout, ``tags (ceil(N / layout_block),)``
+per block; every kernel tile stays inside one block, so any block size
+works (the reference's tile-shrink / gathered fallbacks are not needed).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.index.topk import NEG_INF, blocked_topk
+
+__all__ = ["gleanvec_sq_topk", "gleanvec_sq_topk_plain"]
+
+
+def _row_tags(tags, start, size, layout_block):
+    if layout_block > 0:
+        rows = torch.arange(start, start + size, device=tags.device)
+        return tags[rows // layout_block]
+    return tags[start:start + size]
+
+
+def _tile_scores(q_scaled, q_lo, row_tags, rows):
+    """(M, R) scores of ``rows (R, d)`` whose views are ``row_tags (R,)``:
+    one matmul per cluster present, ``q_scaled[:, c] @ rows[of c].T +
+    q_lo[:, c]`` -- never the dense (M, R, d) view gather."""
+    q_scaled = q_scaled.to(torch.float32)
+    rows = rows.to(torch.float32)
+    t = row_tags.to(torch.int64)
+    out = torch.empty((q_scaled.shape[0], rows.shape[0]), dtype=torch.float32,
+                      device=q_scaled.device)
+    for c in torch.unique(t).tolist():
+        sel = torch.nonzero(t == c).squeeze(1)
+        out[:, sel] = (q_scaled[:, c] @ rows[sel].T
+                       + q_lo[:, c:c + 1].to(torch.float32))
+    return out
+
+
+def gleanvec_sq_topk_plain(q_scaled, q_lo, tags, codes, k: int,
+                           row_ids=None, layout_block: int = 0,
+                           block: int = 65536):
+    """Blocked over N, scoring each block with :func:`_tile_scores`. Rows
+    with ``row_ids < 0`` score NEG_INF and come out as id -1."""
+    m = q_scaled.shape[0]
+
+    def score(start, size):
+        out = _tile_scores(q_scaled, q_lo,
+                           _row_tags(tags, start, size, layout_block),
+                           codes[start:start + size])
+        if row_ids is not None:
+            ok = row_ids[start:start + size] >= 0
+            out = torch.where(ok[None, :], out, torch.full_like(out, NEG_INF))
+        return out
+
+    vals, idx = blocked_topk(score, codes.shape[0], k, block, m,
+                             q_scaled.device)
+    if row_ids is None:
+        return vals, idx
+    ids = torch.where(idx >= 0, row_ids.to(torch.int32)[idx.clamp(min=0).long()],
+                      torch.full_like(idx, -1))
+    return vals, ids
+
+
+def _bind(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for dt in ("f32", "u8"):
+        fn = getattr(lib, f"gleanvec_sq_gathered_topk_{dt}")
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"gleanvec_sq_sorted_topk_{dt}")
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+    lib.gleanvec_sq_gathered_queries_per_block.argtypes = [i, i, i]
+    lib.gleanvec_sq_gathered_queries_per_block.restype = ctypes.c_int
+
+
+def gleanvec_sq_topk(q_scaled, q_lo, tags, codes, k: int, row_ids=None,
+                     layout_block: int = 0):
+    """Fused score + top-k. ``q_scaled (M, C, d)`` f32, ``q_lo (M, C)`` f32,
+    ``codes (N, d)`` u8 or f32, ``row_ids (N,)`` i32 optional external id
+    per row (-1 = masked; default: the row index) -> (vals (M, k) f32,
+    ids (M, k) i32), best first.
+
+    CPU tensors take :func:`gleanvec_sq_topk_plain`; CUDA tensors launch
+    the kernel or raise."""
+    from repro_torch import kernels as K
+    args = dict(q_scaled=q_scaled, q_lo=q_lo, tags=tags, codes=codes)
+    if row_ids is not None:
+        args["row_ids"] = row_ids
+    if K.on_cpu(*args.values()):
+        return gleanvec_sq_topk_plain(q_scaled, q_lo, tags, codes, k,
+                                      row_ids=row_ids,
+                                      layout_block=layout_block)
+    K.check_cuda_inputs("gleanvec_sq_topk", **args)
+    if q_scaled.dtype != torch.float32 or q_lo.dtype != torch.float32 \
+            or codes.dtype not in (torch.float32, torch.uint8) \
+            or tags.dtype != torch.int32 \
+            or (row_ids is not None and row_ids.dtype != torch.int32):
+        raise TypeError("gleanvec_sq_topk takes f32 q_scaled/q_lo, f32 or u8 "
+                        "codes and i32 tags/row_ids")
+    m, c, d = q_scaled.shape
+    n = codes.shape[0]
+    n_tags = -(-n // layout_block) if layout_block > 0 else n
+    if q_lo.shape != (m, c) or codes.shape != (n, d) \
+            or tags.shape != (n_tags,) \
+            or (row_ids is not None and row_ids.shape != (n,)):
+        raise ValueError("gleanvec_sq_topk shapes do not agree")
+    K.check_k(k)
+    dev = q_scaled.device
+    vals = torch.empty((m, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((m, k), dtype=torch.int32, device=dev)
+    if m == 0:
+        return vals, ids
+    lib = K.load_library("gleanvec_sq", _bind)
+    dt = "f32" if codes.dtype == torch.float32 else "u8"
+    rid = row_ids.data_ptr() if row_ids is not None else None
+    stream = K.current_stream(dev)
+    if layout_block > 0:
+        tiles = n_tags * -(-layout_block // K.GEMM_TILE_N)
+        s = K.splits(row_tiles=tiles, query_blocks=-(-m // K.GEMM_TILE_M),
+                     k=k, blocks_per_sm=2, device=dev)
+        pv = torch.empty((m, s, k), dtype=torch.float32, device=dev)
+        pi = torch.empty((m, s, k), dtype=torch.int32, device=dev)
+        err = getattr(lib, f"gleanvec_sq_sorted_topk_{dt}")(
+            q_scaled.data_ptr(), q_lo.data_ptr(), tags.data_ptr(), rid,
+            codes.data_ptr(), m, c, d, n, layout_block, k, s, pv.data_ptr(),
+            pi.data_ptr(), vals.data_ptr(), ids.data_ptr(), stream)
+    else:
+        tmg = lib.gleanvec_sq_gathered_queries_per_block(c, d, k)
+        if tmg == 0:
+            raise ValueError(f"gleanvec_sq_topk: the views of one query "
+                             f"(C={c}, d={d}) do not fit a block's shared "
+                             "memory")
+        s = K.splits(row_tiles=-(-n // K.GATHER_TILE_N),
+                     query_blocks=-(-m // tmg), k=k, blocks_per_sm=1,
+                     device=dev)
+        pv = torch.empty((m, s, k), dtype=torch.float32, device=dev)
+        pi = torch.empty((m, s, k), dtype=torch.int32, device=dev)
+        err = getattr(lib, f"gleanvec_sq_gathered_topk_{dt}")(
+            q_scaled.data_ptr(), q_lo.data_ptr(), tags.data_ptr(), rid,
+            codes.data_ptr(), m, c, d, n, k, tmg, s, pv.data_ptr(),
+            pi.data_ptr(), vals.data_ptr(), ids.data_ptr(), stream)
+    K.check_launch("gleanvec_sq_topk", err, lib)
+    gleanvec_sq_topk.launches += 1
+    return vals, ids
+
+
+gleanvec_sq_topk.launches = 0

@@ -1,0 +1,95 @@
+"""Top-k parity checks shared by the tests and ``chip_smoke.py``.
+
+Two top-k results of the same scan agree when, per query:
+
+* their sorted value lists agree within ``tol``;
+* an id on both sides carries the same value on both, within ``tol`` (so
+  right ids paired with the wrong values fail); and
+* every id on one side is on the other side too, except where its value is
+  within ``tol`` of the other side's k-th value -- a near-tie at the
+  cut-off that a different summation order may resolve either way.
+
+``dot_tol`` states the tolerance of two fp32 dot products that add the
+same terms in a different order.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["dot_tol", "topk_agreement", "assert_topk_close"]
+
+EPS32 = 2.0 ** -24
+
+
+def dot_tol(q_norm_max: float, x_norm_max: float, d: int,
+            offset_max: float = 0.0) -> float:
+    """Bound on the gap between two fp32 evaluations of <q, x> (+ an
+    offset) of length ``d`` summed in different orders: each evaluation
+    is within d * eps * |q| |x| of the exact sum (Cauchy-Schwarz bounds
+    sum |q_j x_j|), plus a rounding of the offset."""
+    return 2.0 * d * EPS32 * q_norm_max * x_norm_max \
+        + 4.0 * EPS32 * abs(offset_max)
+
+
+def _np(x):
+    if hasattr(x, "detach"):
+        x = x.detach().cpu()
+    return np.asarray(x)
+
+
+def topk_agreement(res_a, res_b, tol: float) -> dict:
+    """Compare two ``(vals (m, k), ids (m, k))`` results. Returns
+    ``{"ok", "max_abs_err", "max_rel_err", "id_agreement", "bad_rows"}``:
+    the largest gap between the sorted value lists, that gap over the
+    largest |value|, the mean fraction of shared ids, and the rows that
+    break the rule above."""
+    va, ia = (_np(x) for x in res_a)
+    vb, ib = (_np(x) for x in res_b)
+    if va.shape != vb.shape or ia.shape != ib.shape:
+        raise ValueError(f"shapes differ: {va.shape} vs {vb.shape}")
+    va = va.astype(np.float64)
+    vb = vb.astype(np.float64)
+    sa = -np.sort(-va, axis=1)
+    sb = -np.sort(-vb, axis=1)
+    gap = np.abs(sa - sb)
+    max_abs = float(gap.max()) if gap.size else 0.0
+    finite = np.abs(np.concatenate([va.ravel(), vb.ravel()]))
+    finite = finite[finite < 1e37]
+    scale = float(finite.max()) if finite.size else 1.0
+    bad_rows, shared = [], []
+    for r in range(ia.shape[0]):
+        a_ids, b_ids = set(ia[r].tolist()), set(ib[r].tolist())
+        shared.append(len(a_ids & b_ids) / max(len(a_ids), 1))
+        ok = bool(gap[r].max() <= tol) if gap.shape[1] else True
+        kth_a, kth_b = sa[r, -1], sb[r, -1]
+        b_val = dict(zip(ib[r].tolist(), vb[r].tolist()))
+        for j in range(ia.shape[1]):
+            if ia[r, j] in b_ids:
+                if abs(va[r, j] - b_val[ia[r, j]]) > tol:
+                    ok = False
+            elif abs(va[r, j] - kth_b) > tol:
+                ok = False
+            if ib[r, j] not in a_ids and abs(vb[r, j] - kth_a) > tol:
+                ok = False
+        if not ok:
+            bad_rows.append(r)
+    return {"ok": not bad_rows, "max_abs_err": max_abs,
+            "max_rel_err": max_abs / max(scale, 1e-30),
+            "id_agreement": float(np.mean(shared)) if shared else 1.0,
+            "bad_rows": bad_rows}
+
+
+def assert_topk_close(res_a, res_b, tol: float, label: str = "") -> dict:
+    """:func:`topk_agreement`, raising ``AssertionError`` with the first
+    offending rows when the results disagree."""
+    rep = topk_agreement(res_a, res_b, tol)
+    if not rep["ok"]:
+        va, ia = (_np(x) for x in res_a)
+        vb, ib = (_np(x) for x in res_b)
+        r = rep["bad_rows"][0]
+        raise AssertionError(
+            f"{label}: top-k disagree beyond tol={tol:.3g} in "
+            f"{len(rep['bad_rows'])} rows; first row {r}:\n"
+            f"  a ids {ia[r].tolist()}\n  a vals {va[r].tolist()}\n"
+            f"  b ids {ib[r].tolist()}\n  b vals {vb[r].tolist()}")
+    return rep

@@ -1,0 +1,171 @@
+"""Rules the PyTorch port keeps.
+
+* No module of ``repro_torch`` and not ``chip_smoke.py`` imports JAX or
+  anything of the JAX package (checked on the source with ``ast``, and by
+  importing the port in a fresh interpreter).
+* Entry points run on the GPU by default and raise, rather than carry on
+  on the CPU, when there is none.
+* A kernel wrapper given CUDA tensors launches its kernel and never takes
+  the plain path (``cuda`` marker: needs a GPU, skipped elsewhere).
+* ``chip_smoke.py`` exits non-zero and prints no result without a GPU or
+  without the repository beside it.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_imports_without_jax():
+    code = ("import sys\n"
+            "import repro_torch, repro_torch.kernels, repro_torch.convert\n"
+            "import repro_torch.testing, repro_torch.launch.serve\n"
+            "import repro_torch.serve.engine, repro_torch.index.protocol\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "assert not any(m == 'repro' or m.startswith('repro.')\n"
+            "               for m in sys.modules), 'repro was imported'\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    from repro_torch import resolve_device
+    from repro_torch.core import gleanvec as gv
+    from repro_torch.core import leanvec_sphering as lvs
+    from repro_torch.core import search
+    from repro_torch.core.scorer import build_scorer
+    from repro_torch.launch import serve
+    x = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    calls = [lambda: resolve_device(),
+             lambda: resolve_device("cuda"),
+             lambda: build_scorer("full", x),
+             lambda: search.build_artifacts("full", x),
+             lambda: lvs.fit(x, x, 4),
+             lambda: gv.fit(x, x, c=2, d=4),
+             lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_refuse_mixed_devices():
+    from repro_torch import kernels as K
+    q = torch.empty(2, 4, device="meta")
+    with pytest.raises(ValueError, match="devices"):
+        K.ip_topk(q, torch.zeros(3, 4), 1)
+    with pytest.raises(ValueError, match="devices"):
+        K.kmeans_assign(torch.zeros(3, 4), torch.empty(2, 4, device="meta"))
+
+
+def test_library_path_tracks_sources():
+    """Libraries are named by a digest of their sources, under the
+    git-ignored build directory."""
+    from repro_torch import kernels as K
+    paths = {name: K.library_path(name) for name in K.KERNEL_SOURCES}
+    assert len(set(paths.values())) == len(paths)
+    for name, p in paths.items():
+        assert p.parent == K.BUILD_DIR and p.name.startswith(name + "-")
+        assert p == K.library_path(name)
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
+def test_chip_smoke_fails_without_gpu_or_repo(alone, tmp_path):
+    if alone:
+        script = tmp_path / "chip_smoke.py"
+        shutil.copy(ROOT / "chip_smoke.py", script)
+    else:
+        _no_cuda()
+        script = ROOT / "chip_smoke.py"
+    out = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_launch_kernels_not_plain(cuda, monkeypatch):
+    import repro_torch.kernels.gleanvec_sq as gsq
+    import repro_torch.kernels.ip_topk as ipk
+    import repro_torch.kernels.kmeans_assign as kma
+    from repro_torch import kernels as K
+
+    def refuse(*a, **k):
+        raise AssertionError("plain path taken for a CUDA tensor")
+
+    for mod, name in ((ipk, "ip_topk_plain"), (gsq, "gleanvec_sq_topk_plain"),
+                      (kma, "kmeans_assign_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    before = (K.ip_topk.launches, K.gleanvec_sq_topk.launches,
+              K.kmeans_assign.launches)
+    K.ip_topk(torch.randn(5, 16, device=cuda), torch.randn(300, 16,
+                                                           device=cuda), 10)
+    K.gleanvec_sq_topk(torch.randn(5, 3, 16, device=cuda),
+                       torch.zeros(5, 3, device=cuda),
+                       torch.zeros(300, dtype=torch.int32, device=cuda),
+                       torch.randn(300, 16, device=cuda), 10)
+    K.kmeans_assign(torch.randn(300, 16, device=cuda),
+                    torch.randn(4, 16, device=cuda))
+    torch.cuda.synchronize()
+    after = (K.ip_topk.launches, K.gleanvec_sq_topk.launches,
+             K.kmeans_assign.launches)
+    assert after == tuple(b + 1 for b in before)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain(cuda):
+    from repro_torch import kernels as K
+    from repro_torch.testing import assert_topk_close, dot_tol
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(70, 48, device=cuda, generator=g)
+    x = torch.randn(3001, 48, device=cuda, generator=g)
+    tol = dot_tol(float(q.norm(dim=1).max()), float(x.norm(dim=1).max()), 48)
+    assert_topk_close(K.ip_topk(q, x, 100), K.ip_topk_plain(q, x, 100), tol,
+                      "ip_topk")
