@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flat-index search path on one NVIDIA GPU.
+"""Drive the PyTorch port's search paths (flat index and IVF) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -10,17 +11,23 @@ Phases (any failure raises and the script exits non-zero):
    from ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
 2. Kernels against their plain PyTorch versions at ragged shapes: M and N
    off the tiles, k in {10, 100}, u8 and f32 codes, row_ids with -1,
-   gathered and sorted layouts, exact ties.
-3. The main path: synthetic OOD data (D = 512), LeanVec-Sphering
+   gathered and sorted layouts, IVF schedules with pad slots (middle, end,
+   a whole row), slack blocks and k above the valid row count, exact ties.
+3. The flat main path: synthetic OOD data (D = 512), LeanVec-Sphering
    (d = 160) and GleanVec (C = 48, d = 160) fits, then for each of the 7
    scorer modes an encoded scorer behind a ServingEngine (batch 1024,
    k = 10, kappa = 100; kappa = 10 for ``full``) answering 5 batches, with
    QPS, p50, p99 and recall@10 against the mode's floor. Launch counters
    are zeroed just before and read just after.
-4. Each kernel at the main path's shapes and inputs: its time beside its
-   bound, its plain version's time and, where one fits in memory, the
-   time of the composed PyTorch calls that compute the same function
-   (``library_ms``); and its agreement with the plain version.
+3b. The IVF path on the same data and fit: an aligned IVF (the GleanVec
+   clustering, nprobe = 12, reduced-space probe) in front of both sorted
+   modes behind a ServingEngine (same batch, k, kappa, 5 batches), with
+   the same readings and the counters zeroed just before and read just
+   after; then fused against gathered fine step on the first 200,000 rows.
+4. Each kernel at its path's shapes and inputs: its time beside its
+   bound, its plain version's time, the time of the composed PyTorch
+   calls that compute the same function (``library_ms``), and its
+   agreement with the plain version.
 
 Then the card's name and power limit, one JSON line with the kernel table,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -64,6 +71,12 @@ RECALL_FLOORS = {
     "gleanvec-int8-sorted": 0.95,
 }
 
+# recall@10 floors of the IVF path (PERF.md, "Recall floors"), set by the
+# same rule from the reference's own IVF recall on the CPU.
+IVF_RECALL_FLOORS = {"gleanvec-sorted": 0.95, "gleanvec-int8-sorted": 0.95}
+IVF_NPROBE = 12
+PARITY_ROWS = 200_000       # rows of the fused-vs-gathered check
+
 KERNEL_FILES = {
     "ip_topk": ("src/repro_torch/csrc/ip_topk.cu",
                 "src/repro/kernels/ip_topk/ip_topk.py:94"),
@@ -71,6 +84,8 @@ KERNEL_FILES = {
                          "src/repro/kernels/gleanvec_sq/gleanvec_sq.py:226"),
     "kmeans_assign": ("src/repro_torch/csrc/kmeans_assign.cu",
                       "src/repro/kernels/kmeans_assign/kmeans_assign.py:43"),
+    "ivf_scan_topk": ("src/repro_torch/csrc/ivf_scan.cu",
+                      "src/repro/kernels/ivf_scan/ivf_scan.py:145"),
 }
 
 
@@ -239,6 +254,52 @@ def phase_kernels(K, testing, gen):
                              "smaller id")
     log("  ip_topk exact ties: ids ascending as required")
 
+    for m, c, d, lb, nb, cut, s, k, u8, slack in [
+            (37, 48, 160, 4096, 7, 0, 5, 100, True, 1),
+            (70, 7, 33, 200, 40, 37, 12, 10, False, 2),
+            (130, 5, 48, 64, 9, 0, 6, 100, False, 0),
+            (9, 3, 16, 32, 6, 5, 4, 100, True, 1)]:
+        n = nb * lb - cut
+        qs, qlo = randn(m, c, d), randn(m, c)
+        x = codes(n, d, u8)
+        btags = torch.randint(0, c, (nb,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        rid = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        rid[torch.rand(n, generator=gen, device=dev) < 0.15] = -1
+        if slack:
+            rid[(nb - slack) * lb:] = -1           # all-padding slack blocks
+        sched = torch.stack([torch.randperm(nb, generator=gen, device=dev)[:s]
+                             for _ in range(m)]).to(torch.int32)
+        sched[:, s // 2] = -1                      # pad slot in the middle
+        sched[::2, -1] = -1                        # and at the end
+        sched[1] = -1                              # an all-pad row
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), d,
+                              float(qlo.abs().max()))
+        got = K.ivf_scan_topk(qs, qlo, btags, rid, x, sched, k, lb)
+        want = K.ivf_scan_topk_plain(qs, qlo, btags, rid, x, sched, k, lb)
+        check_topk(f"ivf_scan_topk M={m} C={c} d={d} layout_block={lb} "
+                   f"N={n} S={s} k={k} {'u8' if u8 else 'f32'} "
+                   f"slack={slack}", got, want, tol, testing)
+        if not torch.equal(got[1] < 0, want[1] < 0) \
+                or not bool((got[1][1] == -1).all()):
+            raise AssertionError("ivf_scan_topk: -1 ids differ from the "
+                                 "plain version's")
+    # exact ties: identical rows come out in ascending id order
+    lb = 64
+    x = randn(1, 16).expand(4 * lb, 16).contiguous()
+    rid = torch.randperm(4 * lb, generator=gen, device=dev).to(torch.int32)
+    sched = torch.tensor([[2, -1, 0], [3, 1, -1]], dtype=torch.int32,
+                         device=dev)
+    _, ids = K.ivf_scan_topk(randn(2, 1, 16), torch.zeros(2, 1, device=dev),
+                             torch.zeros(4, dtype=torch.int32, device=dev),
+                             rid, x, sched, 100, lb)
+    for r, blocks in enumerate(([2, 0], [3, 1])):
+        pool = torch.cat([rid[b * lb:(b + 1) * lb] for b in blocks])
+        if not torch.equal(ids[r], torch.sort(pool).values[:100]):
+            raise AssertionError("ivf_scan_topk: equal scores must break "
+                                 "toward the smaller id")
+    log("  ivf_scan_topk exact ties: ids ascending as required")
+
     for n, d, c in [(10007, 512, 48), (999, 100, 7), (300, 64, 64)]:
         x = randn(n, d)
         cent = randn(c, d)
@@ -279,8 +340,8 @@ def phase_main(K):
     log(f"  data: {time.perf_counter() - t0:.1f} s (host generator, ground "
         "truth on the card)")
     x = torch.as_tensor(ds.database, device=dev)
-    counters = (K.ip_topk, K.gleanvec_sq_topk, K.kmeans_assign)
-    for fn in counters:
+    flat_kernels = (K.ip_topk, K.gleanvec_sq_topk, K.kmeans_assign)
+    for fn in all_counters(K):
         fn.launches = 0
 
     t0 = time.perf_counter()
@@ -296,7 +357,7 @@ def phase_main(K):
     for mode in MODES:
         model = None if mode == "full" else (
             sph if mode.startswith("sphering") else glv)
-        before = {fn.__name__: fn.launches for fn in counters}
+        before = {fn.__name__: fn.launches for fn in flat_kernels}
         t0 = time.perf_counter()
         art = msearch.build_artifacts(mode, x, model, device=dev)
         torch.cuda.synchronize()
@@ -310,7 +371,7 @@ def phase_main(K):
         rec = metrics.recall_at_k(ids, ds.gt[:, :10])
         s = engine.stats
         delta = {fn.__name__: fn.launches - before[fn.__name__]
-                 for fn in counters}
+                 for fn in flat_kernels}
         per_mode[mode] = delta
         log(f"  mode={mode} encode={t_build:.2f}s batches={s.n_batches} "
             f"QPS={s.qps:.0f} p50={s.percentile_ms(50):.1f}ms "
@@ -324,12 +385,112 @@ def phase_main(K):
         q = torch.as_tensor(ds.queries_test, device=dev)
         states[mode] = (art.scorer, art.scorer.prepare_queries(q), kappa)
         del engine
-    totals = {fn.__name__: fn.launches for fn in counters}
+    totals = {fn.__name__: fn.launches for fn in all_counters(K)}
     log(f"  main-path launches: {totals}")
-    for name, count in totals.items():
-        if count <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    return x, glv, states, per_mode, totals
+    for fn in flat_kernels:
+        if totals[fn.__name__] <= 0:
+            raise AssertionError(f"{fn.__name__} was not launched on the "
+                                 "main path")
+    return ds, x, glv, states, per_mode, totals
+
+
+def all_counters(K):
+    """Every kernel wrapper's launch counter."""
+    return (K.ip_topk, K.gleanvec_sq_topk, K.kmeans_assign, K.ivf_scan_topk)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the IVF path.
+# ---------------------------------------------------------------------------
+
+
+def phase_ivf(K, testing, ds, x, glv, states):
+    """Aligned IVF (nprobe 12, reduced probe) in front of both sorted
+    modes, then fused against gathered on the first PARITY_ROWS rows.
+    Returns ({mode: (scorer, qstate, probe)}, {mode: launches})."""
+    import dataclasses
+    from repro_torch.core import metrics
+    from repro_torch.core import scorer as sc
+    from repro_torch.core import search as msearch
+    from repro_torch.index import ivf
+    from repro_torch.serve.engine import ServingEngine
+
+    dev = torch.device("cuda")
+    log(f"phase 3b: IVF path, aligned, nprobe={IVF_NPROBE}, reduced probe, "
+        "batch=1024 k=10 kappa=100")
+    q = torch.as_tensor(ds.queries_test, device=dev)
+    for fn in all_counters(K):
+        fn.launches = 0
+    per_mode, inputs = {}, {}
+    for mode in IVF_RECALL_FLOORS:
+        scorer = states[mode][0]
+        before = {fn.__name__: fn.launches for fn in all_counters(K)}
+        t0 = time.perf_counter()
+        index = ivf.with_reduced_centers(
+            ivf.build_aligned(glv, x, nprobe=IVF_NPROBE, device=dev), scorer,
+            glv)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        art = msearch.SearchArtifacts(scorer=scorer, x_full=x, model=glv)
+        engine = ServingEngine(msearch.make_state(art, index=index), k=10,
+                               kappa=100, batch_size=1024, dim=512)
+        ids = None
+        for _ in range(5):
+            ids = engine.submit(ds.queries_test)
+        rec = metrics.recall_at_k(ids, ds.gt[:, :10])
+        st = engine.stats
+        delta = {fn.__name__: fn.launches - before[fn.__name__]
+                 for fn in all_counters(K)}
+        per_mode[mode] = delta
+        log(f"  mode={mode} index build={t_build:.2f}s "
+            f"batches={st.n_batches} QPS={st.qps:.0f} "
+            f"p50={st.percentile_ms(50):.1f}ms "
+            f"p99={st.percentile_ms(99):.1f}ms recall@10={rec:.4f} "
+            f"(floor {IVF_RECALL_FLOORS[mode]}) launches={delta}")
+        if not np.all((ids >= -1) & (ids < N_ROWS)) or ids.shape != (1024, 10):
+            raise AssertionError(f"ivf {mode}: malformed ids {ids.shape}")
+        if rec < IVF_RECALL_FLOORS[mode]:
+            raise AssertionError(f"ivf {mode}: recall@10 {rec:.4f} below "
+                                 f"its floor {IVF_RECALL_FLOORS[mode]}")
+        for name in ("ivf_scan_topk", "kmeans_assign"):
+            if delta[name] <= 0:
+                raise AssertionError(f"ivf {mode}: {name} was not launched")
+        qstate = index.prepare_queries(scorer, q)
+        probe = torch.sort(ivf.coarse_scores(index, qstate), dim=1,
+                           descending=True, stable=True).indices[:, :IVF_NPROBE]
+        inputs[mode] = (scorer, qstate.qstate, probe)
+        del engine
+    totals = {fn.__name__: fn.launches for fn in all_counters(K)}
+    log(f"  IVF-path launches: {totals}")
+
+    log(f"  fused vs gathered fine step on the first {PARITY_ROWS} rows "
+        "(testing.assert_topk_close, tolerance testing.dot_tol)")
+    xs = x[:PARITY_ROWS]
+    for mode in IVF_RECALL_FLOORS:
+        scorer = sc.build_scorer(mode, xs, glv, device=dev)
+        index = ivf.with_reduced_centers(
+            ivf.build_aligned(glv, xs, nprobe=IVF_NPROBE, device=dev),
+            scorer, glv)
+        t0 = time.perf_counter()
+        fused = index.search(q, scorer, 100)
+        torch.cuda.synchronize()
+        t_fused = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gathered = dataclasses.replace(index, aligned_layout=False).search(
+            q, scorer, 100)
+        torch.cuda.synchronize()
+        t_gathered = time.perf_counter() - t0
+        qs = scorer.prepare_queries(q)
+        lo = 0.0
+        if isinstance(qs, tuple):
+            qs, lo = qs.q_scaled, float(qs.q_lo.abs().max())
+        rows = scorer.x_low if hasattr(scorer, "x_low") else scorer.codes
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(rows),
+                              rows.shape[1], lo)
+        check_topk(f"ivf {mode} fused vs gathered (n={PARITY_ROWS}; "
+                   f"{t_fused * 1e3:.1f} ms vs {t_gathered * 1e3:.1f} ms "
+                   "host clock)", fused, gathered, tol, testing)
+    return inputs, per_mode
 
 
 # ---------------------------------------------------------------------------
@@ -337,11 +498,86 @@ def phase_main(K):
 # ---------------------------------------------------------------------------
 
 
+def topk_of_candidates(cand_v, cand_i, k):
+    """The k best of per-group candidate lists (M, G, k'): one torch.topk."""
+    m = cand_v.shape[0]
+    v, sel = torch.topk(cand_v.reshape(m, -1), k, dim=1)
+    return v, torch.gather(cand_i.reshape(m, -1), 1, sel)
+
+
+def per_cluster_library(qs, qlo, tags, x, k, row_ids, layout_block):
+    """The library composition of a GleanVec scan (``library_ms``): per
+    cluster, ``torch.matmul`` of the queries' cluster view against the
+    cluster's rows plus ``q_lo``, masked, then ``torch.topk``, then one
+    ``torch.topk`` over the per-cluster candidates. Sorted layout: each
+    cluster is a contiguous run of blocks; gathered layout: the rows are
+    grouped by tag here, inside the timed call."""
+    m, c, _ = qs.shape
+    cand_v = torch.full((m, c, k), -3.4e38, device=qs.device)
+    cand_i = torch.full((m, c, k), -1, dtype=torch.int64, device=qs.device)
+    if layout_block > 0:
+        counts = torch.bincount(tags.long(), minlength=c) * layout_block
+        ends = torch.cumsum(counts, 0).tolist()
+        groups = [(int(e - n), int(e)) for e, n in zip(ends, counts.tolist())]
+    else:
+        order = torch.argsort(tags.long(), stable=True)
+        groups = torch.split(order, torch.bincount(tags.long(),
+                                                   minlength=c).tolist())
+    for ci, g in enumerate(groups):
+        if layout_block > 0:
+            rows = x[g[0]:g[1]].to(torch.float32)
+            ids = row_ids[g[0]:g[1]].long()
+        else:
+            rows = x[g].to(torch.float32)
+            ids = g
+        if rows.shape[0] == 0:
+            continue
+        sc = qs[:, ci] @ rows.T + qlo[:, ci:ci + 1]
+        if layout_block > 0:
+            sc = sc.masked_fill(ids[None, :] < 0, -3.4e38)
+        kk = min(k, rows.shape[0])
+        v, sel = torch.topk(sc, kk, dim=1)
+        cand_v[:, ci, :kk] = v
+        cand_i[:, ci, :kk] = ids[sel]
+    return topk_of_candidates(cand_v, cand_i, k)
+
+
+def ivf_library(qs, qlo, scorer, probe, k):
+    """The library composition of the IVF fine step: per probed cluster,
+    ``torch.matmul`` of the queries that probe it against the cluster's
+    rows plus ``q_lo``, masked, then ``torch.topk``; then one
+    ``torch.topk`` over each query's nprobe candidate lists."""
+    m, nprobe = probe.shape
+    lb = scorer.layout_block
+    rows_all = scorer.x_low if hasattr(scorer, "x_low") else scorer.codes
+    cand_v = torch.full((m, nprobe, k), -3.4e38, device=qs.device)
+    cand_i = torch.full((m, nprobe, k), -1, dtype=torch.int64,
+                        device=qs.device)
+    counts = torch.bincount(scorer.block_tags.long(),
+                            minlength=qs.shape[1]) * lb
+    ends = torch.cumsum(counts, 0).tolist()
+    for ci, (end, cnt) in enumerate(zip(ends, counts.tolist())):
+        qm, slot = torch.nonzero(probe == ci, as_tuple=True)
+        if qm.numel() == 0 or cnt == 0:
+            continue
+        r0 = end - cnt
+        rows = rows_all[r0:end].to(torch.float32)
+        ids = scorer.perm[r0:end].long()
+        sc = qs[qm, ci] @ rows.T + qlo[qm, ci][:, None]
+        sc = sc.masked_fill(ids[None, :] < 0, -3.4e38)
+        kk = min(k, cnt)
+        v, sel = torch.topk(sc, kk, dim=1)
+        cand_v[qm, slot, :kk] = v
+        cand_i[qm, slot, :kk] = ids[sel]
+    return topk_of_candidates(cand_v, cand_i, k)
+
+
 def mode_calls(K, mode, scorer, qstate, kappa):
     """(kernel call, plain call, flops, bytes, tolerance, library call) of
     the scan a mode's FlatIndex runs, on its own inputs. The library call
-    is ``torch.matmul`` + ``torch.topk`` for the linear modes; the GleanVec
-    family has none that fits: its dense (M * C, N) scores take 393 GB."""
+    is ``torch.matmul`` + ``torch.topk`` for the linear modes and the
+    per-cluster composition of :func:`per_cluster_library` for the
+    GleanVec family (its dense (M * C, N) scores would take 393 GB)."""
     from repro_torch import testing
     if mode in ("full", "sphering", "sphering-int8"):
         q = qstate if mode != "sphering-int8" else qstate.q_scaled
@@ -380,36 +616,108 @@ def mode_calls(K, mode, scorer, qstate, kappa):
                                        layout_block=lb),
             lambda: K.gleanvec_sq_topk_plain(qs, qlo, tags, x, kappa,
                                              row_ids=rid, layout_block=lb),
-            flops, nbytes, tol, None)
+            flops, nbytes, tol,
+            lambda: per_cluster_library(qs, qlo, tags, x, kappa, rid, lb))
 
 
-def phase_timing(K, testing, x, glv, states, per_mode, totals):
+def ivf_calls(K, testing, scorer, qstate, probe, kappa):
+    """(kernel call, plain call, flops, bytes, tolerance, library call) of
+    the IVF fine step on the IVF phase's inputs. The work is what this
+    schedule needs: flops count the valid rows of each query's scheduled
+    blocks, bytes read each scheduled block once."""
+    if isinstance(qstate, tuple):
+        qs, qlo, x = qstate.q_scaled, qstate.q_lo, scorer.codes
+    else:
+        qs, x = qstate, scorer.x_low
+        qlo = torch.zeros(qs.shape[:2], dtype=torch.float32, device=qs.device)
+    m, c, d = qs.shape
+    lb = scorer.layout_block
+    sched = scorer.list_block_ranges[probe].reshape(m, -1)
+    args = (qs, qlo, scorer.block_tags, scorer.perm, x, sched, kappa, lb)
+    valid_rows = (scorer.perm.reshape(-1, lb) >= 0).sum(dim=1)
+    ok = sched >= 0
+    pairs = int(valid_rows[sched.clamp(min=0).long()][ok].sum())
+    blocks = torch.unique(sched[ok]).numel()
+    flops = 2.0 * pairs * d
+    nbytes = (qs.numel() + qlo.numel() + sched.numel()) * 4 \
+        + blocks * (lb * (d * x.element_size() + 4) + 4) + m * kappa * 8
+    tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), d,
+                          float(qlo.abs().max()))
+    return (lambda: K.ivf_scan_topk(*args),
+            lambda: K.ivf_scan_topk_plain(*args), flops, nbytes, tol,
+            lambda: ivf_library(qs, qlo, scorer, probe, kappa))
+
+
+def device_breakdown(fn, reps: int = 3) -> str:
+    """Device time per call of each CUDA kernel ``fn`` launches, from
+    ``torch.profiler`` (``key_averages``); "not measured" when the profiler
+    records no device time on this machine."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:          # no CUPTI tracing here
+        return f"not measured ({e})"
+    parts = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us > 0:
+            parts.append((us / reps / 1e3, ev.key))
+    if not parts:
+        return "not measured (no device time recorded)"
+    parts.sort(reverse=True)
+    return "; ".join(f"{key[:60]}={ms:.3f}ms" for ms, key in parts)
+
+
+def time_kernel(name, label, calls, launches, testing):
+    """Time one kernel call beside its plain version and library
+    composition; returns its row of the kernel table."""
+    kern, plain, flops, nbytes, tol, library = calls
+    ms, out_k = timed(kern, 3)
+    plain_ms, out_p = timed_once(plain)
+    rep = check_topk(f"{name}[{label}] vs plain", out_k, out_p, tol, testing)
+    b, by = bound_ms(flops, nbytes)
+    lib_ms, out_l = timed(library, 2)
+    check_topk(f"{name}[{label}] library composition vs kernel", out_l,
+               out_k, tol, testing)
+    log(f"  {name}[{label}]: ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={b:.3f} ({by}) library_ms={lib_ms:.3f} "
+        f"launches={launches}")
+    src, repl = KERNEL_FILES[name]
+    return {"name": f"{name}[{label}]", "route": "cuda", "source": src,
+            "replaces": repl, "launches": launches,
+            "max_abs_err": rep["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def phase_timing(K, testing, x, glv, states, per_mode, totals, ivf_inputs,
+                 ivf_launches):
     from repro_torch.core.spherical_kmeans import normalize_rows
-    log("phase 4: kernels at the main path's shapes (CUDA events; bound = "
+    log("phase 4: kernels at their paths' shapes (CUDA events; bound = "
         "max(flops / 67 TFLOP/s fp32, bytes / 3.35 TB/s); library = "
         "composed PyTorch calls of the same function)")
     table = []
     for mode, (scorer, qstate, kappa) in states.items():
         name = "ip_topk" if mode in ("full", "sphering", "sphering-int8") \
             else "gleanvec_sq_topk"
-        kern, plain, flops, nbytes, tol, library = mode_calls(
-            K, mode, scorer, qstate, kappa)
-        ms, out_k = timed(kern, 3)
-        plain_ms, out_p = timed_once(plain)
-        rep = check_topk(f"{name}[{mode}] vs plain", out_k, out_p, tol,
-                         testing)
-        b, by = bound_ms(flops, nbytes)
-        lib_ms = timed(library, 2)[0] if library is not None else None
-        log(f"  {name}[{mode}]: ms={ms:.3f} plain_ms={plain_ms:.3f} "
-            f"bound_ms={b:.3f} ({by}) library_ms={lib_ms} "
-            f"launches={per_mode[mode][name]}")
-        src, repl = KERNEL_FILES[name]
-        table.append({"name": f"{name}[{mode}]", "route": "cuda",
-                      "source": src, "replaces": repl,
-                      "launches": per_mode[mode][name],
-                      "max_abs_err": rep["max_abs_err"], "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                      "library_ms": lib_ms})
+        table.append(time_kernel(name, mode,
+                                 mode_calls(K, mode, scorer, qstate, kappa),
+                                 per_mode[mode][name], testing))
+    for mode, (scorer, qstate, probe) in ivf_inputs.items():
+        calls = ivf_calls(K, testing, scorer, qstate, probe, 100)
+        table.append(time_kernel("ivf_scan_topk", mode, calls,
+                                 ivf_launches[mode]["ivf_scan_topk"],
+                                 testing))
+        log(f"  ivf_scan_topk[{mode}] device time by kernel (torch.profiler): "
+            + device_breakdown(calls[0]))
     x_unit = normalize_rows(x)
     cent = glv.centers.contiguous()
     n, d = x_unit.shape
@@ -473,8 +781,10 @@ def main(argv=None) -> int:
             f"({time.perf_counter() - t_start:.0f} s)")
         return 0
 
-    x, glv, states, per_mode, totals = phase_main(K)
-    table = phase_timing(K, testing, x, glv, states, per_mode, totals)
+    ds, x, glv, states, per_mode, totals = phase_main(K)
+    ivf_inputs, ivf_launches = phase_ivf(K, testing, ds, x, glv, states)
+    table = phase_timing(K, testing, x, glv, states, per_mode, totals,
+                         ivf_inputs, ivf_launches)
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.0f} s")
     print(card_line(), flush=True)

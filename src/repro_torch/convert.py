@@ -4,8 +4,10 @@ The reference's models and scorers are NamedTuples of arrays. Their
 fields, as a dict of numpy arrays keyed by field name (``arrays_of``),
 build the port's objects on a given device -- so a test can fit or encode
 once in the reference and serve the very same weights and codes here.
-Fields the port does not have (streaming ``live`` masks, IVF schedules)
-are ignored.
+Fields the port does not have (streaming ``live`` masks) are ignored.
+``ivf_index`` carries a reference IVF index across (a frozen dataclass:
+its arrays, its center companion by class, and its static ``nprobe`` and
+``aligned_layout``).
 """
 from __future__ import annotations
 
@@ -18,17 +20,18 @@ from repro_torch.core.leanvec_sphering import SpheringModel
 from repro_torch.device import resolve_device
 
 __all__ = ["arrays_of", "sphering_model", "gleanvec_model", "scorer",
-           "SCORERS"]
+           "ivf_index", "SCORERS"]
 
 SCORERS = {cls.__name__: cls for cls in (
     sc.LinearScorer, sc.GleanVecScorer, sc.QuantizedScorer,
     sc.GleanVecQuantizedScorer, sc.SortedGleanVecScorer,
     sc.SortedGleanVecQuantizedScorer)}
 
-# field -> dtype; every other field is float32
+# field -> dtype; every other field is float32, and ``codes`` keeps uint8
+# (the f32 pseudo-codes of a reduced-probe center companion stay f32)
 _DTYPES = {"tags": torch.int32, "block_tags": torch.int32,
            "perm": torch.int32, "inv_perm": torch.int32,
-           "codes": torch.uint8}
+           "list_block_ranges": torch.int32, "lists": torch.int32}
 
 
 def arrays_of(obj) -> dict:
@@ -39,9 +42,10 @@ def arrays_of(obj) -> dict:
 
 
 def _tensor(name, value, device):
-    return torch.as_tensor(np.ascontiguousarray(value),
-                           dtype=_DTYPES.get(name, torch.float32),
-                           device=device)
+    value = np.array(value, order="C")     # a writable copy
+    dtype = torch.uint8 if value.dtype == np.uint8 and name == "codes" \
+        else _DTYPES.get(name, torch.float32)
+    return torch.as_tensor(value, dtype=dtype, device=device)
 
 
 def _build(cls, arrays: dict, device):
@@ -71,3 +75,18 @@ def scorer(kind: str, arrays: dict, device=None):
         raise ValueError(f"unknown scorer class {kind!r}; one of "
                          f"{sorted(SCORERS)}")
     return _build(SCORERS[kind], arrays, device)
+
+
+def ivf_index(index, device=None):
+    """The port's :class:`~repro_torch.index.ivf.IVFIndex` from a reference
+    ``IVFIndex``: ``centers``, ``lists``, the optional ``center_scorer``
+    (rebuilt by class name), ``nprobe`` and ``aligned_layout``."""
+    from repro_torch.index.ivf import IVFIndex
+    dev = resolve_device(device)
+    cs = index.center_scorer
+    return IVFIndex(
+        centers=_tensor("centers", index.centers, dev),
+        lists=_tensor("lists", index.lists, dev),
+        center_scorer=None if cs is None
+        else scorer(type(cs).__name__, arrays_of(cs), dev),
+        nprobe=int(index.nprobe), aligned_layout=bool(index.aligned_layout))

@@ -127,10 +127,13 @@ def project_queries_eager(model: GleanVecModel, queries: torch.Tensor):
     return (q @ model.a.reshape(c * d, dim).T).reshape(q.shape[0], c, d)
 
 
-def sort_by_tag(tags: torch.Tensor, x_low: torch.Tensor, block: int = 4096):
+def sort_by_tag(tags: torch.Tensor, x_low: torch.Tensor, block: int = 4096,
+                slack_blocks: int = 0):
     """Cluster-contiguous layout for the sorted scorers: rows sorted by tag
     (stable), each cluster padded with zero rows to a ``block`` multiple,
-    so every block of the result carries one tag.
+    so every block of the result carries one tag. ``slack_blocks`` appends
+    that many extra all-padding blocks to every cluster (free slots for
+    streaming inserts).
 
     Returns ``(x_sorted, block_tags (nb,) int32, perm (ns,) int32)`` with
     ``perm[sorted_row] = original id`` and -1 on padding rows. Clusters
@@ -140,7 +143,7 @@ def sort_by_tag(tags: torch.Tensor, x_low: torch.Tensor, block: int = 4096):
     n = t.shape[0]
     c = int(t.max()) + 1 if n else 1
     counts = torch.bincount(t, minlength=c)
-    padded = (counts + block - 1) // block * block
+    padded = (counts + block - 1) // block * block + slack_blocks * block
     starts = torch.cumsum(padded, 0) - padded            # first row of cluster
     order = torch.argsort(t, stable=True)
     first = torch.cumsum(counts, 0) - counts

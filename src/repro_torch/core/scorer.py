@@ -11,6 +11,16 @@ scan on CPU tensors. The sorted scorers store a private tag-sorted row
 order (``perm``: sorted row -> original id, -1 on padding) that the kernel
 takes as its ``row_ids``, so ids come out in the original space.
 
+For the IVF index every scorer also scores gathered ORIGINAL ids
+(``score_ids``, plain PyTorch gathers: the gathered fine step) and encodes
+the coarse centers into a companion scorer that consumes its prepared
+queries (``encode_centers``; the companions' ``score_block`` is the
+reduced-space probe). The sorted scorers carry ``list_block_ranges``
+((C, max_blocks) layout blocks per cluster, -1-padded) and
+``scan_lists(qstate, probe, k)``: the gather-free fine step of an IVF
+whose clusters are their tags, lowered through
+``kernels.scorer_scan_lists`` to the ``ivf_scan_topk`` kernel.
+
     ==========================  =========================  ================
     scorer                      storage                    scoring
     ==========================  =========================  ================
@@ -23,8 +33,7 @@ takes as its ``row_ids``, so ids come out in the original space.
     Scorer                                                 one view/block
     ==========================  =========================  ================
 
-Streaming updates, gathered-id scoring and sharding belong to later parts
-of the port.
+Streaming updates and sharding belong to later parts of the port.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import torch
 from repro_torch.core import gleanvec as gv
 from repro_torch.core import quantization as quant
 from repro_torch.device import resolve_device
+from repro_torch.index.topk import NEG_INF
 
 __all__ = [
     "LinearScorer", "GleanVecScorer", "QuantizedScorer",
@@ -64,6 +74,65 @@ def _views(a: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     return (q @ a.reshape(c * d, dim).T).reshape(q.shape[0], c, d)
 
 
+def _list_block_ranges(block_tags: torch.Tensor, c: int) -> torch.Tensor:
+    """(C, max_blocks) int32 table of layout-block indices per cluster,
+    -1-padded: ``ranges[probe]`` is the probe schedule of the
+    ``ivf_scan_topk`` kernel. One stable argsort + bincount pass, as the
+    reference (blocks with a negative tag are left out)."""
+    dev = block_tags.device
+    blocks = torch.nonzero(block_tags >= 0).squeeze(1)
+    t = block_tags[blocks].to(torch.int64)
+    counts = torch.bincount(t, minlength=c)
+    maxb = max(1, int(counts.max()) if t.numel() else 1)
+    starts = torch.cumsum(counts, 0) - counts
+    order = torch.argsort(t, stable=True)
+    rank = torch.arange(t.numel(), device=dev) - starts[t[order]]
+    out = torch.full((c, maxb), -1, dtype=torch.int32, device=dev)
+    out[t[order], rank] = blocks[order].to(torch.int32)
+    return out
+
+
+def _center_views_scorer(centers: torch.Tensor, model) -> "GleanVecScorer":
+    """Probe companion of the eager-view family (GleanVec and its sorted
+    layout): the centers tagged and projected per cluster."""
+    if model is None:
+        raise ValueError("encode_centers on a GleanVec-family scorer "
+                         "needs the GleanVec model")
+    tags, low = gv.encode_database(model, centers.to(torch.float32))
+    return GleanVecScorer(x_low=low, tags=tags)
+
+
+def _center_pseudo_scorer(centers: torch.Tensor, model, lo, delta,
+                          a) -> "GleanVecQuantizedScorer":
+    """Probe companion of the folded per-cluster int8 family: projected
+    centers stored as f32 pseudo-codes ``(B_t c - lo_t) / delta_t`` under
+    the database's scales, so ``q_scaled . codes + q_lo == <A_t q, B_t c>``
+    without rounding."""
+    if model is None:
+        raise ValueError("encode_centers on a GleanVec-family scorer "
+                         "needs the GleanVec model")
+    tags, low = gv.encode_database(model, centers.to(torch.float32))
+    t = tags.to(torch.int64)
+    return GleanVecQuantizedScorer(codes=(low - lo[t]) / delta[t], tags=tags,
+                                   lo=lo, delta=delta, a=a)
+
+
+def _gather_views(q: torch.Tensor, tag: torch.Tensor) -> torch.Tensor:
+    """(m, p, d) views ``q[m, tag[m, p]]`` of (m, C, d) prepared queries."""
+    m = q.shape[0]
+    return q[torch.arange(m, device=q.device)[:, None], tag]
+
+
+def _sorted_rows(scorer, ids: torch.Tensor):
+    """Sorted rows of ORIGINAL ``ids`` (m, p), their tags and a mask of the
+    ids the layout holds (absent ids score NEG_INF)."""
+    rows = scorer.inv_perm[ids.long()].long()
+    ok = rows >= 0
+    rows = torch.where(ok, rows, torch.zeros_like(rows))
+    tag = scorer.block_tags[rows // scorer.layout_block].long()
+    return rows, tag, ok
+
+
 class LinearScorer(NamedTuple):
     """Linear DR scoring <Aq, Bx>; ``a=None`` is exact MIPS over ``x_low``
     (the 'full' mode, whose ``x_low`` is the full-precision database)."""
@@ -74,6 +143,27 @@ class LinearScorer(NamedTuple):
     def prepare_queries(self, queries: torch.Tensor) -> torch.Tensor:
         q = queries.to(torch.float32)
         return q if self.a is None else q @ self.a.T
+
+    def score_block(self, qstate: torch.Tensor, start: int,
+                    block: int) -> torch.Tensor:
+        return qstate @ self.x_low[start:start + block].T
+
+    def score_ids(self, qstate: torch.Tensor, ids: torch.Tensor):
+        vecs = self.x_low[ids.long()]                  # (m, p, d)
+        return torch.einsum("mpd,md->mp", vecs, qstate)
+
+    def encode_centers(self, centers: torch.Tensor,
+                       model=None) -> "LinearScorer":
+        """Probe companion over full-D ``centers`` (C, D): scored with this
+        scorer's qstate it gives <Aq, B c> (the raw centers when
+        ``a=None``)."""
+        c = centers.to(torch.float32)
+        if self.a is None:
+            return LinearScorer(x_low=c)
+        if model is None:
+            raise ValueError("encode_centers on a reduced LinearScorer "
+                             "needs the DR model (its B matrix)")
+        return LinearScorer(x_low=c @ model.b.T)
 
 
 class GleanVecScorer(NamedTuple):
@@ -88,6 +178,21 @@ class GleanVecScorer(NamedTuple):
             raise ValueError("GleanVecScorer without `a` cannot prepare "
                              "queries; pass precomputed (m, C, d) views")
         return _views(self.a, queries)
+
+    def score_block(self, qstate: torch.Tensor, start: int,
+                    block: int) -> torch.Tensor:
+        tag = self.tags[start:start + block].long()
+        return torch.einsum("mbd,bd->mb", qstate[:, tag, :],
+                            self.x_low[start:start + block])
+
+    def score_ids(self, qstate: torch.Tensor, ids: torch.Tensor):
+        ids = ids.long()
+        q_sel = _gather_views(qstate, self.tags[ids].long())   # (m, p, d)
+        return torch.sum(q_sel * self.x_low[ids], dim=-1)
+
+    def encode_centers(self, centers: torch.Tensor,
+                       model=None) -> "GleanVecScorer":
+        return _center_views_scorer(centers, model)
 
 
 class QuantizedScorer(NamedTuple):
@@ -106,6 +211,29 @@ class QuantizedScorer(NamedTuple):
         return QuantQueryState(q_scaled=q * self.delta[None, :],
                                q_lo=q @ self.lo)
 
+    def score_block(self, qstate: QuantQueryState, start: int,
+                    block: int) -> torch.Tensor:
+        c = self.codes[start:start + block].to(torch.float32)
+        return qstate.q_scaled @ c.T + qstate.q_lo[:, None]
+
+    def score_ids(self, qstate: QuantQueryState, ids: torch.Tensor):
+        c = self.codes[ids.long()].to(torch.float32)   # (m, p, d)
+        return torch.einsum("mpd,md->mp", c, qstate.q_scaled) \
+            + qstate.q_lo[:, None]
+
+    def encode_centers(self, centers: torch.Tensor,
+                       model=None) -> "QuantizedScorer":
+        """Probe companion consuming the folded-scale qstate: the centers
+        as f32 pseudo-codes ``(Bc - lo) / delta`` (not rounded), so
+        ``q_scaled @ codes + q_lo == <Aq, Bc>``."""
+        if model is None:
+            raise ValueError("encode_centers on a QuantizedScorer needs "
+                             "the DR model (its B matrix)")
+        low = centers.to(torch.float32) @ model.b.T
+        return QuantizedScorer(codes=(low - self.lo[None, :])
+                               / self.delta[None, :],
+                               lo=self.lo, delta=self.delta)
+
 
 class GleanVecQuantizedScorer(NamedTuple):
     """GleanVec o int8: per-cluster int8 codes of B_c x, affine terms folded
@@ -122,6 +250,26 @@ class GleanVecQuantizedScorer(NamedTuple):
         return QuantQueryState(q_scaled=qv * self.delta[None],
                                q_lo=(qv * self.lo[None]).sum(dim=-1))
 
+    def score_block(self, qstate: QuantQueryState, start: int,
+                    block: int) -> torch.Tensor:
+        tag = self.tags[start:start + block].long()
+        c = self.codes[start:start + block].to(torch.float32)
+        return torch.einsum("mbd,bd->mb", qstate.q_scaled[:, tag, :], c) \
+            + qstate.q_lo[:, tag]
+
+    def score_ids(self, qstate: QuantQueryState, ids: torch.Tensor):
+        ids = ids.long()
+        tag = self.tags[ids].long()                        # (m, p)
+        c = self.codes[ids].to(torch.float32)              # (m, p, d)
+        q_sel = _gather_views(qstate.q_scaled, tag)
+        return torch.sum(q_sel * c, dim=-1) \
+            + torch.gather(qstate.q_lo, 1, tag)
+
+    def encode_centers(self, centers: torch.Tensor,
+                       model=None) -> "GleanVecQuantizedScorer":
+        return _center_pseudo_scorer(centers, model, self.lo, self.delta,
+                                     self.a)
+
 
 class SortedGleanVecScorer(NamedTuple):
     """Eager GleanVec over a tag-sorted, cluster-padded database: every
@@ -132,6 +280,9 @@ class SortedGleanVecScorer(NamedTuple):
     perm: torch.Tensor                  # (ns,) sorted row -> original id
     inv_perm: torch.Tensor              # (n,) original id -> sorted row
     a: Optional[torch.Tensor] = None    # (C, d, D)
+    # (C, max_blocks) layout blocks per cluster, -1-padded (the IVF probe
+    # schedule's source; None on hand-made layouts)
+    list_block_ranges: Optional[torch.Tensor] = None
 
     @property
     def layout_block(self) -> int:
@@ -143,6 +294,26 @@ class SortedGleanVecScorer(NamedTuple):
                              "prepare queries; pass precomputed (m, C, d) "
                              "views")
         return _views(self.a, queries)
+
+    def score_ids(self, qstate: torch.Tensor, ids: torch.Tensor):
+        rows, tag, ok = _sorted_rows(self, ids)
+        scores = torch.sum(_gather_views(qstate, tag) * self.x_low[rows],
+                           dim=-1)
+        return torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+
+    def scan_lists(self, qstate: torch.Tensor, probe: torch.Tensor, k: int):
+        """Gather-free IVF fine step: the probed clusters' single-tag slabs
+        through ``ivf_scan_topk``. ``probe (m, nprobe)`` holds cluster ids
+        equal to this layout's tags (an aligned coarse quantizer). Returns
+        (vals, ids) (m, k), ids ORIGINAL, -1 for -inf winners."""
+        from repro_torch.kernels import scorer_scan_lists
+        return scorer_scan_lists(self, qstate, probe, k)
+
+    def encode_centers(self, centers: torch.Tensor,
+                       model=None) -> "GleanVecScorer":
+        """The sorted layout prepares the same (m, C, d) views as the
+        row-aligned GleanVec scorer, so its companion is one too."""
+        return _center_views_scorer(centers, model)
 
 
 class SortedGleanVecQuantizedScorer(NamedTuple):
@@ -156,6 +327,7 @@ class SortedGleanVecQuantizedScorer(NamedTuple):
     lo: torch.Tensor                    # (C, d)
     delta: torch.Tensor                 # (C, d)
     a: torch.Tensor                     # (C, d, D)
+    list_block_ranges: Optional[torch.Tensor] = None   # (C, max_blocks)
 
     @property
     def layout_block(self) -> int:
@@ -165,6 +337,25 @@ class SortedGleanVecQuantizedScorer(NamedTuple):
         qv = _views(self.a, queries)
         return QuantQueryState(q_scaled=qv * self.delta[None],
                                q_lo=(qv * self.lo[None]).sum(dim=-1))
+
+    def score_ids(self, qstate: QuantQueryState, ids: torch.Tensor):
+        rows, tag, ok = _sorted_rows(self, ids)
+        c = self.codes[rows].to(torch.float32)
+        scores = torch.sum(_gather_views(qstate.q_scaled, tag) * c, dim=-1) \
+            + torch.gather(qstate.q_lo, 1, tag)
+        return torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+
+    def scan_lists(self, qstate: QuantQueryState, probe: torch.Tensor,
+                   k: int):
+        """Gather-free IVF fine step over the sorted int8 codes (see
+        :meth:`SortedGleanVecScorer.scan_lists`)."""
+        from repro_torch.kernels import scorer_scan_lists
+        return scorer_scan_lists(self, qstate, probe, k)
+
+    def encode_centers(self, centers: torch.Tensor,
+                       model=None) -> "GleanVecQuantizedScorer":
+        return _center_pseudo_scorer(centers, model, self.lo, self.delta,
+                                     self.a)
 
 
 Scorer = Union[LinearScorer, GleanVecScorer, QuantizedScorer,
@@ -211,29 +402,35 @@ def gleanvec_quantized_scorer(model, database: torch.Tensor,
                                    delta=db.delta, a=model.a)
 
 
-def sorted_gleanvec_scorer(model, database: torch.Tensor,
-                           block: int = 4096) -> SortedGleanVecScorer:
-    """GleanVec in the tag-sorted layout (clusters padded to ``block``)."""
+def sorted_gleanvec_scorer(model, database: torch.Tensor, block: int = 4096,
+                           slack_blocks: int = 0) -> SortedGleanVecScorer:
+    """GleanVec in the tag-sorted layout (clusters padded to ``block``,
+    plus ``slack_blocks`` free blocks each)."""
     tags, x_low = gv.encode_database(model, database)
-    xs, block_tags, perm = gv.sort_by_tag(tags, x_low, block=block)
+    xs, block_tags, perm = gv.sort_by_tag(tags, x_low, block=block,
+                                          slack_blocks=slack_blocks)
     return SortedGleanVecScorer(
         x_low=xs, block_tags=block_tags, perm=perm,
-        inv_perm=gv.inverse_permutation(perm, x_low.shape[0]), a=model.a)
+        inv_perm=gv.inverse_permutation(perm, x_low.shape[0]), a=model.a,
+        list_block_ranges=_list_block_ranges(block_tags, model.n_clusters))
 
 
 def sorted_gleanvec_quantized_scorer(model, database: torch.Tensor,
-                                     block: int = 4096, bits: int = 8
+                                     block: int = 4096, bits: int = 8,
+                                     slack_blocks: int = 0
                                      ) -> SortedGleanVecQuantizedScorer:
     """GleanVec + per-cluster int8 SQ in the tag-sorted layout: the same
     codes and scales as :func:`gleanvec_quantized_scorer` (quantize, then
     sort)."""
     tags, x_low = gv.encode_database(model, database)
     db = quant.quantize_per_cluster(x_low, tags, model.n_clusters, bits)
-    cs, block_tags, perm = gv.sort_by_tag(tags, db.codes, block=block)
+    cs, block_tags, perm = gv.sort_by_tag(tags, db.codes, block=block,
+                                          slack_blocks=slack_blocks)
     return SortedGleanVecQuantizedScorer(
         codes=cs, block_tags=block_tags, perm=perm,
         inv_perm=gv.inverse_permutation(perm, x_low.shape[0]), lo=db.lo,
-        delta=db.delta, a=model.a)
+        delta=db.delta, a=model.a,
+        list_block_ranges=_list_block_ranges(block_tags, model.n_clusters))
 
 
 MODES = ("full", "sphering", "gleanvec", "sphering-int8", "gleanvec-int8",

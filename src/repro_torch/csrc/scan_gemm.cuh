@@ -1,7 +1,12 @@
-// Tiled fp32 scan + per-block top-k, shared by ip_topk.cu (plain MIPS) and
-// the sorted layout of gleanvec_sq.cu (one cluster view per tile).
+// Tiled fp32 scan + per-block top-k, shared by ip_topk.cu (plain MIPS), the
+// sorted layout of gleanvec_sq.cu (one cluster view per tile) and
+// ivf_scan.cu (the probed slabs of a sorted IVF).
 //
 // A block owns GT_M = 64 queries and one split of the database's row tiles.
+// With a work list (ivf_scan.cu) block w instead owns ONE segment,
+// work[3w], and up to 64 queries gathered from an index list,
+// q_index[work[3w + 1] + i] for i < work[3w + 2]; it writes query i's list
+// to partial slot q_slot[work[3w + 1] + i]. Blocks past *n_work exit.
 // Rows are grouped in segments of L rows that share ONE query view (the
 // tag-sorted layout's layout block; for plain MIPS L = GT_N and every
 // segment has tag 0), and a tile of GT_N = 128 rows never crosses a
@@ -39,38 +44,74 @@ struct GemmScanArgs {
   int L;                // rows per segment
   int M;
   int k;
-  int S;                // splits of the row tiles
+  int S;                // splits of the row tiles (partial slots per query)
   float* pv;            // (M, S, k) partial lists
   int* pi;
+  const int* work = nullptr;     // optional (W, 3): segment, first entry, count
+  const int* n_work = nullptr;   // device count of valid work items
+  const int* q_index = nullptr;  // entry -> query row
+  const int* q_slot = nullptr;   // entry -> partial slot
 };
 
-template <typename XT>
-__global__ void __launch_bounds__(GT_THREADS) gemm_scan_topk_kernel(GemmScanArgs a) {
+// LIST = false: query tiles x splits (the flat scans); LIST = true: the work
+// list of ivf_scan.cu. Separate instantiations keep the flat scans' query
+// staging plain arithmetic. MIN_BLOCKS resident blocks per SM set the
+// register budget: 3 (at most 85 a thread) where the shared memory of three
+// blocks fits (small k), else 2 (at most 128, which the scan needs to run
+// without spills).
+template <typename XT, bool LIST, int MIN_BLOCKS>
+__global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
+    gemm_scan_topk_kernel(GemmScanArgs a) {
   extern __shared__ __align__(16) unsigned char gsmem[];
   float* lv = reinterpret_cast<float*>(gsmem);  // GT_M * k
   int* li = reinterpret_cast<int*>(lv + GT_M * a.k);
   int* tile_ids = li + GT_M * a.k;              // GT_N
   float* lo_s = reinterpret_cast<float*>(tile_ids + GT_N);  // GT_M
-  float* stage = lo_s + GT_M;                   // 16-byte aligned
+  int* qrow = reinterpret_cast<int*>(lo_s + GT_M);          // LIST: GT_M rows, -1 = none
+  int* qslot = qrow + GT_M;                     // LIST: GT_M partial slots
+  float* stage = reinterpret_cast<float*>(LIST ? qslot + GT_M : qrow);  // 16-byte aligned
   float* qs = stage;                            // GT_K x QS_STRIDE
   float* xs = stage + GT_K * QS_STRIDE;         // GT_K x XS_STRIDE
   float* sc = stage;                            // GT_M x GT_N, after the depth loop
 
-  const int m0 = blockIdx.x * GT_M;
-  const int s = blockIdx.y;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int ty = t >> 4, tx = t & 15;
   const XT* x = static_cast<const XT*>(a.x);
 
+  const int tps = (a.L + GT_N - 1) / GT_N;
+  int m0 = 0, s = 0;
+  long long t_begin, t_end;
+  if constexpr (LIST) {
+    const int w = blockIdx.x;
+    if (w >= *a.n_work) return;  // the whole block, before any barrier
+    const int seg = a.work[3 * w], e0 = a.work[3 * w + 1], cnt = a.work[3 * w + 2];
+    if (t < GT_M) {
+      qrow[t] = t < cnt ? a.q_index[e0 + t] : -1;
+      qslot[t] = t < cnt ? a.q_slot[e0 + t] : 0;
+    }
+    t_begin = (long long)seg * tps;
+    t_end = t_begin + tps;
+  } else {
+    m0 = blockIdx.x * GT_M;
+    s = blockIdx.y;
+    const long long nseg = (a.N + (long long)a.L - 1) / a.L;
+    const long long T = nseg * tps;
+    t_begin = T * s / a.S;
+    t_end = T * (s + 1) / a.S;
+  }
   for (int e = t; e < GT_M * a.k; e += GT_THREADS) {
     lv[e] = NEG_INF_F;
     li[e] = -1;
   }
-  const int tps = (a.L + GT_N - 1) / GT_N;
-  const long long nseg = (a.N + (long long)a.L - 1) / a.L;
-  const long long T = nseg * tps;
-  const long long t_begin = T * s / a.S, t_end = T * (s + 1) / a.S;
   __syncthreads();
+  // query row of tile row r, -1 = none
+  auto query_of = [&](int r) -> int {
+    if constexpr (LIST) return qrow[r];
+    else return m0 + r < a.M ? m0 + r : -1;
+  };
+  int qm[GT_M / 8];  // LIST: the query rows this thread stages, in registers
+#pragma unroll
+  for (int r = 0; r < GT_M / 8; ++r) qm[r] = LIST ? query_of(warp + 8 * r) : 0;
 
   for (long long tile = t_begin; tile < t_end; ++tile) {
     const int seg = (int)(tile / tps), sub = (int)(tile % tps);
@@ -83,8 +124,8 @@ __global__ void __launch_bounds__(GT_THREADS) gemm_scan_topk_kernel(GemmScanArgs
       tile_ids[t] = n < n1 ? (a.row_ids ? a.row_ids[n] : n) : -1;
     }
     if (t < GT_M) {
-      const int m = m0 + t;
-      lo_s[t] = (a.qlo && m < a.M) ? a.qlo[(size_t)m * a.C + tag] : 0.f;
+      const int m = query_of(t);
+      lo_s[t] = (a.qlo && m >= 0) ? a.qlo[(size_t)m * a.C + tag] : 0.f;
     }
     float acc[4][8];
 #pragma unroll
@@ -96,9 +137,12 @@ __global__ void __launch_bounds__(GT_THREADS) gemm_scan_topk_kernel(GemmScanArgs
       const int dd = kc + lane;
 #pragma unroll
       for (int r = 0; r < GT_M / 8; ++r) {
-        const int mm = warp + 8 * r, m = m0 + mm;
+        const int mm = warp + 8 * r;
+        int m;
+        if constexpr (LIST) m = qm[r];
+        else m = m0 + mm < a.M ? m0 + mm : -1;
         float val = 0.f;
-        if (m < a.M && dd < a.d)
+        if (m >= 0 && dd < a.d)
           val = a.q[(size_t)m * a.q_stride + (size_t)tag * a.d + dd];
         qs[lane * QS_STRIDE + mm] = val;
       }
@@ -137,32 +181,49 @@ __global__ void __launch_bounds__(GT_THREADS) gemm_scan_topk_kernel(GemmScanArgs
     }
     __syncthreads();
     for (int r = warp; r < GT_M; r += GT_THREADS / 32)
-      if (m0 + r < a.M)
+      if (query_of(r) >= 0)
         topk_update_row(sc + r * GT_N, tile_ids, n1 - n0, lv + r * a.k, li + r * a.k,
                         a.k, lane);
     __syncthreads();
   }
 
   for (int e = t; e < GT_M * a.k; e += GT_THREADS) {
-    const int r = e / a.k, j = e % a.k, m = m0 + r;
-    if (m < a.M) {
-      const size_t o = ((size_t)m * a.S + s) * a.k + j;
+    const int r = e / a.k, j = e % a.k, m = query_of(r);
+    if (m >= 0) {
+      const int slot = LIST ? qslot[r] : s;
+      const size_t o = ((size_t)m * a.S + slot) * a.k + j;
       a.pv[o] = lv[e];
       a.pi[o] = li[e];
     }
   }
 }
 
+// The scan alone, on `grid` blocks (partial lists only); a.work selects the
+// work-list instantiation.
+template <typename XT>
+static cudaError_t launch_gemm_scan_blocks(const GemmScanArgs& a, dim3 grid,
+                                           cudaStream_t stream) {
+  const size_t smem = (size_t)GT_M * a.k * 8 + GT_N * 4 + GT_M * 4 +
+                      (a.work ? GT_M * 8 : 0) + GT_STAGE * 4;
+  const bool three = 3 * (smem + 1024) <= 233472;  // 228 KB per SM, 1 KB per block
+  auto kernel = a.work ? (three ? gemm_scan_topk_kernel<XT, true, 3>
+                                : gemm_scan_topk_kernel<XT, true, 2>)
+                       : (three ? gemm_scan_topk_kernel<XT, false, 3>
+                                : gemm_scan_topk_kernel<XT, false, 2>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, GT_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Query tiles x S splits of the row tiles, then the merge of the S partial
+// lists of every query.
 template <typename XT>
 static cudaError_t launch_gemm_scan(const GemmScanArgs& a, float* out_v, int* out_i,
                                     cudaStream_t stream) {
-  const size_t smem = (size_t)GT_M * a.k * 8 + GT_N * 4 + GT_M * 4 + GT_STAGE * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_scan_topk_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.M + GT_M - 1) / GT_M, a.S);
-  gemm_scan_topk_kernel<XT><<<grid, GT_THREADS, smem, stream>>>(a);
-  err = cudaGetLastError();
+  cudaError_t err =
+      launch_gemm_scan_blocks<XT>(a, dim3((a.M + GT_M - 1) / GT_M, a.S), stream);
   if (err != cudaSuccess) return err;
   return launch_topk_merge(a.pv, a.pi, a.M, a.S, a.k, out_v, out_i, stream);
 }

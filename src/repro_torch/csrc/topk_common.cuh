@@ -83,6 +83,33 @@ __device__ __forceinline__ void topk_update_row(const float* sc, const int* ids,
   }
 }
 
+// Sort P (a power of two) (value, id) pairs in shared memory, best first
+// (topk_better order), with the whole block; a bitonic network. Ends with a
+// barrier.
+__device__ __forceinline__ void bitonic_sort_best_first(float* v, int* id, int P) {
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < P; i += blockDim.x) {
+        int j = i ^ stride;
+        if (j > i) {
+          bool desc = (i & size) == 0;
+          float a_v = v[i], b_v = v[j];
+          int a_i = id[i], b_i = id[j];
+          bool swap = desc ? topk_better(b_v, b_i, a_v, a_i)
+                           : topk_better(a_v, a_i, b_v, b_i);
+          if (swap) {
+            v[i] = b_v;
+            v[j] = a_v;
+            id[i] = b_i;
+            id[j] = a_i;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // Reduce the (M, S, k) partial lists to (M, k): one block per query, a
 // bitonic sort of the S*k candidates (padded to a power of two with
 // (-inf, -1)) in shared memory, best first.
@@ -107,27 +134,7 @@ __global__ void topk_merge_kernel(const float* __restrict__ pv,
     }
   }
   __syncthreads();
-  for (int size = 2; size <= P; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < P; i += blockDim.x) {
-        int j = i ^ stride;
-        if (j > i) {
-          bool desc = (i & size) == 0;
-          float a_v = v[i], b_v = v[j];
-          int a_i = id[i], b_i = id[j];
-          bool swap = desc ? topk_better(b_v, b_i, a_v, a_i)
-                           : topk_better(a_v, a_i, b_v, b_i);
-          if (swap) {
-            v[i] = b_v;
-            v[j] = a_v;
-            id[i] = b_i;
-            id[j] = a_i;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_sort_best_first(v, id, P);
   for (int e = threadIdx.x; e < k; e += blockDim.x) {
     out_v[(size_t)m * k + e] = v[e];
     out_i[(size_t)m * k + e] = id[e];

@@ -1,11 +1,14 @@
-"""The Index protocol's flat member (port of ``FlatIndex`` from
-``repro/index/protocol.py``):
+"""The Index protocol (port of ``repro/index/protocol.py``): every index
+answers
 
     qstate = index.prepare_queries(scorer, queries)
     vals, ids = index.candidates(qstate, scorer, k)   # ids: original space
     vals, ids = index.search(queries, scorer, k)
 
-IVF, graph and sharded indexes come with later parts of the port.
+Members so far: ``FlatIndex`` here, and ``IVFIndex`` in
+:mod:`repro_torch.index.ivf` (gathered fine step for every scorer, the
+gather-free ``ivf_scan_topk`` fine step for aligned sorted layouts). Graph
+and sharded indexes come with later parts of the port.
 """
 from __future__ import annotations
 

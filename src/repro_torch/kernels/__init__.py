@@ -7,8 +7,9 @@ tensors (or raises), and a launch counter (``<wrapper>.launches``).
 
 ``scorer_topk`` / ``scorer_topk_prepared`` map each scorer class of
 :mod:`repro_torch.core.scorer` to its kernel exactly as the reference's
-``repro.kernels.scorer_topk`` does; index code talks to scorers, and
-scorers lower here and nowhere else.
+``repro.kernels.scorer_topk`` does, and ``scorer_scan_lists`` lowers the
+sorted scorers' IVF fine step (``scan_lists``) to ``ivf_scan_topk``; index
+code talks to scorers, and scorers lower here and nowhere else.
 
 This module also builds the kernels: ``nvcc`` compiles each source into
 its own shared library with a plain C interface (``build``, one compiler
@@ -32,17 +33,20 @@ import torch
 from repro_torch.kernels.gleanvec_sq import (gleanvec_sq_topk,
                                              gleanvec_sq_topk_plain)
 from repro_torch.kernels.ip_topk import ip_topk, ip_topk_plain
+from repro_torch.kernels.ivf_scan import ivf_scan_topk, ivf_scan_topk_plain
 from repro_torch.kernels.kmeans_assign import (kmeans_assign,
                                                kmeans_assign_plain)
 
 __all__ = ["ip_topk", "ip_topk_plain", "gleanvec_sq_topk",
            "gleanvec_sq_topk_plain", "kmeans_assign", "kmeans_assign_plain",
-           "scorer_topk", "scorer_topk_prepared", "build", "load_library",
-           "library_path", "KERNEL_SOURCES", "BUILD_DIR", "MAX_K"]
+           "ivf_scan_topk", "ivf_scan_topk_plain", "scorer_topk",
+           "scorer_topk_prepared", "scorer_scan_lists", "build",
+           "load_library", "library_path", "KERNEL_SOURCES", "BUILD_DIR",
+           "MAX_K"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNEL_SOURCES = ("ip_topk", "gleanvec_sq", "kmeans_assign")
+KERNEL_SOURCES = ("ip_topk", "gleanvec_sq", "kmeans_assign", "ivf_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -241,3 +245,30 @@ def scorer_topk(scorer, queries, k: int):
     """Prepare ``queries (m, D)`` with the scorer, then
     :func:`scorer_topk_prepared`."""
     return scorer_topk_prepared(scorer, scorer.prepare_queries(queries), k)
+
+
+def scorer_scan_lists(scorer, qstate, probe, k: int):
+    """Gather-free IVF fine step of a sorted scorer: the probe schedule
+    ``list_block_ranges[probe]`` (m, nprobe * max_blocks) through
+    ``ivf_scan_topk`` with the scorer's layout. Mirrors the reference's
+    ``Sorted*Scorer.scan_lists``: (vals (m, k) f32, ids (m, k) i32),
+    ORIGINAL ids, -1 for -inf winners."""
+    from repro_torch.core import scorer as sc
+
+    if not isinstance(scorer, (sc.SortedGleanVecScorer,
+                               sc.SortedGleanVecQuantizedScorer)):
+        raise TypeError(f"no scan_lists lowering for {type(scorer).__name__}")
+    if scorer.list_block_ranges is None:
+        raise ValueError("scan_lists needs list_block_ranges; build the "
+                         "scorer through its factory")
+    m = probe.shape[0]
+    sched = scorer.list_block_ranges[probe.long()].reshape(m, -1)
+    if isinstance(scorer, sc.SortedGleanVecScorer):
+        q_lo = torch.zeros(qstate.shape[:2], dtype=torch.float32,
+                           device=qstate.device)        # no affine term
+        return ivf_scan_topk(qstate, q_lo, scorer.block_tags, scorer.perm,
+                             scorer.x_low, sched, k,
+                             layout_block=scorer.layout_block)
+    return ivf_scan_topk(qstate.q_scaled, qstate.q_lo, scorer.block_tags,
+                         scorer.perm, scorer.codes, sched, k,
+                         layout_block=scorer.layout_block)

@@ -6,12 +6,14 @@ a fixed batch size, pads the tail batch, and records per-batch latency.
 PyTorch runs eagerly, so there is nothing to compile; the warm-up batch in
 ``__init__`` is where the CUDA kernels are built and loaded. ``swap``
 installs a new state only if every tensor keeps its shape, dtype and
-device, so a swapped-in refresh serves through the same kernels at the
-same shapes.
+device and an index keeps its static configuration (an IVF index's
+``nprobe`` and fine-step mode), so a swapped-in refresh serves through the
+same kernels at the same shapes.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Deque, Optional
@@ -73,14 +75,27 @@ class ServeStats:
                                    p)) if self.latencies_ms else 0.0
 
 
+_STATIC = (bool, int, float, str)
+
+
 def _signature(obj):
     """Structure of a state: classes, and each tensor's shape, dtype and
-    device, in field order."""
+    device, in field order. NamedTuples and dataclasses (indexes) are
+    walked field by field; a dataclass's plain-valued fields (an IVF
+    index's ``nprobe``, ``aligned_layout``) are static configuration and
+    enter with their values."""
     if isinstance(obj, torch.Tensor):
         return ("tensor", tuple(obj.shape), obj.dtype, obj.device)
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return (type(obj).__name__,
                 tuple((f, _signature(getattr(obj, f))) for f in obj._fields))
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        fields = []
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            fields.append((f.name, (type(v).__name__, v)
+                           if isinstance(v, _STATIC) else _signature(v)))
+        return (type(obj).__name__, tuple(fields))
     return (type(obj).__name__,)
 
 

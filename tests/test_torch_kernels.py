@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from repro.kernels import (gleanvec_sq_topk, gleanvec_sq_topk_ref, ip_topk,
-                           ip_topk_ref, kmeans_assign, kmeans_assign_ref)
+                           ip_topk_ref, ivf_scan_topk, ivf_scan_topk_ref,
+                           kmeans_assign, kmeans_assign_ref)
 from repro_torch import kernels as K
 from repro_torch.testing import assert_topk_close, dot_tol
 
@@ -139,6 +140,76 @@ def test_kmeans_assign_plain_matches_pallas_and_ref(n, d, c):
                                    rtol=0, atol=tol)
 
 
+def _ivf_case(rng, m, c, d, lb, nb, s, u8, slack):
+    """A sorted layout of ``nb`` blocks (the last ``slack`` all padding,
+    ~15 % of the other rows -1) and a schedule with pad slots in the middle
+    and at the end of each row; row 1 is all padding."""
+    n = nb * lb
+    q_scaled = rng.standard_normal((m, c, d)).astype(np.float32)
+    q_lo = rng.standard_normal((m, c)).astype(np.float32)
+    codes = _codes(rng, n, d, u8)
+    block_tags = rng.integers(0, c, nb).astype(np.int32)
+    row_ids = rng.permutation(n).astype(np.int32)
+    row_ids[rng.random(n) < 0.15] = -1
+    if slack:
+        row_ids[(nb - slack) * lb:] = -1
+    sched = np.stack([rng.permutation(nb)[:s] for _ in range(m)]
+                     ).astype(np.int32)
+    sched[:, s // 2] = -1                   # a pad slot in the middle
+    sched[::2, -1] = -1                     # and at the end
+    sched[1] = -1                           # an all-pad row
+    return q_scaled, q_lo, block_tags, row_ids, codes, sched
+
+
+@pytest.mark.parametrize("m,c,d,lb,nb,s,k,u8,slack", [
+    (7, 5, 16, 64, 12, 6, 10, True, 2),     # ragged M, u8, slack blocks
+    (5, 3, 24, 32, 8, 4, 100, False, 0),    # k above every row's valid count
+    (9, 4, 16, 48, 10, 5, 100, True, 1),    # kappa = 100, layout block 48
+])
+def test_ivf_scan_topk_plain_matches_pallas_and_ref(m, c, d, lb, nb, s, k,
+                                                    u8, slack):
+    rng = _rng(m * 100 + nb)
+    q_scaled, q_lo, block_tags, row_ids, codes, sched = _ivf_case(
+        rng, m, c, d, lb, nb, s, u8, slack)
+    tol = dot_tol(_norm(q_scaled), _norm(codes), d, float(np.abs(q_lo).max()))
+    port = K.ivf_scan_topk(_t(q_scaled), _t(q_lo), _t(block_tags),
+                           _t(row_ids), _t(codes), _t(sched), k, lb)
+    args = tuple(jnp.asarray(a) for a in (q_scaled, q_lo, block_tags,
+                                          row_ids, codes, sched))
+    pallas = ivf_scan_topk(*args, k, layout_block=lb, interpret=True)
+    ref = ivf_scan_topk_ref(*args, k, layout_block=lb)
+    assert port[0].dtype == torch.float32 and port[1].dtype == torch.int32
+    for other, label in ((pallas, "plain vs pallas"), (ref, "plain vs ref")):
+        assert_topk_close(port, other, tol, label)
+        np.testing.assert_array_equal(port[1].numpy() < 0,
+                                      np.asarray(other[1]) < 0, label)
+    ids = port[1].numpy()
+    assert (ids[1] == -1).all()                       # the all-pad row
+    assert set(ids[ids >= 0].tolist()) <= set(row_ids[row_ids >= 0].tolist())
+
+
+def test_ivf_scan_topk_plain_ties_and_empty_schedule():
+    """Identical rows: equal scores come out in ascending id order; an
+    empty schedule (S = 0) gives only (-inf, -1)."""
+    lb, nb, d = 32, 4, 8
+    codes = np.ones((lb * nb, d), np.float32)
+    row_ids = np.arange(lb * nb, dtype=np.int32)[::-1].copy()
+    q = np.ones((2, 3, d), np.float32)
+    qlo = np.zeros((2, 3), np.float32)
+    tags = np.zeros(nb, np.int32)
+    sched = np.array([[2, 0], [3, -1]], np.int32)
+    vals, ids = K.ivf_scan_topk(_t(q), _t(qlo), _t(tags), _t(row_ids),
+                                _t(codes), _t(sched), 40, lb)
+    rows0 = np.concatenate([row_ids[64:96], row_ids[0:32]])
+    assert ids[0].tolist() == sorted(rows0.tolist())[:40]
+    assert ids[1, :32].tolist() == sorted(row_ids[96:].tolist())
+    assert (ids[1, 32:] == -1).all() and (vals[1, 32:] < -1e37).all()
+    vals, ids = K.ivf_scan_topk(_t(q), _t(qlo), _t(tags), _t(row_ids),
+                                _t(codes), _t(np.zeros((2, 0), np.int32)),
+                                5, lb)
+    assert (ids == -1).all() and (vals < -1e37).all()
+
+
 def test_kmeans_assign_plain_ties_go_to_first_center():
     cent = np.eye(4, 8, dtype=np.float32)
     cent[3] = cent[1]
@@ -167,13 +238,25 @@ def test_plain_fills_unfilled_slots_with_neg_inf_and_minus_one():
 
 def test_cpu_wrappers_count_no_launches():
     before = (K.ip_topk.launches, K.gleanvec_sq_topk.launches,
-              K.kmeans_assign.launches)
+              K.kmeans_assign.launches, K.ivf_scan_topk.launches)
     K.ip_topk(torch.randn(2, 4), torch.randn(9, 4), 3)
     K.gleanvec_sq_topk(torch.randn(2, 3, 4), torch.zeros(2, 3),
                        torch.zeros(9, dtype=torch.int32), torch.randn(9, 4), 3)
     K.kmeans_assign(torch.randn(9, 4), torch.randn(3, 4))
+    K.ivf_scan_topk(torch.randn(2, 3, 4), torch.zeros(2, 3),
+                    torch.zeros(3, dtype=torch.int32),
+                    torch.arange(9, dtype=torch.int32), torch.randn(9, 4),
+                    torch.tensor([[0, 2], [1, -1]], dtype=torch.int32), 3, 3)
     assert (K.ip_topk.launches, K.gleanvec_sq_topk.launches,
-            K.kmeans_assign.launches) == before
+            K.kmeans_assign.launches, K.ivf_scan_topk.launches) == before
+
+
+def test_fine_step_bytes_matches_reference():
+    from repro.kernels import fine_step_bytes as ref_bytes
+    from repro_torch.kernels.ivf_scan import fine_step_bytes
+    for args in [(1024, 12000, 4096, 160, 48, 1, 100), (3, 7, 64, 16, 8, 4,
+                                                        10)]:
+        assert fine_step_bytes(*args) == ref_bytes(*args)
 
 
 

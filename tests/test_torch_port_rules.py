@@ -52,6 +52,7 @@ def test_port_imports_without_jax():
             "import repro_torch, repro_torch.kernels, repro_torch.convert\n"
             "import repro_torch.testing, repro_torch.launch.serve\n"
             "import repro_torch.serve.engine, repro_torch.index.protocol\n"
+            "import repro_torch.index.ivf, repro_torch.kernels.ivf_scan\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'repro was imported'\n")
@@ -73,9 +74,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.core import leanvec_sphering as lvs
     from repro_torch.core import search
     from repro_torch.core.scorer import build_scorer
+    from repro_torch.index import ivf
     from repro_torch.launch import serve
     x = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    model = gv.GleanVecModel(centers=torch.eye(2, 8), a=torch.zeros(2, 4, 8),
+                             b=torch.zeros(2, 4, 8), w=torch.eye(8),
+                             w_pinv=torch.eye(8))
     calls = [lambda: resolve_device(),
+             lambda: ivf.build(x, 2),
+             lambda: ivf.build_aligned(model, x),
+             lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4",
+                                 "--mode", "gleanvec-sorted", "--index",
+                                 "ivf", "--aligned"]),
              lambda: resolve_device("cuda"),
              lambda: build_scorer("full", x),
              lambda: search.build_artifacts("full", x),
@@ -157,6 +167,49 @@ def test_cuda_wrappers_launch_kernels_not_plain(cuda, monkeypatch):
     after = (K.ip_topk.launches, K.gleanvec_sq_topk.launches,
              K.kmeans_assign.launches)
     assert after == tuple(b + 1 for b in before)
+
+
+@pytest.mark.cuda
+def test_cuda_ivf_scan_launches_kernel_not_plain(cuda, monkeypatch):
+    """An aligned IVF search on the card lowers its fine step to the
+    ``ivf_scan_topk`` kernel (one launch per search, never the plain
+    version), and the result agrees with the plain version on the same
+    inputs."""
+    import repro_torch.kernels.ivf_scan as ivs
+    from repro_torch import kernels as K
+    from repro_torch.core import gleanvec as gv
+    from repro_torch.core import scorer as sc
+    from repro_torch.index import ivf
+    from repro_torch.testing import assert_topk_close, dot_tol
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(3000, 32, device=cuda, generator=g)
+    q = torch.randn(40, 32, device=cuda, generator=g)
+    model = gv.fit(q, x, c=6, d=8, kmeans_iters=4, generator=g, device=cuda)
+    s = sc.sorted_gleanvec_quantized_scorer(model, x, block=64,
+                                            slack_blocks=1)
+    idx = ivf.with_reduced_centers(
+        ivf.build_aligned(model, x, nprobe=3, device=cuda), s, model)
+    qstate = s.prepare_queries(q)
+    probe = torch.sort(ivf.coarse_scores(idx, ivf.IVFQueryState(qstate, None)),
+                       dim=1, descending=True, stable=True).indices[:, :3]
+    sched = s.list_block_ranges[probe].reshape(40, -1)
+    args = (qstate.q_scaled, qstate.q_lo, s.block_tags, s.perm, s.codes,
+            sched, 100, s.layout_block)
+    plain = ivs.ivf_scan_topk_plain(*args)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain path taken for a CUDA tensor")
+
+    monkeypatch.setattr(ivs, "ivf_scan_topk_plain", refuse)
+    before = K.ivf_scan_topk.launches
+    got = idx.search(q, s, 100)
+    torch.cuda.synchronize()
+    assert K.ivf_scan_topk.launches == before + 1
+    tol = dot_tol(float(qstate.q_scaled.norm(dim=-1).max()),
+                  float(s.codes.float().norm(dim=1).max()), 8,
+                  float(qstate.q_lo.abs().max()))
+    assert_topk_close(got, plain, tol, "ivf_scan_topk vs plain")
+    assert_topk_close(K.ivf_scan_topk(*args), plain, tol, "direct")
 
 
 @pytest.mark.cuda
