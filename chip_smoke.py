@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's search paths (flat index and IVF) on one
-NVIDIA GPU.
+"""Drive the PyTorch port's search paths (flat index, IVF and streaming
+stores) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -12,7 +12,10 @@ Phases (any failure raises and the script exits non-zero):
 2. Kernels against their plain PyTorch versions at ragged shapes: M and N
    off the tiles, k in {10, 100}, u8 and f32 codes, row_ids with -1,
    gathered and sorted layouts, IVF schedules with pad slots (middle, end,
-   a whole row), slack blocks and k above the valid row count, exact ties.
+   a whole row), slack blocks and k above the valid row count, exact ties;
+   the dense kernels (sq_dot, gleanvec_ip, dense gleanvec_sq) with layout
+   blocks off the tile, and ``scorer_scores`` of every scorer class with
+   dead columns.
 3. The flat main path: synthetic OOD data (D = 512), LeanVec-Sphering
    (d = 160) and GleanVec (C = 48, d = 160) fits, then for each of the 7
    scorer modes an encoded scorer behind a ServingEngine (batch 1024,
@@ -24,6 +27,15 @@ Phases (any failure raises and the script exits non-zero):
    modes behind a ServingEngine (same batch, k, kappa, 5 batches), with
    the same readings and the counters zeroed just before and read just
    after; then fused against gathered fine step on the first 200,000 rows.
+3c. The stream (paper Section 3.2) on the same data: a fixed-capacity store
+   of 2,000,000 slots holding the first 70 %, models fit on
+   in-distribution queries, OOD traffic, then 3 cycles of serve one batch
+   (recall@10 against the exact top-10 over the live rows, against its
+   floor), ``scorer_scores`` + top-k against the fused scan on 64 queries,
+   insert 200,000 rows, refresh and swap -- the six DR modes over the flat
+   index, both sorted modes over the aligned IVF (nprobe 12, reduced probe)
+   with 10,000 removes per cycle. Counters zeroed just before, read just
+   after.
 4. Each kernel at its path's shapes and inputs: its time beside its
    bound, its plain version's time, the time of the composed PyTorch
    calls that compute the same function (``library_ms``), and its
@@ -77,6 +89,29 @@ IVF_RECALL_FLOORS = {"gleanvec-sorted": 0.95, "gleanvec-int8-sorted": 0.95}
 IVF_NPROBE = 12
 PARITY_ROWS = 200_000       # rows of the fused-vs-gathered check
 
+# The stream (phase 3c): 70 % of N_ROWS to start, then STREAM_CYCLES cycles
+# of STREAM_INSERTS inserts (and STREAM_REMOVES removes on the IVF runs).
+STREAM_N0 = 1_400_000
+STREAM_CYCLES = 3
+STREAM_INSERTS = 200_000
+STREAM_REMOVES = 10_000
+DENSE_CHECK_QUERIES = 64    # queries of the per-cycle scorer_scores check
+# recall@10 floors per cycle (PERF.md, "Recall floors of the stream"), from
+# the reference's own stream runs on the CPU: set before the first chip run
+# from sizes up to 200,000, revised after it with the reference's runs at
+# 500,000 (its recall falls faster beyond 200,000 than the smaller sizes
+# showed); no port reading entered them.
+STREAM_FLOORS = {
+    "sphering": (0.136, 0.829, 0.828),
+    "gleanvec": (0.0, 0.773, 0.777),
+    "sphering-int8": (0.012, 0.230, 0.250),
+    "gleanvec-int8": (0.0, 0.771, 0.776),
+    "gleanvec-sorted": (0.0, 0.773, 0.777),
+    "gleanvec-int8-sorted": (0.0, 0.771, 0.776),
+}
+STREAM_IVF_FLOORS = {"gleanvec-sorted": (0.0, 0.773, 0.777),
+                     "gleanvec-int8-sorted": (0.0, 0.771, 0.776)}
+
 KERNEL_FILES = {
     "ip_topk": ("src/repro_torch/csrc/ip_topk.cu",
                 "src/repro/kernels/ip_topk/ip_topk.py:94"),
@@ -86,6 +121,12 @@ KERNEL_FILES = {
                       "src/repro/kernels/kmeans_assign/kmeans_assign.py:43"),
     "ivf_scan_topk": ("src/repro_torch/csrc/ivf_scan.cu",
                       "src/repro/kernels/ivf_scan/ivf_scan.py:145"),
+    "sq_dot": ("src/repro_torch/csrc/dense_scores.cu",
+               "src/repro/kernels/sq_dot/sq_dot.py:50"),
+    "gleanvec_ip": ("src/repro_torch/csrc/dense_scores.cu",
+                    "src/repro/kernels/gleanvec_ip/gleanvec_ip.py:70"),
+    "gleanvec_sq": ("src/repro_torch/csrc/dense_scores.cu",
+                    "src/repro/kernels/gleanvec_sq/gleanvec_sq.py:178"),
 }
 
 
@@ -315,6 +356,139 @@ def phase_kernels(K, testing, gen):
         raise AssertionError("kmeans_assign: a tie must go to the first "
                              "center")
     log("  kmeans_assign exact ties: first center wins")
+    phase_dense_kernels(K, testing, gen)
+
+
+def check_dense(label, got, want, tol):
+    """Dense scores: equal where either side is masked (NEG_INF), within
+    ``tol`` elsewhere; returns the largest gap."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    err = 0.0
+    for s in range(0, got.shape[0], 64):       # bounded temporaries
+        g, w = got[s:s + 64], want[s:s + 64]
+        dead_g, dead_w = g < -1e37, w < -1e37
+        if not torch.equal(dead_g, dead_w):
+            raise AssertionError(f"{label}: masked columns differ")
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: non-finite scores")
+        gap = (g - w).abs().masked_fill(dead_g, 0.0)
+        err = max(err, float(gap.max()) if gap.numel() else 0.0)
+    log(f"  {label}: max_abs_err={err:.3e} tol={tol:.3e}")
+    if err > tol:
+        raise AssertionError(f"{label}: beyond tol={tol:.3e}")
+    return err
+
+
+def phase_dense_kernels(K, testing, gen):
+    """sq_dot, gleanvec_ip and dense gleanvec_sq against their plain
+    versions (M and N off the tiles, u8 and f32, gathered and sorted,
+    layout blocks off the 128-row tile, a ragged last block), then
+    ``scorer_scores`` of every scorer class with dead columns against the
+    same scorer on the CPU (plain versions)."""
+    from repro_torch.core import scorer as sc
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def tags_of(n, c):
+        return torch.randint(0, c, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def u8(n, d):
+        return torch.randint(0, 256, (n, d), generator=gen, device=dev,
+                             dtype=torch.uint8)
+
+    for m, n, d in [(37, 5003, 160), (130, 20011, 48), (3, 50, 20)]:
+        q, codes = randn(m, d), u8(n, d)
+        lo, delta = randn(d), torch.rand(d, generator=gen, device=dev) + 0.01
+        qs, qlo = q * delta, q @ lo
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(codes), d,
+                              float(qlo.abs().max()))
+        want = K.sq_dot_folded_plain(qs, qlo, codes)
+        check_dense(f"sq_dot M={m} N={n} d={d}", K.sq_dot(q, codes, lo, delta),
+                    want, tol)
+        check_dense(f"sq_dot_folded M={m} N={n} d={d}",
+                    K.sq_dot_folded(qs, qlo, codes), want, tol)
+
+    for m, c, d, n in [(9, 48, 160, 7001), (70, 8, 64, 2000), (6, 5, 33, 3000)]:
+        qv, x, tags = randn(m, c, d), randn(n, d), tags_of(n, c)
+        tol = testing.dot_tol(row_norm_max(qv), row_norm_max(x), d)
+        check_dense(f"gleanvec_ip M={m} C={c} d={d} N={n}",
+                    K.gleanvec_ip(qv, tags, x),
+                    K.gleanvec_ip_plain(qv, tags, x), tol)
+
+    for m, c, d, n, is_u8 in [(9, 48, 160, 7001, True), (70, 8, 64, 2000, False),
+                              (130, 5, 33, 3000, True)]:
+        qs, qlo, tags = randn(m, c, d), randn(m, c), tags_of(n, c)
+        x = u8(n, d) if is_u8 else randn(n, d)
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), d,
+                              float(qlo.abs().max()))
+        check_dense(f"gleanvec_sq gathered M={m} C={c} d={d} N={n} "
+                    f"{'u8' if is_u8 else 'f32'}",
+                    K.gleanvec_sq(qs, qlo, tags, x),
+                    K.gleanvec_sq_plain(qs, qlo, tags, x), tol)
+
+    for m, c, d, lb, nb, cut, is_u8 in [(70, 6, 160, 4096, 5, 0, True),
+                                        (5, 7, 48, 64, 40, 0, False),
+                                        (3, 4, 16, 200, 7, 37, False),
+                                        (130, 3, 40, 300, 9, 0, True)]:
+        n = nb * lb - cut
+        qs, qlo, btags = randn(m, c, d), randn(m, c), tags_of(nb, c)
+        x = u8(n, d) if is_u8 else randn(n, d)
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), d,
+                              float(qlo.abs().max()))
+        check_dense(f"gleanvec_sq sorted M={m} C={c} d={d} layout_block={lb} "
+                    f"N={n} {'u8' if is_u8 else 'f32'}",
+                    K.gleanvec_sq(qs, qlo, btags, x, layout_block=lb),
+                    K.gleanvec_sq_plain(qs, qlo, btags, x, layout_block=lb),
+                    tol)
+
+    # the lowering: every class, dead columns (live mask / perm -1)
+    m, c, d, dim, n, lb = 33, 6, 40, 64, 3000, 120
+    live = torch.rand(n, generator=gen, device=dev) > 0.2
+    perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    perm[~live] = -1
+    qlow_a, a_c = randn(d, dim), randn(c, d, dim)
+    lo, delta = randn(d), torch.rand(d, generator=gen, device=dev) + 0.01
+    lo_c, delta_c = randn(c, d), torch.rand(c, d, generator=gen,
+                                            device=dev) + 0.01
+    scorers = {
+        "LinearScorer": sc.LinearScorer(x_low=randn(n, d), a=qlow_a,
+                                        live=live),
+        "QuantizedScorer": sc.QuantizedScorer(codes=u8(n, d), lo=lo,
+                                              delta=delta, a=qlow_a,
+                                              live=live),
+        "GleanVecScorer": sc.GleanVecScorer(x_low=randn(n, d),
+                                            tags=tags_of(n, c), a=a_c,
+                                            live=live),
+        "GleanVecQuantizedScorer": sc.GleanVecQuantizedScorer(
+            codes=u8(n, d), tags=tags_of(n, c), lo=lo_c, delta=delta_c,
+            a=a_c, live=live),
+        "SortedGleanVecScorer": sc.SortedGleanVecScorer(
+            x_low=randn(n, d), block_tags=tags_of(-(-n // lb), c), perm=perm,
+            inv_perm=perm, a=a_c),
+        "SortedGleanVecQuantizedScorer": sc.SortedGleanVecQuantizedScorer(
+            codes=u8(n, d), block_tags=tags_of(-(-n // lb), c), perm=perm,
+            inv_perm=perm, lo=lo_c, delta=delta_c, a=a_c),
+    }
+    q = randn(m, dim)
+    for name, s in scorers.items():
+        cpu = type(s)(*(None if t is None else t.cpu() for t in s))
+        qstate = s.prepare_queries(q)
+        got = K.scorer_scores(s, q)
+        qs, lo_max = qstate, 0.0
+        if isinstance(qstate, tuple):
+            qs, lo_max = qstate.q_scaled, float(qstate.q_lo.abs().max())
+            qstate = type(qstate)(*(t.cpu() for t in qstate))
+        else:
+            qstate = qstate.cpu()
+        want = K.scorer_scores_prepared(cpu, qstate).to(dev)
+        rows = s.x_low if hasattr(s, "x_low") else s.codes
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(rows), d, lo_max)
+        check_dense(f"scorer_scores {name} (dead columns)", got, want, tol)
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +570,8 @@ def phase_main(K):
 
 def all_counters(K):
     """Every kernel wrapper's launch counter."""
-    return (K.ip_topk, K.gleanvec_sq_topk, K.kmeans_assign, K.ivf_scan_topk)
+    return (K.ip_topk, K.gleanvec_sq_topk, K.kmeans_assign, K.ivf_scan_topk,
+            K.sq_dot, K.gleanvec_ip, K.gleanvec_sq)
 
 
 # ---------------------------------------------------------------------------
@@ -491,6 +666,138 @@ def phase_ivf(K, testing, ds, x, glv, states):
                    f"{t_fused * 1e3:.1f} ms vs {t_gathered * 1e3:.1f} ms "
                    "host clock)", fused, gathered, tol, testing)
     return inputs, per_mode
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the stream.
+# ---------------------------------------------------------------------------
+
+
+def dense_check(K, testing, scorer, queries, k):
+    """``scorer_scores`` + ``torch.topk`` against the fused scan
+    (``scorer_topk``) on the same queries and store: dead slots must never
+    win, and the two must agree within ``testing.dot_tol``."""
+    from repro_torch.core import scorer as sc
+    qstate = scorer.prepare_queries(queries)
+    scores = K.scorer_scores_prepared(scorer, qstate)
+    vals, idx = torch.topk(scores, k, dim=1)
+    del scores
+    if isinstance(scorer, (sc.SortedGleanVecScorer,
+                           sc.SortedGleanVecQuantizedScorer)):
+        ids = scorer.perm[idx]
+    else:
+        ids = scorer.translate_ids(idx.to(torch.int32))
+    fused = K.scorer_topk_prepared(scorer, qstate, k)
+    qs, lo = qstate, 0.0
+    if isinstance(qstate, tuple):
+        qs, lo = qstate.q_scaled, float(qstate.q_lo.abs().max())
+    rows = scorer.x_low if hasattr(scorer, "x_low") else scorer.codes
+    tol = testing.dot_tol(row_norm_max(qs), row_norm_max(rows),
+                          rows.shape[1], lo)
+    rep = testing.assert_topk_close((vals, ids), fused, tol,
+                                    "scorer_scores vs fused scan")
+    if bool((ids < 0).any()) or bool((fused[1] < 0).any()):
+        raise AssertionError("a dead slot won the dense or the fused scan")
+    return rep["max_abs_err"]
+
+
+def phase_stream(K, testing, ds, x):
+    """The stream at capacity N_ROWS: six DR modes over the flat index, both
+    sorted modes over the aligned IVF. Returns ({(index, mode): scorer},
+    launches of the whole phase)."""
+    from repro_torch.core import gleanvec as gv
+    from repro_torch.core import leanvec_sphering as lvs
+    from repro_torch.core import streaming
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+
+    dev = torch.device("cuda")
+    n0, cap = STREAM_N0, N_ROWS
+    log(f"phase 3c: stream, capacity={cap} n0={n0} cycles={STREAM_CYCLES} "
+        f"inserts/cycle={STREAM_INSERTS} (IVF: removes/cycle="
+        f"{STREAM_REMOVES}) D=512 d=160 C=48 batch=1024 k=10 kappa=100")
+    for fn in all_counters(K):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    q_init = ds.database[rng.integers(0, n0, 1024)] \
+        + 0.1 * rng.standard_normal((1024, 512)).astype(np.float32)
+    sph = lvs.fit(q_init, x[:n0], 160, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    glv = gv.fit(q_init, x[:n0], c=48, d=160, generator=gen, device=dev)
+    slack = serve.stream_slack_blocks(glv, x[n0:])
+    torch.cuda.synchronize()
+    log(f"  fit on in-distribution queries: {time.perf_counter() - t0:.1f} s; "
+        f"sorted slack_blocks={slack} (block {serve.STREAM_SORT_BLOCK})")
+    obs = ds.queries_test[:1024]
+    q_check = torch.as_tensor(obs[:DENSE_CHECK_QUERIES], device=dev)
+    runs = [("flat", m, STREAM_FLOORS[m]) for m in STREAM_FLOORS] + \
+        [("ivf", m, STREAM_IVF_FLOORS[m]) for m in STREAM_IVF_FLOORS]
+    finals, below = {}, []
+    for index, mode, floors in runs:
+        model = sph if mode.startswith("sphering") else glv
+        before = {fn.__name__: fn.launches for fn in all_counters(K)}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = serve.build_stream(
+            mode, x, n0, cap, model, index=index, nprobe=IVF_NPROBE,
+            reduced_probe=True, slack_blocks=slack,
+            list_slack=4 * (cap - n0) // glv.n_clusters, device=dev)
+        engine = ServingEngine(state, k=10, kappa=100, batch_size=1024,
+                               dim=512)
+        stream = streaming.init_from_artifacts(state.artifacts, q_init,
+                                               refresh_every=STREAM_INSERTS)
+        torch.cuda.synchronize()
+        log(f"  {index} {mode}: build {time.perf_counter() - t0:.2f} s")
+        for cycle in range(STREAM_CYCLES):
+            served = engine.submit(obs)
+            rec = serve.live_recall(engine, obs, served)
+            err = dense_check(K, testing, engine.state.artifacts.scorer,
+                              q_check, 100)
+            stream = streaming.observe_queries(stream, obs)
+            start = n0 + cycle * STREAM_INSERTS
+            rows = x[start:start + STREAM_INSERTS]
+            remove = None
+            if index == "ivf":
+                remove = torch.arange(cycle * STREAM_REMOVES,
+                                      (cycle + 1) * STREAM_REMOVES,
+                                      device=dev)
+            version = engine.version
+            stream, rep = serve.stream_cycle(engine, stream, rows,
+                                             remove=remove)
+            live = int(streaming.live_mask(engine.state.artifacts).sum())
+            log(f"    cycle {cycle}: recall@10={rec:.4f} (floor "
+                f"{floors[cycle]}) insert={rep['insert_ms']:.1f}ms "
+                f"refresh={rep['refresh_ms']:.1f}ms "
+                f"cond={rep['condition']:.3g} swaps ok (version {version} -> "
+                f"{engine.version}) live_rows={live} batch_ms="
+                f"{engine.stats.latencies_ms[-1]:.1f} dense_vs_fused_err="
+                f"{err:.3e}")
+            if not np.all((served >= -1) & (served < cap)) \
+                    or served.shape != (1024, 10):
+                raise AssertionError(f"stream {mode}: malformed ids")
+            if rec < floors[cycle]:          # every run is read first
+                below.append(f"{index} {mode} cycle {cycle}: recall@10 "
+                             f"{rec:.4f} below its floor {floors[cycle]}")
+            if engine.version != version + 2:
+                raise AssertionError("a stream swap did not install")
+        delta = {fn.__name__: fn.launches - before[fn.__name__]
+                 for fn in all_counters(K)}
+        log(f"    launches={delta} peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        finals[(index, mode)] = engine.state.artifacts.scorer
+        del engine, state, stream
+    totals = {fn.__name__: fn.launches for fn in all_counters(K)}
+    log(f"  stream launches: {totals}")
+    if below:
+        raise AssertionError("stream recall below its floor: "
+                             + "; ".join(below))
+    for name in ("sq_dot", "gleanvec_ip", "gleanvec_sq", "gleanvec_sq_topk",
+                 "ivf_scan_topk", "kmeans_assign"):
+        if totals[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the stream "
+                                 "path")
+    return finals, totals
 
 
 # ---------------------------------------------------------------------------
@@ -698,6 +1005,117 @@ def time_kernel(name, label, calls, launches, testing):
             "library_ms": lib_ms}
 
 
+def per_cluster_dense_library(qs, qlo, tags, x, layout_block):
+    """The library composition of dense GleanVec scores: per cluster,
+    ``torch.matmul`` of the queries' view against the cluster's rows (plus
+    ``q_lo``), scattered into the cluster's columns. Sorted layout: each
+    cluster is a contiguous run of blocks; gathered: the rows are grouped
+    by tag here, inside the timed call."""
+    m, c, _ = qs.shape
+    n = x.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=qs.device)
+    if layout_block > 0:
+        counts = (torch.bincount(tags.long(), minlength=c)
+                  * layout_block).tolist()
+        ends = np.cumsum(counts).tolist()
+        for ci, (end, cnt) in enumerate(zip(ends, counts)):
+            if cnt:
+                out[:, end - cnt:end] = qs[:, ci] @ x[end - cnt:end].to(
+                    torch.float32).T + qlo[:, ci:ci + 1]
+        return out
+    order = torch.argsort(tags.long(), stable=True)
+    groups = torch.split(order, torch.bincount(tags.long(),
+                                               minlength=c).tolist())
+    for ci, g in enumerate(groups):
+        if g.numel():
+            out[:, g] = qs[:, ci] @ x[g].to(torch.float32).T \
+                + qlo[:, ci:ci + 1]
+    return out
+
+
+def time_dense(name, label, kern, plain, library, flops, nbytes, tol,
+               launches):
+    """Time one dense kernel beside its plain version and its library
+    call, each checked against the kernel; returns its table row."""
+    ms, out_k = timed(kern, 3)
+    plain_ms, out_p = timed_once(plain)
+    err = check_dense(f"{name}[{label}] vs plain", out_k, out_p, tol)
+    del out_p
+    lib_ms, out_l = timed(library, 2)
+    check_dense(f"{name}[{label}] library vs kernel", out_l, out_k, tol)
+    del out_l, out_k
+    b, by = bound_ms(flops, nbytes)
+    log(f"  {name}[{label}]: ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={b:.3f} ({by}) library_ms={lib_ms:.3f} "
+        f"launches={launches}")
+    src, repl = KERNEL_FILES[name]
+    return {"name": f"{name}[{label}]", "route": "cuda", "source": src,
+            "replaces": repl, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def stream_timing(K, testing, finals, totals, queries):
+    """The three dense kernels at the stream's shapes: M = 1024 queries
+    against each final stream store (capacity or sorted rows, d = 160)."""
+    table = []
+    s = finals[("flat", "sphering-int8")]
+    qst = s.prepare_queries(queries)
+    q, lo_v, codes = qst.q_scaled, qst.q_lo, s.codes
+    m, d = q.shape
+    n = codes.shape[0]
+    tol = testing.dot_tol(row_norm_max(q), row_norm_max(codes), d,
+                          float(lo_v.abs().max()))
+    table.append(time_dense(
+        "sq_dot", "sphering-int8", lambda: K.sq_dot_folded(q, lo_v, codes),
+        lambda: K.sq_dot_folded_plain(q, lo_v, codes),
+        lambda: q @ codes.to(torch.float32).T + lo_v[:, None],
+        2.0 * m * n * d, (q.numel() + m + m * n) * 4 + codes.numel(), tol,
+        totals["sq_dot"]))
+    del q, lo_v, qst
+    s = finals[("flat", "gleanvec")]
+    qv = s.prepare_queries(queries)
+    m, c, d = qv.shape
+    n = s.x_low.shape[0]
+    zeros = torch.zeros((m, c), dtype=torch.float32, device=qv.device)
+    tol = testing.dot_tol(row_norm_max(qv), row_norm_max(s.x_low), d)
+    table.append(time_dense(
+        "gleanvec_ip", "gleanvec", lambda: K.gleanvec_ip(qv, s.tags, s.x_low),
+        lambda: K.gleanvec_ip_plain(qv, s.tags, s.x_low),
+        lambda: per_cluster_dense_library(qv, zeros, s.tags, s.x_low, 0),
+        2.0 * m * n * d, (qv.numel() + m * n + n * d + n) * 4, tol,
+        totals["gleanvec_ip"]))
+    del qv, zeros
+    for label, key in (("gathered u8", ("flat", "gleanvec-int8")),
+                       ("sorted f32", ("flat", "gleanvec-sorted")),
+                       ("sorted u8", ("flat", "gleanvec-int8-sorted"))):
+        s = finals[key]
+        qst = s.prepare_queries(queries)
+        if isinstance(qst, tuple):
+            qs, qlo = qst.q_scaled, qst.q_lo
+        else:
+            qs = qst
+            qlo = torch.zeros(qs.shape[:2], dtype=torch.float32,
+                              device=qs.device)
+        x = s.codes if hasattr(s, "codes") else s.x_low
+        tags = s.block_tags if hasattr(s, "block_tags") else s.tags
+        lb = s.layout_block if hasattr(s, "block_tags") else 0
+        m, c, d = qs.shape
+        n = x.shape[0]
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), d,
+                              float(qlo.abs().max()))
+        table.append(time_dense(
+            "gleanvec_sq", label,
+            lambda: K.gleanvec_sq(qs, qlo, tags, x, layout_block=lb),
+            lambda: K.gleanvec_sq_plain(qs, qlo, tags, x, layout_block=lb),
+            lambda: per_cluster_dense_library(qs, qlo, tags, x, lb),
+            2.0 * m * n * d, (qs.numel() + qlo.numel() + m * n
+                              + tags.numel()) * 4
+            + n * d * x.element_size(), tol, totals["gleanvec_sq"]))
+        del qs, qlo, qst
+    return table
+
+
 def phase_timing(K, testing, x, glv, states, per_mode, totals, ivf_inputs,
                  ivf_launches):
     from repro_torch.core.spherical_kmeans import normalize_rows
@@ -783,8 +1201,13 @@ def main(argv=None) -> int:
 
     ds, x, glv, states, per_mode, totals = phase_main(K)
     ivf_inputs, ivf_launches = phase_ivf(K, testing, ds, x, glv, states)
+    finals, stream_totals = phase_stream(K, testing, ds, x)
     table = phase_timing(K, testing, x, glv, states, per_mode, totals,
                          ivf_inputs, ivf_launches)
+    del states, ivf_inputs
+    table += stream_timing(K, testing, finals, stream_totals,
+                           torch.as_tensor(ds.queries_test,
+                                           device=torch.device("cuda")))
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.0f} s")
     print(card_line(), flush=True)

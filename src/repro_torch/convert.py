@@ -4,10 +4,11 @@ The reference's models and scorers are NamedTuples of arrays. Their
 fields, as a dict of numpy arrays keyed by field name (``arrays_of``),
 build the port's objects on a given device -- so a test can fit or encode
 once in the reference and serve the very same weights and codes here.
-Fields the port does not have (streaming ``live`` masks) are ignored.
+A streaming store's ``live`` mask comes across as a bool tensor.
 ``ivf_index`` carries a reference IVF index across (a frozen dataclass:
 its arrays, its center companion by class, and its static ``nprobe`` and
-``aligned_layout``).
+``aligned_layout``); ``streaming_state`` a reference ``StreamingState``
+(moments, model, ``prev_bw`` and counters).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from repro_torch.core.leanvec_sphering import SpheringModel
 from repro_torch.device import resolve_device
 
 __all__ = ["arrays_of", "sphering_model", "gleanvec_model", "scorer",
-           "ivf_index", "SCORERS"]
+           "ivf_index", "streaming_state", "SCORERS"]
 
 SCORERS = {cls.__name__: cls for cls in (
     sc.LinearScorer, sc.GleanVecScorer, sc.QuantizedScorer,
@@ -31,7 +32,8 @@ SCORERS = {cls.__name__: cls for cls in (
 # (the f32 pseudo-codes of a reduced-probe center companion stay f32)
 _DTYPES = {"tags": torch.int32, "block_tags": torch.int32,
            "perm": torch.int32, "inv_perm": torch.int32,
-           "list_block_ranges": torch.int32, "lists": torch.int32}
+           "list_block_ranges": torch.int32, "lists": torch.int32,
+           "live": torch.bool}
 
 
 def arrays_of(obj) -> dict:
@@ -90,3 +92,19 @@ def ivf_index(index, device=None):
         center_scorer=None if cs is None
         else scorer(type(cs).__name__, arrays_of(cs), dev),
         nprobe=int(index.nprobe), aligned_layout=bool(index.aligned_layout))
+
+
+def streaming_state(state, device=None):
+    """The port's :class:`~repro_torch.core.streaming.StreamingState`
+    from a reference one: its moments, its model (LeanVec-Sphering or
+    GleanVec, by class name), ``prev_bw`` and the two counters."""
+    from repro_torch.core.streaming import StreamingState
+    dev = resolve_device(device)
+    build = gleanvec_model if type(state.model).__name__ == "GleanVecModel" \
+        else sphering_model
+    return StreamingState(
+        k_q=_tensor("k_q", state.k_q, dev), k_x=_tensor("k_x", state.k_x, dev),
+        model=build(arrays_of(state.model), dev),
+        prev_bw=_tensor("prev_bw", state.prev_bw, dev),
+        updates_since=int(np.asarray(state.updates_since)),
+        refresh_every=int(state.refresh_every))

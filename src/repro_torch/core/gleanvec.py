@@ -21,7 +21,8 @@ from repro_torch.core import linalg, spherical_kmeans
 from repro_torch.device import resolve_device
 
 __all__ = ["GleanVecModel", "fit", "fit_from_moments", "per_cluster_moments",
-           "assign_tags", "encode_database", "sort_by_tag",
+           "assign_tags", "encode_database", "project_per_cluster",
+           "sort_by_tag",
            "inverse_permutation", "project_queries_eager"]
 
 
@@ -112,12 +113,25 @@ def encode_database(model: GleanVecModel, database: torch.Tensor):
     ``x_low_i = B_{tags_i} x_i``, computed cluster by cluster."""
     database = database.to(torch.float32)
     tags = assign_tags(model, database)
-    x_low = torch.empty((database.shape[0], model.dim), dtype=torch.float32,
-                        device=database.device)
-    for ci, rows in enumerate(_cluster_rows(tags, model.n_clusters)):
+    return tags, project_per_cluster(database, tags, model.b)
+
+
+def project_per_cluster(x: torch.Tensor, tags: torch.Tensor,
+                        mats: torch.Tensor,
+                        src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[i] = mats[tags[i]] @ x[src[i]]`` (``src`` defaults to ``i``):
+    (n, d') f32 from ``mats (C, d', d)``, one ``(n_c, d) x (d, d')``
+    product per cluster -- the reference's ``einsum("ndk,nk->nd",
+    mats[tags], x)`` without its (n, d', d) gather. Encoding (``mats`` =
+    B), the exact refresh re-encode and the Eq. 12 reprojection
+    (``mats`` = the transition stack) all go through it."""
+    out = torch.zeros((tags.shape[0], mats.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for ci, rows in enumerate(_cluster_rows(tags, mats.shape[0])):
         if rows.numel():
-            x_low[rows] = database[rows] @ model.b[ci].T
-    return tags, x_low
+            xr = x[rows if src is None else src[rows]]
+            out[rows] = xr.to(torch.float32) @ mats[ci].T
+    return out
 
 
 def project_queries_eager(model: GleanVecModel, queries: torch.Tensor):

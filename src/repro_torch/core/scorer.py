@@ -33,7 +33,20 @@ whose clusters are their tags, lowered through
     Scorer                                                 one view/block
     ==========================  =========================  ================
 
-Streaming updates and sharding belong to later parts of the port.
+Streaming (Section 3.2): a store built by
+:func:`repro_torch.core.streaming.build_streaming_artifacts` has a fixed
+capacity. The four row-aligned scorers carry a ``live`` mask ((n,) bool;
+``None`` = every row live) under which dead slots score NEG_INF and
+translate to id -1; the sorted scorers mark free slots with ``perm == -1``
+inside each cluster's blocks. ``insert_rows`` / ``remove_rows`` /
+``refresh`` return a new scorer with the same classes, shapes and dtypes,
+so the serving engine swaps it in. They never write into the scorer they
+are called on (``index_put`` makes new tensors): the engine keeps serving
+the installed state until the swap. ``refresh`` re-encodes cluster by
+cluster (``gleanvec.project_per_cluster``) where the reference gathers
+per-row (d, D) and (d, d) matrices.
+
+Sharding belongs to a later part of the port.
 """
 from __future__ import annotations
 
@@ -133,12 +146,112 @@ def _sorted_rows(scorer, ids: torch.Tensor):
     return rows, tag, ok
 
 
+# ---------------------------------------------------------------------------
+# Streaming-store helpers: the ``live`` mask and the row-level updates.
+# ---------------------------------------------------------------------------
+
+
+def _put(t: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
+    """``t`` with ``t[idx] = values``, as a new tensor (``t`` unchanged)."""
+    if not torch.is_tensor(values):
+        values = torch.tensor(values, dtype=t.dtype, device=t.device)
+    return t.index_put((idx.long(),), values.to(t.dtype))
+
+
+def _mask_live_block(live, start: int, block: int, scores: torch.Tensor):
+    if live is None:
+        return scores
+    lv = live[start:start + block]
+    return torch.where(lv[None, :], scores, torch.full_like(scores, NEG_INF))
+
+
+def _mask_live_ids(live, ids: torch.Tensor, scores: torch.Tensor):
+    if live is None:
+        return scores
+    return torch.where(live[ids.long()], scores,
+                       torch.full_like(scores, NEG_INF))
+
+
+def _translate_live(live, n_rows: int, ids: torch.Tensor) -> torch.Tensor:
+    """Row-aligned id translation under a live mask: dead (or out of
+    range) rows map to -1, so they never reach the rerank."""
+    if live is None:
+        return ids
+    safe = ids.clamp(0, n_rows - 1).long()
+    ok = (ids >= 0) & (ids < n_rows) & live[safe]
+    return torch.where(ok, ids, torch.full_like(ids, -1))
+
+
+def _set_live(live, ids: torch.Tensor, value: bool, n_rows: int,
+              device) -> Optional[torch.Tensor]:
+    """Live-mask update. ``None`` (all live) stays ``None`` on insert and
+    is materialised on the first remove -- which changes the scorer's
+    structure, so the engine refuses that swap; streaming stores carry a
+    mask from the start."""
+    if live is None:
+        if value:
+            return None
+        live = torch.ones((n_rows,), dtype=torch.bool, device=device)
+    return _put(live, ids, value)
+
+
+def _code_rows(low: torch.Tensor, lo: torch.Tensor,
+               delta: torch.Tensor) -> torch.Tensor:
+    """8-bit codes of new rows under EXISTING scales (clipped); the next
+    ``refresh`` refits the scales. Streaming assumes the serving modes'
+    8-bit coding, as the reference."""
+    return torch.clamp(torch.round((low - lo) / delta), 0,
+                       255).to(torch.uint8)
+
+
+def _sorted_claim_slots(perm, inv_perm, block_tags, layout_block: int, ids,
+                        tags):
+    """Slots for new rows in a sorted layout: the r-th new row of cluster c
+    (in input order) takes the r-th free slot (``perm == -1``, ascending)
+    of c's blocks, after the old slots of re-inserted live ids are released
+    (re-insert == overwrite). The same slots as the reference's per-row
+    loop, in one stable sort of each side. Returns ``(slots, freed)``;
+    raises when a cluster is out of free slots."""
+    dev = perm.device
+    ids = ids.long()
+    old = inv_perm[ids].long()
+    freed = old[old >= 0]
+    free = perm < 0
+    free[freed] = True
+    free_rows = torch.nonzero(free).squeeze(1)                 # ascending
+    free_tags = block_tags[free_rows // layout_block].long()
+    keep = free_tags >= 0
+    free_rows, free_tags = free_rows[keep], free_tags[keep]
+    t = tags.long()
+    c = int(max(int(block_tags.max()), int(t.max()) if t.numel() else 0)) + 1
+    have = torch.bincount(free_tags, minlength=c)
+    need = torch.bincount(t, minlength=c)
+    order = torch.argsort(t, stable=True)
+    first = torch.cumsum(need, 0) - need
+    rank = torch.empty_like(t)
+    rank[order] = torch.arange(t.numel(), device=dev) - first[t[order]]
+    short = torch.nonzero(rank >= have[t]).squeeze(1)
+    if short.numel():
+        raise ValueError(
+            f"sorted layout: cluster {int(t[short[0]])} has no free slots; "
+            "rebuild the layout with more slack_blocks")
+    f_order = torch.argsort(free_tags, stable=True)
+    f_first = torch.cumsum(have, 0) - have
+    slots = free_rows[f_order[f_first[t] + rank]]
+    return slots, freed
+
+
 class LinearScorer(NamedTuple):
     """Linear DR scoring <Aq, Bx>; ``a=None`` is exact MIPS over ``x_low``
     (the 'full' mode, whose ``x_low`` is the full-precision database)."""
 
     x_low: torch.Tensor                 # (n, d)
     a: Optional[torch.Tensor] = None    # (d, D) query transform
+    live: Optional[torch.Tensor] = None  # (n,) bool slot mask (None = all)
+
+    @property
+    def n_rows(self) -> int:
+        return self.x_low.shape[0]
 
     def prepare_queries(self, queries: torch.Tensor) -> torch.Tensor:
         q = queries.to(torch.float32)
@@ -146,11 +259,49 @@ class LinearScorer(NamedTuple):
 
     def score_block(self, qstate: torch.Tensor, start: int,
                     block: int) -> torch.Tensor:
-        return qstate @ self.x_low[start:start + block].T
+        return _mask_live_block(self.live, start, block,
+                                qstate @ self.x_low[start:start + block].T)
 
     def score_ids(self, qstate: torch.Tensor, ids: torch.Tensor):
         vecs = self.x_low[ids.long()]                  # (m, p, d)
-        return torch.einsum("mpd,md->mp", vecs, qstate)
+        return _mask_live_ids(self.live, ids,
+                              torch.einsum("mpd,md->mp", vecs, qstate))
+
+    def translate_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        return _translate_live(self.live, self.n_rows, ids)
+
+    # ---- streaming row-level ops (Section 3.2) ----
+
+    def insert_rows(self, ids: torch.Tensor, rows: torch.Tensor,
+                    model=None) -> "LinearScorer":
+        """Encode full-D ``rows`` into slots ``ids`` and mark them live."""
+        rows = rows.to(torch.float32)
+        enc = rows if self.a is None else rows @ model.b.T
+        return self._replace(
+            x_low=_put(self.x_low, ids, enc),
+            live=_set_live(self.live, ids, True, self.n_rows,
+                           self.x_low.device))
+
+    def remove_rows(self, ids: torch.Tensor) -> "LinearScorer":
+        """Tombstone slots ``ids`` (their contents stop mattering)."""
+        return self._replace(live=_set_live(self.live, ids, False,
+                                            self.n_rows, self.x_low.device))
+
+    def refresh(self, model, transition=None, x_full=None,
+                pending=None) -> "LinearScorer":
+        """Re-encode under a refreshed ``model``: the Eq. 12 ``transition``
+        over the STORED reduced vectors, or exactly from ``x_full``.
+        ``pending`` ((n,) bool) selects a lazy subset; the other rows keep
+        their old projection."""
+        if self.a is None:
+            return self     # the exact scorer stores the raw vectors
+        if x_full is not None:
+            new_low = x_full.to(torch.float32) @ model.b.T
+        else:
+            new_low = self.x_low @ transition.T
+        if pending is not None:
+            new_low = torch.where(pending[:, None], new_low, self.x_low)
+        return self._replace(x_low=new_low, a=model.a)
 
     def encode_centers(self, centers: torch.Tensor,
                        model=None) -> "LinearScorer":
@@ -172,6 +323,11 @@ class GleanVecScorer(NamedTuple):
     x_low: torch.Tensor                 # (n, d) = B_{tag_i} x_i
     tags: torch.Tensor                  # (n,) int32
     a: Optional[torch.Tensor] = None    # (C, d, D)
+    live: Optional[torch.Tensor] = None  # (n,) bool slot mask (None = all)
+
+    @property
+    def n_rows(self) -> int:
+        return self.x_low.shape[0]
 
     def prepare_queries(self, queries: torch.Tensor) -> torch.Tensor:
         if self.a is None:
@@ -182,13 +338,47 @@ class GleanVecScorer(NamedTuple):
     def score_block(self, qstate: torch.Tensor, start: int,
                     block: int) -> torch.Tensor:
         tag = self.tags[start:start + block].long()
-        return torch.einsum("mbd,bd->mb", qstate[:, tag, :],
-                            self.x_low[start:start + block])
+        return _mask_live_block(self.live, start, block, torch.einsum(
+            "mbd,bd->mb", qstate[:, tag, :], self.x_low[start:start + block]))
 
     def score_ids(self, qstate: torch.Tensor, ids: torch.Tensor):
         ids = ids.long()
         q_sel = _gather_views(qstate, self.tags[ids].long())   # (m, p, d)
-        return torch.sum(q_sel * self.x_low[ids], dim=-1)
+        return _mask_live_ids(self.live, ids,
+                              torch.sum(q_sel * self.x_low[ids], dim=-1))
+
+    def translate_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        return _translate_live(self.live, self.n_rows, ids)
+
+    # ---- streaming row-level ops (Section 3.2) ----
+
+    def insert_rows(self, ids: torch.Tensor, rows: torch.Tensor,
+                    model=None) -> "GleanVecScorer":
+        tags_new, enc = gv.encode_database(model, rows)
+        return self._replace(
+            x_low=_put(self.x_low, ids, enc),
+            tags=_put(self.tags, ids, tags_new),
+            live=_set_live(self.live, ids, True, self.n_rows,
+                           self.x_low.device))
+
+    def remove_rows(self, ids: torch.Tensor) -> "GleanVecScorer":
+        return self._replace(live=_set_live(self.live, ids, False,
+                                            self.n_rows, self.x_low.device))
+
+    def refresh(self, model, transition=None, x_full=None,
+                pending=None) -> "GleanVecScorer":
+        """Per-cluster Eq. 12: row i maps through T_{tag_i} ((C, d, d)
+        ``transition``), or re-encodes exactly from ``x_full``; one product
+        per cluster. Tags are untouched (the landmarks are fixed under
+        streaming)."""
+        if x_full is not None:
+            new_low = gv.project_per_cluster(x_full, self.tags, model.b)
+        else:
+            new_low = gv.project_per_cluster(self.x_low, self.tags,
+                                             transition)
+        if pending is not None:
+            new_low = torch.where(pending[:, None], new_low, self.x_low)
+        return self._replace(x_low=new_low, a=model.a)
 
     def encode_centers(self, centers: torch.Tensor,
                        model=None) -> "GleanVecScorer":
@@ -203,6 +393,11 @@ class QuantizedScorer(NamedTuple):
     lo: torch.Tensor                    # (d,)
     delta: torch.Tensor                 # (d,)
     a: Optional[torch.Tensor] = None    # (d, D)
+    live: Optional[torch.Tensor] = None  # (n,) bool slot mask (None = all)
+
+    @property
+    def n_rows(self) -> int:
+        return self.codes.shape[0]
 
     def prepare_queries(self, queries: torch.Tensor) -> QuantQueryState:
         q = queries.to(torch.float32)
@@ -214,12 +409,51 @@ class QuantizedScorer(NamedTuple):
     def score_block(self, qstate: QuantQueryState, start: int,
                     block: int) -> torch.Tensor:
         c = self.codes[start:start + block].to(torch.float32)
-        return qstate.q_scaled @ c.T + qstate.q_lo[:, None]
+        return _mask_live_block(self.live, start, block,
+                                qstate.q_scaled @ c.T + qstate.q_lo[:, None])
 
     def score_ids(self, qstate: QuantQueryState, ids: torch.Tensor):
         c = self.codes[ids.long()].to(torch.float32)   # (m, p, d)
-        return torch.einsum("mpd,md->mp", c, qstate.q_scaled) \
-            + qstate.q_lo[:, None]
+        return _mask_live_ids(self.live, ids,
+                              torch.einsum("mpd,md->mp", c, qstate.q_scaled)
+                              + qstate.q_lo[:, None])
+
+    def translate_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        return _translate_live(self.live, self.n_rows, ids)
+
+    # ---- streaming row-level ops (Section 3.2) ----
+
+    def insert_rows(self, ids: torch.Tensor, rows: torch.Tensor,
+                    model=None) -> "QuantizedScorer":
+        """Code new rows under the EXISTING scales (clipped if they fall
+        outside the fitted range); the next ``refresh`` refits them."""
+        rows = rows.to(torch.float32)
+        low = rows if self.a is None else rows @ model.b.T
+        return self._replace(
+            codes=_put(self.codes, ids, _code_rows(low, self.lo[None, :],
+                                                   self.delta[None, :])),
+            live=_set_live(self.live, ids, True, self.n_rows,
+                           self.codes.device))
+
+    def remove_rows(self, ids: torch.Tensor) -> "QuantizedScorer":
+        return self._replace(live=_set_live(self.live, ids, False,
+                                            self.n_rows, self.codes.device))
+
+    def refresh(self, model, transition=None, x_full=None,
+                pending=None) -> "QuantizedScorer":
+        """Dequantize, Eq. 12 reproject (or re-encode from ``x_full``),
+        requantize with scales fitted over the live rows."""
+        old_low = quant.dequantize(quant.SQDatabase(self.codes, self.lo,
+                                                    self.delta))
+        if x_full is not None:
+            new_low = x_full.to(torch.float32) @ model.b.T
+        else:
+            new_low = old_low @ transition.T
+        if pending is not None:
+            new_low = torch.where(pending[:, None], new_low, old_low)
+        db = quant.quantize(new_low, valid=self.live)
+        return self._replace(codes=db.codes, lo=db.lo, delta=db.delta,
+                             a=model.a)
 
     def encode_centers(self, centers: torch.Tensor,
                        model=None) -> "QuantizedScorer":
@@ -244,6 +478,11 @@ class GleanVecQuantizedScorer(NamedTuple):
     lo: torch.Tensor                    # (C, d)
     delta: torch.Tensor                 # (C, d)
     a: torch.Tensor                     # (C, d, D)
+    live: Optional[torch.Tensor] = None  # (n,) bool slot mask (None = all)
+
+    @property
+    def n_rows(self) -> int:
+        return self.codes.shape[0]
 
     def prepare_queries(self, queries: torch.Tensor) -> QuantQueryState:
         qv = _views(self.a, queries)                       # (m, C, d)
@@ -254,21 +493,108 @@ class GleanVecQuantizedScorer(NamedTuple):
                     block: int) -> torch.Tensor:
         tag = self.tags[start:start + block].long()
         c = self.codes[start:start + block].to(torch.float32)
-        return torch.einsum("mbd,bd->mb", qstate.q_scaled[:, tag, :], c) \
-            + qstate.q_lo[:, tag]
+        return _mask_live_block(
+            self.live, start, block,
+            torch.einsum("mbd,bd->mb", qstate.q_scaled[:, tag, :], c)
+            + qstate.q_lo[:, tag])
 
     def score_ids(self, qstate: QuantQueryState, ids: torch.Tensor):
         ids = ids.long()
         tag = self.tags[ids].long()                        # (m, p)
         c = self.codes[ids].to(torch.float32)              # (m, p, d)
         q_sel = _gather_views(qstate.q_scaled, tag)
-        return torch.sum(q_sel * c, dim=-1) \
-            + torch.gather(qstate.q_lo, 1, tag)
+        return _mask_live_ids(self.live, ids, torch.sum(q_sel * c, dim=-1)
+                              + torch.gather(qstate.q_lo, 1, tag))
+
+    def translate_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        return _translate_live(self.live, self.n_rows, ids)
+
+    # ---- streaming row-level ops (Section 3.2) ----
+
+    def insert_rows(self, ids: torch.Tensor, rows: torch.Tensor,
+                    model=None) -> "GleanVecQuantizedScorer":
+        """Tag, project and code new rows under the EXISTING per-cluster
+        scales (clipped); the next ``refresh`` refits them."""
+        tags_new, low = gv.encode_database(model, rows)
+        t = tags_new.long()
+        return self._replace(
+            codes=_put(self.codes, ids,
+                       _code_rows(low, self.lo[t], self.delta[t])),
+            tags=_put(self.tags, ids, tags_new),
+            live=_set_live(self.live, ids, True, self.n_rows,
+                           self.codes.device))
+
+    def remove_rows(self, ids: torch.Tensor) -> "GleanVecQuantizedScorer":
+        return self._replace(live=_set_live(self.live, ids, False,
+                                            self.n_rows, self.codes.device))
+
+    def refresh(self, model, transition=None, x_full=None,
+                pending=None) -> "GleanVecQuantizedScorer":
+        """Per-cluster dequantize, T_tag reprojection (or exact re-encode
+        from ``x_full``), per-cluster requantize over the live rows."""
+        t = self.tags.long()
+        old_low = self.codes.to(torch.float32) * self.delta[t] + self.lo[t]
+        if x_full is not None:
+            new_low = gv.project_per_cluster(x_full, self.tags, model.b)
+        else:
+            new_low = gv.project_per_cluster(old_low, self.tags, transition)
+        if pending is not None:
+            new_low = torch.where(pending[:, None], new_low, old_low)
+        db = quant.quantize_per_cluster(new_low, self.tags,
+                                        self.lo.shape[0], valid=self.live)
+        return self._replace(codes=db.codes, lo=db.lo, delta=db.delta,
+                             a=model.a)
 
     def encode_centers(self, centers: torch.Tensor,
                        model=None) -> "GleanVecQuantizedScorer":
         return _center_pseudo_scorer(centers, model, self.lo, self.delta,
                                      self.a)
+
+
+def _sorted_insert(scorer, field: str, ids, enc, tags_new):
+    """The sorted layouts' ``insert_rows``: claim slots in the new rows'
+    clusters (releasing re-inserted ids' old slots) and write ``enc`` into
+    ``field`` there. The layout's shape never changes."""
+    ids = ids.long()
+    slots, freed = _sorted_claim_slots(scorer.perm, scorer.inv_perm,
+                                       scorer.block_tags,
+                                       scorer.layout_block, ids, tags_new)
+    perm = _put(scorer.perm, freed, -1) if freed.numel() else scorer.perm
+    return scorer._replace(**{
+        field: _put(getattr(scorer, field), slots, enc),
+        "perm": _put(perm, slots, ids),
+        "inv_perm": _put(scorer.inv_perm, ids, slots)})
+
+
+def _sorted_remove(scorer, ids):
+    ids = ids.long()
+    slots = scorer.inv_perm[ids].long()
+    slots = slots[slots >= 0]
+    return scorer._replace(perm=_put(scorer.perm, slots, -1),
+                           inv_perm=_put(scorer.inv_perm, ids, -1))
+
+
+def _sorted_refresh_low(scorer, old_low, model, transition, x_full,
+                        pending, zero_padding: bool):
+    """New reduced rows of a sorted layout: per cluster over its blocks
+    (every block has one tag), T_c over ``old_low`` or B_c over the rows'
+    full-precision vectors (padding rows read row 0, and are set to 0 with
+    ``zero_padding``, as the reference's f32 layout does)."""
+    row_tags = scorer.row_tags
+    valid = scorer.perm >= 0
+    safe = torch.where(valid, scorer.perm, torch.zeros_like(scorer.perm))
+    if x_full is not None:
+        new_low = gv.project_per_cluster(x_full, row_tags, model.b,
+                                         src=safe.long())
+        if zero_padding:
+            new_low = torch.where(valid[:, None], new_low,
+                                  torch.zeros_like(new_low))
+    else:
+        new_low = gv.project_per_cluster(old_low, row_tags, transition)
+    if pending is not None:
+        p_rows = valid & pending[safe.long()]
+        new_low = torch.where(p_rows[:, None], new_low, old_low)
+    return new_low, valid
 
 
 class SortedGleanVecScorer(NamedTuple):
@@ -285,8 +611,17 @@ class SortedGleanVecScorer(NamedTuple):
     list_block_ranges: Optional[torch.Tensor] = None
 
     @property
+    def n_rows(self) -> int:
+        return self.x_low.shape[0]
+
+    @property
     def layout_block(self) -> int:
         return self.x_low.shape[0] // self.block_tags.shape[0]
+
+    @property
+    def row_tags(self) -> torch.Tensor:
+        """(ns,) tag of every sorted row."""
+        return torch.repeat_interleave(self.block_tags, self.layout_block)
 
     def prepare_queries(self, queries: torch.Tensor) -> torch.Tensor:
         if self.a is None:
@@ -315,6 +650,27 @@ class SortedGleanVecScorer(NamedTuple):
         row-aligned GleanVec scorer, so its companion is one too."""
         return _center_views_scorer(centers, model)
 
+    # ---- streaming row-level ops (Section 3.2) ----
+
+    def insert_rows(self, ids: torch.Tensor, rows: torch.Tensor,
+                    model=None) -> "SortedGleanVecScorer":
+        """Claim free slots inside each new row's cluster blocks (already
+        live ids release their old slot first: re-insert == overwrite)."""
+        tags_new, enc = gv.encode_database(model, rows)
+        return _sorted_insert(self, "x_low", ids, enc, tags_new)
+
+    def remove_rows(self, ids: torch.Tensor) -> "SortedGleanVecScorer":
+        return _sorted_remove(self, ids)
+
+    def refresh(self, model, transition=None, x_full=None,
+                pending=None) -> "SortedGleanVecScorer":
+        """Per-cluster Eq. 12 over the sorted rows; padding rows stay
+        masked by ``perm``."""
+        new_low, _ = _sorted_refresh_low(self, self.x_low, model,
+                                         transition, x_full, pending,
+                                         zero_padding=True)
+        return self._replace(x_low=new_low, a=model.a)
+
 
 class SortedGleanVecQuantizedScorer(NamedTuple):
     """GleanVec o int8 over the tag-sorted layout (same id translation as
@@ -330,8 +686,17 @@ class SortedGleanVecQuantizedScorer(NamedTuple):
     list_block_ranges: Optional[torch.Tensor] = None   # (C, max_blocks)
 
     @property
+    def n_rows(self) -> int:
+        return self.codes.shape[0]
+
+    @property
     def layout_block(self) -> int:
         return self.codes.shape[0] // self.block_tags.shape[0]
+
+    @property
+    def row_tags(self) -> torch.Tensor:
+        """(ns,) tag of every sorted row."""
+        return torch.repeat_interleave(self.block_tags, self.layout_block)
 
     def prepare_queries(self, queries: torch.Tensor) -> QuantQueryState:
         qv = _views(self.a, queries)
@@ -356,6 +721,36 @@ class SortedGleanVecQuantizedScorer(NamedTuple):
                        model=None) -> "GleanVecQuantizedScorer":
         return _center_pseudo_scorer(centers, model, self.lo, self.delta,
                                      self.a)
+
+    # ---- streaming row-level ops (Section 3.2) ----
+
+    def insert_rows(self, ids: torch.Tensor, rows: torch.Tensor,
+                    model=None) -> "SortedGleanVecQuantizedScorer":
+        """Claim free slots in the new rows' clusters; code under the
+        EXISTING per-cluster scales (refit at the next refresh)."""
+        tags_new, low = gv.encode_database(model, rows)
+        t = tags_new.long()
+        enc = _code_rows(low, self.lo[t], self.delta[t])
+        return _sorted_insert(self, "codes", ids, enc, tags_new)
+
+    def remove_rows(self, ids: torch.Tensor
+                    ) -> "SortedGleanVecQuantizedScorer":
+        return _sorted_remove(self, ids)
+
+    def refresh(self, model, transition=None, x_full=None,
+                pending=None) -> "SortedGleanVecQuantizedScorer":
+        """Per-cluster dequantize, T_c reprojection (or exact re-encode
+        from ``x_full``), per-cluster requantize; padding rows are left out
+        of the refitted ranges."""
+        t = self.row_tags.long()
+        old_low = self.codes.to(torch.float32) * self.delta[t] + self.lo[t]
+        new_low, valid = _sorted_refresh_low(self, old_low, model,
+                                             transition, x_full, pending,
+                                             zero_padding=False)
+        db = quant.quantize_per_cluster(new_low, t, self.lo.shape[0],
+                                        valid=valid)
+        return self._replace(codes=db.codes, lo=db.lo, delta=db.delta,
+                             a=model.a)
 
 
 Scorer = Union[LinearScorer, GleanVecScorer, QuantizedScorer,

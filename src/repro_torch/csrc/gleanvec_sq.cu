@@ -23,178 +23,20 @@
 //     product, run by the register-tiled fp32 scan of scan_gemm.cuh with the
 //     tile's view q_scaled[:, tag, :] and offset q_lo[:, tag]. A tile never
 //     crosses a layout block. Same FMA bound as ip_topk.
-//   * gathered: the TPU selects views with a one-hot matmul; here a block
-//     keeps the C views of TMG <= 4 queries in shared memory (C * (d + 1) * 4
-//     bytes per query, 31 KB at C = 48, d = 160) and one thread scores one
-//     row against them, reading q_scaled[m, tag_n, :] directly. Each tile's
-//     rows are first counting-sorted by tag in shared memory (the staging
-//     copy writes each row to its sorted slot), so the 32 lanes of a warp
-//     read the views of a few neighbouring tags: with the odd row stride
-//     d + 1 those fall in distinct banks or broadcast, where rows in stored
-//     order would hit random tags and conflict. Each FMA still needs its own
-//     view element from shared memory, so this path is bound by
-//     shared-memory bandwidth (32 four-byte words per clock per SM against
-//     128 FMAs), a quarter of the FMA peak at best. That is the cost the
-//     sorted layout exists to remove.
+//   * gathered: the per-row-tag tile of gather_scan.cuh (views of <= 4
+//     queries in shared memory, rows counting-sorted by tag per tile), bound
+//     by shared-memory reads of the views: a quarter of the FMA peak at best.
+//     That is the cost the sorted layout exists to remove.
 // N is split across blocks; a second kernel merges the (M, S, k) partial
 // lists (topk_common.cuh). All arithmetic is fp32 FMA, no TF32.
 #include "scan_gemm.cuh"
+#include "gather_scan.cuh"
 #include "error.cuh"
-
-constexpr int GG_N = 256;  // rows per tile, one per thread
-constexpr int GG_K = 32;   // depth chunk staged in shared memory
-constexpr int GG_THREADS = 256;
-
-struct GatherArgs {
-  const float* qs;      // (M, C, d)
-  const float* qlo;     // (M, C)
-  const int* tags;      // (N,)
-  const int* row_ids;   // optional (N,)
-  const void* x;        // (N, d)
-  int M, C, d, N, k, S;
-  float* pv;
-  int* pi;
-};
-
-static size_t gathered_smem(int tmg, int C, int d, int k) {
-  return ((size_t)tmg * C * (d + 1) + (size_t)tmg * C + (size_t)tmg * k * 2 +
-          (size_t)GG_K * (GG_N + 1) + (size_t)tmg * GG_N + 3 * GG_N + C + 1) * 4;
-}
-
-template <typename XT, int TMG>
-__global__ void __launch_bounds__(GG_THREADS) gathered_scan_topk_kernel(GatherArgs a) {
-  extern __shared__ float gg[];
-  const int dp = a.d + 1;
-  float* qv = gg;                                 // TMG * C * dp
-  float* lo = qv + (size_t)TMG * a.C * dp;        // TMG * C
-  float* lv = lo + TMG * a.C;                     // TMG * k
-  int* li = reinterpret_cast<int*>(lv + TMG * a.k);
-  float* xs = reinterpret_cast<float*>(li + TMG * a.k);  // GG_K * (GG_N + 1)
-  float* sc = xs + GG_K * (GG_N + 1);             // TMG * GG_N
-  int* tid = reinterpret_cast<int*>(sc + TMG * GG_N);    // GG_N, sorted slots
-  int* stag = tid + GG_N;                         // GG_N, tag of each slot
-  int* rowpos = stag + GG_N;                      // GG_N, slot of each row
-  int* hist = rowpos + GG_N;                      // C + 1 (C = past the end)
-
-  const int m0 = blockIdx.x * TMG;
-  const int s = blockIdx.y;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const XT* x = static_cast<const XT*>(a.x);
-  const int cd = a.C * a.d;
-
-  for (int e = t; e < TMG * cd; e += GG_THREADS) {
-    const int m = e / cd, rem = e % cd, c = rem / a.d, j = rem % a.d;
-    qv[(m * a.C + c) * dp + j] = (m0 + m < a.M) ? a.qs[(size_t)(m0 + m) * cd + rem] : 0.f;
-  }
-  for (int e = t; e < TMG * a.C; e += GG_THREADS) {
-    const int m = e / a.C;
-    lo[e] = (m0 + m < a.M) ? a.qlo[(size_t)(m0 + m) * a.C + e % a.C] : 0.f;
-  }
-  for (int e = t; e < TMG * a.k; e += GG_THREADS) {
-    lv[e] = NEG_INF_F;
-    li[e] = -1;
-  }
-  const long long r0 = (long long)a.N * s / a.S, r1 = (long long)a.N * (s + 1) / a.S;
-  __syncthreads();
-
-  for (long long nb = r0; nb < r1; nb += GG_N) {
-    // counting sort of the tile's rows by tag: row t goes to slot rowpos[t]
-    for (int c = t; c <= a.C; c += GG_THREADS) hist[c] = 0;
-    __syncthreads();
-    const long long n = nb + t;
-    int tag = a.C, id = -1;  // rows past the split's end: bucket C, masked
-    if (n < r1) {
-      tag = min(max(a.tags[n], 0), a.C - 1);
-      id = a.row_ids ? a.row_ids[n] : (int)n;
-    }
-    const int slot = atomicAdd(&hist[tag], 1);
-    __syncthreads();
-    if (warp == 0) {  // exclusive prefix sum of hist[0..C]
-      int carry = 0;
-      for (int base = 0; base <= a.C; base += 32) {
-        const int c = base + lane;
-        const int h = c <= a.C ? hist[c] : 0;
-        int incl = h;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int y = __shfl_up_sync(0xffffffffu, incl, off);
-          if (lane >= off) incl += y;
-        }
-        if (c <= a.C) hist[c] = carry + incl - h;
-        carry += __shfl_sync(0xffffffffu, incl, 31);
-      }
-    }
-    __syncthreads();
-    const int pos = hist[tag] + slot;
-    rowpos[t] = pos;
-    stag[pos] = tag;
-    tid[pos] = id;
-    __syncthreads();
-    const int my_tag = min(stag[t], a.C - 1);  // thread t scores slot t
-    float acc[TMG];
-#pragma unroll
-    for (int m = 0; m < TMG; ++m) acc[m] = 0.f;
-    for (int kc = 0; kc < a.d; kc += GG_K) {
-      const int dd = kc + lane;
-#pragma unroll  // all 32 loads in flight at once: the tile waits on them
-      for (int r = 0; r < GG_N / 8; ++r) {
-        const int nn = warp + 8 * r;
-        const long long row = nb + nn;
-        float val = 0.f;
-        if (row < r1 && dd < a.d) val = static_cast<float>(x[(size_t)row * a.d + dd]);
-        xs[lane * (GG_N + 1) + rowpos[nn]] = val;
-      }
-      __syncthreads();
-      const int kmax = min(GG_K, a.d - kc);
-      const float* qt = qv + my_tag * dp + kc;
-#pragma unroll 8
-      for (int kk = 0; kk < kmax; ++kk) {
-        const float xv = xs[kk * (GG_N + 1) + t];
-#pragma unroll
-        for (int m = 0; m < TMG; ++m)
-          acc[m] = fmaf(qt[(size_t)m * a.C * dp + kk], xv, acc[m]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int m = 0; m < TMG; ++m) sc[m * GG_N + t] = acc[m] + lo[m * a.C + my_tag];
-    __syncthreads();
-    const int tn = (int)min((long long)GG_N, r1 - nb);
-    for (int r = warp; r < TMG; r += GG_THREADS / 32)
-      if (m0 + r < a.M)
-        topk_update_row(sc + r * GG_N, tid, tn, lv + r * a.k, li + r * a.k, a.k, lane);
-    __syncthreads();
-  }
-
-  for (int e = t; e < TMG * a.k; e += GG_THREADS) {
-    const int r = e / a.k, j = e % a.k, m = m0 + r;
-    if (m < a.M) {
-      const size_t o = ((size_t)m * a.S + s) * a.k + j;
-      a.pv[o] = lv[e];
-      a.pi[o] = li[e];
-    }
-  }
-}
-
-template <typename XT, int TMG>
-static cudaError_t launch_gathered(const GatherArgs& a, cudaStream_t stream) {
-  const size_t smem = gathered_smem(TMG, a.C, a.d, a.k);
-  cudaError_t err = cudaFuncSetAttribute(gathered_scan_topk_kernel<XT, TMG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.M + TMG - 1) / TMG, a.S);
-  gathered_scan_topk_kernel<XT, TMG><<<grid, GG_THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
-}
 
 // Queries per block of the gathered path: the most (4, 2 or 1) whose views
 // fit the 227 KB a block may use; 0 = none fits.
 extern "C" int gleanvec_sq_gathered_queries_per_block(int C, int d, int k) {
-  const size_t cap = 232448;
-  for (int tmg = 4; tmg >= 1; tmg >>= 1)
-    if (gathered_smem(tmg, C, d, k) <= cap) return tmg;
-  return 0;
+  return gathered_tmg(C, d, k);
 }
 
 template <typename XT>
@@ -204,11 +46,7 @@ static int gathered_impl(const float* qs, const float* qlo, const int* tags,
                          float* out_v, int* out_i, void* stream) {
   GatherArgs a{qs, qlo, tags, row_ids, codes, M, C, d, N, k, S, pv, pi};
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (tmg == 4) err = launch_gathered<XT, 4>(a, st);
-  else if (tmg == 2) err = launch_gathered<XT, 2>(a, st);
-  else if (tmg == 1) err = launch_gathered<XT, 1>(a, st);
-  else return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_gathered_tmg<XT, false>(a, tmg, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_topk_merge(pv, pi, M, S, k, out_v, out_i, st);
 }

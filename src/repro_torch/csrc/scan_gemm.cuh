@@ -15,6 +15,9 @@
 // through shared memory in depth chunks of GT_K = 32), adds the per-query
 // affine offset of the tile's view, and folds the tile into its per-query
 // top-k lists (topk_common.cuh). The dense (M, N) score matrix never exists.
+// The DENSE instantiation (dense_scores.cu: sq_dot, the sorted layout of
+// dense gleanvec_sq) runs the same tiles and writes each score tile to the
+// (M, N) output instead of folding it.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -45,7 +48,7 @@ struct GemmScanArgs {
   int M;
   int k;
   int S;                // splits of the row tiles (partial slots per query)
-  float* pv;            // (M, S, k) partial lists
+  float* pv;            // (M, S, k) partial lists; DENSE: (M, N) scores
   int* pi;
   const int* work = nullptr;     // optional (W, 3): segment, first entry, count
   const int* n_work = nullptr;   // device count of valid work items
@@ -58,8 +61,10 @@ struct GemmScanArgs {
 // staging plain arithmetic. MIN_BLOCKS resident blocks per SM set the
 // register budget: 3 (at most 85 a thread) where the shared memory of three
 // blocks fits (small k), else 2 (at most 128, which the scan needs to run
-// without spills).
-template <typename XT, bool LIST, int MIN_BLOCKS>
+// without spills). DENSE (with k = 0, LIST = false) stores every tile to
+// the (M, N) matrix at a.pv; the top-k lists are empty and nothing is
+// folded.
+template <typename XT, bool LIST, int MIN_BLOCKS, bool DENSE = false>
 __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
     gemm_scan_topk_kernel(GemmScanArgs a) {
   extern __shared__ __align__(16) unsigned char gsmem[];
@@ -180,10 +185,21 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
           make_float4(acc[i][4] + lo, acc[i][5] + lo, acc[i][6] + lo, acc[i][7] + lo);
     }
     __syncthreads();
-    for (int r = warp; r < GT_M; r += GT_THREADS / 32)
-      if (query_of(r) >= 0)
-        topk_update_row(sc + r * GT_N, tile_ids, n1 - n0, lv + r * a.k, li + r * a.k,
-                        a.k, lane);
+    if constexpr (DENSE) {
+      // one warp per query row: 32 consecutive columns per store
+      for (int r = warp; r < GT_M; r += GT_THREADS / 32) {
+        const int m = query_of(r);
+        if (m >= 0) {
+          float* orow = a.pv + (size_t)m * a.N + n0;
+          for (int c = lane; c < n1 - n0; c += 32) orow[c] = sc[r * GT_N + c];
+        }
+      }
+    } else {
+      for (int r = warp; r < GT_M; r += GT_THREADS / 32)
+        if (query_of(r) >= 0)
+          topk_update_row(sc + r * GT_N, tile_ids, n1 - n0, lv + r * a.k, li + r * a.k,
+                          a.k, lane);
+    }
     __syncthreads();
   }
 
@@ -226,4 +242,17 @@ static cudaError_t launch_gemm_scan(const GemmScanArgs& a, float* out_v, int* ou
       launch_gemm_scan_blocks<XT>(a, dim3((a.M + GT_M - 1) / GT_M, a.S), stream);
   if (err != cudaSuccess) return err;
   return launch_topk_merge(a.pv, a.pi, a.M, a.S, a.k, out_v, out_i, stream);
+}
+
+// Dense (M, N) scores over query tiles x a.S splits of the row tiles (no
+// top-k lists, no merge). k must be 0.
+template <typename XT>
+static cudaError_t launch_gemm_dense(const GemmScanArgs& a, cudaStream_t stream) {
+  const size_t smem = GT_N * 4 + GT_M * 4 + GT_STAGE * 4;
+  auto kernel = gemm_scan_topk_kernel<XT, false, 3, true>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.M + GT_M - 1) / GT_M, a.S), GT_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
 }

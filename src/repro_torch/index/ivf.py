@@ -18,9 +18,12 @@ tag-sorted scorer's GleanVec clustering (:func:`build_aligned`),
 probed clusters' slabs go through the ``ivf_scan_topk`` kernel, and no
 (m, nprobe * L) candidate or score matrix is made.
 
-Streaming (``with_list_slack``, ``insert_ids``, ``remove_ids``,
-``refreshed``) and the sharded build functions come with later parts of
-the port.
+Streaming stores grow the posting lists in place of fixed width:
+:func:`with_list_slack` pre-allocates -1 slots, :func:`insert_ids` fills
+them (on the device, one stable sort), :func:`remove_ids` frees them, and
+``IVFIndex.refreshed`` re-encodes the reduced-space center companion after
+a model refresh. The sharded build functions come with a later part of the
+port.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ from repro_torch.device import resolve_device
 from repro_torch.index.topk import NEG_INF
 
 __all__ = ["IVFIndex", "IVFQueryState", "build", "build_aligned",
-           "with_reduced_centers", "coarse_scores", "search_scorer",
+           "with_reduced_centers", "with_list_slack", "insert_ids",
+           "remove_ids", "coarse_scores", "search_scorer",
            "GATHER_BUDGET_BYTES"]
 
 # Largest (chunk, nprobe * max_len, d) gather of the gathered fine step, in
@@ -89,6 +93,15 @@ class IVFIndex:
     def search(self, queries, scorer, k: int):
         return self.candidates(self.prepare_queries(scorer, queries),
                                scorer, k)
+
+    def refreshed(self, scorer, model) -> "IVFIndex":
+        """Streaming-refresh hook: the reduced-space center companion came
+        from the OLD model's projections, so re-encode it under the
+        refreshed scorer and model (same class, same shapes)."""
+        if self.center_scorer is None:
+            return self
+        return dataclasses.replace(
+            self, center_scorer=scorer.encode_centers(self.centers, model))
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +164,57 @@ def with_reduced_centers(index: IVFIndex, scorer, model=None) -> IVFIndex:
     probe then consumes the scorer's prepared queries (R^d)."""
     return dataclasses.replace(
         index, center_scorer=scorer.encode_centers(index.centers, model))
+
+
+def with_list_slack(index: IVFIndex, extra: int) -> IVFIndex:
+    """Widen every posting list by ``extra`` -1 slots (at build time: this
+    changes the lists' shape), so later :func:`insert_ids` calls keep it.
+    ``extra`` is per list and sets the gathered probe's width."""
+    pad = torch.full((index.n_lists, extra), -1, dtype=index.lists.dtype,
+                     device=index.lists.device)
+    return dataclasses.replace(index,
+                               lists=torch.cat([index.lists, pad], dim=1))
+
+
+def insert_ids(index: IVFIndex, vecs, ids) -> IVFIndex:
+    """Append external ``ids`` (full-D ``vecs``) to their nearest centers'
+    lists, filling -1 slots in ascending column order (the r-th insert of
+    list c takes c's r-th free slot, as the reference); the lists keep
+    their shape. Raises when a list is out of slack."""
+    lists = index.lists
+    dev = lists.device
+    x_unit = spherical_kmeans.normalize_rows(
+        torch.as_tensor(vecs, dtype=torch.float32, device=dev))
+    tags = spherical_kmeans.assign(x_unit,
+                                   index.centers.contiguous()).long()
+    ids = torch.as_tensor(ids, device=dev).to(lists.dtype)
+    free = lists < 0
+    need = torch.bincount(tags, minlength=index.n_lists)
+    short = torch.nonzero(need > free.sum(dim=1)).squeeze(1)
+    if short.numel():
+        raise ValueError(
+            f"posting list {int(short[0])} is full; pre-allocate slack "
+            "with with_list_slack before serving streams")
+    frank = torch.cumsum(free.to(torch.int64), dim=1) - 1
+    rows_f, cols_f = torch.nonzero(free, as_tuple=True)
+    slot_of_rank = torch.zeros_like(lists, dtype=torch.int64)
+    slot_of_rank[rows_f, frank[rows_f, cols_f]] = cols_f
+    order = torch.argsort(tags, stable=True)
+    starts = torch.cumsum(need, 0) - need
+    t = tags[order]
+    rank = torch.arange(t.numel(), device=dev) - starts[t]
+    lists = lists.index_put((t, slot_of_rank[t, rank]), ids[order])
+    return dataclasses.replace(index, lists=lists)
+
+
+def remove_ids(index: IVFIndex, ids) -> IVFIndex:
+    """Drop external ``ids`` from every posting list (their slots become
+    free); the lists keep their shape."""
+    ids = torch.as_tensor(ids, device=index.lists.device).to(
+        index.lists.dtype)
+    lists = torch.where(torch.isin(index.lists, ids),
+                        torch.full_like(index.lists, -1), index.lists)
+    return dataclasses.replace(index, lists=lists)
 
 
 # ---------------------------------------------------------------------------

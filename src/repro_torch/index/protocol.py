@@ -7,8 +7,10 @@ answers
 
 Members so far: ``FlatIndex`` here, and ``IVFIndex`` in
 :mod:`repro_torch.index.ivf` (gathered fine step for every scorer, the
-gather-free ``ivf_scan_topk`` fine step for aligned sorted layouts). Graph
-and sharded indexes come with later parts of the port.
+gather-free ``ivf_scan_topk`` fine step for aligned sorted layouts). Both
+have the streaming hook ``refreshed(scorer, model)``, which
+``streaming.refresh_state`` calls. Graph and sharded indexes come with
+later parts of the port.
 """
 from __future__ import annotations
 
@@ -22,7 +24,10 @@ class FlatIndex:
     """Exhaustive scan: ``candidates`` is the fused scan + top-k kernel of
     the scorer (``kernels.scorer_topk_prepared``); on CPU tensors that is
     the kernel's plain version. The kernels tile the rows themselves, so
-    the reference's ``block`` setting has no counterpart."""
+    the reference's ``block`` setting has no counterpart. Ids come out in
+    the original space with dead slots of a streaming store as -1 (the
+    lowering translates them, as the reference's ``translate_ids``), so
+    they never reach the rerank."""
 
     def prepare_queries(self, scorer, queries):
         return scorer.prepare_queries(queries)
@@ -34,3 +39,8 @@ class FlatIndex:
     def search(self, queries, scorer, k: int):
         return self.candidates(self.prepare_queries(scorer, queries),
                                scorer, k)
+
+    def refreshed(self, scorer, model):
+        """Streaming-refresh hook: nothing here derives from the
+        representation."""
+        return self

@@ -7,9 +7,12 @@ tensors (or raises), and a launch counter (``<wrapper>.launches``).
 
 ``scorer_topk`` / ``scorer_topk_prepared`` map each scorer class of
 :mod:`repro_torch.core.scorer` to its kernel exactly as the reference's
-``repro.kernels.scorer_topk`` does, and ``scorer_scan_lists`` lowers the
-sorted scorers' IVF fine step (``scan_lists``) to ``ivf_scan_topk``; index
-code talks to scorers, and scorers lower here and nowhere else.
+``repro.kernels.scorer_topk`` does (a live-masked linear or int8 store
+through dense scores and ``torch.topk``), ``scorer_scores`` /
+``scorer_scores_prepared`` to its dense-score kernel as the reference's
+``scorer_scores``, and ``scorer_scan_lists`` lowers the sorted scorers' IVF
+fine step (``scan_lists``) to ``ivf_scan_topk``; index code talks to
+scorers, and scorers lower here and nowhere else.
 
 This module also builds the kernels: ``nvcc`` compiles each source into
 its own shared library with a plain C interface (``build``, one compiler
@@ -30,23 +33,32 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.gleanvec_sq import (gleanvec_sq_topk,
+from repro_torch.index.topk import NEG_INF
+from repro_torch.kernels.gleanvec_ip import gleanvec_ip, gleanvec_ip_plain
+from repro_torch.kernels.gleanvec_sq import (gleanvec_sq, gleanvec_sq_plain,
+                                             gleanvec_sq_topk,
                                              gleanvec_sq_topk_plain)
 from repro_torch.kernels.ip_topk import ip_topk, ip_topk_plain
 from repro_torch.kernels.ivf_scan import ivf_scan_topk, ivf_scan_topk_plain
 from repro_torch.kernels.kmeans_assign import (kmeans_assign,
                                                kmeans_assign_plain)
+from repro_torch.kernels.sq_dot import (sq_dot, sq_dot_folded,
+                                        sq_dot_folded_plain)
 
 __all__ = ["ip_topk", "ip_topk_plain", "gleanvec_sq_topk",
            "gleanvec_sq_topk_plain", "kmeans_assign", "kmeans_assign_plain",
-           "ivf_scan_topk", "ivf_scan_topk_plain", "scorer_topk",
-           "scorer_topk_prepared", "scorer_scan_lists", "build",
+           "ivf_scan_topk", "ivf_scan_topk_plain", "sq_dot", "sq_dot_folded",
+           "sq_dot_folded_plain", "gleanvec_ip",
+           "gleanvec_ip_plain", "gleanvec_sq", "gleanvec_sq_plain",
+           "scorer_topk", "scorer_topk_prepared", "scorer_scores",
+           "scorer_scores_prepared", "scorer_scan_lists", "build",
            "load_library", "library_path", "KERNEL_SOURCES", "BUILD_DIR",
            "MAX_K"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNEL_SOURCES = ("ip_topk", "gleanvec_sq", "kmeans_assign", "ivf_scan")
+KERNEL_SOURCES = ("ip_topk", "gleanvec_sq", "kmeans_assign", "ivf_scan",
+                  "dense_scores")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -126,19 +138,23 @@ def build(names=KERNEL_SOURCES) -> dict:
 
 
 def load_library(name: str, bind=None):
-    """The loaded library of kernel ``name``, built first if needed.
-    ``bind(lib)`` declares its functions' argument types (once)."""
-    lib = _LIBS.get(name)
-    if lib is None:
+    """The loaded library of kernel source ``name``, built first if needed.
+    ``bind(lib)`` declares the argument types of the functions its caller
+    uses; each binder runs once per library (one source may serve several
+    wrappers, each with its own binder)."""
+    entry = _LIBS.get(name)
+    if entry is None:
         path = library_path(name)
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
-        if bind is not None:
-            bind(lib)
-        _LIBS[name] = lib
+        entry = _LIBS[name] = (lib, set())
+    lib, bound = entry
+    if bind is not None and bind not in bound:
+        bind(lib)
+        bound.add(bind)
     return lib
 
 
@@ -179,7 +195,8 @@ def splits(row_tiles: int, query_blocks: int, k: int, blocks_per_sm: int,
            device) -> int:
     """How many blocks share one query block's rows: enough for about four
     waves of resident blocks, no more than there are row tiles, and few
-    enough that the merge kernel sorts at most ``MERGE_MAX`` candidates."""
+    enough that the merge kernel sorts at most ``MERGE_MAX`` candidates
+    (the dense kernels have no merge and pass ``k=1``)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = -(-4 * sms * blocks_per_sm // max(query_blocks, 1))
     return max(1, min(want, row_tiles, MERGE_MAX // k))
@@ -201,20 +218,95 @@ def check_launch(name: str, err: int, lib) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _mask_dead(scores, keep):
+    """Dead columns (``keep`` False) to NEG_INF, in place: the (m, n)
+    matrix may be the largest tensor of the call."""
+    return scores.masked_fill_(~keep[None, :], NEG_INF)
+
+
+def scorer_scores_prepared(scorer, qstate):
+    """Dense (m, n) scores of prepared queries against a scorer's rows,
+    lowered as the reference's ``repro.kernels.scorer_scores``:
+
+    * ``LinearScorer`` -> ``q_low @ x_low.T`` (a plain matmul there too);
+    * ``QuantizedScorer`` -> ``sq_dot`` (its prepared state is the fold);
+    * ``GleanVecScorer`` -> ``gleanvec_ip``;
+    * ``GleanVecQuantizedScorer`` and both sorted layouts -> dense
+      ``gleanvec_sq``; the sorted ones set padding (``perm < 0``) to
+      NEG_INF.
+
+    Column j is row j of the scorer's storage: the original id for the
+    row-aligned scorers, sorted row j for the sorted ones. Dead slots of a
+    ``live`` mask are set to NEG_INF after the kernel."""
+    from repro_torch.core import scorer as sc
+
+    live = getattr(scorer, "live", None)
+    if isinstance(scorer, sc.LinearScorer):
+        scores = qstate @ scorer.x_low.T
+    elif isinstance(scorer, sc.QuantizedScorer):
+        scores = sq_dot_folded(qstate.q_scaled, qstate.q_lo, scorer.codes)
+    elif isinstance(scorer, sc.GleanVecScorer):
+        scores = gleanvec_ip(qstate, scorer.tags, scorer.x_low)
+    elif isinstance(scorer, sc.GleanVecQuantizedScorer):
+        scores = gleanvec_sq(qstate.q_scaled, qstate.q_lo, scorer.tags,
+                             scorer.codes)
+    elif isinstance(scorer, sc.SortedGleanVecScorer):
+        q_lo = torch.zeros(qstate.shape[:2], dtype=torch.float32,
+                           device=qstate.device)        # no affine term
+        scores = gleanvec_sq(qstate, q_lo, scorer.block_tags, scorer.x_low,
+                             layout_block=scorer.layout_block)
+        return _mask_dead(scores, scorer.perm >= 0)
+    elif isinstance(scorer, sc.SortedGleanVecQuantizedScorer):
+        scores = gleanvec_sq(qstate.q_scaled, qstate.q_lo, scorer.block_tags,
+                             scorer.codes, layout_block=scorer.layout_block)
+        return _mask_dead(scores, scorer.perm >= 0)
+    else:
+        raise TypeError(f"no kernel lowering for {type(scorer).__name__}")
+    return scores if live is None else _mask_dead(scores, live)
+
+
+def scorer_scores(scorer, queries):
+    """Prepare ``queries (m, D)`` with the scorer, then
+    :func:`scorer_scores_prepared`."""
+    return scorer_scores_prepared(scorer, scorer.prepare_queries(queries))
+
+
 def scorer_topk_prepared(scorer, qstate, k: int):
     """Fused top-k of an already-prepared query state against a scorer's
     database. Returns (vals (m, k) f32, ids (m, k) i32), ids in the
     ORIGINAL database space (the sorted scorers pass their permutation to
-    the kernel as ``row_ids``). Mirrors ``repro.kernels.scorer_topk``:
+    the kernel as ``row_ids``), -1 where no live row is left. Mirrors
+    ``repro.kernels.scorer_topk``:
 
     * ``LinearScorer`` -> ``ip_topk``;
     * ``QuantizedScorer`` -> ``ip_topk`` over the u8 codes, with the
       query-constant offset <Aq, lo> added to the values outside;
+    * either of the two with a ``live`` mask -> dense scores
+      (:func:`scorer_scores_prepared`: a matmul, or ``sq_dot``) and
+      ``torch.topk``; dead winners translate to -1 (the reference's
+      serving scan does this through ``translate_ids``);
     * the GleanVec family (eager, int8, both sorted layouts) ->
-      ``gleanvec_sq_topk``.
+      ``gleanvec_sq_topk``; a ``live`` mask enters as ``row_ids`` (-1 on
+      dead rows).
     """
     from repro_torch.core import scorer as sc
 
+    live = getattr(scorer, "live", None)
+    live_ids = None
+    if live is not None:
+        if isinstance(scorer, (sc.LinearScorer, sc.QuantizedScorer)):
+            scores = scorer_scores_prepared(scorer, qstate)
+            vals, idx = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+            del scores
+            if vals.shape[1] < k:           # fewer rows than k
+                pad = k - vals.shape[1]
+                vals = torch.nn.functional.pad(vals, (0, pad), value=NEG_INF)
+                idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
+            return vals, scorer.translate_ids(idx.to(torch.int32))
+        live_ids = torch.where(
+            live, torch.arange(live.shape[0], dtype=torch.int32,
+                               device=live.device),
+            torch.full_like(live, -1, dtype=torch.int32))
     if isinstance(scorer, sc.LinearScorer):
         return ip_topk(qstate, scorer.x_low, k)
     if isinstance(scorer, sc.QuantizedScorer):
@@ -223,10 +315,11 @@ def scorer_topk_prepared(scorer, qstate, k: int):
     if isinstance(scorer, sc.GleanVecScorer):
         q_lo = torch.zeros(qstate.shape[:2], dtype=torch.float32,
                            device=qstate.device)        # no affine term
-        return gleanvec_sq_topk(qstate, q_lo, scorer.tags, scorer.x_low, k)
+        return gleanvec_sq_topk(qstate, q_lo, scorer.tags, scorer.x_low, k,
+                                row_ids=live_ids)
     if isinstance(scorer, sc.GleanVecQuantizedScorer):
         return gleanvec_sq_topk(qstate.q_scaled, qstate.q_lo, scorer.tags,
-                                scorer.codes, k)
+                                scorer.codes, k, row_ids=live_ids)
     if isinstance(scorer, sc.SortedGleanVecScorer):
         q_lo = torch.zeros(qstate.shape[:2], dtype=torch.float32,
                            device=qstate.device)        # no affine term

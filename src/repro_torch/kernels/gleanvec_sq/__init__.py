@@ -1,8 +1,10 @@
-"""Fused GleanVec (o int8) scan + top-k: CUDA kernel
-(``csrc/gleanvec_sq.cu``), its plain PyTorch version, and the wrapper.
+"""GleanVec (o int8) scores: the fused scan + top-k (``gleanvec_sq_topk``,
+CUDA kernel in ``csrc/gleanvec_sq.cu``) and the dense scores
+(``gleanvec_sq``, in ``csrc/dense_scores.cu``), each with its plain PyTorch
+version and wrapper.
 
-Port of the top-k variant of ``repro/kernels/gleanvec_sq`` (TPU kernel
-``gleanvec_sq_topk``, body ``_topk_kernel``):
+Ports of ``repro/kernels/gleanvec_sq`` (TPU kernels ``gleanvec_sq_topk``,
+body ``_topk_kernel``, and ``gleanvec_sq``, body ``_dense_kernel``):
 
     score[m, n] = <q_scaled[m, tag_n], codes_n> + q_lo[m, tag_n]
 
@@ -19,7 +21,8 @@ import torch
 
 from repro_torch.index.topk import NEG_INF, blocked_topk
 
-__all__ = ["gleanvec_sq_topk", "gleanvec_sq_topk_plain"]
+__all__ = ["gleanvec_sq_topk", "gleanvec_sq_topk_plain", "gleanvec_sq",
+           "gleanvec_sq_plain", "tile_scores", "dense_plain"]
 
 
 def _row_tags(tags, start, size, layout_block):
@@ -29,7 +32,7 @@ def _row_tags(tags, start, size, layout_block):
     return tags[start:start + size]
 
 
-def _tile_scores(q_scaled, q_lo, row_tags, rows):
+def tile_scores(q_scaled, q_lo, row_tags, rows):
     """(M, R) scores of ``rows (R, d)`` whose views are ``row_tags (R,)``:
     one matmul per cluster present, ``q_scaled[:, c] @ rows[of c].T +
     q_lo[:, c]`` -- never the dense (M, R, d) view gather."""
@@ -48,12 +51,12 @@ def _tile_scores(q_scaled, q_lo, row_tags, rows):
 def gleanvec_sq_topk_plain(q_scaled, q_lo, tags, codes, k: int,
                            row_ids=None, layout_block: int = 0,
                            block: int = 65536):
-    """Blocked over N, scoring each block with :func:`_tile_scores`. Rows
+    """Blocked over N, scoring each block with :func:`tile_scores`. Rows
     with ``row_ids < 0`` score NEG_INF and come out as id -1."""
     m = q_scaled.shape[0]
 
     def score(start, size):
-        out = _tile_scores(q_scaled, q_lo,
+        out = tile_scores(q_scaled, q_lo,
                            _row_tags(tags, start, size, layout_block),
                            codes[start:start + size])
         if row_ids is not None:
@@ -68,6 +71,30 @@ def gleanvec_sq_topk_plain(q_scaled, q_lo, tags, codes, k: int,
     ids = torch.where(idx >= 0, row_ids.to(torch.int32)[idx.clamp(min=0).long()],
                       torch.full_like(idx, -1))
     return vals, ids
+
+
+def dense_plain(score_block_fn, n: int, m: int, device, block: int = 65536):
+    """(m, n) f32 matrix filled block by block by ``score_block_fn(start,
+    size) -> (m, size)``: the dense kernels' plain versions, whose
+    temporaries stay one block wide."""
+    out = torch.empty((m, n), dtype=torch.float32, device=device)
+    for start in range(0, n, block):
+        size = min(block, n - start)
+        out[:, start:start + size] = score_block_fn(start, size)
+    return out
+
+
+def gleanvec_sq_plain(q_scaled, q_lo, tags, codes, layout_block: int = 0,
+                      block: int = 65536):
+    """Dense (M, N) f32 scores, blocked over N (:func:`tile_scores`)."""
+
+    def score(start, size):
+        return tile_scores(q_scaled, q_lo,
+                           _row_tags(tags, start, size, layout_block),
+                           codes[start:start + size])
+
+    return dense_plain(score, codes.shape[0], q_scaled.shape[0],
+                       q_scaled.device, block)
 
 
 def _bind(lib):
@@ -155,3 +182,76 @@ def gleanvec_sq_topk(q_scaled, q_lo, tags, codes, k: int, row_ids=None,
 
 
 gleanvec_sq_topk.launches = 0
+
+
+def _bind_dense(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for dt in ("f32", "u8"):
+        fn = getattr(lib, f"gleanvec_sq_dense_gathered_{dt}")
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"gleanvec_sq_dense_sorted_{dt}")
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p]
+        fn.restype = ctypes.c_int
+    lib.dense_gathered_queries_per_block.argtypes = [i, i]
+    lib.dense_gathered_queries_per_block.restype = ctypes.c_int
+
+
+def gleanvec_sq(q_scaled, q_lo, tags, codes, layout_block: int = 0):
+    """Dense scores. ``q_scaled (M, C, d)`` f32, ``q_lo (M, C)`` f32,
+    ``codes (N, d)`` u8 or f32; ``tags (N,)`` i32 per row
+    (``layout_block == 0``) or ``(ceil(N / layout_block),)`` per block of
+    the tag-sorted layout -> (M, N) f32. Any block size works (the
+    reference's tile-shrink / gathered fallbacks are not needed).
+
+    CPU tensors take :func:`gleanvec_sq_plain`; CUDA tensors launch the
+    kernel or raise."""
+    from repro_torch import kernels as K
+    if K.on_cpu(q_scaled, q_lo, tags, codes):
+        return gleanvec_sq_plain(q_scaled, q_lo, tags, codes,
+                                 layout_block=layout_block)
+    K.check_cuda_inputs("gleanvec_sq", q_scaled=q_scaled, q_lo=q_lo,
+                        tags=tags, codes=codes)
+    if q_scaled.dtype != torch.float32 or q_lo.dtype != torch.float32 \
+            or codes.dtype not in (torch.float32, torch.uint8) \
+            or tags.dtype != torch.int32:
+        raise TypeError("gleanvec_sq takes f32 q_scaled/q_lo, f32 or u8 "
+                        "codes and i32 tags")
+    m, c, d = q_scaled.shape
+    n = codes.shape[0]
+    n_tags = -(-n // layout_block) if layout_block > 0 else n
+    if q_lo.shape != (m, c) or codes.shape != (n, d) \
+            or tags.shape != (n_tags,):
+        raise ValueError("gleanvec_sq shapes do not agree")
+    dev = q_scaled.device
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    lib = K.load_library("dense_scores", _bind_dense)
+    dt = "f32" if codes.dtype == torch.float32 else "u8"
+    stream = K.current_stream(dev)
+    if layout_block > 0:
+        tiles = n_tags * -(-layout_block // K.GEMM_TILE_N)
+        s = K.splits(row_tiles=tiles, query_blocks=-(-m // K.GEMM_TILE_M),
+                     k=1, blocks_per_sm=3, device=dev)
+        err = getattr(lib, f"gleanvec_sq_dense_sorted_{dt}")(
+            q_scaled.data_ptr(), q_lo.data_ptr(), tags.data_ptr(),
+            codes.data_ptr(), m, c, d, n, layout_block, s, out.data_ptr(),
+            stream)
+    else:
+        tmg = lib.dense_gathered_queries_per_block(c, d)
+        if tmg == 0:
+            raise ValueError(f"gleanvec_sq: the views of one query (C={c}, "
+                             f"d={d}) do not fit a block's shared memory")
+        s = K.splits(row_tiles=-(-n // K.GATHER_TILE_N),
+                     query_blocks=-(-m // tmg), k=1, blocks_per_sm=1,
+                     device=dev)
+        err = getattr(lib, f"gleanvec_sq_dense_gathered_{dt}")(
+            q_scaled.data_ptr(), q_lo.data_ptr(), tags.data_ptr(),
+            codes.data_ptr(), m, c, d, n, tmg, s, out.data_ptr(), stream)
+    K.check_launch("gleanvec_sq", err, lib)
+    gleanvec_sq.launches += 1
+    return out
+
+
+gleanvec_sq.launches = 0

@@ -1,0 +1,90 @@
+"""Dense int8 scores: CUDA kernel (``csrc/dense_scores.cu``, ``sq_dot_u8``),
+its plain PyTorch version, and the wrapper.
+
+Port of ``repro/kernels/sq_dot`` (TPU kernel ``sq_dot``, body
+``_sq_dot_kernel``). With per-dimension scales folded into the query,
+
+    scores[m, n] = <q_m, codes_n * delta + lo> = <q_m * delta, codes_n>
+                   + <q_m, lo>.
+
+``sq_dot(q, codes, lo, delta)`` folds as the reference's wrapper does and
+launches; ``sq_dot_folded(q_scaled, q_lo, codes)`` takes the folded
+operands (a ``QuantizedScorer``'s prepared queries). Both launch the same
+kernel and count in ``sq_dot.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.gleanvec_sq import dense_plain
+
+__all__ = ["sq_dot", "sq_dot_folded", "sq_dot_folded_plain"]
+
+
+def _fold(q, lo, delta):
+    q = q.to(torch.float32)
+    return q * delta[None, :], q @ lo
+
+
+def sq_dot_folded_plain(q_scaled, q_lo, codes, block: int = 65536):
+    """(M, N) f32 scores ``q_scaled @ codes.T + q_lo[:, None]``, blocked
+    over N."""
+    q_scaled = q_scaled.to(torch.float32)
+
+    def score(start, size):
+        return q_scaled @ codes[start:start + size].to(torch.float32).T \
+            + q_lo[:, None]
+
+    return dense_plain(score, codes.shape[0], q_scaled.shape[0],
+                       q_scaled.device, block)
+
+
+def _bind(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sq_dot_u8.argtypes = [p, p, p, i, i, i, i, p, p]
+    lib.sq_dot_u8.restype = ctypes.c_int
+
+
+def sq_dot_folded(q_scaled, q_lo, codes):
+    """``q_scaled (M, d)`` f32, ``q_lo (M,)`` f32, ``codes (N, d)`` u8 ->
+    (M, N) f32. CPU tensors take :func:`sq_dot_folded_plain`; CUDA tensors
+    launch the kernel or raise."""
+    from repro_torch import kernels as K
+    if K.on_cpu(q_scaled, q_lo, codes):
+        return sq_dot_folded_plain(q_scaled, q_lo, codes)
+    K.check_cuda_inputs("sq_dot", q_scaled=q_scaled, q_lo=q_lo, codes=codes)
+    if q_scaled.dtype != torch.float32 or q_lo.dtype != torch.float32 \
+            or codes.dtype != torch.uint8:
+        raise TypeError("sq_dot takes f32 queries and u8 codes, got "
+                        f"{q_scaled.dtype}, {q_lo.dtype}, {codes.dtype}")
+    m, d = q_scaled.shape
+    n = codes.shape[0]
+    if q_lo.shape != (m,) or codes.shape != (n, d):
+        raise ValueError(f"sq_dot shapes {tuple(q_scaled.shape)}, "
+                         f"{tuple(q_lo.shape)}, {tuple(codes.shape)}")
+    dev = q_scaled.device
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    s = K.splits(row_tiles=-(-n // K.GEMM_TILE_N),
+                 query_blocks=-(-m // K.GEMM_TILE_M), k=1, blocks_per_sm=3,
+                 device=dev)
+    lib = K.load_library("dense_scores", _bind)
+    err = lib.sq_dot_u8(q_scaled.data_ptr(), q_lo.data_ptr(),
+                        codes.data_ptr(), m, d, n, s, out.data_ptr(),
+                        K.current_stream(dev))
+    K.check_launch("sq_dot", err, lib)
+    sq_dot.launches += 1
+    return out
+
+
+def sq_dot(q, codes, lo, delta):
+    """``q (M, d)`` f32, ``codes (N, d)`` u8, ``lo``/``delta (d,)`` f32 ->
+    (M, N) f32 = <q * delta, codes> + <q, lo>: the fold, then
+    :func:`sq_dot_folded`."""
+    return sq_dot_folded(*_fold(q, lo, delta), codes)
+
+
+sq_dot.launches = 0

@@ -12,9 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels import (gleanvec_sq_topk, gleanvec_sq_topk_ref, ip_topk,
+from repro.kernels import (gleanvec_ip, gleanvec_ip_ref, gleanvec_sq,
+                           gleanvec_sq_ref, gleanvec_sq_sorted_ref,
+                           gleanvec_sq_topk, gleanvec_sq_topk_ref, ip_topk,
                            ip_topk_ref, ivf_scan_topk, ivf_scan_topk_ref,
-                           kmeans_assign, kmeans_assign_ref)
+                           kmeans_assign, kmeans_assign_ref, sq_dot,
+                           sq_dot_ref)
 from repro_torch import kernels as K
 from repro_torch.testing import assert_topk_close, dot_tol
 
@@ -236,9 +239,71 @@ def test_plain_fills_unfilled_slots_with_neg_inf_and_minus_one():
     assert sorted(ids[0, :5].tolist()) == list(range(5))
 
 
+@pytest.mark.parametrize("m,n,d", [(13, 1000, 16), (5, 777, 40),
+                                   (9, 2049, 8)])
+def test_sq_dot_plain_matches_pallas_and_ref(m, n, d):
+    """Dense int8 scores: the wrapper's fold and the folded entry against
+    the Pallas kernel (interpret) and ``sq_dot_ref``."""
+    rng = _rng(m + n + d)
+    q = rng.standard_normal((m, d)).astype(np.float32)
+    codes = _codes(rng, n, d, True)
+    lo = rng.standard_normal(d).astype(np.float32)
+    delta = (rng.random(d) + 0.01).astype(np.float32)
+    port = K.sq_dot(_t(q), _t(codes), _t(lo), _t(delta)).numpy()
+    qs, qlo = _t(q) * _t(delta), _t(q) @ _t(lo)
+    folded = K.sq_dot_folded(qs, qlo, _t(codes)).numpy()
+    args = tuple(jnp.asarray(a) for a in (q, codes, lo, delta))
+    tol = dot_tol(_norm(qs.numpy()), _norm(codes), d,
+                  float(qlo.abs().max()))
+    assert port.shape == (m, n) and port.dtype == np.float32
+    for other in (sq_dot(*args, interpret=True), sq_dot_ref(*args),
+                  folded):
+        np.testing.assert_allclose(port, np.asarray(other), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("m,n,c,d", [(7, 1000, 8, 16), (3, 513, 3, 24)])
+def test_gleanvec_ip_plain_matches_pallas_and_ref(m, n, c, d):
+    rng = _rng(n + c + d)
+    qv = rng.standard_normal((m, c, d)).astype(np.float32)
+    tags = rng.integers(0, c, n).astype(np.int32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    port = K.gleanvec_ip(_t(qv), _t(tags), _t(x)).numpy()
+    args = tuple(jnp.asarray(a) for a in (qv, tags, x))
+    tol = dot_tol(_norm(qv), _norm(x), d)
+    for other in (gleanvec_ip(*args, tm=4, tn=128, interpret=True),
+                  gleanvec_ip_ref(*args)):
+        np.testing.assert_allclose(port, np.asarray(other), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("m,n,c,d,u8,lb", [
+    (7, 1000, 8, 16, True, 0),      # gathered, ragged N
+    (5, 513, 3, 16, False, 0),      # gathered f32
+    (6, 1280, 4, 16, True, 128),    # sorted, one view per block
+    (4, 640, 5, 24, False, 64),     # sorted f32, block under the tile
+])
+def test_gleanvec_sq_dense_plain_matches_pallas_and_ref(m, n, c, d, u8, lb):
+    rng = _rng(n * 3 + c + lb)
+    q_scaled, q_lo, codes, _ = _sq_case(rng, m, n, c, d, u8, False)
+    tags = rng.integers(0, c, n // lb if lb else n).astype(np.int32)
+    port = K.gleanvec_sq(_t(q_scaled), _t(q_lo), _t(tags), _t(codes),
+                         layout_block=lb).numpy()
+    args = tuple(jnp.asarray(a) for a in (q_scaled, q_lo, tags, codes))
+    pallas = gleanvec_sq(*args, layout_block=lb, tm=4, tn=128,
+                         interpret=True)
+    ref = gleanvec_sq_sorted_ref(*args, lb) if lb else gleanvec_sq_ref(*args)
+    tol = dot_tol(_norm(q_scaled), _norm(codes), d, float(np.abs(q_lo).max()))
+    for other in (pallas, ref):
+        np.testing.assert_allclose(port, np.asarray(other), rtol=0,
+                                   atol=tol)
+
+
 def test_cpu_wrappers_count_no_launches():
     before = (K.ip_topk.launches, K.gleanvec_sq_topk.launches,
-              K.kmeans_assign.launches, K.ivf_scan_topk.launches)
+              K.kmeans_assign.launches, K.ivf_scan_topk.launches,
+              K.sq_dot.launches, K.gleanvec_ip.launches,
+              K.gleanvec_sq.launches)
     K.ip_topk(torch.randn(2, 4), torch.randn(9, 4), 3)
     K.gleanvec_sq_topk(torch.randn(2, 3, 4), torch.zeros(2, 3),
                        torch.zeros(9, dtype=torch.int32), torch.randn(9, 4), 3)
@@ -247,8 +312,17 @@ def test_cpu_wrappers_count_no_launches():
                     torch.zeros(3, dtype=torch.int32),
                     torch.arange(9, dtype=torch.int32), torch.randn(9, 4),
                     torch.tensor([[0, 2], [1, -1]], dtype=torch.int32), 3, 3)
+    K.sq_dot(torch.randn(2, 4), torch.zeros(9, 4, dtype=torch.uint8),
+             torch.zeros(4), torch.ones(4))
+    K.gleanvec_ip(torch.randn(2, 3, 4), torch.zeros(9, dtype=torch.int32),
+                  torch.randn(9, 4))
+    K.gleanvec_sq(torch.randn(2, 3, 4), torch.zeros(2, 3),
+                  torch.zeros(3, dtype=torch.int32), torch.randn(9, 4),
+                  layout_block=3)
     assert (K.ip_topk.launches, K.gleanvec_sq_topk.launches,
-            K.kmeans_assign.launches, K.ivf_scan_topk.launches) == before
+            K.kmeans_assign.launches, K.ivf_scan_topk.launches,
+            K.sq_dot.launches, K.gleanvec_ip.launches,
+            K.gleanvec_sq.launches) == before
 
 
 def test_fine_step_bytes_matches_reference():

@@ -53,6 +53,8 @@ def test_port_imports_without_jax():
             "import repro_torch.testing, repro_torch.launch.serve\n"
             "import repro_torch.serve.engine, repro_torch.index.protocol\n"
             "import repro_torch.index.ivf, repro_torch.kernels.ivf_scan\n"
+            "import repro_torch.core.streaming, repro_torch.kernels.sq_dot\n"
+            "import repro_torch.kernels.gleanvec_ip\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'repro was imported'\n")
@@ -80,7 +82,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     model = gv.GleanVecModel(centers=torch.eye(2, 8), a=torch.zeros(2, 4, 8),
                              b=torch.zeros(2, 4, 8), w=torch.eye(8),
                              w_pinv=torch.eye(8))
+    from repro_torch.core import streaming
     calls = [lambda: resolve_device(),
+             lambda: streaming.build_streaming_artifacts("full", x),
+             lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4",
+                                 "--stream"]),
              lambda: ivf.build(x, 2),
              lambda: ivf.build_aligned(model, x),
              lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4",
@@ -142,19 +148,24 @@ def cuda():
 
 @pytest.mark.cuda
 def test_cuda_wrappers_launch_kernels_not_plain(cuda, monkeypatch):
+    import repro_torch.kernels.gleanvec_ip as gip
     import repro_torch.kernels.gleanvec_sq as gsq
     import repro_torch.kernels.ip_topk as ipk
     import repro_torch.kernels.kmeans_assign as kma
+    import repro_torch.kernels.sq_dot as sqd
     from repro_torch import kernels as K
 
     def refuse(*a, **k):
         raise AssertionError("plain path taken for a CUDA tensor")
 
     for mod, name in ((ipk, "ip_topk_plain"), (gsq, "gleanvec_sq_topk_plain"),
-                      (kma, "kmeans_assign_plain")):
+                      (kma, "kmeans_assign_plain"),
+                      (gsq, "gleanvec_sq_plain"), (gip, "gleanvec_ip_plain"),
+                      (sqd, "sq_dot_folded_plain")):
         monkeypatch.setattr(mod, name, refuse)
     before = (K.ip_topk.launches, K.gleanvec_sq_topk.launches,
-              K.kmeans_assign.launches)
+              K.kmeans_assign.launches, K.sq_dot.launches,
+              K.gleanvec_ip.launches, K.gleanvec_sq.launches)
     K.ip_topk(torch.randn(5, 16, device=cuda), torch.randn(300, 16,
                                                            device=cuda), 10)
     K.gleanvec_sq_topk(torch.randn(5, 3, 16, device=cuda),
@@ -163,9 +174,20 @@ def test_cuda_wrappers_launch_kernels_not_plain(cuda, monkeypatch):
                        torch.randn(300, 16, device=cuda), 10)
     K.kmeans_assign(torch.randn(300, 16, device=cuda),
                     torch.randn(4, 16, device=cuda))
+    K.sq_dot(torch.randn(5, 16, device=cuda),
+             torch.zeros(300, 16, dtype=torch.uint8, device=cuda),
+             torch.zeros(16, device=cuda), torch.ones(16, device=cuda))
+    K.gleanvec_ip(torch.randn(5, 3, 16, device=cuda),
+                  torch.zeros(300, dtype=torch.int32, device=cuda),
+                  torch.randn(300, 16, device=cuda))
+    K.gleanvec_sq(torch.randn(5, 3, 16, device=cuda),
+                  torch.zeros(5, 3, device=cuda),
+                  torch.zeros(3, dtype=torch.int32, device=cuda),
+                  torch.randn(300, 16, device=cuda), layout_block=100)
     torch.cuda.synchronize()
     after = (K.ip_topk.launches, K.gleanvec_sq_topk.launches,
-             K.kmeans_assign.launches)
+             K.kmeans_assign.launches, K.sq_dot.launches,
+             K.gleanvec_ip.launches, K.gleanvec_sq.launches)
     assert after == tuple(b + 1 for b in before)
 
 
