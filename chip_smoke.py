@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's search paths (flat index, IVF and streaming
-stores) on one NVIDIA GPU.
+"""Drive the PyTorch port's search paths (flat index, IVF, streaming
+stores and the graph index) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -14,8 +14,10 @@ Phases (any failure raises and the script exits non-zero):
    gathered and sorted layouts, IVF schedules with pad slots (middle, end,
    a whole row), slack blocks and k above the valid row count, exact ties;
    the dense kernels (sq_dot, gleanvec_ip, dense gleanvec_sq) with layout
-   blocks off the tile, and ``scorer_scores`` of every scorer class with
-   dead columns.
+   blocks off the tile, ``scorer_scores`` of every scorer class with dead
+   columns, and graph hops (u8 and f32, d in {160, 33}, S up to 4096, B in
+   {96, 128}, pads, repeats, dead rows, in-beam candidates, half-empty
+   beams, exact ties).
 3. The flat main path: synthetic OOD data (D = 512), LeanVec-Sphering
    (d = 160) and GleanVec (C = 48, d = 160) fits, then for each of the 7
    scorer modes an encoded scorer behind a ServingEngine (batch 1024,
@@ -36,6 +38,18 @@ Phases (any failure raises and the script exits non-zero):
    index, both sorted modes over the aligned IVF (nprobe 12, reduced probe)
    with 10,000 removes per cycle. Counters zeroed just before, read just
    after.
+3d. The graph path on the first 1,000,000 rows, models of phase 3: the
+   device build (k-NN self-join through ``ip_topk``, detour prune, reverse
+   fill, entry points through ``kmeans_assign``), then beam search (beam
+   128, max_hops 200, expand 4) behind a ServingEngine (batch 1024, k = 10,
+   kappa = 100, 5 batches) with both sorted modes fused (every hop through
+   ``graph_scan_beam_step``) and sphering gathered: QPS, p50, p99,
+   recall@10 against the exact top-10 on the card and its floor, hops per
+   batch, the kernel's share of a batch; counters zeroed just before the
+   build and read after the serving. Then fused against gathered (one
+   captured hop through kernel and plain version; whole traversals at
+   expand 1 and 4), and churn on a streaming store: 10,000 removes, 2,000
+   inserts linked by ``insert_ids``, ``refreshed``, swapped and served.
 4. Each kernel at its path's shapes and inputs: its time beside its
    bound, its plain version's time, the time of the composed PyTorch
    calls that compute the same function (``library_ms``), and its
@@ -50,6 +64,7 @@ device and the repository's ``src/repro_torch`` beside this file.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -127,7 +142,27 @@ KERNEL_FILES = {
                     "src/repro/kernels/gleanvec_ip/gleanvec_ip.py:70"),
     "gleanvec_sq": ("src/repro_torch/csrc/dense_scores.cu",
                     "src/repro/kernels/gleanvec_sq/gleanvec_sq.py:178"),
+    "graph_scan_beam_step": ("src/repro_torch/csrc/graph_scan.cu",
+                             "src/repro/kernels/graph_scan/graph_scan.py:177"),
 }
+
+# The graph path (phase 3d): the first GRAPH_ROWS rows of phase 3's data
+# (PERF.md, "Cells": the device build's self-join is cut from 2M), the
+# reference CLI's degree (24 + 4 random edges, 16 entries), beam 128,
+# max_hops 200, expand 4.
+GRAPH_ROWS = 1_000_000
+GRAPH_BEAM, GRAPH_HOPS, GRAPH_EXPAND = 128, 200, 4
+# recall@10 floors (PERF.md, "Recall floors of the graph path"): set before
+# the first chip run from the reference's own graph recall on the CPU
+# (n = 5,000-20,000 GleanVec, 5,000-200,000 sphering) by the stream's rule:
+# lowest recall - drop per decade (sphering's where it exceeds the mode's
+# own) x decades left to 1M - 0.05.
+GRAPH_RECALL_FLOORS = {"gleanvec-sorted": 0.857,
+                       "gleanvec-int8-sorted": 0.857, "sphering": 0.840}
+GRAPH_FUSED = ("gleanvec-sorted", "gleanvec-int8-sorted")
+GRAPH_MIN_OVERLAP = 0.99    # fused vs gathered kappa-candidate overlap
+GRAPH_MAX_RECALL_GAP = 0.005
+CHURN_REMOVES, CHURN_INSERTS = 10_000, 2_000
 
 
 def log(msg: str) -> None:
@@ -235,9 +270,11 @@ def phase_kernels(K, testing, gen):
                                  dtype=torch.uint8)
         return randn(n, d)
 
+    # (130, 20011, 513, 49): the graph device build's self-join shape
     for m, n, d, k, u8 in [(37, 5003, 160, 10, False),
                            (37, 5003, 160, 100, True),
                            (130, 20011, 512, 10, False),
+                           (130, 20011, 513, 49, False),
                            (3, 50, 20, 100, False)]:
         q, x = randn(m, d), codes(n, d, u8)
         tol = testing.dot_tol(row_norm_max(q), row_norm_max(x), d)
@@ -357,6 +394,96 @@ def phase_kernels(K, testing, gen):
                              "center")
     log("  kmeans_assign exact ties: first center wins")
     phase_dense_kernels(K, testing, gen)
+    phase_graph_kernels(K, testing, gen)
+
+
+def hop_inputs(gen, m, c, d, lb, nb, s, b, u8, full):
+    """Random inputs of one graph hop on the card: pad slots (-1) anywhere,
+    repeated neighbor rows, dead rows (``row_ids`` -1), candidates already
+    in the beam (the beam is drawn from rows, and some of those rows are
+    among each query's neighbors), and a beam that is full or half empty
+    (-1 ids at NEG_INF). Returns the wrapper's positional arguments and
+    ``layout_block``."""
+    dev = torch.device("cuda")
+    n = lb * nb
+    qs = torch.randn(m, c, d, generator=gen, device=dev)
+    qlo = torch.randn(m, c, generator=gen, device=dev)
+    btags = torch.randint(0, c, (nb,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    rid = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    rid[torch.rand(n, generator=gen, device=dev) < 0.1] = -1
+    codes = (torch.randint(0, 256, (n, d), generator=gen, device=dev,
+                           dtype=torch.uint8) if u8
+             else torch.randn(n, d, generator=gen, device=dev))
+    nbr = torch.randint(0, n, (m, s), generator=gen, device=dev,
+                        dtype=torch.int32)
+    nbr[torch.rand(m, s, generator=gen, device=dev) < 0.15] = -1
+    nbr[:, 1::7] = nbr[:, :1]                     # repeated rows
+    beam_rows = torch.rand(m, n, generator=gen, device=dev).argsort(
+        dim=1)[:, :b].to(torch.int32)
+    nbr[:, 2:6] = beam_rows[:, :4]                # candidates in the beam
+    beam_ids = rid[beam_rows.long()]
+    beam_vals = 3 * torch.randn(m, b, generator=gen, device=dev)
+    if not full:
+        beam_ids[:, b // 2:] = -1
+    beam_vals = torch.where(beam_ids >= 0, beam_vals,
+                            torch.full_like(beam_vals, -3.4e38))
+    return (qs, qlo, btags, rid, codes, nbr, beam_vals, beam_ids), lb
+
+
+def check_hop(K, testing, label, args, lb):
+    """The kernel against its plain version on the same hop: the top-B
+    lists within ``testing.dot_tol``, the -1 slots in the same places."""
+    got = K.graph_scan_beam_step(*args, layout_block=lb)
+    want = K.graph_scan_beam_step_plain(*args, layout_block=lb)
+    qs, qlo, codes = args[0], args[1], args[4]
+    tol = testing.dot_tol(row_norm_max(qs), row_norm_max(codes),
+                          qs.shape[2], float(qlo.abs().max()))
+    rep = check_topk(label, got, want, tol, testing)
+    if not torch.equal(got[1] < 0, want[1] < 0):
+        raise AssertionError(f"{label}: -1 ids differ from the plain "
+                             "version's")
+    return rep
+
+
+def phase_graph_kernels(K, testing, gen):
+    """graph_scan_beam_step against its plain version: u8 and f32, d in
+    {160, 33} (16-byte loads and the ragged path), S in {28, 112, 300, 4096}
+    (expand 1, expand 4, wide, the largest taken), B in {96, 128}, full and
+    half-empty beams, with pads, repeats, dead rows and in-beam candidates
+    in every case; then exact ties."""
+    dev = torch.device("cuda")
+    for m, c, d, lb, nb, s, b, u8, full in [
+            (37, 48, 160, 256, 40, 28, 128, True, True),
+            (70, 7, 33, 100, 30, 112, 96, False, False),
+            (9, 5, 160, 64, 50, 300, 128, False, False),
+            (130, 3, 33, 37, 60, 112, 128, True, True),
+            (64, 48, 160, 4096, 3, 112, 96, False, True),
+            (3, 4, 64, 128, 64, 4096, 128, True, False)]:
+        args, lb = hop_inputs(gen, m, c, d, lb, nb, s, b, u8, full)
+        check_hop(K, testing, f"graph_scan_beam_step M={m} C={c} d={d} "
+                  f"layout_block={lb} N={lb * nb} S={s} B={b} "
+                  f"{'u8' if u8 else 'f32'} beam={'full' if full else 'half'}",
+                  args, lb)
+    # exact ties: identical rows score alike; the smaller id wins, as the
+    # plain version orders them
+    n, d = 512, 16
+    x = torch.randn(1, d, generator=gen, device=dev).expand(n, d).contiguous()
+    rid = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    nbr = torch.randperm(n, generator=gen, device=dev)[:300].to(
+        torch.int32).expand(2, 300).contiguous()
+    args = (torch.randn(2, 1, d, generator=gen, device=dev),
+            torch.zeros(2, 1, device=dev),
+            torch.zeros(n // 64, dtype=torch.int32, device=dev), rid, x, nbr,
+            torch.full((2, 128), -3.4e38, device=dev),
+            torch.full((2, 128), -1, dtype=torch.int32, device=dev))
+    got = K.graph_scan_beam_step(*args, layout_block=64)
+    want = K.graph_scan_beam_step_plain(*args, layout_block=64)
+    pool = torch.sort(rid[nbr[0].long()]).values[:128]
+    if not (torch.equal(got[1], want[1]) and torch.equal(got[1][0], pool)):
+        raise AssertionError("graph_scan_beam_step: equal scores must "
+                             "break toward the smaller id")
+    log("  graph_scan_beam_step exact ties: ids ascending as required")
 
 
 def check_dense(label, got, want, tol):
@@ -565,13 +692,13 @@ def phase_main(K):
         if totals[fn.__name__] <= 0:
             raise AssertionError(f"{fn.__name__} was not launched on the "
                                  "main path")
-    return ds, x, glv, states, per_mode, totals
+    return ds, x, sph, glv, states, per_mode, totals
 
 
 def all_counters(K):
     """Every kernel wrapper's launch counter."""
     return (K.ip_topk, K.gleanvec_sq_topk, K.kmeans_assign, K.ivf_scan_topk,
-            K.sq_dot, K.gleanvec_ip, K.gleanvec_sq)
+            K.sq_dot, K.gleanvec_ip, K.gleanvec_sq, K.graph_scan_beam_step)
 
 
 # ---------------------------------------------------------------------------
@@ -801,6 +928,274 @@ def phase_stream(K, testing, ds, x):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3d: the graph path.
+# ---------------------------------------------------------------------------
+
+
+def counts(K):
+    return {fn.__name__: fn.launches for fn in all_counters(K)}
+
+
+def capture_hop(K, fn, which: int):
+    """Run ``fn`` (a fused traversal) and return the inputs of its
+    ``which``-th hop as the sorted scorers hand them to the lowering
+    (``kernels.scorer_scan_neighbors``): (scorer, qstate, nbr_rows,
+    beam_vals, beam_ids)."""
+    orig = K.scorer_scan_neighbors
+    seen = []
+
+    def spy(scorer, qstate, nbr_rows, beam_vals, beam_ids, tn=8):
+        seen.append((scorer, qstate, nbr_rows.clone(), beam_vals.clone(),
+                     beam_ids.clone()) if len(seen) == which else None)
+        return orig(scorer, qstate, nbr_rows, beam_vals, beam_ids, tn)
+
+    K.scorer_scan_neighbors = spy
+    try:
+        fn()
+    finally:
+        K.scorer_scan_neighbors = orig
+    if len(seen) <= which:
+        raise AssertionError(f"the traversal ran {len(seen)} fused hops, "
+                             f"fewer than {which + 1}")
+    return seen[which]
+
+
+def hop_args(hop):
+    """The kernel's positional arguments and layout block of a captured
+    hop."""
+    scorer, qstate, nbr_rows, bv, bi = hop
+    if isinstance(qstate, tuple):
+        qs, qlo, codes = qstate.q_scaled, qstate.q_lo, scorer.codes
+    else:
+        qs, codes = qstate, scorer.x_low
+        qlo = torch.zeros(qs.shape[:2], dtype=torch.float32, device=qs.device)
+    return ((qs, qlo, scorer.block_tags, scorer.perm, codes, nbr_rows, bv,
+             bi), scorer.layout_block)
+
+
+def overlap(a, b) -> float:
+    """Mean share of common ids of two (m, kappa) candidate sets (-1 slots
+    are no members)."""
+    hit = (a[:, :, None] == b[:, None, :]).any(dim=2) & (a >= 0)
+    size = torch.maximum((a >= 0).sum(dim=1), (b >= 0).sum(dim=1))
+    return float((hit.sum(dim=1) / size.clamp(min=1)).mean())
+
+
+def kernel_share(fn) -> str:
+    """Device time of the graph kernel and of every kernel in one call of
+    ``fn`` (``torch.profiler``), beside its host-clock time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):    # the tracer's first start-up
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    hop_us = all_us = 0.0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        all_us += us
+        if "graph_scan_kernel" in ev.key:
+            hop_us += us
+    if all_us <= 0:
+        return (f"split not measured (no device time recorded; batch "
+                f"{wall:.1f} ms under the profiler)")
+    return (f"under the profiler: batch {wall:.1f} ms host clock, device "
+            f"busy {all_us / 1e3:.1f} ms, of it graph_scan_beam_step "
+            f"{hop_us / 1e3:.2f} ms; the rest of the batch is launches, "
+            "host syncs and small torch ops")
+
+
+def fused_vs_gathered(K, testing, label, art, index, q, expand, gt):
+    """One hop captured from the fused traversal through the kernel and
+    the plain version, then the whole traversal fused against gathered:
+    kappa-candidate overlap and recall@10 after the rerank. ``gt``: a
+    function of served ids -> recall@10. Returns the captured hop."""
+    from repro_torch.core import search as msearch
+    from repro_torch.index import graph
+    gathered = dataclasses.replace(index, expand=expand, fused=False,
+                                   nbr_rows=None)
+    fused = graph.with_fused_scan(gathered, art.scorer)
+    qstate = fused.prepare_queries(art.scorer, q)
+    hop = capture_hop(K, lambda: fused.candidates(qstate, art.scorer, 100),
+                      which=3)
+    args, lb = hop_args(hop)
+    check_hop(K, testing, f"{label} expand={expand} captured hop 3: kernel "
+              "vs plain", args, lb)
+    cf = fused.candidates(qstate, art.scorer, 100)[1]
+    cg = gathered.candidates(qstate, art.scorer, 100)[1]
+    ov = overlap(cf, cg)
+    rf = gt(msearch.multi_step_search(q, art, fused, 10, 100).cpu().numpy())
+    rg = gt(msearch.multi_step_search(q, art, gathered, 10,
+                                      100).cpu().numpy())
+    log(f"  {label} expand={expand}: fused vs gathered kappa-candidate "
+        f"overlap={ov:.4f} (min {GRAPH_MIN_OVERLAP}) recall@10 fused="
+        f"{rf:.4f} gathered={rg:.4f} (max gap {GRAPH_MAX_RECALL_GAP})")
+    if ov < GRAPH_MIN_OVERLAP or abs(rf - rg) > GRAPH_MAX_RECALL_GAP:
+        raise AssertionError(f"{label} expand={expand}: fused and gathered "
+                             "traversals disagree")
+    return hop
+
+
+def phase_graph(K, testing, ds, x, sph, glv):
+    """The graph path on the first GRAPH_ROWS rows. Returns ({(mode,
+    expand): captured hop}, launches of the build and serving,
+    {mode: graph_scan launches per batch})."""
+    from repro_torch.core import metrics
+    from repro_torch.core import search as msearch
+    from repro_torch.core import streaming
+    from repro_torch.data import vectors
+    from repro_torch.index import graph
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+
+    dev = torch.device("cuda")
+    n = GRAPH_ROWS
+    xg = x[:n]
+    log(f"phase 3d: graph path, n={n} D=512 d=160 C=48, degree 24 + 4 "
+        f"random, beam={GRAPH_BEAM} max_hops={GRAPH_HOPS} "
+        f"expand={GRAPH_EXPAND}, batch=1024 k=10 kappa=100")
+    q = torch.as_tensor(ds.queries_test, device=dev)
+    gt = vectors.exact_topk(ds.queries_test, xg, 10, device=dev)
+    for fn in all_counters(K):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    steps = {}
+    g = graph.build(xg, r=24, n_random=4, n_entries=16, seed=0,
+                    method="auto", device=dev, timings=steps)
+    torch.cuda.synchronize()
+    built = counts(K)
+    log(f"  build (device, method=auto): {time.perf_counter() - t0:.1f} s = "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in steps.items())
+        + f"; ip_topk launches={built['ip_topk']} kmeans_assign launches="
+        f"{built['kmeans_assign']}; degree {g.neighbors.shape[1]}, "
+        f"{g.entries.numel()} entries")
+    if built["ip_topk"] <= 0 or built["kmeans_assign"] <= 0:
+        raise AssertionError("the graph build did not launch ip_topk and "
+                             "kmeans_assign")
+    g = dataclasses.replace(g, beam=GRAPH_BEAM, max_hops=GRAPH_HOPS,
+                            expand=GRAPH_EXPAND)
+    arts, per_batch = {}, {}
+    for mode in (*GRAPH_FUSED, "sphering"):
+        fused = mode in GRAPH_FUSED
+        art = msearch.build_artifacts(mode, xg, sph if mode == "sphering"
+                                      else glv, device=dev)
+        index = graph.with_fused_scan(g, art.scorer) if fused else g
+        before = counts(K)
+        engine = ServingEngine(msearch.make_state(art, index=index), k=10,
+                               kappa=100, batch_size=1024, dim=512)
+        ids = None
+        for _ in range(5):
+            ids = engine.submit(ds.queries_test)
+        delta = {k: v - before[k] for k, v in counts(K).items()}
+        rec = metrics.recall_at_k(ids, gt)
+        st = engine.stats
+        hops = graph._beam_qstate(art.scorer.prepare_queries(q), art.scorer,
+                                  index, 100, GRAPH_BEAM, GRAPH_HOPS,
+                                  expand=GRAPH_EXPAND)[2]
+        p50 = st.percentile_ms(50)
+        per_batch[mode] = hops          # one kernel launch per fused hop
+        log(f"  mode={mode} {'fused' if fused else 'gathered'}: batches="
+            f"{st.n_batches} QPS={st.qps:.0f} p50={p50:.1f}ms "
+            f"p99={st.percentile_ms(99):.1f}ms recall@10={rec:.4f} (floor "
+            f"{GRAPH_RECALL_FLOORS[mode]}) hops/batch={hops} ms/hop="
+            f"{p50 / max(hops, 1):.3f} (one host sync per hop) "
+            f"graph_scan_beam_step launches={delta['graph_scan_beam_step']}")
+        log("    " + kernel_share(lambda: engine.submit(ds.queries_test)))
+        if not np.all((ids >= -1) & (ids < n)) or ids.shape != (1024, 10):
+            raise AssertionError(f"graph {mode}: malformed ids {ids.shape}")
+        if rec < GRAPH_RECALL_FLOORS[mode]:
+            raise AssertionError(f"graph {mode}: recall@10 {rec:.4f} below "
+                                 f"its floor {GRAPH_RECALL_FLOORS[mode]}")
+        launched = delta["graph_scan_beam_step"]
+        if (launched <= 0) if fused else (launched != 0):
+            raise AssertionError(f"graph {mode}: graph_scan_beam_step "
+                                 f"launches {launched} on the "
+                                 f"{'fused' if fused else 'gathered'} path")
+        arts[mode] = art
+        del engine
+    totals = counts(K)
+    log(f"  graph-path launches (build + serving): {totals}")
+
+    def recall_all(ids):
+        return metrics.recall_at_k(ids, gt)
+
+    hops = {}
+    for mode in GRAPH_FUSED:
+        for expand in (1, 4):
+            hops[(mode, expand)] = fused_vs_gathered(
+                K, testing, f"graph {mode}", arts[mode], g, q, expand,
+                recall_all)
+    del arts
+
+    # churn on a streaming store: removes, inserts, insert_ids, refreshed
+    mode = "gleanvec-int8-sorted"
+    cap = n + CHURN_INSERTS
+    new_rows = x[n:cap]
+    t0 = time.perf_counter()
+    art = streaming.build_streaming_artifacts(
+        mode, xg, glv, capacity=cap, sort_block=serve.STREAM_SORT_BLOCK,
+        slack_blocks=serve.stream_slack_blocks(glv, new_rows), device=dev)
+    index = graph.with_fused_scan(graph.with_capacity(g, cap), art.scorer)
+    engine = ServingEngine(msearch.make_state(art, index=index), k=10,
+                           kappa=100, batch_size=1024, dim=512)
+    torch.cuda.synchronize()
+    entries = set(g.entries.tolist())
+    order = torch.randperm(n, generator=torch.Generator().manual_seed(1))
+    removed = torch.tensor([i for i in order[:CHURN_REMOVES + 64].tolist()
+                            if i not in entries][:CHURN_REMOVES],
+                           dtype=torch.int32, device=dev)
+    before = counts(K)
+    t1 = time.perf_counter()
+    art = streaming.remove_rows(art, removed)
+    index = index.refreshed(art.scorer, art.model)
+    art, new_ids = streaming.insert_rows(
+        art, new_rows, ids=torch.arange(n, cap, dtype=torch.int32,
+                                        device=dev))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    index = graph.insert_ids(index, new_rows, new_ids, art.scorer,
+                             art.x_full)
+    index = index.refreshed(art.scorer, art.model)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    engine.swap(engine.state._replace(artifacts=art, index=index))
+    served = engine.submit(ds.queries_test)
+    rec = serve.live_recall(engine, ds.queries_test, served)
+    delta = {k: v - before[k] for k, v in counts(K).items()}
+    log(f"  churn ({mode}, capacity {cap}): store build "
+        f"{t1 - t0:.1f} s; remove {CHURN_REMOVES} + insert {CHURN_INSERTS} "
+        f"rows {(t2 - t1) * 1e3:.0f} ms; insert_ids + refreshed "
+        f"{(t3 - t2) * 1e3:.0f} ms = {(t3 - t2) * 1e3 / CHURN_INSERTS:.2f} "
+        f"ms per inserted row (a sequential host loop); served recall@10="
+        f"{rec:.4f} over the live rows; graph_scan_beam_step launches="
+        f"{delta['graph_scan_beam_step']}")
+    if np.isin(served, removed.cpu().numpy()).any():
+        raise AssertionError("churn: a removed id was returned")
+    if delta["graph_scan_beam_step"] <= 0:
+        raise AssertionError("churn: the fused graph did not launch "
+                             "graph_scan_beam_step")
+    linked = np.isin(new_ids.cpu().numpy(), index.neighbors.cpu().numpy())
+    log(f"    inserted rows with an in-edge: {int(linked.sum())} of "
+        f"{CHURN_INSERTS}")
+
+    def recall_live(ids):
+        return serve.live_recall(engine, ds.queries_test, ids)
+
+    fused_vs_gathered(K, testing, "churned graph", art, index, q,
+                      GRAPH_EXPAND, recall_live)
+    del engine, art, index
+    return hops, totals, per_batch
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: each kernel at the main path's shapes.
 # ---------------------------------------------------------------------------
 
@@ -983,11 +1378,11 @@ def device_breakdown(fn, reps: int = 3) -> str:
     return "; ".join(f"{key[:60]}={ms:.3f}ms" for ms, key in parts)
 
 
-def time_kernel(name, label, calls, launches, testing):
-    """Time one kernel call beside its plain version and library
-    composition; returns its row of the kernel table."""
+def time_kernel(name, label, calls, launches, testing, reps: int = 3):
+    """Time one kernel call (mean of ``reps``) beside its plain version and
+    library composition; returns its row of the kernel table."""
     kern, plain, flops, nbytes, tol, library = calls
-    ms, out_k = timed(kern, 3)
+    ms, out_k = timed(kern, reps)
     plain_ms, out_p = timed_once(plain)
     rep = check_topk(f"{name}[{label}] vs plain", out_k, out_p, tol, testing)
     b, by = bound_ms(flops, nbytes)
@@ -1116,6 +1511,96 @@ def stream_timing(K, testing, finals, totals, queries):
     return table
 
 
+def hop_library(qs, qlo, btags, rid, codes, nbr, bv, bi, lb):
+    """The library composition of one hop (``library_ms``): the port's
+    gathered hop as composed torch calls -- sort the neighbor rows and mark
+    repeats, gather rows and views, multiply and sum, mask, then ``cat``
+    and ``torch.topk``."""
+    n = codes.shape[0]
+    m = nbr.shape[0]
+    rows = torch.sort(torch.where((nbr >= 0) & (nbr < n), nbr,
+                                  torch.full_like(nbr, n)), dim=1).values
+    valid = rows < n
+    dup = torch.cat([torch.zeros_like(valid[:, :1]),
+                     rows[:, 1:] == rows[:, :-1]], dim=1)
+    safe = torch.where(valid, rows, torch.zeros_like(rows)).long()
+    tag = btags[safe // lb].long()
+    sc = torch.sum(qs[torch.arange(m, device=qs.device)[:, None], tag]
+                   * codes[safe].to(torch.float32), dim=-1) \
+        + torch.gather(qlo, 1, tag)
+    ids = rid[safe]
+    ok = valid & ~dup & (ids >= 0) \
+        & ~(ids[:, :, None] == bi[:, None, :]).any(dim=2)
+    sc = torch.where(ok, sc, torch.full_like(sc, -3.4e38))
+    ids = torch.where(ok, ids, torch.full_like(ids, -1))
+    v, sel = torch.topk(torch.cat([bv, sc], dim=1), bv.shape[1], dim=1)
+    return v, torch.gather(torch.cat([bi, ids], dim=1), 1, sel)
+
+
+def hop_work(qs, qlo, btags, rid, codes, nbr, bv, bi, lb):
+    """(flops, bytes) one hop needs on these inputs: per query its distinct
+    valid neighbor rows (4 bytes of id and 4 of block tag each), the codes
+    of those it scores (live, not in the beam; 2 d flops each), the view
+    row of each distinct (query, tag) among them, the neighbor rows, and
+    the beam read and written."""
+    n = codes.shape[0]
+    m, c, d = qs.shape
+    rows = torch.sort(torch.where((nbr >= 0) & (nbr < n), nbr,
+                                  torch.full_like(nbr, n)), dim=1).values
+    valid = rows < n
+    first = valid & torch.cat([torch.ones_like(valid[:, :1]),
+                               rows[:, 1:] != rows[:, :-1]], dim=1)
+    safe = torch.where(valid, rows, torch.zeros_like(rows)).long()
+    ids = rid[safe]
+    scored = first & (ids >= 0) & ~(ids[:, :, None] == bi[:, None, :]).any(2)
+    pairs = (torch.arange(m, device=qs.device)[:, None] * c
+             + btags[safe // lb].long())[scored]
+    n_scored = int(scored.sum())
+    nbytes = int(first.sum()) * 8 + n_scored * d * codes.element_size() \
+        + torch.unique(pairs).numel() * (d + 1) * 4 + nbr.numel() * 4 \
+        + 2 * bv.numel() * 8
+    return 2.0 * d * n_scored, float(nbytes)
+
+
+def graph_timing(K, testing, x, hops, totals, per_batch):
+    """``graph_scan_beam_step`` on the captured hops (expand 1 and 4, u8
+    and f32), and ``ip_topk`` at the graph build's self-join shape."""
+    table = []
+    for (mode, expand), hop in hops.items():
+        args, lb = hop_args(hop)
+        qs, qlo, codes = args[0], args[1], args[4]
+        flops, nbytes = hop_work(*args, lb)
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(codes),
+                              qs.shape[2], float(qlo.abs().max()))
+        label = (f"{'u8' if codes.dtype == torch.uint8 else 'f32'} "
+                 f"expand={expand} S={args[5].shape[1]}")
+        row = time_kernel(
+            "graph_scan_beam_step", label,
+            (lambda: K.graph_scan_beam_step(*args, layout_block=lb),
+             lambda: K.graph_scan_beam_step_plain(*args, layout_block=lb),
+             flops, nbytes, tol, lambda: hop_library(*args, lb)),
+            totals["graph_scan_beam_step"], testing, reps=50)
+        if expand == GRAPH_EXPAND:
+            log(f"    launches per served batch ({mode}, expand {expand}): "
+                f"{per_batch[mode]}; on the whole graph path: "
+                f"{totals['graph_scan_beam_step']}")
+        table.append(row)
+    xg = x[:GRAPH_ROWS]
+    xa = torch.cat([xg, -0.5 * torch.sum(xg * xg, dim=1, keepdim=True)],
+                   dim=1)
+    qa = torch.cat([xg[:1024], torch.ones((1024, 1), device=xg.device)],
+                   dim=1)
+    m, d = qa.shape
+    tol = testing.dot_tol(row_norm_max(qa), row_norm_max(xa), d)
+    table.append(time_kernel(
+        "ip_topk", "graph self-join d=513 k=49",
+        (lambda: K.ip_topk(qa, xa, 49), lambda: K.ip_topk_plain(qa, xa, 49),
+         2.0 * m * GRAPH_ROWS * d, (qa.numel() + xa.numel()) * 4 + m * 49 * 8,
+         tol, lambda: torch.topk(qa @ xa.T, 49, dim=1)),
+        totals["ip_topk"], testing))
+    return table
+
+
 def phase_timing(K, testing, x, glv, states, per_mode, totals, ivf_inputs,
                  ivf_launches):
     from repro_torch.core.spherical_kmeans import normalize_rows
@@ -1199,15 +1684,18 @@ def main(argv=None) -> int:
             f"({time.perf_counter() - t_start:.0f} s)")
         return 0
 
-    ds, x, glv, states, per_mode, totals = phase_main(K)
+    ds, x, sph, glv, states, per_mode, totals = phase_main(K)
     ivf_inputs, ivf_launches = phase_ivf(K, testing, ds, x, glv, states)
     finals, stream_totals = phase_stream(K, testing, ds, x)
+    hops, graph_totals, per_batch = phase_graph(K, testing, ds, x, sph, glv)
     table = phase_timing(K, testing, x, glv, states, per_mode, totals,
                          ivf_inputs, ivf_launches)
     del states, ivf_inputs
     table += stream_timing(K, testing, finals, stream_totals,
                            torch.as_tensor(ds.queries_test,
                                            device=torch.device("cuda")))
+    del finals
+    table += graph_timing(K, testing, x, hops, graph_totals, per_batch)
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.0f} s")
     print(card_line(), flush=True)

@@ -7,8 +7,9 @@ once in the reference and serve the very same weights and codes here.
 A streaming store's ``live`` mask comes across as a bool tensor.
 ``ivf_index`` carries a reference IVF index across (a frozen dataclass:
 its arrays, its center companion by class, and its static ``nprobe`` and
-``aligned_layout``); ``streaming_state`` a reference ``StreamingState``
-(moments, model, ``prev_bw`` and counters).
+``aligned_layout``); ``graph_index`` a reference graph index (its three
+arrays and five static fields); ``streaming_state`` a reference
+``StreamingState`` (moments, model, ``prev_bw`` and counters).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from repro_torch.core.leanvec_sphering import SpheringModel
 from repro_torch.device import resolve_device
 
 __all__ = ["arrays_of", "sphering_model", "gleanvec_model", "scorer",
-           "ivf_index", "streaming_state", "SCORERS"]
+           "ivf_index", "graph_index", "streaming_state", "SCORERS"]
 
 SCORERS = {cls.__name__: cls for cls in (
     sc.LinearScorer, sc.GleanVecScorer, sc.QuantizedScorer,
@@ -33,7 +34,8 @@ SCORERS = {cls.__name__: cls for cls in (
 _DTYPES = {"tags": torch.int32, "block_tags": torch.int32,
            "perm": torch.int32, "inv_perm": torch.int32,
            "list_block_ranges": torch.int32, "lists": torch.int32,
-           "live": torch.bool}
+           "live": torch.bool, "neighbors": torch.int32,
+           "entries": torch.int32, "nbr_rows": torch.int32}
 
 
 def arrays_of(obj) -> dict:
@@ -92,6 +94,24 @@ def ivf_index(index, device=None):
         center_scorer=None if cs is None
         else scorer(type(cs).__name__, arrays_of(cs), dev),
         nprobe=int(index.nprobe), aligned_layout=bool(index.aligned_layout))
+
+
+def graph_index(index, device=None):
+    """The port's :class:`~repro_torch.index.graph.GraphIndex` from a
+    reference ``GraphIndex``: ``neighbors``, ``entries`` and ``nbr_rows``
+    (None on a graph that is not fused), and the static ``beam``,
+    ``max_hops``, ``expand``, ``fused`` and ``scan_tn``."""
+    from repro_torch.index.graph import GraphIndex
+    dev = resolve_device(device)
+    nbr_rows = index.nbr_rows
+    return GraphIndex(
+        neighbors=_tensor("neighbors", index.neighbors, dev),
+        entries=_tensor("entries", index.entries, dev),
+        nbr_rows=None if nbr_rows is None
+        else _tensor("nbr_rows", nbr_rows, dev),
+        beam=int(index.beam), max_hops=int(index.max_hops),
+        expand=int(index.expand), fused=bool(index.fused),
+        scan_tn=int(index.scan_tn))
 
 
 def streaming_state(state, device=None):

@@ -19,7 +19,10 @@ reduced-space probe). The sorted scorers carry ``list_block_ranges``
 ((C, max_blocks) layout blocks per cluster, -1-padded) and
 ``scan_lists(qstate, probe, k)``: the gather-free fine step of an IVF
 whose clusters are their tags, lowered through
-``kernels.scorer_scan_lists`` to the ``ivf_scan_topk`` kernel.
+``kernels.scorer_scan_lists`` to the ``ivf_scan_topk`` kernel, and
+``scan_neighbors(qstate, nbr_rows, beam_vals, beam_ids, tn)``: the
+gather-free hop of a graph bound to their layout, lowered through
+``kernels.scorer_scan_neighbors`` to ``graph_scan_beam_step``.
 
     ==========================  =========================  ================
     scorer                      storage                    scoring
@@ -644,6 +647,17 @@ class SortedGleanVecScorer(NamedTuple):
         from repro_torch.kernels import scorer_scan_lists
         return scorer_scan_lists(self, qstate, probe, k)
 
+    def scan_neighbors(self, qstate: torch.Tensor, nbr_rows: torch.Tensor,
+                       beam_vals: torch.Tensor, beam_ids: torch.Tensor,
+                       tn: int = 8):
+        """Gather-free graph hop: fold one neighbor expansion, given as
+        SORTED-ROW indices ``nbr_rows (m, S)`` (-1 = pad), into the beam
+        through ``graph_scan_beam_step``. Returns the merged ``(vals, ids)
+        (m, beam)`` with ORIGINAL ids."""
+        from repro_torch.kernels import scorer_scan_neighbors
+        return scorer_scan_neighbors(self, qstate, nbr_rows, beam_vals,
+                                     beam_ids, tn)
+
     def encode_centers(self, centers: torch.Tensor,
                        model=None) -> "GleanVecScorer":
         """The sorted layout prepares the same (m, C, d) views as the
@@ -716,6 +730,15 @@ class SortedGleanVecQuantizedScorer(NamedTuple):
         :meth:`SortedGleanVecScorer.scan_lists`)."""
         from repro_torch.kernels import scorer_scan_lists
         return scorer_scan_lists(self, qstate, probe, k)
+
+    def scan_neighbors(self, qstate: QuantQueryState,
+                       nbr_rows: torch.Tensor, beam_vals: torch.Tensor,
+                       beam_ids: torch.Tensor, tn: int = 8):
+        """Gather-free graph hop over the sorted int8 codes (see
+        :meth:`SortedGleanVecScorer.scan_neighbors`)."""
+        from repro_torch.kernels import scorer_scan_neighbors
+        return scorer_scan_neighbors(self, qstate, nbr_rows, beam_vals,
+                                     beam_ids, tn)
 
     def encode_centers(self, centers: torch.Tensor,
                        model=None) -> "GleanVecQuantizedScorer":

@@ -5,12 +5,14 @@ answers
     vals, ids = index.candidates(qstate, scorer, k)   # ids: original space
     vals, ids = index.search(queries, scorer, k)
 
-Members so far: ``FlatIndex`` here, and ``IVFIndex`` in
+Members so far: ``FlatIndex`` here, ``IVFIndex`` in
 :mod:`repro_torch.index.ivf` (gathered fine step for every scorer, the
-gather-free ``ivf_scan_topk`` fine step for aligned sorted layouts). Both
-have the streaming hook ``refreshed(scorer, model)``, which
-``streaming.refresh_state`` calls. Graph and sharded indexes come with
-later parts of the port.
+gather-free ``ivf_scan_topk`` fine step for aligned sorted layouts), and
+``GraphIndex`` in :mod:`repro_torch.index.graph` (gathered hops for every
+scorer, the gather-free ``graph_scan_beam_step`` hop for a graph bound to a
+sorted layout). All have the streaming hook ``refreshed(scorer, model)``,
+which ``streaming.refresh_state`` calls. Sharded indexes come with a later
+part of the port.
 """
 from __future__ import annotations
 

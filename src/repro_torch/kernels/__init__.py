@@ -11,8 +11,10 @@ tensors (or raises), and a launch counter (``<wrapper>.launches``).
 through dense scores and ``torch.topk``), ``scorer_scores`` /
 ``scorer_scores_prepared`` to its dense-score kernel as the reference's
 ``scorer_scores``, and ``scorer_scan_lists`` lowers the sorted scorers' IVF
-fine step (``scan_lists``) to ``ivf_scan_topk``; index code talks to
-scorers, and scorers lower here and nowhere else.
+fine step (``scan_lists``) to ``ivf_scan_topk``, and
+``scorer_scan_neighbors`` their fused graph hop (``scan_neighbors``) to
+``graph_scan_beam_step``; index code talks to scorers, and scorers lower
+here and nowhere else.
 
 This module also builds the kernels: ``nvcc`` compiles each source into
 its own shared library with a plain C interface (``build``, one compiler
@@ -38,6 +40,9 @@ from repro_torch.kernels.gleanvec_ip import gleanvec_ip, gleanvec_ip_plain
 from repro_torch.kernels.gleanvec_sq import (gleanvec_sq, gleanvec_sq_plain,
                                              gleanvec_sq_topk,
                                              gleanvec_sq_topk_plain)
+from repro_torch.kernels.graph_scan import (graph_scan_beam_step,
+                                            graph_scan_beam_step_plain,
+                                            graph_scan_scores_plain)
 from repro_torch.kernels.ip_topk import ip_topk, ip_topk_plain
 from repro_torch.kernels.ivf_scan import ivf_scan_topk, ivf_scan_topk_plain
 from repro_torch.kernels.kmeans_assign import (kmeans_assign,
@@ -50,15 +55,17 @@ __all__ = ["ip_topk", "ip_topk_plain", "gleanvec_sq_topk",
            "ivf_scan_topk", "ivf_scan_topk_plain", "sq_dot", "sq_dot_folded",
            "sq_dot_folded_plain", "gleanvec_ip",
            "gleanvec_ip_plain", "gleanvec_sq", "gleanvec_sq_plain",
-           "scorer_topk", "scorer_topk_prepared", "scorer_scores",
-           "scorer_scores_prepared", "scorer_scan_lists", "build",
+           "graph_scan_beam_step", "graph_scan_beam_step_plain",
+           "graph_scan_scores_plain", "scorer_topk", "scorer_topk_prepared",
+           "scorer_scores", "scorer_scores_prepared", "scorer_scan_lists",
+           "scorer_scan_neighbors", "build",
            "load_library", "library_path", "KERNEL_SOURCES", "BUILD_DIR",
            "MAX_K"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("ip_topk", "gleanvec_sq", "kmeans_assign", "ivf_scan",
-                  "dense_scores")
+                  "dense_scores", "graph_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -365,3 +372,30 @@ def scorer_scan_lists(scorer, qstate, probe, k: int):
     return ivf_scan_topk(qstate.q_scaled, qstate.q_lo, scorer.block_tags,
                          scorer.perm, scorer.codes, sched, k,
                          layout_block=scorer.layout_block)
+
+
+def scorer_scan_neighbors(scorer, qstate, nbr_rows, beam_vals, beam_ids,
+                          tn: int = 8):
+    """Gather-free graph hop of a sorted scorer: the neighbor SORTED rows
+    ``nbr_rows (m, S)`` (-1 = pad) folded into the beam ``(beam_vals,
+    beam_ids) (m, B)`` by ``graph_scan_beam_step`` with the scorer's
+    layout. Mirrors the reference's ``Sorted*Scorer.scan_neighbors``: the
+    merged (vals, ids) (m, B), ids ORIGINAL (best first here; the
+    reference's TPU kernel leaves them in slot order)."""
+    from repro_torch.core import scorer as sc
+
+    if isinstance(scorer, sc.SortedGleanVecScorer):
+        q_lo = torch.zeros(qstate.shape[:2], dtype=torch.float32,
+                           device=qstate.device)        # no affine term
+        return graph_scan_beam_step(qstate, q_lo, scorer.block_tags,
+                                    scorer.perm, scorer.x_low, nbr_rows,
+                                    beam_vals, beam_ids,
+                                    layout_block=scorer.layout_block, tn=tn)
+    if isinstance(scorer, sc.SortedGleanVecQuantizedScorer):
+        return graph_scan_beam_step(qstate.q_scaled, qstate.q_lo,
+                                    scorer.block_tags, scorer.perm,
+                                    scorer.codes, nbr_rows, beam_vals,
+                                    beam_ids,
+                                    layout_block=scorer.layout_block, tn=tn)
+    raise TypeError(f"no scan_neighbors lowering for "
+                    f"{type(scorer).__name__}")

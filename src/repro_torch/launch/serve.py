@@ -1,7 +1,7 @@
 """Serving CLI: the search service (Algorithm 1) over a synthetic
 collection, with a selectable scorer mode and index -- the single-device
-flat and IVF paths of ``repro/launch/serve.py``, and its ``--stream``
-lifecycle.
+flat, IVF and graph paths of ``repro/launch/serve.py``, and its
+``--stream`` lifecycle.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode gleanvec \
         --n 2000000 --dim 512 --d 160 --clusters 48 --batch 1024 --kappa 100
@@ -9,21 +9,32 @@ lifecycle.
         --mode gleanvec-int8-sorted --index ivf --aligned --reduced-probe \
         --nprobe 12 --n 2000000 --dim 512 --d 160 --clusters 48 \
         --batch 1024 --kappa 100
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --mode gleanvec-int8-sorted --index graph --fused-graph \
+        --graph-build device --beam 128 --expand 4 --n 1000000 --dim 512 \
+        --d 160 --clusters 48 --batch 1024 --kappa 100
 
 ``--index ivf`` serves an IVF index: its own k-means over ``--lists``
 lists, or with ``--aligned`` (sorted modes only) the GleanVec clustering
 itself, whose fine step is the gather-free ``ivf_scan_topk`` kernel;
 ``--reduced-probe`` scores the coarse centers in the scorer's reduced
-space. Runs on the GPU; ``--device cpu`` runs the kernels' plain versions
-at a small size. Prints the reference's ``QPS=... p50=... p99=...
-recall@10=...`` line.
+space. ``--index graph`` serves the beam search over a graph of degree
+``--graph-degree`` (+ 4 random long-range edges) built by numpy NN-descent
+or on the device (``--graph-build``), with ``--beam``, ``--max-hops`` and
+``--expand`` (frontier vertices per hop); ``--fused-graph`` (sorted modes)
+binds it to the tag-sorted layout so every hop runs the gather-free
+``graph_scan_beam_step`` kernel. Runs on the GPU; ``--device cpu`` runs
+the kernels' plain versions at a small size. Prints the reference's
+``QPS=... p50=... p99=... recall@10=...`` line.
 
 ``--stream`` drives the Section 3.2 lifecycle (paper Eq. 11-12) under live
 traffic, as the reference's ``run_stream``: the model is fit on 70 % of
 the collection with in-distribution queries, the traffic is OOD, and each
 of ``--cycles`` cycles serves one batch (recall@10 against the exact
 top-10 over the live rows), folds it into K_Q, inserts the next slice of
-rows into the fixed-capacity store (and the IVF lists), refits the model
+rows into the fixed-capacity store (and the IVF lists, or links them into
+the graph, padded to the capacity, with ``graph.insert_ids``), refits the
+model
 (``streaming.refresh``) and swaps the re-encoded state in through
 ``ServingEngine.swap``. ``--refresh-source full`` re-encodes from the
 rerank store instead of the Eq. 12 transition. Each cycle prints the
@@ -38,6 +49,7 @@ refresh supervisor, snapshots and fault drills are not ported yet.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -51,7 +63,7 @@ from repro_torch.core import streaming
 from repro_torch.core.scorer import MODES
 from repro_torch.data import vectors
 from repro_torch.device import resolve_device
-from repro_torch.index import ivf
+from repro_torch.index import graph, ivf
 from repro_torch.serve.engine import ServingEngine
 
 
@@ -67,10 +79,27 @@ def fit_model(mode: str, queries, database, d: int, clusters: int, device,
                   device=device)
 
 
+def build_graph(args, x, scorer, device, capacity=None):
+    """The graph index of ``--index graph`` over ``x``: built, configured,
+    padded to ``capacity`` rows (streaming) and, with ``--fused-graph``,
+    bound to the scorer's sorted layout."""
+    idx = dataclasses.replace(
+        graph.build(x, r=args.graph_degree, n_iters=4, seed=0,
+                    method=args.graph_build, device=device),
+        beam=args.beam, max_hops=args.max_hops, expand=args.expand)
+    if capacity is not None:
+        idx = graph.with_capacity(idx, capacity)
+    if args.fused_graph:
+        idx = graph.with_fused_scan(idx, scorer)
+    return idx
+
+
 def build_index(args, x, scorer, model, device):
     """The --index axis: an Index-protocol object (None = the flat scan)."""
     if args.index == "flat":
         return None
+    if args.index == "graph":
+        return build_graph(args, x, scorer, device)
     if args.aligned:
         if not args.mode.endswith("-sorted"):
             raise SystemExit("--aligned needs a sorted scorer mode "
@@ -147,7 +176,8 @@ def _sync(dev):
 def stream_cycle(engine: ServingEngine, stream, rows, remove=None,
                  source: str = "stored"):
     """One stream cycle after serving: insert ``rows`` (full-D, on the
-    store's device) into free slots and the IVF lists, tombstone the
+    store's device) into free slots and the IVF lists (or link them into
+    the graph with ``graph.insert_ids``), tombstone the
     external ids ``remove`` (their moments downdated), swap; then refit,
     re-encode from ``source`` and swap again. Returns ``(stream, report)``
     with host-clock ms of the two halves and the transition's condition
@@ -160,6 +190,9 @@ def stream_cycle(engine: ServingEngine, stream, rows, remove=None,
     index = st.index
     if isinstance(index, ivf.IVFIndex):
         index = ivf.insert_ids(index, rows, new_ids)
+    elif isinstance(index, graph.GraphIndex):
+        index = graph.insert_ids(index, rows, new_ids, arts.scorer,
+                                 arts.x_full)
     if remove is not None:
         remove = torch.as_tensor(remove, device=dev)
         stream = streaming.remove(stream, arts.x_full[remove.long()])
@@ -196,12 +229,16 @@ def run_stream(args, dev):
     slack = 1
     if args.mode.endswith("-sorted"):
         slack = stream_slack_blocks(model, x[n0:])
-    state = build_stream(args.mode, x, n0, args.n, model, index=args.index,
+    state = build_stream(args.mode, x, n0, args.n, model,
+                         index="flat" if args.index == "graph" else args.index,
                          nprobe=args.nprobe, reduced_probe=args.reduced_probe,
                          slack_blocks=slack,
                          list_slack=4 * max(1, (args.n - n0)
                                             // args.clusters),
                          device=dev)
+    if args.index == "graph":
+        state = state._replace(index=build_graph(
+            args, x[:n0], state.artifacts.scorer, dev, capacity=args.n))
     engine = ServingEngine(state, k=10, kappa=args.kappa,
                            batch_size=args.batch, dim=args.dim)
     stream = streaming.init_from_artifacts(state.artifacts, q_init,
@@ -242,7 +279,8 @@ def main(argv=None):
     ap.add_argument("--clusters", type=int, default=48)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--kappa", type=int, default=50)
-    ap.add_argument("--index", default="flat", choices=["flat", "ivf"])
+    ap.add_argument("--index", default="flat",
+                    choices=["flat", "ivf", "graph"])
     ap.add_argument("--lists", type=int, default=64,
                     help="IVF lists of the k-means index (not --aligned)")
     ap.add_argument("--nprobe", type=int, default=12)
@@ -252,6 +290,21 @@ def main(argv=None):
     ap.add_argument("--aligned", action="store_true",
                     help="IVF over the GleanVec clustering (sorted modes): "
                          "the gather-free range-scan fine step")
+    ap.add_argument("--beam", type=int, default=96,
+                    help="graph beam width")
+    ap.add_argument("--max-hops", type=int, default=200)
+    ap.add_argument("--expand", type=int, default=1,
+                    help="graph frontier vertices expanded per hop "
+                         "(multi-expansion beam search; 1 = classic)")
+    ap.add_argument("--graph-degree", type=int, default=24)
+    ap.add_argument("--graph-build", default="numpy",
+                    choices=["numpy", "device", "auto"],
+                    help="graph construction: numpy NN-descent, on-device "
+                         "CAGRA-style self-join, or auto (device at large n)")
+    ap.add_argument("--fused-graph", action="store_true",
+                    help="sorted modes: bind the graph to the tag-sorted "
+                         "layout (graph.with_fused_scan) so every hop runs "
+                         "the gather-free graph_scan_beam_step kernel")
     ap.add_argument("--stream", action="store_true",
                     help="drive the Section 3.2 observe -> insert -> "
                          "refresh -> swap lifecycle under live traffic")
@@ -266,6 +319,10 @@ def main(argv=None):
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
 
+    if args.index == "graph" and args.fused_graph \
+            and not args.mode.endswith("-sorted"):
+        raise SystemExit("--fused-graph needs a sorted scorer mode "
+                         "(gleanvec-sorted / gleanvec-int8-sorted)")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False

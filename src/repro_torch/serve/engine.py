@@ -7,8 +7,10 @@ PyTorch runs eagerly, so there is nothing to compile; the warm-up batch in
 ``__init__`` is where the CUDA kernels are built and loaded. ``swap``
 installs a new state only if every tensor keeps its shape, dtype and
 device and an index keeps its static configuration (an IVF index's
-``nprobe`` and fine-step mode), so a swapped-in refresh serves through the
-same kernels at the same shapes.
+``nprobe`` and fine-step mode; a graph's ``beam``, ``max_hops``,
+``expand``, ``fused`` and ``scan_tn``, and whether it carries
+``nbr_rows``), so a swapped-in refresh serves through the same kernels at
+the same shapes.
 """
 from __future__ import annotations
 

@@ -55,6 +55,7 @@ def test_port_imports_without_jax():
             "import repro_torch.index.ivf, repro_torch.kernels.ivf_scan\n"
             "import repro_torch.core.streaming, repro_torch.kernels.sq_dot\n"
             "import repro_torch.kernels.gleanvec_ip\n"
+            "import repro_torch.index.graph, repro_torch.kernels.graph_scan\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'repro was imported'\n")
@@ -76,7 +77,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.core import leanvec_sphering as lvs
     from repro_torch.core import search
     from repro_torch.core.scorer import build_scorer
-    from repro_torch.index import ivf
+    from repro_torch.index import graph, ivf
     from repro_torch.launch import serve
     x = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
     model = gv.GleanVecModel(centers=torch.eye(2, 8), a=torch.zeros(2, 4, 8),
@@ -88,6 +89,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
              lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4",
                                  "--stream"]),
              lambda: ivf.build(x, 2),
+             lambda: graph.build(x, r=4),
+             lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4",
+                                 "--mode", "gleanvec-sorted", "--index",
+                                 "graph", "--fused-graph"]),
              lambda: ivf.build_aligned(model, x),
              lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4",
                                  "--mode", "gleanvec-sorted", "--index",
@@ -148,12 +153,17 @@ def cuda():
 
 @pytest.mark.cuda
 def test_cuda_wrappers_launch_kernels_not_plain(cuda, monkeypatch):
-    import repro_torch.kernels.gleanvec_ip as gip
-    import repro_torch.kernels.gleanvec_sq as gsq
-    import repro_torch.kernels.ip_topk as ipk
-    import repro_torch.kernels.kmeans_assign as kma
-    import repro_torch.kernels.sq_dot as sqd
+    import importlib
+
     from repro_torch import kernels as K
+
+    # the kernel modules by name: ``import repro_torch.kernels.ip_topk as
+    # m`` binds the package attribute, which is the wrapper function that
+    # ``kernels/__init__.py`` imports under the module's own name
+    gip, gsq, ipk, kma, sqd = (
+        importlib.import_module(f"repro_torch.kernels.{name}")
+        for name in ("gleanvec_ip", "gleanvec_sq", "ip_topk",
+                     "kmeans_assign", "sq_dot"))
 
     def refuse(*a, **k):
         raise AssertionError("plain path taken for a CUDA tensor")
@@ -244,3 +254,55 @@ def test_cuda_kernels_match_plain(cuda):
     tol = dot_tol(float(q.norm(dim=1).max()), float(x.norm(dim=1).max()), 48)
     assert_topk_close(K.ip_topk(q, x, 100), K.ip_topk_plain(q, x, 100), tol,
                       "ip_topk")
+
+
+@pytest.mark.cuda
+def test_cuda_graph_hop_launches_kernel_not_plain(cuda, monkeypatch):
+    """A fused graph search on the card lowers every hop to the
+    ``graph_scan_beam_step`` kernel (one launch per hop, never the plain
+    version), equals the gathered traversal, and the kernel agrees with
+    the plain version on a hop with pads, repeats and dead rows."""
+    import dataclasses
+
+    import repro_torch.kernels.graph_scan as gs
+    from repro_torch import kernels as K
+    from repro_torch.core import gleanvec as gv
+    from repro_torch.core import scorer as sc
+    from repro_torch.index import graph
+    from repro_torch.testing import assert_topk_close, dot_tol
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(3000, 32, device=cuda, generator=g)
+    q = torch.randn(40, 32, device=cuda, generator=g)
+    model = gv.fit(q, x, c=6, d=8, kmeans_iters=4, generator=g, device=cuda)
+    s = sc.sorted_gleanvec_quantized_scorer(model, x, block=64)
+    gathered = dataclasses.replace(
+        graph.build(x, r=8, n_iters=2, device=cuda), beam=32, expand=4)
+    fused = graph.with_fused_scan(gathered, s)
+    nbr = fused.nbr_rows[:40].clone()
+    nbr[:, 1] = nbr[:, 0]
+    nbr[:, 2] = -1
+    rid = s.perm.clone()
+    rid[::7] = -1
+    qs = s.prepare_queries(q)
+    args = (qs.q_scaled, qs.q_lo, s.block_tags, rid, s.codes, nbr,
+            torch.full((40, 32), -3.4e38, device=cuda),
+            torch.full((40, 32), -1, dtype=torch.int32, device=cuda))
+    plain = gs.graph_scan_beam_step_plain(*args, s.layout_block)
+    want = gathered.search(q, s, 10)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain path taken for a CUDA tensor")
+
+    monkeypatch.setattr(gs, "graph_scan_beam_step_plain", refuse)
+    before = K.graph_scan_beam_step.launches
+    hops = graph._beam_qstate(qs, s, fused, 10, 32, 256, expand=4)[2]
+    got = fused.search(q, s, 10)
+    torch.cuda.synchronize()
+    assert K.graph_scan_beam_step.launches == before + 2 * hops > before
+    tol = dot_tol(float(qs.q_scaled.norm(dim=-1).max()),
+                  float(s.codes.float().norm(dim=1).max()), 8,
+                  float(qs.q_lo.abs().max()))
+    assert_topk_close(got, want, tol, "fused vs gathered")
+    assert_topk_close(K.graph_scan_beam_step(*args,
+                                             layout_block=s.layout_block),
+                      plain, tol, "graph_scan_beam_step vs plain")
