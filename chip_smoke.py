@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's search paths (flat index, IVF, streaming
-stores and the graph index) on one NVIDIA GPU.
+stores and the graph index) and its LM serving path on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -17,7 +17,9 @@ Phases (any failure raises and the script exits non-zero):
    blocks off the tile, ``scorer_scores`` of every scorer class with dead
    columns, and graph hops (u8 and f32, d in {160, 33}, S up to 4096, B in
    {96, 128}, pads, repeats, dead rows, in-beam candidates, half-empty
-   beams, exact ties).
+   beams, exact ties); flash_attention (S in {1, 77, 100, 130, 300,
+   4097}, dh in {8, 16, 20, 64, 120, 128}, GQA groups 1, 4 and 8, window
+   None / 48 / 4096, causal and not, bf16 and f32, transposed views).
 3. The flat main path: synthetic OOD data (D = 512), LeanVec-Sphering
    (d = 160) and GleanVec (C = 48, d = 160) fits, then for each of the 7
    scorer modes an encoded scorer behind a ServingEngine (batch 1024,
@@ -54,6 +56,16 @@ Phases (any failure raises and the script exits non-zero):
    bound, its plain version's time, the time of the composed PyTorch
    calls that compute the same function (``library_ms``), and its
    agreement with the plain version.
+3e. LM serving, after the search phases' tensors are freed: h2o-danube-
+   3-4b at its published widths with random weights drawn on the card,
+   ``generate`` at B = 4, s0 = 8192, n_new = 32 (greedy): prefill ms and
+   tokens/s, decode ms per token, flash_attention launches (one per layer
+   of the prefill, never the plain version), peak device memory; the
+   first decode step against a prefill over the same s0 + 1 tokens; the
+   kernel's share of the prefill's device time (``torch.profiler``); the
+   kernel against its plain version on layer 0's captured q, k, v. Then
+   phase 4's row of flash_attention at that shape, with
+   ``scaled_dot_product_attention`` as its library yardstick.
 
 Then the card's name and power limit, one JSON line with the kernel table,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -65,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -77,8 +90,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM rates (NVIDIA data sheet) used for the bounds: fp32
-# outside the tensor cores, and HBM3 bandwidth.
+# outside the tensor cores, dense bf16 on the tensor cores, and HBM3
+# bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # Database rows of the main path: the paper's OI-13M widths with the
@@ -144,6 +159,9 @@ KERNEL_FILES = {
                     "src/repro/kernels/gleanvec_sq/gleanvec_sq.py:178"),
     "graph_scan_beam_step": ("src/repro_torch/csrc/graph_scan.cu",
                              "src/repro/kernels/graph_scan/graph_scan.py:177"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:109"),
 }
 
 # The graph path (phase 3d): the first GRAPH_ROWS rows of phase 3's data
@@ -163,6 +181,18 @@ GRAPH_FUSED = ("gleanvec-sorted", "gleanvec-int8-sorted")
 GRAPH_MIN_OVERLAP = 0.99    # fused vs gathered kappa-candidate overlap
 GRAPH_MAX_RECALL_GAP = 0.005
 CHURN_REMOVES, CHURN_INSERTS = 10_000, 2_000
+
+# LM serving (phase 3e): h2o-danube-3-4b at its published widths, random
+# weights from LM_SEED; batch and prompt cut from lm_common.LM_SHAPES
+# "prefill_32k" (B = 32, S = 32768) for the run's time limit (PERF.md,
+# "Cells"). The prompt is two windows (4096), so the window mask is active
+# and the prefill's window fills the ring slots in order.
+LM_ARCH = "h2o-danube-3-4b"
+LM_BATCH, LM_PROMPT, LM_NEW, LM_SEED = 4, 8192, 32, 0
+# first decode step against a prefill over the same s0 + 1 tokens, both in
+# bf16 on the card: the reference's own bf16 tolerance for its LM
+# (|a - b| <= 0.2 + 0.02 |b|), from bf16 roundings in another order
+LM_LOGIT_RTOL, LM_LOGIT_ATOL = 2e-2, 2e-1
 
 
 def log(msg: str) -> None:
@@ -203,8 +233,8 @@ def timed_once(fn):
     return start.elapsed_time(end), out
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -395,6 +425,64 @@ def phase_kernels(K, testing, gen):
     log("  kmeans_assign exact ties: first center wins")
     phase_dense_kernels(K, testing, gen)
     phase_graph_kernels(K, testing, gen)
+    phase_flash_kernels(K, testing, gen)
+
+
+# (B, H, KV, S, dh, window, causal, dtype, strided): S off the 64-query
+# tile (1, 77, 300, 4097), dh in {8, 16, 20, 64, 120, 128} (8 and 16 are
+# the smoke configs', 20 takes the kernel's unaligned loads, 120 danube's,
+# 128 the others'), group 1, 4 and 8, window None / 48 / 4096, causal and
+# not, bf16 and f32, (B, S, H, dh) tensors passed transposed.
+FLASH_CASES = [
+    (1, 4, 4, 1, 16, None, True, torch.float32, False),
+    (2, 8, 2, 77, 64, None, True, torch.bfloat16, False),
+    (1, 8, 1, 300, 120, 48, True, torch.bfloat16, True),
+    (2, 4, 4, 300, 128, None, False, torch.float32, True),
+    (1, 32, 8, 4097, 120, 4096, True, torch.bfloat16, True),
+    (1, 8, 1, 300, 16, 48, False, torch.bfloat16, False),
+    (2, 16, 2, 77, 120, 48, True, torch.float32, False),
+    (1, 4, 1, 4097, 64, 4096, True, torch.float32, True),
+    (1, 8, 2, 130, 8, None, True, torch.bfloat16, False),
+    (1, 4, 2, 100, 20, None, True, torch.bfloat16, True),
+    (2, 8, 8, 77, 128, None, False, torch.bfloat16, False),
+    (1, 4, 2, 300, 20, 48, True, torch.float32, False),
+]
+
+
+def check_flash(K, testing, label, q, k, v, causal, window):
+    """The kernel against its plain version on the same inputs
+    (``testing.attention_error``'s tolerance); returns the largest gap."""
+    before = K.flash_attention.launches
+    got = K.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if K.flash_attention.launches != before + 1:
+        raise AssertionError(f"{label}: the kernel was not launched")
+    want = K.flash_attention_plain(q, k, v, causal=causal, window=window)
+    err, used = testing.attention_error(
+        got, want, testing.attention_abs_mix(q, k, v, causal, window))
+    log(f"  flash_attention[{label}]: max_abs_err={err:.3e} "
+        f"(worst element at {used:.3f} of its tolerance)")
+    if used > 1:
+        raise AssertionError(f"flash_attention[{label}]: kernel and plain "
+                             "version disagree")
+    return err
+
+
+def phase_flash_kernels(K, testing, gen):
+    """flash_attention against its plain version at ragged shapes."""
+    dev = torch.device("cuda")
+    for b, h, kv, s, dh, window, causal, dtype, strided in FLASH_CASES:
+        def make(heads):
+            if strided:                 # (B, S, heads, dh) viewed (B, heads, S, dh)
+                return torch.randn(b, s, heads, dh, generator=gen,
+                                   device=dev).to(dtype).transpose(1, 2)
+            return torch.randn(b, heads, s, dh, generator=gen,
+                               device=dev).to(dtype)
+        q, k, v = make(h), make(kv), make(kv)
+        label = (f"B={b} H={h} KV={kv} S={s} dh={dh} window={window} "
+                 f"causal={causal} {str(dtype)[6:]}"
+                 f"{' strided' if strided else ''}")
+        check_flash(K, testing, label, q, k, v, causal, window)
 
 
 def hop_inputs(gen, m, c, d, lb, nb, s, b, u8, full):
@@ -698,7 +786,8 @@ def phase_main(K):
 def all_counters(K):
     """Every kernel wrapper's launch counter."""
     return (K.ip_topk, K.gleanvec_sq_topk, K.kmeans_assign, K.ivf_scan_topk,
-            K.sq_dot, K.gleanvec_ip, K.gleanvec_sq, K.graph_scan_beam_step)
+            K.sq_dot, K.gleanvec_ip, K.gleanvec_sq, K.graph_scan_beam_step,
+            K.flash_attention)
 
 
 # ---------------------------------------------------------------------------
@@ -981,9 +1070,11 @@ def overlap(a, b) -> float:
     return float((hit.sum(dim=1) / size.clamp(min=1)).mean())
 
 
-def kernel_share(fn) -> str:
-    """Device time of the graph kernel and of every kernel in one call of
-    ``fn`` (``torch.profiler``), beside its host-clock time."""
+def device_split(fn, kernel_key: str):
+    """One call of ``fn`` under ``torch.profiler``: (host-clock ms, device
+    busy ms, device ms of the kernels whose name holds ``kernel_key``,
+    device kernels launched); busy is 0 when the profiler records no
+    device time on this machine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -994,7 +1085,8 @@ def kernel_share(fn) -> str:
         fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    hop_us = all_us = 0.0
+    hit_us = all_us = 0.0
+    kernels = 0
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
             continue
@@ -1002,14 +1094,22 @@ def kernel_share(fn) -> str:
         if us is None:
             us = getattr(ev, "cuda_time_total", 0)
         all_us += us
-        if "graph_scan_kernel" in ev.key:
-            hop_us += us
-    if all_us <= 0:
+        kernels += ev.count
+        if kernel_key in ev.key:
+            hit_us += us
+    return wall, all_us / 1e3, hit_us / 1e3, kernels
+
+
+def kernel_share(fn) -> str:
+    """Device time of the graph kernel and of every kernel in one call of
+    ``fn`` (``torch.profiler``), beside its host-clock time."""
+    wall, busy, hop, _ = device_split(fn, "graph_scan_kernel")
+    if busy <= 0:
         return (f"split not measured (no device time recorded; batch "
                 f"{wall:.1f} ms under the profiler)")
     return (f"under the profiler: batch {wall:.1f} ms host clock, device "
-            f"busy {all_us / 1e3:.1f} ms, of it graph_scan_beam_step "
-            f"{hop_us / 1e3:.2f} ms; the rest of the batch is launches, "
+            f"busy {busy:.1f} ms, of it graph_scan_beam_step "
+            f"{hop:.2f} ms; the rest of the batch is launches, "
             "host syncs and small torch ops")
 
 
@@ -1193,6 +1293,247 @@ def phase_graph(K, testing, ds, x, sph, glv):
                       GRAPH_EXPAND, recall_live)
     del engine, art, index
     return hops, totals, per_batch
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: LM serving.
+# ---------------------------------------------------------------------------
+
+
+def phase_lm(K, testing):
+    """``generate`` for danube at full width on the card: prefill (every
+    layer's attention through ``flash_attention``) then LM_NEW - 1 decode
+    steps. Counters zeroed just before and read just after. Returns the
+    captured layer-0 (q, k, v) of the prefill (the kernel's (B, H, S, dh)
+    views) and the kernel's launches on the path."""
+    from repro_torch.configs import lm_common, registry
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import decode
+
+    dev = torch.device("cuda")
+    cfg = registry.get(LM_ARCH).make_config()
+    log(f"phase 3e: LM serving, {cfg.name} at full width ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} KV, d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, window {cfg.swa_window}, bf16), B={LM_BATCH} "
+        f"s0={LM_PROMPT} n_new={LM_NEW} (cut from prefill_32k: B="
+        f"{lm_common.LM_SHAPES['prefill_32k']['batch']}, S="
+        f"{lm_common.LM_SHAPES['prefill_32k']['seq']})")
+    t0 = time.perf_counter()
+    params = tfm.init(cfg, seed=LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    n_par = tfm.param_count(params)
+    log(f"  init on the card: {n_par / 1e9:.3f} B parameters, "
+        f"{n_par * 2 / 2**30:.2f} GiB bf16, "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev)
+    # warm-up at full size: cuBLAS handles, the kernel's library, and the
+    # caching allocator's blocks, so the readings below are steady state
+    decode.generate(params, prompt, 2, cfg, device=dev)
+    torch.cuda.synchronize()
+
+    # spies: CUDA events around the prefill and each decode step, layer 0's
+    # attention inputs, the first decode step's logits
+    events, seen = {"prefill": [], "decode": []}, {}
+    orig_pre, orig_dec = tfm.prefill_step, tfm.decode_step
+    orig_fa = attention.flash_attention
+
+    def timed_call(kind, fn, *a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a)
+        end.record()
+        events[kind].append((start, end))
+        return out
+
+    def spy_pre(*a):
+        return timed_call("prefill", orig_pre, *a)
+
+    def spy_dec(*a):
+        out = timed_call("decode", orig_dec, *a)
+        seen.setdefault("logits", out[0].clone())
+        return out
+
+    def spy_fa(q, k, v, causal=True, window=None):
+        if "qkv" not in seen:
+            seen["qkv"] = (q.clone(), k.clone(), v.clone(), window)
+        return orig_fa(q, k, v, causal=causal, window=window)
+
+    tfm.prefill_step, tfm.decode_step = spy_pre, spy_dec
+    attention.flash_attention = spy_fa
+    # the kernel's module (the package attribute of that name is the
+    # wrapper): its plain version refuses to run during the main path
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    def refuse(*a, **k):
+        raise AssertionError("flash_attention_plain ran on the main path")
+
+    fa_mod.flash_attention_plain = refuse
+    for fn in all_counters(K):
+        fn.launches = 0
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tokens = decode.generate(params, prompt, LM_NEW, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tfm.prefill_step, tfm.decode_step = orig_pre, orig_dec
+        attention.flash_attention = orig_fa
+        fa_mod.flash_attention_plain = K.flash_attention_plain
+    launches = K.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pre_ms = sum(a.elapsed_time(b) for a, b in events["prefill"])
+    dec_ms = [a.elapsed_time(b) for a, b in events["decode"]]
+    others = {fn.__name__: fn.launches for fn in all_counters(K)
+              if fn is not K.flash_attention and fn.launches}
+    log(f"  generate: {wall * 1e3:.1f} ms host clock; prefill "
+        f"{pre_ms:.1f} ms ({LM_BATCH * LM_PROMPT / pre_ms * 1e3:.0f} "
+        f"tokens/s); decode {np.mean(dec_ms):.2f} ms per token (median "
+        f"{np.median(dec_ms):.2f}, {len(dec_ms)} steps, B={LM_BATCH}); "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"  flash_attention launches: {launches} (one per layer of the "
+        f"prefill: {cfg.n_layers}); other kernels launched: {others or 0}")
+    if launches != cfg.n_layers or others:
+        raise AssertionError("the prefill did not run each layer's "
+                             "attention through the kernel exactly once")
+
+    # outputs: tokens in range, then the first decode step against a
+    # prefill over the same s0 + 1 tokens
+    if tokens.shape != (LM_BATCH, LM_PROMPT + LM_NEW) or not torch.equal(
+            tokens[:, :LM_PROMPT], prompt):
+        raise AssertionError(f"generate returned {tuple(tokens.shape)}")
+    new = tokens[:, LM_PROMPT:]
+    if int(new.min()) < 0 or int(new.max()) >= cfg.vocab:
+        raise AssertionError("generated tokens out of the vocabulary")
+    step1 = seen["logits"]
+    ref, _ = tfm.prefill_step(params, tokens[:, :LM_PROMPT + 1], cfg)
+    gap = (step1 - ref).abs()
+    excess = float((gap - LM_LOGIT_ATOL - LM_LOGIT_RTOL * ref.abs()).max())
+    same = float((step1.argmax(-1) == ref.argmax(-1)).float().mean())
+    log(f"  first decode step vs prefill over {LM_PROMPT + 1} tokens: max "
+        f"|gap| {float(gap.max()):.4f} (|logit| <= "
+        f"{float(ref.abs().max()):.2f}; tol {LM_LOGIT_ATOL} + "
+        f"{LM_LOGIT_RTOL} |logit|), same argmax in {same:.2f} of the "
+        f"batch; greedy tokens of row 0: {new[0, :8].tolist()}")
+    if not (bool(torch.isfinite(step1).all()) and excess <= 0):
+        raise AssertionError("the decode step disagrees with the prefill")
+    del ref
+
+    _, busy, fa, _ = device_split(
+        lambda: tfm.prefill_step(params, prompt, cfg), "flash_bf16_kernel")
+    if busy > 0:
+        log(f"  prefill under torch.profiler: device busy {busy:.1f} ms, of "
+            f"it flash_attention {fa:.1f} ms ({fa / busy:.1%})")
+    else:
+        log("  prefill device split: not measured (no device time "
+            "recorded)")
+
+    cache = tfm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW, device=dev)
+    wall, busy, _, n_kern = device_split(
+        lambda: tfm.decode_step(params, cache, new[:, 0], LM_PROMPT, cfg),
+        "flash_bf16_kernel")
+    step = float(np.mean(dec_ms))
+    log(f"  one decode step under torch.profiler: {wall:.1f} ms host clock "
+        "(the profiler's own cost included), "
+        + (f"device busy {busy:.1f} ms in {n_kern} kernels: "
+           f"{1 - busy / step:.0%} of the unprofiled {step:.2f} ms step "
+           "idle, bound by eager launches"
+           if busy > 0 else "device split not measured"))
+    del cache
+
+    q, k, v, window = seen["qkv"]
+    check_flash(K, testing, f"captured layer 0 B={q.shape[0]} H={q.shape[1]}"
+                f" KV={k.shape[1]} S={q.shape[2]} dh={q.shape[3]} window="
+                f"{window} bf16 strided", q, k, v, True, window)
+    del params, tokens, prompt, seen
+    torch.cuda.empty_cache()
+    return (q, k, v, window), launches
+
+
+def lm_timing(K, testing, qkv, launches):
+    """``flash_attention`` at the LM path's captured shape: its time beside
+    its bf16 tensor-core bound, its plain version and the library call
+    (``scaled_dot_product_attention`` with a boolean causal + window mask,
+    timed as a yardstick only)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q, k, v, window = qkv
+    b, h, s, dh = q.shape
+    kv = k.shape[1]
+    i = np.arange(s, dtype=np.int64)
+    pairs = int(np.minimum(i + 1, window if window else s).sum())
+    flops = 4.0 * dh * h * b * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ms, out_k = timed(lambda: K.flash_attention(q, k, v, True, window), 5)
+    plain_ms, out_p = timed_once(
+        lambda: K.flash_attention_plain(q, k, v, True, window))
+    abs_mix = testing.attention_abs_mix(q, k, v, True, window)
+    err, used = testing.attention_error(out_k, out_p, abs_mix)
+    if used > 1:
+        raise AssertionError("flash_attention vs plain at the LM shape")
+    # the tolerance's power at this shape: faults planted in the plain
+    # version (the first two must fail it)
+    planted = (
+        ("each row's oldest 64 keys dropped (a KV tile at the window's "
+         "edge)", True, lambda: K.flash_attention_plain(
+             q, k, v, True, window - 64)),
+        ("row sums 3 % off", True,
+         lambda: (out_p.to(torch.float32) * 1.03).to(out_p.dtype)),
+        ("each row's oldest key dropped (the window off by one)", False,
+         lambda: K.flash_attention_plain(q, k, v, True, window - 1)))
+    for what, must, fault in planted if window else ():
+        f_err, f_used = testing.attention_error(fault(), out_p, abs_mix)
+        verdict = "caught" if f_used > 1 else "not caught"
+        log(f"    planted fault, {what}: max_abs_err {f_err:.3e}, worst "
+            f"element at {f_used:.2f} of its tolerance ({verdict})")
+        if must and f_used <= 1:
+            raise AssertionError(f"the attention tolerance misses: {what}")
+    del out_p
+    pos = torch.arange(s, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        try:
+            lib_ms, out_l = timed(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True), 3)
+            how = "enable_gqa=True"
+        except RuntimeError as e:      # no fused backend takes GQA + mask
+            log(f"    SDPA enable_gqa with a mask: {str(e)[:120]}")
+            kr = k.repeat_interleave(h // kv, dim=1)
+            vr = v.repeat_interleave(h // kv, dim=1)
+            lib_ms, out_l = timed(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kr, vr, attn_mask=mask), 3)
+            how = "k, v repeated to H heads outside the timing"
+    lib_err, lib_used = testing.attention_error(out_l, out_k, abs_mix)
+    del abs_mix
+    b16, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    b32, _ = bound_ms(flops, nbytes)
+    log(f"  flash_attention[B={b} H={h} KV={kv} S={s} dh={dh} W={window} "
+        f"bf16]: ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={b16:.3f} "
+        f"({by}; {flops / 1e12:.3f} TFLOP over 989 TFLOP/s bf16, "
+        f"{nbytes / 1e9:.3f} GB over 3.35 TB/s; {b32:.2f} ms at the 67 "
+        f"TFLOP/s fp32 FMA rate) achieved {flops / ms / 1e9:.1f} TFLOP/s; "
+        f"max_abs_err={err:.3e} (worst element at {used:.3f} of its "
+        f"tolerance); "
+        f"library_ms={lib_ms:.3f} (SDPA, {how}, a dense (S, S) mask: it "
+        f"computes every KV tile; vs kernel max_abs_err "
+        f"{lib_err:.2e}, worst element at {lib_used:.3f} of the kernel's "
+        f"tolerance) "
+        f"launches={launches}")
+    src, repl = KERNEL_FILES["flash_attention"]
+    return {"name": f"flash_attention[danube prefill B={b} S={s}]",
+            "route": "cuda", "source": src, "replaces": repl,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b16, "bound_by": by,
+            "library_ms": lib_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1696,6 +2037,13 @@ def main(argv=None) -> int:
                                            device=torch.device("cuda")))
     del finals
     table += graph_timing(K, testing, x, hops, graph_totals, per_batch)
+    del ds, x, sph, glv, hops, stream_totals, graph_totals
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    qkv, lm_launches = phase_lm(K, testing)
+    log("phase 4 (LM): flash_attention at the prefill's captured shape")
+    table.append(lm_timing(K, testing, qkv, lm_launches))
+    del qkv
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.0f} s")
     print(card_line(), flush=True)

@@ -10,6 +10,8 @@ its arrays, its center companion by class, and its static ``nprobe`` and
 ``aligned_layout``); ``graph_index`` a reference graph index (its three
 arrays and five static fields); ``streaming_state`` a reference
 ``StreamingState`` (moments, model, ``prev_bw`` and counters).
+``transformer_params`` carries an LM's parameter tree across (numpy
+leaves, bf16 ones exactly; a blocked layer layout flattened to (L, ...)).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from repro_torch.core.leanvec_sphering import SpheringModel
 from repro_torch.device import resolve_device
 
 __all__ = ["arrays_of", "sphering_model", "gleanvec_model", "scorer",
-           "ivf_index", "graph_index", "streaming_state", "SCORERS"]
+           "ivf_index", "graph_index", "streaming_state",
+           "transformer_params", "SCORERS"]
 
 SCORERS = {cls.__name__: cls for cls in (
     sc.LinearScorer, sc.GleanVecScorer, sc.QuantizedScorer,
@@ -128,3 +131,39 @@ def streaming_state(state, device=None):
         prev_bw=_tensor("prev_bw", state.prev_bw, dev),
         updates_since=int(np.asarray(state.updates_since)),
         refresh_every=int(state.refresh_every))
+
+
+def _leaf(value, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same type. numpy holds JAX's bf16 as
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses: its bits
+    cross as int16 and are viewed as bf16, so every value is kept."""
+    value = np.array(value, order="C")     # a writable copy
+    if value.dtype.name == "bfloat16":
+        return torch.from_numpy(value.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(value).to(device)
+
+
+def transformer_params(params, cfg, device=None):
+    """The reference's transformer parameter tree (nested dicts, leaves
+    convertible to numpy) -> the port's dict of tensors on ``device``, for
+    ``repro_torch.models.transformer``. Stacked layer leaves in the blocked
+    layout (n_blocks, block, ...) are flattened to (L, ...), as the
+    reference does for serving."""
+    dev = resolve_device(device)
+    # wq is (L, D, dq) flat and (n_blocks, block, D, dq) blocked
+    blocked = np.ndim(params["layers"]["wq"]) == 4
+
+    def convert(tree, stacked):
+        if isinstance(tree, dict):
+            return {k: convert(v, stacked) for k, v in tree.items()}
+        t = _leaf(tree, dev)
+        if stacked and blocked:
+            if t.ndim < 2 or t.shape[0] * t.shape[1] != cfg.n_layers:
+                raise ValueError(f"a blocked layer leaf of shape "
+                                 f"{tuple(t.shape)} does not hold "
+                                 f"{cfg.n_layers} layers")
+            t = t.reshape((cfg.n_layers,) + tuple(t.shape[2:]))
+        return t
+
+    return {k: convert(v, k == "layers") for k, v in params.items()}

@@ -14,7 +14,8 @@ through dense scores and ``torch.topk``), ``scorer_scores`` /
 fine step (``scan_lists``) to ``ivf_scan_topk``, and
 ``scorer_scan_neighbors`` their fused graph hop (``scan_neighbors``) to
 ``graph_scan_beam_step``; index code talks to scorers, and scorers lower
-here and nowhere else.
+here and nowhere else. ``flash_attention`` is the LM prefill's attention
+(called by ``repro_torch.models.attention``).
 
 This module also builds the kernels: ``nvcc`` compiles each source into
 its own shared library with a plain C interface (``build``, one compiler
@@ -36,6 +37,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.index.topk import NEG_INF
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.gleanvec_ip import gleanvec_ip, gleanvec_ip_plain
 from repro_torch.kernels.gleanvec_sq import (gleanvec_sq, gleanvec_sq_plain,
                                              gleanvec_sq_topk,
@@ -58,14 +61,15 @@ __all__ = ["ip_topk", "ip_topk_plain", "gleanvec_sq_topk",
            "graph_scan_beam_step", "graph_scan_beam_step_plain",
            "graph_scan_scores_plain", "scorer_topk", "scorer_topk_prepared",
            "scorer_scores", "scorer_scores_prepared", "scorer_scan_lists",
-           "scorer_scan_neighbors", "build",
+           "scorer_scan_neighbors", "flash_attention",
+           "flash_attention_plain", "build",
            "load_library", "library_path", "KERNEL_SOURCES", "BUILD_DIR",
            "MAX_K"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("ip_topk", "gleanvec_sq", "kmeans_assign", "ivf_scan",
-                  "dense_scores", "graph_scan")
+                  "dense_scores", "graph_scan", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 

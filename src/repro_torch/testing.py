@@ -10,13 +10,16 @@ Two top-k results of the same scan agree when, per query:
   cut-off that a different summation order may resolve either way.
 
 ``dot_tol`` states the tolerance of two fp32 dot products that add the
-same terms in a different order.
+same terms in a different order; ``attention_error`` compares two
+evaluations of one attention output.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["dot_tol", "topk_agreement", "assert_topk_close"]
+__all__ = ["dot_tol", "topk_agreement", "assert_topk_close",
+           "attention_abs_mix", "attention_error"]
 
 EPS32 = 2.0 ** -24
 
@@ -29,6 +32,49 @@ def dot_tol(q_norm_max: float, x_norm_max: float, d: int,
     sum |q_j x_j|), plus a rounding of the offset."""
     return 2.0 * d * EPS32 * q_norm_max * x_norm_max \
         + 4.0 * EPS32 * abs(offset_max)
+
+
+def attention_abs_mix(q, k, v, causal: bool = True, window=None):
+    """Each output element's ``sum_j p_j |v_j|`` in f32: the attention of
+    ``q``, ``k`` (the plain version's weights) applied to ``|v|``. It
+    scales :func:`attention_error`'s tolerance element by element."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    return flash_attention_plain(q.to(torch.float32), k.to(torch.float32),
+                                 v.to(torch.float32).abs(), causal, window)
+
+
+def attention_error(got, want, abs_mix):
+    """``(max_abs_err, used)`` of two evaluations of one attention output
+    in ``want``'s type, computed on ``want``'s device: the largest
+    ``|got - want|`` and the largest share of its tolerance that an
+    element's gap takes (<= 1: they agree; inf if ``got`` is not finite).
+    ``abs_mix`` is
+    :func:`attention_abs_mix` of the same inputs: an output element is
+    ``sum_j p_j v_j``, so a relative error e in the weights moves it by at
+    most ``e * abs_mix``. Per element:
+
+    * f32: 1e-4 (|want| + abs_mix) -- the softmax and both products in
+      f32, summed in another order;
+    * bf16: that, plus 2^-7 |want| (the two outputs each rounded to bf16,
+      2^-8 relative each) plus 2^-8 abs_mix (the weights rounded to bf16
+      for the tensor cores, 2^-8 relative each).
+    """
+    if got.shape != want.shape:
+        raise ValueError(f"shapes differ: {tuple(got.shape)} vs "
+                         f"{tuple(want.shape)}")
+    if want.numel() == 0:
+        return 0.0, 0.0
+    g = got.detach().to(want.device, torch.float32)
+    w = want.detach().to(torch.float32)
+    if not bool(torch.isfinite(g).all()):
+        return float("inf"), float("inf")
+    a = abs_mix.detach().to(want.device, torch.float32)
+    tol = 1e-4 * (w.abs() + a)
+    if want.dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * w.abs() + 2.0 ** -8 * a
+    gap = (g - w).abs()
+    used = torch.where(gap > 0, gap / tol, torch.zeros_like(gap))
+    return float(gap.max()), float(used.max())
 
 
 def _np(x):

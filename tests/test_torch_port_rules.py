@@ -56,6 +56,9 @@ def test_port_imports_without_jax():
             "import repro_torch.core.streaming, repro_torch.kernels.sq_dot\n"
             "import repro_torch.kernels.gleanvec_ip\n"
             "import repro_torch.index.graph, repro_torch.kernels.graph_scan\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.models.transformer, repro_torch.serve.decode\n"
+            "import repro_torch.configs.registry\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'repro was imported'\n")
@@ -84,7 +87,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                              b=torch.zeros(2, 4, 8), w=torch.eye(8),
                              w_pinv=torch.eye(8))
     from repro_torch.core import streaming
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import decode
+    lm_cfg = registry.get("h2o-danube-3-4b").make_config(smoke=True)
+    lm_params = tfm.init(lm_cfg, device="cpu")
+
+    def numpy_tree(t):
+        if isinstance(t, dict):
+            return {k: numpy_tree(v) for k, v in t.items()}
+        return t.numpy()
+
+    lm_tree = numpy_tree(lm_params)
     calls = [lambda: resolve_device(),
+             lambda: tfm.init(lm_cfg),
+             lambda: tfm.init_cache(lm_cfg, 1, 8),
+             lambda: convert.transformer_params(lm_tree, lm_cfg),
+             lambda: decode.generate(lm_params, np.zeros((1, 4), np.int64),
+                                     2, lm_cfg),
              lambda: streaming.build_streaming_artifacts("full", x),
              lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4",
                                  "--stream"]),
@@ -306,3 +327,44 @@ def test_cuda_graph_hop_launches_kernel_not_plain(cuda, monkeypatch):
     assert_topk_close(K.graph_scan_beam_step(*args,
                                              layout_block=s.layout_block),
                       plain, tol, "graph_scan_beam_step vs plain")
+
+
+@pytest.mark.cuda
+def test_cuda_lm_prefill_launches_kernel_not_plain(cuda, monkeypatch):
+    """The LM's prefill on the card runs every layer's attention through
+    the ``flash_attention`` kernel (one launch per layer, never the plain
+    version), and the kernel agrees with the plain version on one layer's
+    inputs; ``generate`` serves from the same path."""
+    import importlib
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import decode
+    from repro_torch.testing import attention_abs_mix, attention_error
+    fam = importlib.import_module("repro_torch.kernels.flash_attention")
+    plain = fam.flash_attention_plain
+
+    def refuse(*a, **k):
+        raise AssertionError("plain path taken for a CUDA tensor")
+
+    cfg = registry.get("h2o-danube-3-4b").make_config(smoke=True)
+    params = tfm.init(cfg, seed=0, device=cuda)
+    prompt = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    monkeypatch.setattr(fam, "flash_attention_plain", refuse)
+    before = K.flash_attention.launches
+    logits, cache = tfm.prefill_step(params, prompt, cfg)
+    tokens = decode.generate(params, prompt, 3, cfg, device=cuda)
+    torch.cuda.synchronize()
+    assert K.flash_attention.launches == before + 2 * cfg.n_layers
+    assert bool(torch.isfinite(logits).all()) and tokens.shape == (2, 43)
+    q = torch.randn(2, 40, cfg.n_heads, cfg.d_head, device=cuda,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.randn(2, 40, cfg.n_kv_heads, cfg.d_head, device=cuda,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    got = K.flash_attention(q, k, k, window=cfg.swa_window)
+    monkeypatch.undo()
+    want = plain(q, k, k, window=cfg.swa_window)
+    assert attention_error(got, want, attention_abs_mix(
+        q, k, k, window=cfg.swa_window))[1] <= 1
