@@ -10,22 +10,26 @@ Phases (any failure raises and the script exits non-zero):
 1. Card and build: print the card, turn TF32 off, build the CUDA kernels
    from ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
 2. Kernels against their plain PyTorch versions at ragged shapes: M and N
-   off the tiles, k in {10, 100}, u8 and f32 codes, row_ids with -1,
-   gathered and sorted layouts, IVF schedules with pad slots (middle, end,
-   a whole row), slack blocks and k above the valid row count, exact ties;
-   the dense kernels (sq_dot, gleanvec_ip, dense gleanvec_sq) with layout
-   blocks off the tile, ``scorer_scores`` of every scorer class with dead
-   columns, and graph hops (u8 and f32, d in {160, 33}, S up to 4096, B in
-   {96, 128}, pads, repeats, dead rows, in-beam candidates, half-empty
-   beams, exact ties); flash_attention (S in {1, 77, 100, 130, 300,
-   4097}, dh in {8, 16, 20, 64, 120, 128}, GQA groups 1, 4 and 8, window
-   None / 48 / 4096, causal and not, bf16 and f32, transposed views).
+   off the tiles, k in {10, 100, 200, 1000}, u8 and f32 codes, row_ids
+   with -1, gathered and sorted layouts, IVF schedules with pad slots
+   (middle, end, a whole row), slack blocks and k above the valid row
+   count, exact ties; the dense kernels (sq_dot, gleanvec_ip, dense
+   gleanvec_sq) with layout blocks off the tile, ``scorer_scores`` of every
+   scorer class with dead columns, and graph hops (u8 and f32, d in {160,
+   33}, S up to 4096, B in {96, 128, 200}, pads, repeats, dead rows,
+   in-beam candidates, half-empty beams, exact ties); kmeans_assign at C
+   up to 129; the gathered GleanVec path at C = 100 tags with an empty tag
+   and with one tag (the bucketing bit for bit, top-k and dense);
+   flash_attention (S in {1, 77, 100, 130, 300, 4097}, dh in {8, 16, 20,
+   64, 120, 128}, GQA groups 1, 4 and 8, window None / 48 / 4096, causal
+   and not, bf16 and f32, transposed views).
 3. The flat main path: synthetic OOD data (D = 512), LeanVec-Sphering
    (d = 160) and GleanVec (C = 48, d = 160) fits, then for each of the 7
    scorer modes an encoded scorer behind a ServingEngine (batch 1024,
    k = 10, kappa = 100; kappa = 10 for ``full``) answering 5 batches, with
-   QPS, p50, p99 and recall@10 against the mode's floor. Launch counters
-   are zeroed just before and read just after.
+   QPS, p50, p99 and recall@10 against the mode's floor; sphering-int8
+   once more at kappa = 200 (recall@10 beside kappa = 100's). Launch
+   counters are zeroed just before and read just after.
 3b. The IVF path on the same data and fit: an aligned IVF (the GleanVec
    clustering, nprobe = 12, reduced-space probe) in front of both sorted
    modes behind a ServingEngine (same batch, k, kappa, 5 batches), with
@@ -55,7 +59,8 @@ Phases (any failure raises and the script exits non-zero):
 4. Each kernel at its path's shapes and inputs: its time beside its
    bound, its plain version's time, the time of the composed PyTorch
    calls that compute the same function (``library_ms``), and its
-   agreement with the plain version.
+   agreement with the plain version; the gathered kernels' bucketing step
+   on its own.
 3e. LM serving, after the search phases' tensors are freed: h2o-danube-
    3-4b at its published widths with random weights drawn on the card,
    ``generate`` at B = 4, s0 = 8192, n_new = 32 (greedy): prefill ms and
@@ -118,6 +123,7 @@ RECALL_FLOORS = {
 IVF_RECALL_FLOORS = {"gleanvec-sorted": 0.95, "gleanvec-int8-sorted": 0.95}
 IVF_NPROBE = 12
 PARITY_ROWS = 200_000       # rows of the fused-vs-gathered check
+WIDE_KAPPA = 200            # sphering-int8's second flat search (phase 3)
 
 # The stream (phase 3c): 70 % of N_ROWS to start, then STREAM_CYCLES cycles
 # of STREAM_INSERTS inserts (and STREAM_REMOVES removes on the IVF runs).
@@ -423,9 +429,178 @@ def phase_kernels(K, testing, gen):
         raise AssertionError("kmeans_assign: a tie must go to the first "
                              "center")
     log("  kmeans_assign exact ties: first center wins")
+    phase_wide_kernels(K, testing, gen)
     phase_dense_kernels(K, testing, gen)
     phase_graph_kernels(K, testing, gen)
     phase_flash_kernels(K, testing, gen)
+
+
+def phase_wide_kernels(K, testing, gen):
+    """The shapes above the kernels' one-pass limits against the plain
+    versions: top-k at k = 200 and 1000 (ip_topk, both gleanvec_sq_topk
+    layouts, ivf_scan_topk; k above the row count), a beam of 200,
+    kmeans_assign at C = 100 (two chunks of centers, a tie across them), and
+    the gathered GleanVec path at C = 100 tags with an empty tag and with a
+    single tag: the bucketing (bit for bit), the fused top-k and the dense
+    kernels; then exact ties through three passes."""
+    dev = torch.device("cuda")
+    gsq = importlib.import_module("repro_torch.kernels.gleanvec_sq")
+    buffer_floats = gsq.DENSE_BUFFER
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def codes(n, d, u8):
+        if u8:
+            return torch.randint(0, 256, (n, d), generator=gen, device=dev,
+                                 dtype=torch.uint8)
+        return randn(n, d)
+
+    def tags_of(n, c, empty=None, single=None):
+        if single is not None:
+            return torch.full((n,), single, dtype=torch.int32, device=dev)
+        t = torch.randint(0, c, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        if empty is not None:
+            t[t == empty] = (empty + 1) % c
+        return t
+
+    for m, n, d, k, u8 in [(37, 5003, 160, 200, True),
+                           (70, 20011, 160, 1000, False),
+                           (3, 150, 20, 200, False)]:
+        q, x = randn(m, d), codes(n, d, u8)
+        tol = testing.dot_tol(row_norm_max(q), row_norm_max(x), d)
+        check_topk(f"ip_topk M={m} N={n} d={d} k={k} "
+                   f"{'u8' if u8 else 'f32'}", K.ip_topk(q, x, k),
+                   K.ip_topk_plain(q, x, k), tol, testing)
+
+    for m, c, d, n, k, u8, masked, empty, single in [
+            (9, 100, 160, 7001, 200, True, True, 7, None),
+            (70, 100, 64, 20011, 1000, False, True, None, None),
+            (33, 48, 160, 9000, 200, False, False, None, 5),
+            (5, 100, 33, 300, 200, True, False, 0, None)]:
+        qs, qlo = randn(m, c, d), randn(m, c)
+        x = codes(n, d, u8)
+        tags = tags_of(n, c, empty, single)
+        rid = None
+        if masked:
+            rid = torch.arange(n, dtype=torch.int32, device=dev)
+            drop = torch.rand(n, generator=gen, device=dev) < 0.1
+            rid = torch.where(drop, torch.full_like(rid, -1), rid)
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), d,
+                              float(qlo.abs().max()))
+        what = (f"C={c} d={d} N={n} {'u8' if u8 else 'f32'}"
+                + (f" empty tag {empty}" if empty is not None else "")
+                + (f" single tag {single}" if single is not None else ""))
+        got = K.bucket_rows_by_tag(tags, c)
+        want = K.bucket_rows_by_tag_plain(tags, c)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"bucket_rows_by_tag {what}: differs from "
+                                 "its plain version")
+        log(f"  bucket_rows_by_tag {what}: equal to its plain version "
+            f"({got[1].numel()} tiles)")
+        check_topk(f"gleanvec_sq_topk gathered M={m} {what} k={k} row_ids="
+                   f"{'with -1' if masked else 'none'}",
+                   K.gleanvec_sq_topk(qs, qlo, tags, x, k, row_ids=rid),
+                   K.gleanvec_sq_topk_plain(qs, qlo, tags, x, k,
+                                            row_ids=rid), tol, testing)
+        want = K.gleanvec_sq_plain(qs, qlo, tags, x)
+        check_dense(f"gleanvec_sq gathered M={m} {what}",
+                    K.gleanvec_sq(qs, qlo, tags, x), want, tol)
+        gsq.DENSE_BUFFER = 1          # query chunks of 64 through the buffer
+        try:
+            check_dense(f"gleanvec_sq gathered M={m} {what} in chunks of 64 "
+                        "queries", K.gleanvec_sq(qs, qlo, tags, x), want, tol)
+        finally:
+            gsq.DENSE_BUFFER = buffer_floats
+        if not u8:
+            check_dense(f"gleanvec_ip M={m} {what}",
+                        K.gleanvec_ip(qs, tags, x),
+                        K.gleanvec_ip_plain(qs, tags, x),
+                        testing.dot_tol(row_norm_max(qs), row_norm_max(x), d))
+
+    for m, c, d, lb, nb, cut, k, u8 in [(70, 6, 160, 4096, 5, 0, 200, True),
+                                        (9, 7, 48, 64, 300, 37, 1000, False)]:
+        n = nb * lb - cut
+        qs, qlo = randn(m, c, d), randn(m, c)
+        x = codes(n, d, u8)
+        btags = torch.randint(0, c, (nb,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        perm[torch.rand(n, generator=gen, device=dev) < 0.2] = -1
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), d,
+                              float(qlo.abs().max()))
+        check_topk(f"gleanvec_sq_topk sorted M={m} C={c} d={d} "
+                   f"layout_block={lb} N={n} k={k} {'u8' if u8 else 'f32'}",
+                   K.gleanvec_sq_topk(qs, qlo, btags, x, k, row_ids=perm,
+                                      layout_block=lb),
+                   K.gleanvec_sq_topk_plain(qs, qlo, btags, x, k,
+                                            row_ids=perm, layout_block=lb),
+                   tol, testing)
+
+    for m, c, d, lb, nb, cut, s, k, u8, slack in [
+            (37, 48, 160, 4096, 7, 0, 5, 200, True, 1),
+            (70, 7, 33, 200, 40, 37, 12, 1000, False, 2)]:
+        n = nb * lb - cut
+        qs, qlo = randn(m, c, d), randn(m, c)
+        x = codes(n, d, u8)
+        btags = torch.randint(0, c, (nb,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        rid = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        rid[torch.rand(n, generator=gen, device=dev) < 0.15] = -1
+        rid[(nb - slack) * lb:] = -1               # all-padding slack blocks
+        sched = torch.stack([torch.randperm(nb, generator=gen, device=dev)[:s]
+                             for _ in range(m)]).to(torch.int32)
+        sched[:, s // 2] = -1
+        sched[1] = -1                              # an all-pad row
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), d,
+                              float(qlo.abs().max()))
+        got = K.ivf_scan_topk(qs, qlo, btags, rid, x, sched, k, lb)
+        want = K.ivf_scan_topk_plain(qs, qlo, btags, rid, x, sched, k, lb)
+        check_topk(f"ivf_scan_topk M={m} C={c} d={d} layout_block={lb} "
+                   f"N={n} S={s} k={k} {'u8' if u8 else 'f32'} "
+                   f"slack={slack}", got, want, tol, testing)
+        if not torch.equal(got[1] < 0, want[1] < 0):
+            raise AssertionError("ivf_scan_topk: -1 ids differ from the "
+                                 "plain version's")
+
+    for m, c, d, lb, nb, s, b, u8, full in [
+            (37, 48, 160, 256, 40, 112, 200, True, True),
+            (9, 5, 33, 64, 50, 300, 200, False, False)]:
+        args, lb = hop_inputs(gen, m, c, d, lb, nb, s, b, u8, full)
+        check_hop(K, testing, f"graph_scan_beam_step M={m} C={c} d={d} "
+                  f"layout_block={lb} N={lb * nb} S={s} B={b} "
+                  f"{'u8' if u8 else 'f32'} beam={'full' if full else 'half'}",
+                  args, lb)
+
+    for n, d, c in [(10007, 512, 100), (999, 100, 100), (5000, 64, 129)]:
+        x = randn(n, d)
+        cent = randn(c, d)
+        check_kmeans(f"kmeans_assign N={n} D={d} C={c}", x, cent,
+                     K.kmeans_assign(x, cent), K.kmeans_assign_plain(x, cent),
+                     testing)
+    cent = randn(100, 64)
+    cent[70] = cent[3]                        # in the second chunk of 50
+    x = cent[3].expand(50, 64).contiguous() + 0.0
+    tags, _ = K.kmeans_assign(x, cent)
+    if not bool((tags == 3).all()):
+        raise AssertionError("kmeans_assign: a tie across chunks of centers "
+                             "must go to the first center")
+    log("  kmeans_assign C=100 exact ties across chunks: first center wins")
+
+    # exact ties through three passes: identical rows, ids ascending
+    x = randn(1, 32).expand(1000, 32).contiguous()
+    want = torch.arange(300, dtype=torch.int32, device=dev).expand(4, -1)
+    _, ids = K.ip_topk(randn(4, 32), x, 300)
+    tags = tags_of(1000, 100)
+    qv = randn(4, 1, 32).expand(4, 100, 32).contiguous()
+    _, ids_g = K.gleanvec_sq_topk(qv, torch.zeros(4, 100, device=dev), tags,
+                                  x, 300)
+    if not (torch.equal(ids, want) and torch.equal(ids_g, want)):
+        raise AssertionError("ip_topk / gathered gleanvec_sq_topk at k=300: "
+                             "equal scores must break toward the smaller id")
+    log("  ip_topk and gathered gleanvec_sq_topk k=300 exact ties: ids "
+        "ascending as required")
 
 
 # (B, H, KV, S, dh, window, causal, dtype, strided): S off the 64-query
@@ -742,7 +917,7 @@ def phase_main(K):
     log(f"  fit: {time.perf_counter() - t0:.1f} s "
         f"(kmeans_assign launches so far: {K.kmeans_assign.launches})")
 
-    per_mode, states = {}, {}
+    per_mode, states, flat_p50 = {}, {}, {}
     for mode in MODES:
         model = None if mode == "full" else (
             sph if mode.startswith("sphering") else glv)
@@ -762,6 +937,7 @@ def phase_main(K):
         delta = {fn.__name__: fn.launches - before[fn.__name__]
                  for fn in flat_kernels}
         per_mode[mode] = delta
+        flat_p50[mode] = s.percentile_ms(50)
         log(f"  mode={mode} encode={t_build:.2f}s batches={s.n_batches} "
             f"QPS={s.qps:.0f} p50={s.percentile_ms(50):.1f}ms "
             f"p99={s.percentile_ms(99):.1f}ms recall@10={rec:.4f} "
@@ -773,6 +949,18 @@ def phase_main(K):
                                  f"floor {RECALL_FLOORS[mode]}")
         q = torch.as_tensor(ds.queries_test, device=dev)
         states[mode] = (art.scorer, art.scorer.prepare_queries(q), kappa)
+        if mode == "sphering-int8":     # kappa is this mode's lever
+            wide = ServingEngine(msearch.make_state(art), k=10,
+                                 kappa=WIDE_KAPPA, batch_size=1024, dim=512)
+            ids = wide.submit(ds.queries_test)
+            rec_wide = metrics.recall_at_k(ids, ds.gt[:, :10])
+            log(f"  mode={mode} kappa={WIDE_KAPPA}: recall@10="
+                f"{rec_wide:.4f} (kappa={kappa}: {rec:.4f}) "
+                f"batch={wide.stats.percentile_ms(50):.1f}ms")
+            if ids.shape != (1024, 10) or rec_wide < rec:
+                raise AssertionError(f"{mode}: kappa={WIDE_KAPPA} recall "
+                                     f"{rec_wide:.4f} below kappa={kappa}'s")
+            del wide
         del engine
     totals = {fn.__name__: fn.launches for fn in all_counters(K)}
     log(f"  main-path launches: {totals}")
@@ -780,7 +968,7 @@ def phase_main(K):
         if totals[fn.__name__] <= 0:
             raise AssertionError(f"{fn.__name__} was not launched on the "
                                  "main path")
-    return ds, x, sph, glv, states, per_mode, totals
+    return ds, x, sph, glv, states, per_mode, totals, flat_p50
 
 
 def all_counters(K):
@@ -1821,6 +2009,13 @@ def stream_timing(K, testing, finals, totals, queries):
         lambda: per_cluster_dense_library(qv, zeros, s.tags, s.x_low, 0),
         2.0 * m * n * d, (qv.numel() + m * n + n * d + n) * 4, tol,
         totals["gleanvec_ip"]))
+    table.append(time_dense(
+        "gleanvec_sq", "gathered f32",
+        lambda: K.gleanvec_sq(qv, zeros, s.tags, s.x_low),
+        lambda: K.gleanvec_sq_plain(qv, zeros, s.tags, s.x_low),
+        lambda: per_cluster_dense_library(qv, zeros, s.tags, s.x_low, 0),
+        2.0 * m * n * d, (qv.numel() + zeros.numel() + m * n + n * d + n) * 4,
+        tol, totals["gleanvec_sq"]))
     del qv, zeros
     for label, key in (("gathered u8", ("flat", "gleanvec-int8")),
                        ("sorted f32", ("flat", "gleanvec-sorted")),
@@ -1848,6 +2043,10 @@ def stream_timing(K, testing, finals, totals, queries):
             2.0 * m * n * d, (qs.numel() + qlo.numel() + m * n
                               + tags.numel()) * 4
             + n * d * x.element_size(), tol, totals["gleanvec_sq"]))
+        if lb == 0:
+            log(f"  gleanvec_sq[{label}] device time by kernel "
+                "(torch.profiler): " + device_breakdown(
+                    lambda: K.gleanvec_sq(qs, qlo, tags, x), reps=2))
         del qs, qlo, qst
     return table
 
@@ -1943,7 +2142,7 @@ def graph_timing(K, testing, x, hops, totals, per_batch):
 
 
 def phase_timing(K, testing, x, glv, states, per_mode, totals, ivf_inputs,
-                 ivf_launches):
+                 ivf_launches, flat_p50):
     from repro_torch.core.spherical_kmeans import normalize_rows
     log("phase 4: kernels at their paths' shapes (CUDA events; bound = "
         "max(flops / 67 TFLOP/s fp32, bytes / 3.35 TB/s); library = "
@@ -1955,6 +2154,18 @@ def phase_timing(K, testing, x, glv, states, per_mode, totals, ivf_inputs,
         table.append(time_kernel(name, mode,
                                  mode_calls(K, mode, scorer, qstate, kappa),
                                  per_mode[mode][name], testing))
+        if mode in ("gleanvec", "gleanvec-int8"):
+            log(f"    flat {mode} batch p50 (phase 3): "
+                f"{flat_p50[mode]:.1f} ms; device time by kernel "
+                "(torch.profiler): " + device_breakdown(
+                    mode_calls(K, mode, scorer, qstate, kappa)[0]))
+    tags = states["gleanvec-int8"][0].tags
+    c = glv.centers.shape[0]
+    bucket_ms, _ = timed(lambda: K.bucket_rows_by_tag(tags, c), 20)
+    log(f"  bucket_rows_by_tag (the gathered kernels' first step, N="
+        f"{tags.numel()} C={c}): {bucket_ms:.4f} ms; device time by kernel "
+        "(torch.profiler): "
+        + device_breakdown(lambda: K.bucket_rows_by_tag(tags, c)))
     for mode, (scorer, qstate, probe) in ivf_inputs.items():
         calls = ivf_calls(K, testing, scorer, qstate, probe, 100)
         table.append(time_kernel("ivf_scan_topk", mode, calls,
@@ -1980,6 +2191,18 @@ def phase_timing(K, testing, x, glv, states, per_mode, totals, ivf_inputs,
                   "replaces": repl, "launches": totals["kmeans_assign"],
                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": b, "bound_by": by, "library_ms": lib_ms})
+    # the paper's C = 100 (two chunks of centers), off the main path
+    cent = normalize_rows(x[:100])
+    c = cent.shape[0]
+    ms, out_k = timed(lambda: K.kmeans_assign(x_unit, cent), 3)
+    plain_ms, out_p = timed_once(lambda: K.kmeans_assign_plain(x_unit, cent))
+    check_kmeans("kmeans_assign C=100 vs plain", x_unit, cent, out_k, out_p,
+                 testing)
+    lib_ms, _ = timed(lambda: torch.max(x_unit @ cent.T, dim=1), 3)
+    b, by = bound_ms(2.0 * n * c * d, n * d * 4 + c * d * 4 + n * 8)
+    log(f"  kmeans_assign[C=100]: ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={b:.3f} ({by}) library_ms={lib_ms:.3f} (not on the "
+        "main path)")
     return table
 
 
@@ -2025,12 +2248,12 @@ def main(argv=None) -> int:
             f"({time.perf_counter() - t_start:.0f} s)")
         return 0
 
-    ds, x, sph, glv, states, per_mode, totals = phase_main(K)
+    ds, x, sph, glv, states, per_mode, totals, flat_p50 = phase_main(K)
     ivf_inputs, ivf_launches = phase_ivf(K, testing, ds, x, glv, states)
     finals, stream_totals = phase_stream(K, testing, ds, x)
     hops, graph_totals, per_batch = phase_graph(K, testing, ds, x, sph, glv)
     table = phase_timing(K, testing, x, glv, states, per_mode, totals,
-                         ivf_inputs, ivf_launches)
+                         ivf_inputs, ivf_launches, flat_p50)
     del states, ivf_inputs
     table += stream_timing(K, testing, finals, stream_totals,
                            torch.as_tensor(ds.queries_test,

@@ -22,20 +22,25 @@
 // f32 rows) = 2.5-2.8 ms at 3.35 TB/s: fp32 FMA bound, as the fused scans.
 //
 // What the design does about it: the fused scans' tiles with a dense-store
-// epilogue in place of the top-k fold.
-//   * sq_dot and the sorted layout: the register-tiled fp32 product of
-//     scan_gemm.cuh (64 x 128 tiles, each thread 4 x 8 scores; a tile's one
-//     view and its offset per query); the tile goes through shared memory
-//     and each warp writes a query row's 128 scores with consecutive lanes
-//     on consecutive columns. sq_dot is the one-view case (C = 1).
-//   * gleanvec_ip and the gathered layout: the per-row-tag tile of
-//     gather_scan.cuh (views of <= 4 queries in shared memory, one thread
-//     per row), bound by shared-memory reads of the views; gleanvec_ip is
-//     its f32 case without an affine term.
+// epilogue in place of the top-k fold: the register-tiled fp32 product of
+// scan_gemm.cuh (64 x 128 tiles, each thread 4 x 8 scores; a tile's one
+// view and its offset per query), staged through shared memory; each warp
+// writes one query row of the tile.
+//   * sq_dot and the sorted layout: the tile's 128 columns are consecutive,
+//     so consecutive lanes store consecutive columns. sq_dot is the one-view
+//     case (C = 1).
+//   * gleanvec_ip and the gathered layout: the per-call bucketing of
+//     bucket_rows.cuh gives every 128-slot tile one tag; the tile stages
+//     x[rows[slot], :] and writes its scores in slot order to a buffer of a
+//     chunk of queries (at most 2^28 floats), which bucket_unpermute_kernel
+//     gathers into the rows' columns of the output: 2 x 8.2 GB more traffic
+//     (~7 ms on an H100 at M = 1024, N = 2M) in place of 8.2 GB of 4-byte
+//     stores scattered ~C columns apart (~70 ms more). gleanvec_ip is its
+//     f32 case without an affine term.
 // Row splits across blocks need no merge: every block writes its own
 // columns. All arithmetic is fp32 FMA, no TF32.
 #include "scan_gemm.cuh"
-#include "gather_scan.cuh"
+#include "bucket_rows.cuh"
 #include "error.cuh"
 
 template <typename XT>
@@ -61,18 +66,51 @@ static int gemm_dense(const float* q, long long q_stride, const float* qlo, int 
   return (int)launch_gemm_dense<XT>(a, (cudaStream_t)stream);
 }
 
+// qlo may be null (no affine term). buf holds mc * slots floats (slots =
+// bucket_tiles(N, C) * GT_N); queries go through in chunks of mc.
 template <typename XT>
 static int gathered_dense(const float* qs, const float* qlo, const int* tags,
-                          const XT* x, int M, int C, int d, int N, int tmg, int S,
-                          float* out, void* stream) {
-  GatherArgs a{qs, qlo, tags, nullptr, x, M, C, d, N, 0, S, out, nullptr};
-  return (int)launch_gathered_tmg<XT, true>(a, tmg, (cudaStream_t)stream);
+                          const XT* x, int M, int C, int d, int N, int S, void* ws,
+                          float* buf, int mc, float* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Buckets b;
+  cudaError_t err = launch_buckets(tags, N, C, ws, &b, st);
+  if (err != cudaSuccess) return (int)err;
+  const long long slots = (long long)bucket_tiles(N, C) * GT_N;
+  for (int m0 = 0; m0 < M; m0 += mc) {
+    const int mm = M - m0 < mc ? M - m0 : mc;
+    GemmScanArgs a;
+    a.q = qs + (size_t)m0 * C * d;
+    a.q_stride = (long long)C * d;
+    a.d = d;
+    a.qlo = qlo ? qlo + (size_t)m0 * C : nullptr;
+    a.C = C;
+    a.seg_tags = b.tile_tags;
+    a.row_ids = nullptr;
+    a.rows = b.rows;
+    a.x = x;
+    a.N = (int)slots;
+    a.L = GT_N;
+    a.M = mm;
+    a.k = 0;
+    a.S = S;
+    a.pv = buf;
+    a.pi = nullptr;
+    if ((err = launch_gemm_dense<XT, true>(a, st)) != cudaSuccess) return (int)err;
+    if (N > 0) {
+      const dim3 grid((unsigned)((N + BK_WINDOW - 1) / BK_WINDOW), (unsigned)mm);
+      bucket_unpermute_kernel<<<grid, BK_THREADS, 0, st>>>(buf, b.slot_of, N, slots,
+                                                           out + (size_t)m0 * N);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+  }
+  return 0;
 }
 
-// Queries per block of the gathered tile (views of one query: C (d + 1)
-// floats); 0 = they do not fit a block's shared memory.
-extern "C" int dense_gathered_queries_per_block(int C, int d) {
-  return gathered_tmg(C, d, 0);
+// Workspace bytes of the gathered kernels' bucketing (tags (N,), C views).
+extern "C" long long dense_bucket_workspace_bytes(int N, int C) {
+  size_t off[4];
+  return (long long)bucket_offsets(N, C, off);
 }
 
 // sq_dot: q_scaled (M, d) f32, q_lo (M,) f32, codes (N, d) u8 -> (M, N).
@@ -83,30 +121,33 @@ extern "C" int sq_dot_u8(const float* q_scaled, const float* q_lo,
                              S, out, stream);
 }
 
-// gleanvec_ip: q_views (M, C, d) f32, tags (N,) i32, x_low (N, d) f32 -> (M, N);
-// zeros (M, C) is the tile's affine term (gleanvec_ip has none).
-extern "C" int gleanvec_ip_f32(const float* q_views, const float* zeros,
-                               const int* tags, const float* x_low, int M, int C,
-                               int d, int N, int tmg, int S, float* out,
+// gleanvec_ip: q_views (M, C, d) f32, tags (N,) i32, x_low (N, d) f32 -> (M, N)
+// (no affine term).
+extern "C" int gleanvec_ip_f32(const float* q_views, const int* tags,
+                               const float* x_low, int M, int C, int d, int N, int S,
+                               void* ws, float* buf, int mc, float* out,
                                void* stream) {
-  return gathered_dense<float>(q_views, zeros, tags, x_low, M, C, d, N, tmg, S, out,
-                               stream);
+  return gathered_dense<float>(q_views, nullptr, tags, x_low, M, C, d, N, S, ws, buf,
+                               mc, out, stream);
 }
 
 // dense gleanvec_sq, gathered: tags (N,) per row.
 extern "C" int gleanvec_sq_dense_gathered_f32(const float* qs, const float* qlo,
                                               const int* tags, const float* codes,
-                                              int M, int C, int d, int N, int tmg,
-                                              int S, float* out, void* stream) {
-  return gathered_dense<float>(qs, qlo, tags, codes, M, C, d, N, tmg, S, out, stream);
+                                              int M, int C, int d, int N, int S,
+                                              void* ws, float* buf, int mc,
+                                              float* out, void* stream) {
+  return gathered_dense<float>(qs, qlo, tags, codes, M, C, d, N, S, ws, buf, mc, out,
+                               stream);
 }
 
 extern "C" int gleanvec_sq_dense_gathered_u8(const float* qs, const float* qlo,
                                              const int* tags, const uint8_t* codes,
-                                             int M, int C, int d, int N, int tmg,
-                                             int S, float* out, void* stream) {
-  return gathered_dense<uint8_t>(qs, qlo, tags, codes, M, C, d, N, tmg, S, out,
-                                 stream);
+                                             int M, int C, int d, int N, int S,
+                                             void* ws, float* buf, int mc,
+                                             float* out, void* stream) {
+  return gathered_dense<uint8_t>(qs, qlo, tags, codes, M, C, d, N, S, ws, buf, mc,
+                                 out, stream);
 }
 
 // dense gleanvec_sq, sorted: block_tags (ceil(N / L),), one view per block.

@@ -10,7 +10,7 @@
 // Two layouts:
 //   * gathered: tags (N,) per row;
 //   * sorted: the rows are tag-sorted and cluster-padded, tags hold one
-//     entry per layout block, so every tile has ONE view.
+//     entry per layout block.
 //
 // What bounds it on an H100 SXM: at M = 1024, N = 2,000,000 (sorted: the
 // padded row count), d = 160, C = 48, k = 100, 2 d flops per query-row pair
@@ -18,37 +18,69 @@
 // u8 codes (1.3 GB f32) plus tags = 0.1 (0.4) ms at 3.35 TB/s: fp32 FMA
 // bound.
 //
-// What the design does about it:
-//   * sorted: the tile's one view makes scoring a plain (64 x d) x (d x 128)
-//     product, run by the register-tiled fp32 scan of scan_gemm.cuh with the
-//     tile's view q_scaled[:, tag, :] and offset q_lo[:, tag]. A tile never
-//     crosses a layout block. Same FMA bound as ip_topk.
-//   * gathered: the per-row-tag tile of gather_scan.cuh (views of <= 4
-//     queries in shared memory, rows counting-sorted by tag per tile), bound
-//     by shared-memory reads of the views: a quarter of the FMA peak at best.
-//     That is the cost the sorted layout exists to remove.
+// What the design does about it: every tile is scored as a plain
+// (64 x d) x (d x 128) product by the register-tiled fp32 scan of
+// scan_gemm.cuh, with the tile's ONE view q_scaled[:, tag, :] and offset
+// q_lo[:, tag]. Same FMA bound as ip_topk.
+//   * sorted: a tile never crosses a layout block, whose one tag the layout
+//     fixed when it was built.
+//   * gathered: a per-call bucketing (bucket_rows.cuh, three small launches)
+//     lays each tag's rows out in 128-slot tiles of one tag, and the scan
+//     stages x[rows[slot], :] through that indirection (ROWS); ids are
+//     row_ids[row] (or the row), padding slots are -1 and never win. Each
+//     (query, row) score is the same FMA chain in either layout, and the
+//     top-k order does not depend on the scan order.
 // N is split across blocks; a second kernel merges the (M, S, k) partial
-// lists (topk_common.cuh). All arithmetic is fp32 FMA, no TF32.
+// lists (topk_common.cuh); k above TOPK_PASS_K runs in passes. All
+// arithmetic is fp32 FMA, no TF32.
 #include "scan_gemm.cuh"
-#include "gather_scan.cuh"
+#include "bucket_rows.cuh"
 #include "error.cuh"
 
-// Queries per block of the gathered path: the most (4, 2 or 1) whose views
-// fit the 227 KB a block may use; 0 = none fits.
-extern "C" int gleanvec_sq_gathered_queries_per_block(int C, int d, int k) {
-  return gathered_tmg(C, d, k);
+// Workspace bytes of the gathered path's bucketing (tags (N,), C views);
+// off[0..3] get the byte offsets of its counts, tile_tags, rows and slot_of.
+extern "C" long long gleanvec_sq_bucket_workspace(int N, int C, long long* off) {
+  size_t o[4];
+  const size_t bytes = bucket_offsets(N, C, o);
+  for (int i = 0; i < 4; ++i) off[i] = (long long)o[i];
+  return (long long)bytes;
+}
+
+// The bucketing alone, into ws: rows (T * 128,), tile_tags (T,) and
+// slot_of (N,) at the offsets above.
+extern "C" int gleanvec_sq_bucket_rows(const int* tags, int N, int C, void* ws,
+                                       void* stream) {
+  Buckets b;
+  return (int)launch_buckets(tags, N, C, ws, &b, (cudaStream_t)stream);
 }
 
 template <typename XT>
 static int gathered_impl(const float* qs, const float* qlo, const int* tags,
                          const int* row_ids, const XT* codes, int M, int C, int d,
-                         int N, int k, int tmg, int S, float* pv, int* pi,
+                         int N, int k, int S, void* ws, float* pv, int* pi,
                          float* out_v, int* out_i, void* stream) {
-  GatherArgs a{qs, qlo, tags, row_ids, codes, M, C, d, N, k, S, pv, pi};
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_gathered_tmg<XT, false>(a, tmg, st);
+  Buckets b;
+  cudaError_t err = launch_buckets(tags, N, C, ws, &b, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_topk_merge(pv, pi, M, S, k, out_v, out_i, st);
+  GemmScanArgs a;
+  a.q = qs;
+  a.q_stride = (long long)C * d;
+  a.d = d;
+  a.qlo = qlo;
+  a.C = C;
+  a.seg_tags = b.tile_tags;
+  a.row_ids = row_ids;
+  a.rows = b.rows;
+  a.x = codes;
+  a.N = bucket_tiles(N, C) * GT_N;
+  a.L = GT_N;
+  a.M = M;
+  a.k = k;
+  a.S = S;
+  a.pv = pv;
+  a.pi = pi;
+  return (int)launch_gemm_scan<XT, true>(a, out_v, out_i, st);
 }
 
 template <typename XT>
@@ -78,23 +110,22 @@ static int sorted_impl(const float* qs, const float* qlo, const int* block_tags,
 extern "C" int gleanvec_sq_gathered_topk_f32(const float* qs, const float* qlo,
                                              const int* tags, const int* row_ids,
                                              const float* codes, int M, int C, int d,
-                                             int N, int k, int tmg, int S, float* pv,
+                                             int N, int k, int S, void* ws, float* pv,
                                              int* pi, float* out_v, int* out_i,
                                              void* stream) {
-  return gathered_impl<float>(qs, qlo, tags, row_ids, codes, M, C, d, N, k, tmg, S,
-                              pv, pi, out_v, out_i, stream);
+  return gathered_impl<float>(qs, qlo, tags, row_ids, codes, M, C, d, N, k, S, ws, pv,
+                              pi, out_v, out_i, stream);
 }
 
 extern "C" int gleanvec_sq_gathered_topk_u8(const float* qs, const float* qlo,
                                             const int* tags, const int* row_ids,
                                             const uint8_t* codes, int M, int C, int d,
-                                            int N, int k, int tmg, int S, float* pv,
+                                            int N, int k, int S, void* ws, float* pv,
                                             int* pi, float* out_v, int* out_i,
                                             void* stream) {
-  return gathered_impl<uint8_t>(qs, qlo, tags, row_ids, codes, M, C, d, N, k, tmg, S,
+  return gathered_impl<uint8_t>(qs, qlo, tags, row_ids, codes, M, C, d, N, k, S, ws,
                                 pv, pi, out_v, out_i, stream);
 }
-
 extern "C" int gleanvec_sq_sorted_topk_f32(const float* qs, const float* qlo,
                                            const int* block_tags, const int* row_ids,
                                            const float* codes, int M, int C, int d,

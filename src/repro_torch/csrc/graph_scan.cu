@@ -46,6 +46,7 @@
 
 #define GS_THREADS 256
 #define GS_MAX_S 4096
+#define GS_SMEM_CAP 232448  // bytes of shared memory a block may use
 
 // Ascending bitonic sort of P (a power of two) ints in shared memory with
 // the whole block; ends with a barrier.
@@ -185,6 +186,18 @@ __global__ void __launch_bounds__(GS_THREADS) graph_scan_kernel(
   }
 }
 
+// Shared memory of one block: Q = next_pow2(B + S) (value, id) pairs and
+// P = next_pow2(S) rows. The beam and the candidates are sorted together in
+// it, so B + S is bounded by a block's 227 KB (B + S <= 16384 at S <= 4096).
+static size_t graph_scan_smem(int S, int B) {
+  return (size_t)next_pow2(B + S) * (sizeof(float) + sizeof(int)) +
+         (size_t)next_pow2(S > 0 ? S : 1) * sizeof(int);
+}
+
+extern "C" long long graph_scan_smem_bytes(int S, int B) {
+  return (long long)graph_scan_smem(S, B);
+}
+
 static inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -197,14 +210,14 @@ static int graph_scan_impl(const float* qs, const float* qlo,
                            int C, int d, int N, int layout_block, int S, int B,
                            float* out_v, int* out_i, void* stream) {
   if (M <= 0) return 0;
-  if (S < 0 || S > GS_MAX_S || B < 1 || B > TOPK_MAX_K || layout_block <= 0)
+  if (S < 0 || S > GS_MAX_S || B < 1 || layout_block <= 0)
     return (int)cudaErrorInvalidValue;
   const int per_vec = sizeof(XT) == 1 ? 16 : 4;  // elements per 16-byte load
   const bool vec = d % per_vec == 0 && aligned16(qs) && aligned16(codes);
+  const size_t smem = graph_scan_smem(S, B);
+  if (smem > GS_SMEM_CAP) return (int)cudaErrorInvalidValue;
   const int P = next_pow2(S > 0 ? S : 1);
   const int Q = next_pow2(B + S);
-  const size_t smem = (size_t)Q * (sizeof(float) + sizeof(int)) +
-                      (size_t)P * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       graph_scan_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

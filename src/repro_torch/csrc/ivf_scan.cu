@@ -43,6 +43,8 @@
 //   5. ivf_merge_kernel: per query, the running best k and chunks of its
 //      valid partial lists are bitonic-sorted in shared memory (at most
 //      MERGE_MAX at a time) until all are consumed.
+// A k above TOPK_PASS_K repeats steps 4-5 once per TOPK_PASS_K output
+// columns, each pass under the previous one's ceiling (topk_common.cuh).
 // A slab is read once per work item that covers it: ceil(queries probing it /
 // 64) times, about 4 at the smoke shapes (~1.4 GB u8, 5.6 GB f32 per batch,
 // before the 50 MB L2 catches the items of one block, which run side by
@@ -74,9 +76,11 @@ static size_t max_work(int M, int S, int NB) {
   return (size_t)NB + ((size_t)M * S + GT_M - 1) / GT_M;
 }
 
-// Carve the workspace; returns its size in bytes (base may be null).
+// Carve the workspace; returns its size in bytes (base may be null). The
+// partial lists hold one pass: min(k, TOPK_PASS_K) entries.
 static size_t carve(char* base, int M, int S, int NB, int k, Workspace* w) {
   const size_t ms = (size_t)M * S;
+  k = k < TOPK_PASS_K ? k : TOPK_PASS_K;
   const size_t sizes[] = {(size_t)NB * 4, (size_t)NB * 4, (size_t)M * 4, ms * 4,
                           ms * 4, ms * 4, ms * 4, max_work(M, S, NB) * 12, 4,
                           ms * k * 4, ms * k * 4};
@@ -178,8 +182,9 @@ __global__ void ivf_scatter_kernel(int M, int S, Workspace w) {
 
 // Per query: the running best k sit in [0, k); each round loads the next
 // P - k candidates of the query's valid partial lists behind them and sorts.
-__global__ void ivf_merge_kernel(int S, int k, int P, Workspace w, float* out_v,
-                                 int* out_i) {
+// Query m's k entries go to out[m * ldo, m * ldo + k).
+__global__ void ivf_merge_kernel(int S, int k, int P, int ldo, Workspace w,
+                                 float* out_v, int* out_i) {
   extern __shared__ unsigned char merge_smem[];
   float* v = reinterpret_cast<float*>(merge_smem);
   int* id = reinterpret_cast<int*>(v + P);
@@ -208,8 +213,8 @@ __global__ void ivf_merge_kernel(int S, int k, int P, Workspace w, float* out_v,
   }
   __syncthreads();
   for (int e = threadIdx.x; e < k; e += blockDim.x) {
-    out_v[(size_t)m * k + e] = v[e];
-    out_i[(size_t)m * k + e] = id[e];
+    out_v[(size_t)m * ldo + e] = v[e];
+    out_i[(size_t)m * ldo + e] = id[e];
   }
 }
 
@@ -244,39 +249,53 @@ static int ivf_impl(const float* qs, const float* qlo, const int* block_tags,
     ivf_scatter_kernel<<<(unsigned)((ms + IVF_THREADS - 1) / IVF_THREADS), IVF_THREADS,
                          0, st>>>(M, S, w);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    GemmScanArgs a;
-    a.q = qs;
-    a.q_stride = (long long)C * d;
-    a.d = d;
-    a.qlo = qlo;
-    a.C = C;
-    a.seg_tags = block_tags;
-    a.row_ids = row_ids;
-    a.x = codes;
-    a.N = N;
-    a.L = L;
-    a.M = M;
-    a.k = k;
-    a.S = S;
-    a.pv = w.pv;
-    a.pi = w.pi;
-    a.work = w.work;
-    a.n_work = w.n_work;
-    a.q_index = w.q_index;
-    a.q_slot = w.q_slot;
-    err = launch_gemm_scan_blocks<XT>(a, dim3((unsigned)max_work(M, S, NB)), st);
-    if (err != cudaSuccess) return (int)err;
   }
-  long long want = (long long)S * k + k;  // one query's candidates + its best k
-  if (want > MERGE_MAX) want = MERGE_MAX;
-  if (want < 2LL * k) want = 2LL * k;
-  const int P = next_pow2((int)want);
-  const size_t smem = (size_t)P * 8;
-  err = cudaFuncSetAttribute(ivf_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ivf_merge_kernel<<<M, 512, smem, st>>>(S, k, P, w, out_v, out_i);
-  return (int)cudaGetLastError();
+  GemmScanArgs a;
+  a.q = qs;
+  a.q_stride = (long long)C * d;
+  a.d = d;
+  a.qlo = qlo;
+  a.C = C;
+  a.seg_tags = block_tags;
+  a.row_ids = row_ids;
+  a.x = codes;
+  a.N = N;
+  a.L = L;
+  a.M = M;
+  a.S = S;
+  a.pv = w.pv;
+  a.pi = w.pi;
+  a.work = w.work;
+  a.n_work = w.n_work;
+  a.q_index = w.q_index;
+  a.q_slot = w.q_slot;
+  const dim3 grid((unsigned)max_work(M, S, NB));
+  for (int k0 = 0; k0 < k; k0 += TOPK_PASS_K) {
+    const int kp = k - k0 < TOPK_PASS_K ? k - k0 : TOPK_PASS_K;
+    a.k = kp;
+    if (ms > 0) {
+      if (k0 == 0) {
+        err = launch_gemm_scan_blocks<XT, true>(a, grid, st);
+      } else {
+        a.ceil_v = out_v + k0 - 1;
+        a.ceil_i = out_i + k0 - 1;
+        a.ceil_ld = k;
+        err = launch_gemm_scan_blocks<XT, true, false, true>(a, grid, st);
+      }
+      if (err != cudaSuccess) return (int)err;
+    }
+    long long want = (long long)S * kp + kp;  // one query's candidates + its best kp
+    if (want > MERGE_MAX) want = MERGE_MAX;
+    if (want < 2LL * kp) want = 2LL * kp;
+    const int P = next_pow2((int)want);
+    const size_t smem = (size_t)P * 8;
+    err = cudaFuncSetAttribute(ivf_merge_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ivf_merge_kernel<<<M, 512, smem, st>>>(S, kp, P, k, w, out_v + k0, out_i + k0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 extern "C" int ivf_scan_topk_f32(const float* qs, const float* qlo, const int* block_tags,

@@ -22,7 +22,11 @@
 // step costs 1 + CPT shared loads for 4 CPT FMAs. The argmax scans a
 // thread's centers in ascending order with strict `>`, then combines the 8
 // threads of a row by (larger value, else smaller index): the first maximum
-// wins. All arithmetic is fp32 FMA, no TF32.
+// wins. More centers than one block's shared memory holds (C > 64, or fewer
+// at a large D) run in chunks of at most 8 * CPT_MAX centers, one launch
+// each over all rows: a later chunk replaces a row's (tag, maxsim) only
+// where its best is strictly greater (RUNNING), so ties still go to the
+// first center. All arithmetic is fp32 FMA, no TF32.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -38,10 +42,11 @@ static size_t kmeans_smem(int D, int cpt) {
   return ((size_t)dp * 8 * cpt + (size_t)KA_K * KA_XS) * 4;
 }
 
-template <int CPT>
+// centers: this chunk's C rows, whose indices start at c0.
+template <int CPT, bool RUNNING>
 __global__ void __launch_bounds__(KA_THREADS)
     kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ centers,
-                         int N, int D, int C, int* __restrict__ tags,
+                         int N, int D, int C, int c0, int* __restrict__ tags,
                          float* __restrict__ maxsim) {
   extern __shared__ __align__(16) float ksm[];
   constexpr int CP = 8 * CPT;
@@ -112,56 +117,77 @@ __global__ void __launch_bounds__(KA_THREADS)
         }
       }
       const int n = r0 + tr * 4 + i;
-      if (tc == 0 && n < N) {
-        tags[n] = bi;
+      if (tc == 0 && n < N && (!RUNNING || bv > maxsim[n])) {
+        tags[n] = c0 + bi;
         maxsim[n] = bv;
       }
     }
   }
 }
 
-template <int CPT>
+template <int CPT, bool RUNNING>
 static cudaError_t launch_kmeans(const float* x, const float* centers, int N, int D,
-                                 int C, int* tags, float* maxsim, cudaStream_t stream) {
+                                 int C, int c0, int* tags, float* maxsim,
+                                 cudaStream_t stream) {
+  auto kernel = kmeans_assign_kernel<CPT, RUNNING>;
   const size_t smem = kmeans_smem(D, CPT);
-  cudaError_t err = cudaFuncSetAttribute(kmeans_assign_kernel<CPT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kmeans_assign_kernel<CPT>,
-                                                      KA_THREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, KA_THREADS, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int ntiles = (N + KA_ROWS - 1) / KA_ROWS;
   int grid = sms * per_sm;
   if (grid > ntiles) grid = ntiles;
   if (grid < 1) grid = 1;
-  kmeans_assign_kernel<CPT><<<grid, KA_THREADS, smem, stream>>>(x, centers, N, D, C,
-                                                                tags, maxsim);
+  kernel<<<grid, KA_THREADS, smem, stream>>>(x, centers, N, D, C, c0, tags, maxsim);
   return cudaGetLastError();
 }
 
-// Bytes of shared memory the kernel needs for (D, C); the wrapper refuses
-// shapes above a block's 227 KB.
-extern "C" long long kmeans_assign_smem_bytes(int D, int C) {
-  return (long long)kmeans_smem(D, (C + 7) / 8);
+template <bool RUNNING>
+static cudaError_t launch_chunk(const float* x, const float* centers, int N, int D,
+                                int C, int c0, int* tags, float* maxsim,
+                                cudaStream_t st) {
+  switch ((C + 7) / 8) {
+    case 1: return launch_kmeans<1, RUNNING>(x, centers, N, D, C, c0, tags, maxsim, st);
+    case 2: return launch_kmeans<2, RUNNING>(x, centers, N, D, C, c0, tags, maxsim, st);
+    case 3: return launch_kmeans<3, RUNNING>(x, centers, N, D, C, c0, tags, maxsim, st);
+    case 4: return launch_kmeans<4, RUNNING>(x, centers, N, D, C, c0, tags, maxsim, st);
+    case 5: return launch_kmeans<5, RUNNING>(x, centers, N, D, C, c0, tags, maxsim, st);
+    case 6: return launch_kmeans<6, RUNNING>(x, centers, N, D, C, c0, tags, maxsim, st);
+    case 7: return launch_kmeans<7, RUNNING>(x, centers, N, D, C, c0, tags, maxsim, st);
+    case 8: return launch_kmeans<8, RUNNING>(x, centers, N, D, C, c0, tags, maxsim, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
+// The most centers a chunk takes at dimension D: 8 * CPT for the largest
+// CPT <= 8 whose shared memory fits a block; 0 if not even 8 fit.
+extern "C" int kmeans_assign_chunk_centers(int D) {
+  for (int cpt = 8; cpt >= 1; --cpt)
+    if (kmeans_smem(D, cpt) <= 232448) return 8 * cpt;
+  return 0;
+}
+
+// Any C >= 1: the centers in ceil(C / chunk) chunks of equal size.
 extern "C" int kmeans_assign_f32(const float* x, const float* centers, int N, int D,
                                  int C, int* tags, float* maxsim, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch ((C + 7) / 8) {
-    case 1: return (int)launch_kmeans<1>(x, centers, N, D, C, tags, maxsim, st);
-    case 2: return (int)launch_kmeans<2>(x, centers, N, D, C, tags, maxsim, st);
-    case 3: return (int)launch_kmeans<3>(x, centers, N, D, C, tags, maxsim, st);
-    case 4: return (int)launch_kmeans<4>(x, centers, N, D, C, tags, maxsim, st);
-    case 5: return (int)launch_kmeans<5>(x, centers, N, D, C, tags, maxsim, st);
-    case 6: return (int)launch_kmeans<6>(x, centers, N, D, C, tags, maxsim, st);
-    case 7: return (int)launch_kmeans<7>(x, centers, N, D, C, tags, maxsim, st);
-    case 8: return (int)launch_kmeans<8>(x, centers, N, D, C, tags, maxsim, st);
-    default: return (int)cudaErrorInvalidValue;
+  const int most = kmeans_assign_chunk_centers(D);
+  if (most == 0 || C < 1) return (int)cudaErrorInvalidValue;
+  const int chunks = (C + most - 1) / most;
+  const int per = (C + chunks - 1) / chunks;
+  for (int c0 = 0; c0 < C; c0 += per) {
+    const int cc = C - c0 < per ? C - c0 : per;
+    const float* chunk = centers + (size_t)c0 * D;
+    const cudaError_t err =
+        c0 == 0 ? launch_chunk<false>(x, chunk, N, D, cc, c0, tags, maxsim, st)
+                : launch_chunk<true>(x, chunk, N, D, cc, c0, tags, maxsim, st);
+    if (err != cudaSuccess) return (int)err;
   }
+  return 0;
 }

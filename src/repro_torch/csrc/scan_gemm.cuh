@@ -1,6 +1,7 @@
-// Tiled fp32 scan + per-block top-k, shared by ip_topk.cu (plain MIPS), the
-// sorted layout of gleanvec_sq.cu (one cluster view per tile) and
-// ivf_scan.cu (the probed slabs of a sorted IVF).
+// Tiled fp32 scan + per-block top-k, shared by ip_topk.cu (plain MIPS), both
+// layouts of gleanvec_sq.cu (the sorted one, and the gathered one through
+// its per-call bucketing, bucket_rows.cuh) and ivf_scan.cu (the probed slabs
+// of a sorted IVF).
 //
 // A block owns GT_M = 64 queries and one split of the database's row tiles.
 // With a work list (ivf_scan.cu) block w instead owns ONE segment,
@@ -15,9 +16,20 @@
 // through shared memory in depth chunks of GT_K = 32), adds the per-query
 // affine offset of the tile's view, and folds the tile into its per-query
 // top-k lists (topk_common.cuh). The dense (M, N) score matrix never exists.
-// The DENSE instantiation (dense_scores.cu: sq_dot, the sorted layout of
-// dense gleanvec_sq) runs the same tiles and writes each score tile to the
+// The DENSE instantiation (dense_scores.cu: sq_dot, dense gleanvec_sq and
+// gleanvec_ip) runs the same tiles and writes each score tile to the
 // (M, N) output instead of folding it.
+// ROWS (the bucketed gathered layout, L = GT_N): slot n of the layout holds
+// row rows[n] of x (-1 = padding), so a tile stages x[rows[n], :] instead of
+// x[n, :]; a slot's id is row_ids[rows[n]] (or rows[n]); a tile whose first
+// slot is padding is all padding and is skipped. The indirection adds a
+// chain of dependent loads (slot -> row -> id) in front of each tile, so
+// the next tile's rows and tag are loaded a tile ahead, the ids and
+// offsets reach shared memory with the first depth chunk, and each depth
+// chunk's operands are loaded into registers while the previous chunk is
+// folded. DENSE writes the tile's slots in layout order, as without ROWS.
+// The indirection is a template parameter, so the other instantiations
+// compile to the code they ran before it existed.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,6 +66,10 @@ struct GemmScanArgs {
   const int* n_work = nullptr;   // device count of valid work items
   const int* q_index = nullptr;  // entry -> query row
   const int* q_slot = nullptr;   // entry -> partial slot
+  const int* rows = nullptr;     // ROWS: (N,) row of x per layout slot, -1 = padding
+  const float* ceil_v = nullptr; // CEIL: query m's ceiling at ceil_v[m * ceil_ld]
+  const int* ceil_i = nullptr;
+  int ceil_ld = 0;
 };
 
 // LIST = false: query tiles x splits (the flat scans); LIST = true: the work
@@ -63,8 +79,10 @@ struct GemmScanArgs {
 // blocks fits (small k), else 2 (at most 128, which the scan needs to run
 // without spills). DENSE (with k = 0, LIST = false) stores every tile to
 // the (M, N) matrix at a.pv; the top-k lists are empty and nothing is
-// folded.
-template <typename XT, bool LIST, int MIN_BLOCKS, bool DENSE = false>
+// folded. ROWS: the slot -> row indirection above. CEIL: a later pass of a
+// k > TOPK_PASS_K scan (topk_common.cuh).
+template <typename XT, bool LIST, int MIN_BLOCKS, bool DENSE = false, bool ROWS = false,
+          bool CEIL = false>
 __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
     gemm_scan_topk_kernel(GemmScanArgs a) {
   extern __shared__ __align__(16) unsigned char gsmem[];
@@ -74,7 +92,13 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
   float* lo_s = reinterpret_cast<float*>(tile_ids + GT_N);  // GT_M
   int* qrow = reinterpret_cast<int*>(lo_s + GT_M);          // LIST: GT_M rows, -1 = none
   int* qslot = qrow + GT_M;                     // LIST: GT_M partial slots
-  float* stage = reinterpret_cast<float*>(LIST ? qslot + GT_M : qrow);  // 16-byte aligned
+  int* tail = LIST ? qslot + GT_M : qrow;
+  int* tile_rows = tail;                        // ROWS: GT_N rows of x, -1 = padding
+  tail += ROWS ? GT_N : 0;
+  float* ceil_vs = reinterpret_cast<float*>(tail);  // CEIL: GT_M ceilings
+  int* ceil_is = tail + GT_M;
+  tail += CEIL ? 2 * GT_M : 0;
+  float* stage = reinterpret_cast<float*>(tail);  // 16-byte aligned
   float* qs = stage;                            // GT_K x QS_STRIDE
   float* xs = stage + GT_K * QS_STRIDE;         // GT_K x XS_STRIDE
   float* sc = stage;                            // GT_M x GT_N, after the depth loop
@@ -117,62 +141,151 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
   int qm[GT_M / 8];  // LIST: the query rows this thread stages, in registers
 #pragma unroll
   for (int r = 0; r < GT_M / 8; ++r) qm[r] = LIST ? query_of(warp + 8 * r) : 0;
+  if constexpr (CEIL) {  // read by the fold, after the first tile's barriers
+    if (t < GT_M) {
+      const int m = query_of(t);
+      ceil_vs[t] = m >= 0 ? a.ceil_v[(size_t)m * a.ceil_ld] : NEG_INF_F;
+      ceil_is[t] = m >= 0 ? a.ceil_i[(size_t)m * a.ceil_ld] : -1;
+    }
+  }
+
+  // ROWS: the next tile's first slot, tag and (thread t < GT_N) slot t's row
+  int pf_first = -1, pf_tag = 0, pf_row = -1;
+  if constexpr (ROWS) {
+    if (t_begin < t_end) {
+      pf_first = a.rows[t_begin * GT_N];
+      pf_tag = a.seg_tags[t_begin];
+      if (t < GT_N) pf_row = a.rows[t_begin * GT_N + t];
+    }
+  }
 
   for (long long tile = t_begin; tile < t_end; ++tile) {
     const int seg = (int)(tile / tps), sub = (int)(tile % tps);
     const long long seg0 = (long long)seg * a.L;
     const int n0 = (int)(seg0 + (long long)sub * GT_N);
-    const int n1 = (int)min(min((long long)n0 + GT_N, seg0 + a.L), (long long)a.N);
-    const int tag = a.seg_tags ? min(max(a.seg_tags[seg], 0), a.C - 1) : 0;
+    const int cur_row = pf_row, cur_tag = pf_tag;  // ROWS: this tile's
+    if constexpr (ROWS) {
+      const int first = pf_first;
+      if (tile + 1 < t_end) {
+        pf_first = a.rows[(tile + 1) * GT_N];
+        pf_tag = a.seg_tags[tile + 1];
+        if (t < GT_N) pf_row = a.rows[(tile + 1) * GT_N + t];
+      }
+      if (first < 0) continue;  // all padding; the whole block skips it
+    }
+    const int n1 = ROWS ? n0 + GT_N
+                        : (int)min(min((long long)n0 + GT_N, seg0 + a.L), (long long)a.N);
+    const int tag = ROWS ? min(max(cur_tag, 0), a.C - 1)
+                         : (a.seg_tags ? min(max(a.seg_tags[seg], 0), a.C - 1) : 0);
+    int id = -1;          // ROWS: slot t's id and query t's offset, stored
+    float tile_lo = 0.f;  // with the first depth chunk
     if (t < GT_N) {
       const int n = n0 + t;
-      tile_ids[t] = n < n1 ? (a.row_ids ? a.row_ids[n] : n) : -1;
+      if constexpr (ROWS) {
+        tile_rows[t] = cur_row;
+        id = cur_row >= 0 ? (a.row_ids ? a.row_ids[cur_row] : cur_row) : -1;
+      } else {
+        tile_ids[t] = n < n1 ? (a.row_ids ? a.row_ids[n] : n) : -1;
+      }
     }
     if (t < GT_M) {
       const int m = query_of(t);
-      lo_s[t] = (a.qlo && m >= 0) ? a.qlo[(size_t)m * a.C + tag] : 0.f;
+      if constexpr (ROWS) tile_lo = (a.qlo && m >= 0) ? a.qlo[(size_t)m * a.C + tag] : 0.f;
+      else lo_s[t] = (a.qlo && m >= 0) ? a.qlo[(size_t)m * a.C + tag] : 0.f;
     }
+    if constexpr (ROWS) __syncthreads();  // tile_rows, read by every warp's staging
     float acc[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-    for (int kc = 0; kc < a.d; kc += GT_K) {
-      const int dd = kc + lane;
+    if constexpr (ROWS) {
+      // The slots' rows are scattered, so their loads wait longer than a
+      // contiguous tile's: chunk kc + GT_K is loaded into registers while
+      // chunk kc is folded.
+      static_assert(!LIST, "the row indirection serves the flat scans");
+      float qn[GT_M / 8], xn[GT_N / 8];
+      auto load_chunk = [&](int kc) {
+        const int dd = kc + lane;
 #pragma unroll
-      for (int r = 0; r < GT_M / 8; ++r) {
-        const int mm = warp + 8 * r;
-        int m;
-        if constexpr (LIST) m = qm[r];
-        else m = m0 + mm < a.M ? m0 + mm : -1;
-        float val = 0.f;
-        if (m >= 0 && dd < a.d)
-          val = a.q[(size_t)m * a.q_stride + (size_t)tag * a.d + dd];
-        qs[lane * QS_STRIDE + mm] = val;
-      }
+        for (int r = 0; r < GT_M / 8; ++r) {
+          const int m = m0 + warp + 8 * r;
+          qn[r] = (m < a.M && dd < a.d)
+                      ? a.q[(size_t)m * a.q_stride + (size_t)tag * a.d + dd]
+                      : 0.f;
+        }
 #pragma unroll
-      for (int r = 0; r < GT_N / 8; ++r) {
-        const int nn = warp + 8 * r, n = n0 + nn;
-        float val = 0.f;
-        if (n < n1 && dd < a.d) val = static_cast<float>(x[(size_t)n * a.d + dd]);
-        xs[lane * XS_STRIDE + nn] = val;
-      }
-      __syncthreads();
+        for (int r = 0; r < GT_N / 8; ++r) {
+          const int row = tile_rows[warp + 8 * r];
+          xn[r] = (row >= 0 && dd < a.d) ? static_cast<float>(x[(size_t)row * a.d + dd])
+                                         : 0.f;
+        }
+      };
+      load_chunk(0);
+      for (int kc = 0; kc < a.d; kc += GT_K) {
+#pragma unroll
+        for (int r = 0; r < GT_M / 8; ++r) qs[lane * QS_STRIDE + warp + 8 * r] = qn[r];
+#pragma unroll
+        for (int r = 0; r < GT_N / 8; ++r) xs[lane * XS_STRIDE + warp + 8 * r] = xn[r];
+        if (kc == 0) {
+          if (t < GT_N) tile_ids[t] = id;
+          if (t < GT_M) lo_s[t] = tile_lo;
+        }
+        __syncthreads();
+        if (kc + GT_K < a.d) load_chunk(kc + GT_K);
 #pragma unroll 4
-      for (int kk = 0; kk < GT_K; ++kk) {
-        const float4 qv = *reinterpret_cast<const float4*>(&qs[kk * QS_STRIDE + ty * 4]);
-        const float4 x0 = *reinterpret_cast<const float4*>(&xs[kk * XS_STRIDE + tx * 4]);
-        const float4 x1 =
-            *reinterpret_cast<const float4*>(&xs[kk * XS_STRIDE + 64 + tx * 4]);
-        const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-        const float xa[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        for (int kk = 0; kk < GT_K; ++kk) {
+          const float4 qv = *reinterpret_cast<const float4*>(&qs[kk * QS_STRIDE + ty * 4]);
+          const float4 x0 = *reinterpret_cast<const float4*>(&xs[kk * XS_STRIDE + tx * 4]);
+          const float4 x1 =
+              *reinterpret_cast<const float4*>(&xs[kk * XS_STRIDE + 64 + tx * 4]);
+          const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+          const float xa[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qa[i], xa[j], acc[i][j]);
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qa[i], xa[j], acc[i][j]);
+        }
+        __syncthreads();
       }
-      __syncthreads();
+    } else {
+      for (int kc = 0; kc < a.d; kc += GT_K) {
+        const int dd = kc + lane;
+#pragma unroll
+        for (int r = 0; r < GT_M / 8; ++r) {
+          const int mm = warp + 8 * r;
+          int m;
+          if constexpr (LIST) m = qm[r];
+          else m = m0 + mm < a.M ? m0 + mm : -1;
+          float val = 0.f;
+          if (m >= 0 && dd < a.d)
+            val = a.q[(size_t)m * a.q_stride + (size_t)tag * a.d + dd];
+          qs[lane * QS_STRIDE + mm] = val;
+        }
+#pragma unroll
+        for (int r = 0; r < GT_N / 8; ++r) {
+          const int nn = warp + 8 * r, n = n0 + nn;
+          float val = 0.f;
+          if (n < n1 && dd < a.d) val = static_cast<float>(x[(size_t)n * a.d + dd]);
+          xs[lane * XS_STRIDE + nn] = val;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int kk = 0; kk < GT_K; ++kk) {
+          const float4 qv = *reinterpret_cast<const float4*>(&qs[kk * QS_STRIDE + ty * 4]);
+          const float4 x0 = *reinterpret_cast<const float4*>(&xs[kk * XS_STRIDE + tx * 4]);
+          const float4 x1 =
+              *reinterpret_cast<const float4*>(&xs[kk * XS_STRIDE + 64 + tx * 4]);
+          const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+          const float xa[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qa[i], xa[j], acc[i][j]);
+        }
+        __syncthreads();
+      }
     }
 
 #pragma unroll
@@ -197,8 +310,9 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
     } else {
       for (int r = warp; r < GT_M; r += GT_THREADS / 32)
         if (query_of(r) >= 0)
-          topk_update_row(sc + r * GT_N, tile_ids, n1 - n0, lv + r * a.k, li + r * a.k,
-                          a.k, lane);
+          topk_update_row<CEIL>(sc + r * GT_N, tile_ids, n1 - n0, lv + r * a.k,
+                                li + r * a.k, a.k, lane, CEIL ? ceil_vs[r] : 0.f,
+                                CEIL ? ceil_is[r] : 0);
     }
     __syncthreads();
   }
@@ -214,18 +328,25 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
   }
 }
 
-// The scan alone, on `grid` blocks (partial lists only); a.work selects the
-// work-list instantiation.
-template <typename XT>
+// Shared memory of one block of the top-k scan at list length a.k.
+template <bool LIST, bool ROWS, bool CEIL>
+static size_t gemm_scan_smem(const GemmScanArgs& a) {
+  return (size_t)GT_M * a.k * 8 + GT_N * 4 + GT_M * 4 + (LIST ? GT_M * 8 : 0) +
+         (ROWS ? GT_N * 4 : 0) + (CEIL ? GT_M * 8 : 0) + GT_STAGE * 4;
+}
+
+// The scan alone, on `grid` blocks (partial lists only, a.k <= TOPK_PASS_K);
+// LIST selects the work-list instantiation of ivf_scan.cu.
+template <typename XT, bool LIST, bool ROWS = false, bool CEIL = false>
 static cudaError_t launch_gemm_scan_blocks(const GemmScanArgs& a, dim3 grid,
                                            cudaStream_t stream) {
-  const size_t smem = (size_t)GT_M * a.k * 8 + GT_N * 4 + GT_M * 4 +
-                      (a.work ? GT_M * 8 : 0) + GT_STAGE * 4;
-  const bool three = 3 * (smem + 1024) <= 233472;  // 228 KB per SM, 1 KB per block
-  auto kernel = a.work ? (three ? gemm_scan_topk_kernel<XT, true, 3>
-                                : gemm_scan_topk_kernel<XT, true, 2>)
-                       : (three ? gemm_scan_topk_kernel<XT, false, 3>
-                                : gemm_scan_topk_kernel<XT, false, 2>);
+  const size_t smem = gemm_scan_smem<LIST, ROWS, CEIL>(a);
+  auto kernel = gemm_scan_topk_kernel<XT, LIST, 2, false, ROWS, CEIL>;
+  // ROWS keeps its register-staged chunk only under the 2-block budget
+  if constexpr (!ROWS) {
+    if (3 * (smem + 1024) <= 233472)  // 228 KB per SM, 1 KB per block
+      kernel = gemm_scan_topk_kernel<XT, LIST, 3, false, ROWS, CEIL>;
+  }
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -234,22 +355,38 @@ static cudaError_t launch_gemm_scan_blocks(const GemmScanArgs& a, dim3 grid,
 }
 
 // Query tiles x S splits of the row tiles, then the merge of the S partial
-// lists of every query.
-template <typename XT>
-static cudaError_t launch_gemm_scan(const GemmScanArgs& a, float* out_v, int* out_i,
+// lists of every query, for any a.k >= 1: one pass per TOPK_PASS_K columns
+// of the output, each after the first under the previous pass's ceiling.
+// a.pv / a.pi hold (M, S, min(a.k, TOPK_PASS_K)) entries.
+template <typename XT, bool ROWS = false>
+static cudaError_t launch_gemm_scan(GemmScanArgs a, float* out_v, int* out_i,
                                     cudaStream_t stream) {
-  cudaError_t err =
-      launch_gemm_scan_blocks<XT>(a, dim3((a.M + GT_M - 1) / GT_M, a.S), stream);
-  if (err != cudaSuccess) return err;
-  return launch_topk_merge(a.pv, a.pi, a.M, a.S, a.k, out_v, out_i, stream);
+  const int k = a.k;
+  const dim3 grid((a.M + GT_M - 1) / GT_M, a.S);
+  for (int k0 = 0; k0 < k; k0 += TOPK_PASS_K) {
+    a.k = k - k0 < TOPK_PASS_K ? k - k0 : TOPK_PASS_K;
+    cudaError_t err;
+    if (k0 == 0) {
+      err = launch_gemm_scan_blocks<XT, false, ROWS>(a, grid, stream);
+    } else {
+      a.ceil_v = out_v + k0 - 1;
+      a.ceil_i = out_i + k0 - 1;
+      a.ceil_ld = k;
+      err = launch_gemm_scan_blocks<XT, false, ROWS, true>(a, grid, stream);
+    }
+    if (err != cudaSuccess) return err;
+    err = launch_topk_merge(a.pv, a.pi, a.M, a.S, a.k, k, out_v + k0, out_i + k0, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // Dense (M, N) scores over query tiles x a.S splits of the row tiles (no
 // top-k lists, no merge). k must be 0.
-template <typename XT>
+template <typename XT, bool ROWS = false>
 static cudaError_t launch_gemm_dense(const GemmScanArgs& a, cudaStream_t stream) {
-  const size_t smem = GT_N * 4 + GT_M * 4 + GT_STAGE * 4;
-  auto kernel = gemm_scan_topk_kernel<XT, false, 3, true>;
+  const size_t smem = GT_N * 4 + GT_M * 4 + (ROWS ? GT_N * 4 : 0) + GT_STAGE * 4;
+  auto kernel = gemm_scan_topk_kernel<XT, false, 3, true, ROWS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

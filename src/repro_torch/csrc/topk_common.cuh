@@ -1,10 +1,20 @@
-// Shared pieces of the fused scan + top-k kernels (ip_topk.cu, gleanvec_sq.cu).
+// Shared pieces of the fused scan + top-k kernels (ip_topk.cu, gleanvec_sq.cu,
+// ivf_scan.cu, graph_scan.cu).
 //
 // The TPU kernels carry ONE running (TM, k) top-k across a sequential N grid.
 // Hopper blocks run in parallel and in no order, so the port splits N across
 // blocks: each block keeps a sorted per-query top-k list in shared memory,
 // writes it to an (M, S, k) partial buffer, and `topk_merge_kernel` (a second
 // launch) reduces the S partial lists of every query to its final top-k.
+//
+// A list holds at most TOPK_PASS_K entries (its shift runs through registers,
+// and GT_M lists of k entries must fit a block's shared memory). A larger k
+// runs ceil(k / TOPK_PASS_K) passes of the same scan: pass p keeps only the
+// entries that rank strictly below its CEILING, the last entry pass p - 1
+// wrote for the query, and its merge writes columns [p * TOPK_PASS_K, ...) of
+// the output. The order below is total over distinct ids, and a score does
+// not depend on the pass (the same tiles, the same FMA chain), so the passes
+// together give exactly the single-list top-k.
 //
 // Order: value descending, then id ascending with id -1 treated as the
 // LARGEST id (compared as unsigned), so value ties break toward the smaller
@@ -15,7 +25,7 @@
 #include <math_constants.h>
 
 #define NEG_INF_F (-3.4e38f)
-#define TOPK_MAX_K 128
+#define TOPK_PASS_K 128
 #define MERGE_MAX 8192
 
 __device__ __forceinline__ bool topk_better(float v1, int i1, float v2, int i2) {
@@ -27,10 +37,14 @@ __device__ __forceinline__ bool topk_better(float v1, int i1, float v2, int i2) 
 // masked, never inserted). Candidates that beat the current k-th entry are
 // inserted one at a time: the warp counts the entries that outrank the
 // candidate (they form a prefix, since the list is sorted) and shifts the
-// tail down by one.
+// tail down by one. k <= TOPK_PASS_K. CEIL: only candidates that rank
+// strictly below (ceil_v, ceil_i) enter (a later pass of a larger k).
+template <bool CEIL = false>
 __device__ __forceinline__ void topk_update_row(const float* sc, const int* ids,
                                                 int tn, float* lv, int* li,
-                                                int k, int lane) {
+                                                int k, int lane,
+                                                float ceil_v = 0.f,
+                                                int ceil_i = 0) {
   const unsigned full = 0xffffffffu;
   float tv = lv[k - 1];
   int ti = li[k - 1];
@@ -43,6 +57,7 @@ __device__ __forceinline__ void topk_update_row(const float* sc, const int* ids,
       id = ids[j];
     }
     bool pred = id >= 0 && topk_better(v, id, tv, ti);
+    if constexpr (CEIL) pred = pred && topk_better(ceil_v, ceil_i, v, id);
     unsigned mask = __ballot_sync(full, pred);
     while (mask) {
       int src = __ffs(mask) - 1;
@@ -53,10 +68,10 @@ __device__ __forceinline__ void topk_update_row(const float* sc, const int* ids,
       int cnt = 0;
       for (int e = lane; e < k; e += 32) cnt += topk_better(lv[e], li[e], cv, cid);
       int pos = __reduce_add_sync(full, cnt);
-      float ov[TOPK_MAX_K / 32];
-      int oi[TOPK_MAX_K / 32];
+      float ov[TOPK_PASS_K / 32];
+      int oi[TOPK_PASS_K / 32];
 #pragma unroll
-      for (int t = 0; t < TOPK_MAX_K / 32; ++t) {
+      for (int t = 0; t < TOPK_PASS_K / 32; ++t) {
         int e = lane + 32 * t;
         if (e > pos && e < k) {
           ov[t] = lv[e - 1];
@@ -65,7 +80,7 @@ __device__ __forceinline__ void topk_update_row(const float* sc, const int* ids,
       }
       __syncwarp();
 #pragma unroll
-      for (int t = 0; t < TOPK_MAX_K / 32; ++t) {
+      for (int t = 0; t < TOPK_PASS_K / 32; ++t) {
         int e = lane + 32 * t;
         if (e > pos && e < k) {
           lv[e] = ov[t];
@@ -112,10 +127,11 @@ __device__ __forceinline__ void bitonic_sort_best_first(float* v, int* id, int P
 
 // Reduce the (M, S, k) partial lists to (M, k): one block per query, a
 // bitonic sort of the S*k candidates (padded to a power of two with
-// (-inf, -1)) in shared memory, best first.
+// (-inf, -1)) in shared memory, best first. Query m's k entries go to
+// out[m * ldo, m * ldo + k).
 __global__ void topk_merge_kernel(const float* __restrict__ pv,
                                   const int* __restrict__ pi, int S, int k,
-                                  int P, float* __restrict__ out_v,
+                                  int P, int ldo, float* __restrict__ out_v,
                                   int* __restrict__ out_i) {
   extern __shared__ unsigned char merge_smem[];
   float* v = reinterpret_cast<float*>(merge_smem);
@@ -136,8 +152,8 @@ __global__ void topk_merge_kernel(const float* __restrict__ pv,
   __syncthreads();
   bitonic_sort_best_first(v, id, P);
   for (int e = threadIdx.x; e < k; e += blockDim.x) {
-    out_v[(size_t)m * k + e] = v[e];
-    out_i[(size_t)m * k + e] = id[e];
+    out_v[(size_t)m * ldo + e] = v[e];
+    out_i[(size_t)m * ldo + e] = id[e];
   }
 }
 
@@ -148,13 +164,13 @@ static inline int next_pow2(int x) {
 }
 
 static inline cudaError_t launch_topk_merge(const float* pv, const int* pi, int M,
-                                            int S, int k, float* out_v, int* out_i,
-                                            cudaStream_t stream) {
+                                            int S, int k, int ldo, float* out_v,
+                                            int* out_i, cudaStream_t stream) {
   int P = next_pow2(S * k);
   size_t smem = (size_t)P * (sizeof(float) + sizeof(int));
   cudaError_t err = cudaFuncSetAttribute(
       topk_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  topk_merge_kernel<<<M, 512, smem, stream>>>(pv, pi, S, k, P, out_v, out_i);
+  topk_merge_kernel<<<M, 512, smem, stream>>>(pv, pi, S, k, P, ldo, out_v, out_i);
   return cudaGetLastError();
 }

@@ -40,7 +40,9 @@ from repro_torch.index.topk import NEG_INF
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.gleanvec_ip import gleanvec_ip, gleanvec_ip_plain
-from repro_torch.kernels.gleanvec_sq import (gleanvec_sq, gleanvec_sq_plain,
+from repro_torch.kernels.gleanvec_sq import (bucket_rows_by_tag,
+                                             bucket_rows_by_tag_plain,
+                                             gleanvec_sq, gleanvec_sq_plain,
                                              gleanvec_sq_topk,
                                              gleanvec_sq_topk_plain)
 from repro_torch.kernels.graph_scan import (graph_scan_beam_step,
@@ -58,13 +60,13 @@ __all__ = ["ip_topk", "ip_topk_plain", "gleanvec_sq_topk",
            "ivf_scan_topk", "ivf_scan_topk_plain", "sq_dot", "sq_dot_folded",
            "sq_dot_folded_plain", "gleanvec_ip",
            "gleanvec_ip_plain", "gleanvec_sq", "gleanvec_sq_plain",
+           "bucket_rows_by_tag", "bucket_rows_by_tag_plain",
            "graph_scan_beam_step", "graph_scan_beam_step_plain",
            "graph_scan_scores_plain", "scorer_topk", "scorer_topk_prepared",
            "scorer_scores", "scorer_scores_prepared", "scorer_scan_lists",
            "scorer_scan_neighbors", "flash_attention",
            "flash_attention_plain", "build",
-           "load_library", "library_path", "KERNEL_SOURCES", "BUILD_DIR",
-           "MAX_K"]
+           "load_library", "library_path", "KERNEL_SOURCES", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -73,11 +75,11 @@ KERNEL_SOURCES = ("ip_topk", "gleanvec_sq", "kmeans_assign", "ivf_scan",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
-MAX_K = 128             # largest k the top-k kernels keep per query
+PASS_K = 128            # entries a top-k scan pass keeps per query; a larger
+                        # k runs ceil(k / PASS_K) passes (topk_common.cuh)
 MERGE_MAX = 8192        # most partial candidates the merge kernel sorts
 GEMM_TILE_M = 64        # queries per block of the tiled scan (scan_gemm.cuh)
 GEMM_TILE_N = 128       # rows per tile of the tiled scan
-GATHER_TILE_N = 256     # rows per tile of the gathered GleanVec scan
 
 _LIBS: dict = {}
 
@@ -198,19 +200,24 @@ def check_cuda_inputs(name: str, **tensors) -> None:
 
 
 def check_k(k: int) -> None:
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"top-k kernels take 1 <= k <= {MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"top-k kernels take k >= 1, got {k}")
+
+
+def pass_k(k: int) -> int:
+    """Entries per query of one scan pass's partial lists."""
+    return min(k, PASS_K)
 
 
 def splits(row_tiles: int, query_blocks: int, k: int, blocks_per_sm: int,
            device) -> int:
     """How many blocks share one query block's rows: enough for about four
     waves of resident blocks, no more than there are row tiles, and few
-    enough that the merge kernel sorts at most ``MERGE_MAX`` candidates
-    (the dense kernels have no merge and pass ``k=1``)."""
+    enough that the merge kernel sorts at most ``MERGE_MAX`` candidates of
+    one pass (the dense kernels have no merge and pass ``k=1``)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = -(-4 * sms * blocks_per_sm // max(query_blocks, 1))
-    return max(1, min(want, row_tiles, MERGE_MAX // k))
+    return max(1, min(want, row_tiles, MERGE_MAX // pass_k(k)))
 
 
 def current_stream(device) -> int:

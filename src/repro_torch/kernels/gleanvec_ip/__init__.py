@@ -13,7 +13,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.gleanvec_sq import dense_plain, tile_scores
+from repro_torch.kernels.gleanvec_sq import (bucket_tiles, dense_buffer,
+                                             dense_plain, tile_scores)
 
 __all__ = ["gleanvec_ip", "gleanvec_ip_plain"]
 
@@ -33,16 +34,17 @@ def gleanvec_ip_plain(q_views, tags, x_low, block: int = 65536):
 
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gleanvec_ip_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p]
+    lib.gleanvec_ip_f32.argtypes = [p, p, p, i, i, i, i, i, p, p, i, p, p]
     lib.gleanvec_ip_f32.restype = ctypes.c_int
-    lib.dense_gathered_queries_per_block.argtypes = [i, i]
-    lib.dense_gathered_queries_per_block.restype = ctypes.c_int
+    lib.dense_bucket_workspace_bytes.argtypes = [i, i]
+    lib.dense_bucket_workspace_bytes.restype = ctypes.c_longlong
 
 
 def gleanvec_ip(q_views, tags, x_low):
     """``q_views (M, C, d)`` f32, ``tags (N,)`` i32, ``x_low (N, d)`` f32
     -> (M, N) f32. CPU tensors take :func:`gleanvec_ip_plain`; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel (the bucketed tile of dense ``gleanvec_sq`` without
+    an affine term) or raise."""
     from repro_torch import kernels as K
     if K.on_cpu(q_views, tags, x_low):
         return gleanvec_ip_plain(q_views, tags, x_low)
@@ -61,16 +63,16 @@ def gleanvec_ip(q_views, tags, x_low):
     if m == 0 or n == 0:
         return out
     lib = K.load_library("dense_scores", _bind)
-    tmg = lib.dense_gathered_queries_per_block(c, d)
-    if tmg == 0:
-        raise ValueError(f"gleanvec_ip: the views of one query (C={c}, "
-                         f"d={d}) do not fit a block's shared memory")
-    s = K.splits(row_tiles=-(-n // K.GATHER_TILE_N), query_blocks=-(-m // tmg),
-                 k=1, blocks_per_sm=1, device=dev)
-    zeros = torch.zeros((m, c), dtype=torch.float32, device=dev)
-    err = lib.gleanvec_ip_f32(q_views.data_ptr(), zeros.data_ptr(),
-                              tags.data_ptr(), x_low.data_ptr(), m, c, d, n,
-                              tmg, s, out.data_ptr(), K.current_stream(dev))
+    buf, mc = dense_buffer(m, n, c, dev)
+    s = K.splits(row_tiles=bucket_tiles(n, c),
+                 query_blocks=-(-mc // K.GEMM_TILE_M), k=1, blocks_per_sm=3,
+                 device=dev)
+    ws = torch.empty(lib.dense_bucket_workspace_bytes(n, c),
+                     dtype=torch.uint8, device=dev)
+    err = lib.gleanvec_ip_f32(q_views.data_ptr(), tags.data_ptr(),
+                              x_low.data_ptr(), m, c, d, n, s, ws.data_ptr(),
+                              buf.data_ptr(), mc, out.data_ptr(),
+                              K.current_stream(dev))
     K.check_launch("gleanvec_ip", err, lib)
     gleanvec_ip.launches += 1
     return out

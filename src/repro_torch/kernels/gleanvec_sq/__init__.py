@@ -8,7 +8,9 @@ body ``_topk_kernel``, and ``gleanvec_sq``, body ``_dense_kernel``):
 
     score[m, n] = <q_scaled[m, tag_n], codes_n> + q_lo[m, tag_n]
 
-``layout_block == 0``: gathered layout, ``tags (N,)`` per row.
+``layout_block == 0``: gathered layout, ``tags (N,)`` per row; the
+kernels first bucket the rows by tag (``bucket_rows_by_tag``, per call) so
+that every 128-row tile has one view, as in the sorted layout.
 ``layout_block > 0``: tag-sorted layout, ``tags (ceil(N / layout_block),)``
 per block; every kernel tile stays inside one block, so any block size
 works (the reference's tile-shrink / gathered fallbacks are not needed).
@@ -22,7 +24,12 @@ import torch
 from repro_torch.index.topk import NEG_INF, blocked_topk
 
 __all__ = ["gleanvec_sq_topk", "gleanvec_sq_topk_plain", "gleanvec_sq",
-           "gleanvec_sq_plain", "tile_scores", "dense_plain"]
+           "gleanvec_sq_plain", "tile_scores", "dense_plain",
+           "bucket_rows_by_tag", "bucket_rows_by_tag_plain", "bucket_tiles",
+           "bucket_workspace", "dense_buffer"]
+
+BUCKET_TILE = 128       # slots per tile of the bucketed layout (scan_gemm.cuh)
+DENSE_BUFFER = 1 << 28  # most floats of the gathered dense kernels' buffer
 
 
 def _row_tags(tags, start, size, layout_block):
@@ -97,17 +104,101 @@ def gleanvec_sq_plain(q_scaled, q_lo, tags, codes, layout_block: int = 0,
                        q_scaled.device, block)
 
 
+def bucket_tiles(n: int, c: int) -> int:
+    """Tiles of the bucketed layout of ``n`` rows and ``c`` tags: a bound
+    on ``sum_c ceil(n_c / 128)`` (the tiles past the used ones are all
+    padding)."""
+    return (n + (BUCKET_TILE - 1) * c) // BUCKET_TILE
+
+
+def bucket_rows_by_tag_plain(tags, c: int):
+    """The gathered layout's rows grouped by tag: ``tags (N,)`` (clamped to
+    [0, c), as the kernels clamp a view index) -> ``(rows (T * 128,) i32,
+    tile_tags (T,) i32)``, ``T = bucket_tiles(N, c)``. Tag 0's rows first,
+    each tag's rows in ascending order and padded with -1 to a multiple of
+    128, so every 128-slot tile holds one tag; the tiles past the used ones
+    are all -1 with tag 0."""
+    t = tags.to(torch.int64).clamp(0, c - 1)
+    n = t.numel()
+    dev = tags.device
+    counts = torch.bincount(t, minlength=c)
+    tiles = (counts + BUCKET_TILE - 1) // BUCKET_TILE
+    first_slot = (torch.cumsum(tiles, 0) - tiles) * BUCKET_TILE
+    order = torch.argsort(t, stable=True)
+    st = t[order]
+    first_rank = torch.cumsum(counts, 0) - counts
+    pos = first_slot[st] + torch.arange(n, device=dev) - first_rank[st]
+    n_tiles = bucket_tiles(n, c)
+    rows = torch.full((n_tiles * BUCKET_TILE,), -1, dtype=torch.int32,
+                      device=dev)
+    rows[pos] = order.to(torch.int32)
+    tile_tags = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    used = torch.repeat_interleave(torch.arange(c, device=dev), tiles)
+    tile_tags[:used.numel()] = used.to(torch.int32)
+    return rows, tile_tags
+
+
+def bucket_workspace(lib, n: int, c: int, dev):
+    """The bucketing's workspace on ``dev`` and the byte offsets of its
+    counts, tile_tags, rows and slot_of (``csrc/bucket_rows.cuh``)."""
+    off = (ctypes.c_longlong * 4)()
+    nbytes = lib.gleanvec_sq_bucket_workspace(n, c, off)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev), list(off)
+
+
+def dense_buffer(m: int, n: int, c: int, dev):
+    """The gathered dense kernels' slot-ordered score buffer for a chunk
+    of queries (a multiple of 64, at most ``DENSE_BUFFER`` floats unless
+    one tile of 64 queries needs more) and the chunk's size."""
+    from repro_torch import kernels as K
+    slots = bucket_tiles(n, c) * BUCKET_TILE
+    tile = K.GEMM_TILE_M
+    mc = min(m, max(tile, DENSE_BUFFER // max(slots, 1) // tile * tile))
+    return torch.empty((mc, slots), dtype=torch.float32, device=dev), mc
+
+
+def bucket_rows_by_tag(tags, c: int):
+    """:func:`bucket_rows_by_tag_plain` for ``tags (N,)`` i32. CPU tensors
+    take the plain version; CUDA tensors launch the bucketing kernels of
+    ``csrc/bucket_rows.cuh`` (the first step of the gathered kernels, here
+    on its own) or raise."""
+    from repro_torch import kernels as K
+    if K.on_cpu(tags):
+        return bucket_rows_by_tag_plain(tags, c)
+    K.check_cuda_inputs("bucket_rows_by_tag", tags=tags)
+    if tags.dtype != torch.int32 or tags.ndim != 1 or c < 1:
+        raise ValueError("bucket_rows_by_tag takes i32 tags (N,) and c >= 1")
+    n = tags.shape[0]
+    dev = tags.device
+    lib = K.load_library("gleanvec_sq", _bind)
+    ws, off = bucket_workspace(lib, n, c, dev)
+    err = lib.gleanvec_sq_bucket_rows(tags.data_ptr(), n, c, ws.data_ptr(),
+                                      K.current_stream(dev))
+    K.check_launch("bucket_rows_by_tag", err, lib)
+    bucket_rows_by_tag.launches += 1
+    t = bucket_tiles(n, c)
+    tile_tags = ws[off[1]:off[1] + 4 * t].view(torch.int32)
+    rows = ws[off[2]:off[2] + 4 * t * BUCKET_TILE].view(torch.int32)
+    return rows, tile_tags
+
+
+bucket_rows_by_tag.launches = 0
+
+
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "u8"):
         fn = getattr(lib, f"gleanvec_sq_gathered_topk_{dt}")
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"gleanvec_sq_sorted_topk_{dt}")
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
         fn.restype = ctypes.c_int
-    lib.gleanvec_sq_gathered_queries_per_block.argtypes = [i, i, i]
-    lib.gleanvec_sq_gathered_queries_per_block.restype = ctypes.c_int
+    lib.gleanvec_sq_bucket_workspace.argtypes = [
+        i, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.gleanvec_sq_bucket_workspace.restype = ctypes.c_longlong
+    lib.gleanvec_sq_bucket_rows.argtypes = [p, i, i, p, p]
+    lib.gleanvec_sq_bucket_rows.restype = ctypes.c_int
 
 
 def gleanvec_sq_topk(q_scaled, q_lo, tags, codes, k: int, row_ids=None,
@@ -115,7 +206,8 @@ def gleanvec_sq_topk(q_scaled, q_lo, tags, codes, k: int, row_ids=None,
     """Fused score + top-k. ``q_scaled (M, C, d)`` f32, ``q_lo (M, C)`` f32,
     ``codes (N, d)`` u8 or f32, ``row_ids (N,)`` i32 optional external id
     per row (-1 = masked; default: the row index) -> (vals (M, k) f32,
-    ids (M, k) i32), best first.
+    ids (M, k) i32), best first. Any k >= 1 (above ``K.PASS_K`` the kernel
+    scans in passes).
 
     CPU tensors take :func:`gleanvec_sq_topk_plain`; CUDA tensors launch
     the kernel or raise."""
@@ -151,30 +243,22 @@ def gleanvec_sq_topk(q_scaled, q_lo, tags, codes, k: int, row_ids=None,
     dt = "f32" if codes.dtype == torch.float32 else "u8"
     rid = row_ids.data_ptr() if row_ids is not None else None
     stream = K.current_stream(dev)
+    tiles = (n_tags * -(-layout_block // K.GEMM_TILE_N) if layout_block > 0
+             else bucket_tiles(n, c))
+    s = K.splits(row_tiles=tiles, query_blocks=-(-m // K.GEMM_TILE_M), k=k,
+                 blocks_per_sm=2, device=dev)
+    pv = torch.empty((m, s, K.pass_k(k)), dtype=torch.float32, device=dev)
+    pi = torch.empty((m, s, K.pass_k(k)), dtype=torch.int32, device=dev)
     if layout_block > 0:
-        tiles = n_tags * -(-layout_block // K.GEMM_TILE_N)
-        s = K.splits(row_tiles=tiles, query_blocks=-(-m // K.GEMM_TILE_M),
-                     k=k, blocks_per_sm=2, device=dev)
-        pv = torch.empty((m, s, k), dtype=torch.float32, device=dev)
-        pi = torch.empty((m, s, k), dtype=torch.int32, device=dev)
         err = getattr(lib, f"gleanvec_sq_sorted_topk_{dt}")(
             q_scaled.data_ptr(), q_lo.data_ptr(), tags.data_ptr(), rid,
             codes.data_ptr(), m, c, d, n, layout_block, k, s, pv.data_ptr(),
             pi.data_ptr(), vals.data_ptr(), ids.data_ptr(), stream)
     else:
-        tmg = lib.gleanvec_sq_gathered_queries_per_block(c, d, k)
-        if tmg == 0:
-            raise ValueError(f"gleanvec_sq_topk: the views of one query "
-                             f"(C={c}, d={d}) do not fit a block's shared "
-                             "memory")
-        s = K.splits(row_tiles=-(-n // K.GATHER_TILE_N),
-                     query_blocks=-(-m // tmg), k=k, blocks_per_sm=1,
-                     device=dev)
-        pv = torch.empty((m, s, k), dtype=torch.float32, device=dev)
-        pi = torch.empty((m, s, k), dtype=torch.int32, device=dev)
+        ws, _ = bucket_workspace(lib, n, c, dev)
         err = getattr(lib, f"gleanvec_sq_gathered_topk_{dt}")(
             q_scaled.data_ptr(), q_lo.data_ptr(), tags.data_ptr(), rid,
-            codes.data_ptr(), m, c, d, n, k, tmg, s, pv.data_ptr(),
+            codes.data_ptr(), m, c, d, n, k, s, ws.data_ptr(), pv.data_ptr(),
             pi.data_ptr(), vals.data_ptr(), ids.data_ptr(), stream)
     K.check_launch("gleanvec_sq_topk", err, lib)
     gleanvec_sq_topk.launches += 1
@@ -188,13 +272,13 @@ def _bind_dense(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "u8"):
         fn = getattr(lib, f"gleanvec_sq_dense_gathered_{dt}")
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p, i, p, p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"gleanvec_sq_dense_sorted_{dt}")
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
-    lib.dense_gathered_queries_per_block.argtypes = [i, i]
-    lib.dense_gathered_queries_per_block.restype = ctypes.c_int
+    lib.dense_bucket_workspace_bytes.argtypes = [i, i]
+    lib.dense_bucket_workspace_bytes.restype = ctypes.c_longlong
 
 
 def gleanvec_sq(q_scaled, q_lo, tags, codes, layout_block: int = 0):
@@ -239,16 +323,16 @@ def gleanvec_sq(q_scaled, q_lo, tags, codes, layout_block: int = 0):
             codes.data_ptr(), m, c, d, n, layout_block, s, out.data_ptr(),
             stream)
     else:
-        tmg = lib.dense_gathered_queries_per_block(c, d)
-        if tmg == 0:
-            raise ValueError(f"gleanvec_sq: the views of one query (C={c}, "
-                             f"d={d}) do not fit a block's shared memory")
-        s = K.splits(row_tiles=-(-n // K.GATHER_TILE_N),
-                     query_blocks=-(-m // tmg), k=1, blocks_per_sm=1,
-                     device=dev)
+        buf, mc = dense_buffer(m, n, c, dev)
+        s = K.splits(row_tiles=bucket_tiles(n, c),
+                     query_blocks=-(-mc // K.GEMM_TILE_M), k=1,
+                     blocks_per_sm=3, device=dev)
+        ws = torch.empty(lib.dense_bucket_workspace_bytes(n, c),
+                         dtype=torch.uint8, device=dev)
         err = getattr(lib, f"gleanvec_sq_dense_gathered_{dt}")(
             q_scaled.data_ptr(), q_lo.data_ptr(), tags.data_ptr(),
-            codes.data_ptr(), m, c, d, n, tmg, s, out.data_ptr(), stream)
+            codes.data_ptr(), m, c, d, n, s, ws.data_ptr(), buf.data_ptr(),
+            mc, out.data_ptr(), stream)
     K.check_launch("gleanvec_sq", err, lib)
     gleanvec_sq.launches += 1
     return out

@@ -36,6 +36,7 @@ __all__ = ["graph_scan_beam_step", "graph_scan_beam_step_plain",
            "MAX_S"]
 
 MAX_S = 4096            # most neighbor rows a hop may carry per query
+SMEM_CAP = 232448       # bytes of shared memory one block may use (sm_90)
 _ID_LAST = 2 ** 31      # sort key of id -1: after every real id
 
 
@@ -100,6 +101,8 @@ def _bind(lib):
         fn = getattr(lib, f"graph_scan_beam_step_{dt}")
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
+    lib.graph_scan_smem_bytes.argtypes = [i, i]
+    lib.graph_scan_smem_bytes.restype = ctypes.c_longlong
 
 
 def graph_scan_beam_step(q_scaled, q_lo, block_tags, row_ids, codes,
@@ -116,6 +119,10 @@ def graph_scan_beam_step(q_scaled, q_lo, block_tags, row_ids, codes,
     The kernel here reads only the member rows, never slabs, so ``tn``
     changes nothing in the result; it stays for the reference's signature
     and for :func:`fresh_slab_count`.
+
+    The kernel sorts the beam and the candidates together in one block's
+    shared memory: any B with ``next_pow2(B + S) <= 16384`` (at ``S <=
+    MAX_S``; a beam of up to 12,288 at S = 4096).
 
     CPU tensors take :func:`graph_scan_beam_step_plain`; CUDA tensors
     launch the kernel or raise."""
@@ -150,18 +157,22 @@ def graph_scan_beam_step(q_scaled, q_lo, block_tags, row_ids, codes,
             or beam_ids.shape != beam_vals.shape:
         raise ValueError("graph_scan_beam_step shapes do not agree")
     s, b = nbr_rows.shape[1], beam_vals.shape[1]
-    if not 1 <= b <= K.MAX_K:
-        raise ValueError(f"graph_scan_beam_step takes a beam of 1 to "
-                         f"{K.MAX_K} slots, got {b}")
+    if b < 1:
+        raise ValueError(f"graph_scan_beam_step needs a beam of at least one "
+                         f"slot, got {b}")
     if s > MAX_S:
         raise ValueError(f"graph_scan_beam_step takes at most {MAX_S} "
                          f"neighbor rows per query, got {s}")
+    lib = K.load_library("graph_scan", _bind)
+    if lib.graph_scan_smem_bytes(s, b) > SMEM_CAP:
+        raise ValueError(f"graph_scan_beam_step: a beam of {b} and {s} "
+                         "neighbor rows do not fit a block's shared memory "
+                         "(B + S <= 16384)")
     dev = q_scaled.device
     vals = torch.empty((m, b), dtype=torch.float32, device=dev)
     ids = torch.empty((m, b), dtype=torch.int32, device=dev)
     if m == 0:
         return vals, ids
-    lib = K.load_library("graph_scan", _bind)
     dt = "f32" if codes.dtype == torch.float32 else "u8"
     err = getattr(lib, f"graph_scan_beam_step_{dt}")(
         q_scaled.data_ptr(), q_lo.data_ptr(), block_tags.data_ptr(),

@@ -36,7 +36,8 @@ def _bind(lib):
 
 def ip_topk(q: torch.Tensor, x: torch.Tensor, k: int):
     """``q (M, d)`` f32, ``x (N, d)`` f32 or u8 -> (vals (M, k) f32,
-    ids (M, k) i32), best first, ids = row index of x.
+    ids (M, k) i32), best first, ids = row index of x. Any k >= 1 (above
+    ``K.PASS_K`` the kernel scans in passes).
 
     CPU tensors take :func:`ip_topk_plain`; CUDA tensors launch the kernel
     (or raise on what it does not take)."""
@@ -59,8 +60,9 @@ def ip_topk(q: torch.Tensor, x: torch.Tensor, k: int):
     s = K.splits(row_tiles=-(-n // K.GEMM_TILE_N),
                  query_blocks=-(-m // K.GEMM_TILE_M), k=k,
                  blocks_per_sm=2, device=q.device)
-    pv = torch.empty((m, s, k), dtype=torch.float32, device=q.device)
-    pi = torch.empty((m, s, k), dtype=torch.int32, device=q.device)
+    pv = torch.empty((m, s, K.pass_k(k)), dtype=torch.float32,
+                     device=q.device)
+    pi = torch.empty((m, s, K.pass_k(k)), dtype=torch.int32, device=q.device)
     lib = K.load_library("ip_topk", _bind)
     fn = lib.ip_topk_f32 if x.dtype == torch.float32 else lib.ip_topk_u8
     err = fn(q.data_ptr(), x.data_ptr(), m, n, d, k, s, pv.data_ptr(),

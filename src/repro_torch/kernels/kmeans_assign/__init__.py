@@ -10,9 +10,6 @@ import torch
 
 __all__ = ["kmeans_assign", "kmeans_assign_plain"]
 
-_SMEM_CAP = 232448      # bytes of shared memory one block may use (sm_90)
-
-
 def kmeans_assign_plain(x: torch.Tensor, centers: torch.Tensor,
                         block: int = 65536):
     """``x (N, D)``, ``centers (C, D)`` -> (tags (N,) i32, maxsim (N,) f32),
@@ -33,15 +30,17 @@ def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.kmeans_assign_f32.argtypes = [p, p, i, i, i, p, p, p]
     lib.kmeans_assign_f32.restype = ctypes.c_int
-    lib.kmeans_assign_smem_bytes.argtypes = [i, i]
-    lib.kmeans_assign_smem_bytes.restype = ctypes.c_longlong
+    lib.kmeans_assign_chunk_centers.argtypes = [i]
+    lib.kmeans_assign_chunk_centers.restype = ctypes.c_int
 
 
 def kmeans_assign(x: torch.Tensor, centers: torch.Tensor):
     """``x (N, D)`` f32, ``centers (C, D)`` f32 -> (tags (N,) i32,
-    maxsim (N,) f32). CPU tensors take :func:`kmeans_assign_plain`; CUDA
-    tensors launch the kernel (C <= 64, centers resident in shared
-    memory) or raise."""
+    maxsim (N,) f32), ties to the first center. Any C >= 1: the kernel
+    keeps up to 64 centers resident in shared memory and takes more in
+    chunks, one pass over x each. CPU tensors take
+    :func:`kmeans_assign_plain`; CUDA tensors launch the kernel or
+    raise."""
     from repro_torch import kernels as K
     if K.on_cpu(x, centers):
         return kmeans_assign_plain(x, centers)
@@ -53,11 +52,11 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor):
                          f"{tuple(centers.shape)}")
     n, d = x.shape
     c = centers.shape[0]
-    if not 1 <= c <= 64:
-        raise ValueError(f"kmeans_assign kernel takes 1..64 centers, got {c}")
+    if c < 1:
+        raise ValueError("kmeans_assign needs at least one center")
     lib = K.load_library("kmeans_assign", _bind)
-    if lib.kmeans_assign_smem_bytes(d, c) > _SMEM_CAP:
-        raise ValueError(f"kmeans_assign: {c} centers of dim {d} do not fit "
+    if lib.kmeans_assign_chunk_centers(d) == 0:
+        raise ValueError(f"kmeans_assign: 8 centers of dim {d} do not fit "
                          "a block's shared memory")
     tags = torch.empty(n, dtype=torch.int32, device=x.device)
     sims = torch.empty(n, dtype=torch.float32, device=x.device)

@@ -368,3 +368,140 @@ def test_cuda_lm_prefill_launches_kernel_not_plain(cuda, monkeypatch):
     want = plain(q, k, k, window=cfg.swa_window)
     assert attention_error(got, want, attention_abs_mix(
         q, k, k, window=cfg.swa_window))[1] <= 1
+
+
+def _plain_tol(q, x, lo=None):
+    from repro_torch.testing import dot_tol
+    return dot_tol(float(q.reshape(-1, q.shape[-1]).norm(dim=1).max()),
+                   float(x.to(torch.float32).norm(dim=1).max()), q.shape[-1],
+                   0.0 if lo is None else float(lo.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [129, 200, 1000])
+def test_cuda_topk_above_one_pass_matches_plain(cuda, k):
+    """k above the 128 entries of one scan pass: every top-k kernel
+    against its plain version (ragged M and N, masked rows)."""
+    from repro_torch import kernels as K
+    from repro_torch.testing import assert_topk_close
+    g = torch.Generator(device=cuda).manual_seed(k)
+    m, n, c, d, lb = 37, 5003, 9, 48, 64
+    q = torch.randn(m, d, device=cuda, generator=g)
+    x = torch.randn(n, d, device=cuda, generator=g)
+    assert_topk_close(K.ip_topk(q, x, k), K.ip_topk_plain(q, x, k),
+                      _plain_tol(q, x), "ip_topk")
+    qs = torch.randn(m, c, d, device=cuda, generator=g)
+    qlo = torch.randn(m, c, device=cuda, generator=g)
+    u8 = torch.randint(0, 256, (n, d), device=cuda, generator=g,
+                       dtype=torch.uint8)
+    tags = torch.randint(0, c, (n,), device=cuda, generator=g,
+                         dtype=torch.int32)
+    rid = torch.arange(n, dtype=torch.int32, device=cuda)
+    rid[torch.rand(n, device=cuda, generator=g) < 0.1] = -1
+    tol = _plain_tol(qs, u8, qlo)
+    assert_topk_close(K.gleanvec_sq_topk(qs, qlo, tags, u8, k, row_ids=rid),
+                      K.gleanvec_sq_topk_plain(qs, qlo, tags, u8, k,
+                                               row_ids=rid), tol, "gathered")
+    nb = -(-n // lb)
+    btags = torch.randint(0, c, (nb,), device=cuda, generator=g,
+                          dtype=torch.int32)
+    perm = torch.randperm(n, device=cuda, generator=g).to(torch.int32)
+    perm[torch.rand(n, device=cuda, generator=g) < 0.2] = -1
+    assert_topk_close(
+        K.gleanvec_sq_topk(qs, qlo, btags, u8, k, row_ids=perm,
+                           layout_block=lb),
+        K.gleanvec_sq_topk_plain(qs, qlo, btags, u8, k, row_ids=perm,
+                                 layout_block=lb), tol, "sorted")
+    sched = torch.stack([torch.randperm(nb, device=cuda, generator=g)[:12]
+                         for _ in range(m)]).to(torch.int32)
+    sched[:, 5] = -1
+    args = (qs, qlo, btags, perm, u8, sched, k, lb)
+    got, want = K.ivf_scan_topk(*args), K.ivf_scan_topk_plain(*args)
+    assert_topk_close(got, want, tol, "ivf_scan_topk")
+    assert torch.equal(got[1] < 0, want[1] < 0)
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_assign_many_centers_matches_plain(cuda):
+    """C = 100 at D = 512 (two chunks of centers): the kernel against its
+    plain version, and a tie across the chunks goes to the first center."""
+    from repro_torch import kernels as K
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(3001, 512, device=cuda, generator=g)
+    cent = torch.randn(100, 512, device=cuda, generator=g)
+    tags, sims = K.kmeans_assign(x, cent)
+    want_tags, want_sims = K.kmeans_assign_plain(x, cent)
+    tol = _plain_tol(x, cent)
+    assert float((sims - want_sims).abs().max()) <= tol
+    assert float((tags != want_tags).float().mean()) <= 0.001  # near-ties
+    cent[70] = cent[3]
+    tags, _ = K.kmeans_assign(cent[3].expand(20, 512).contiguous() + 0.0,
+                              cent)
+    assert bool((tags == 3).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 300, 4097])
+def test_cuda_gathered_matches_plain_at_ragged_n(cuda, n, monkeypatch):
+    """The gathered GleanVec kernels (bucketing, fused top-k, dense
+    scores through a buffer of 64 queries at a time) against their plain
+    versions at N off the tile, C = 100 tags with an empty one."""
+    import importlib
+
+    from repro_torch import kernels as K
+    from repro_torch.testing import assert_topk_close
+    monkeypatch.setattr(importlib.import_module(
+        "repro_torch.kernels.gleanvec_sq"), "DENSE_BUFFER", 1)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    m, c, d = 70, 100, 40
+    qs = torch.randn(m, c, d, device=cuda, generator=g)
+    qlo = torch.randn(m, c, device=cuda, generator=g)
+    x = torch.randn(n, d, device=cuda, generator=g)
+    u8 = torch.randint(0, 256, (n, d), device=cuda, generator=g,
+                       dtype=torch.uint8)
+    tags = torch.randint(0, c, (n,), device=cuda, generator=g,
+                         dtype=torch.int32)
+    tags[tags == 3] = 4
+    for got, want in zip(K.bucket_rows_by_tag(tags, c),
+                         K.bucket_rows_by_tag_plain(tags, c)):
+        assert torch.equal(got, want)
+    for codes in (x, u8):
+        tol = _plain_tol(qs, codes, qlo)
+        assert_topk_close(K.gleanvec_sq_topk(qs, qlo, tags, codes, 10),
+                          K.gleanvec_sq_topk_plain(qs, qlo, tags, codes, 10),
+                          tol, "gathered top-k")
+        dense = K.gleanvec_sq(qs, qlo, tags, codes)
+        assert float((dense - K.gleanvec_sq_plain(qs, qlo, tags, codes))
+                     .abs().max()) <= tol
+    ip = K.gleanvec_ip(qs, tags, x)
+    assert float((ip - K.gleanvec_ip_plain(qs, tags, x)).abs().max()) \
+        <= _plain_tol(qs, x)
+
+
+@pytest.mark.cuda
+def test_cuda_entry_points_take_100_clusters(cuda):
+    """``gleanvec.fit(C=100)`` and ``ivf.build(n_lists=100)`` run on the
+    card (k-means assignment in two chunks of centers); the gathered and
+    sorted GleanVec scans over 100 clusters serve kappa = 200 and agree."""
+    from repro_torch import kernels as K
+    from repro_torch.core import gleanvec as gv
+    from repro_torch.core import scorer as sc
+    from repro_torch.index import ivf
+    from repro_torch.testing import assert_topk_close
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(20000, 64, device=cuda, generator=g)
+    q = torch.randn(300, 64, device=cuda, generator=g)
+    before = K.kmeans_assign.launches
+    model = gv.fit(q, x, c=100, d=16, kmeans_iters=4, generator=g,
+                   device=cuda)
+    idx = ivf.build(x, n_lists=100, n_iters=4, generator=g, device=cuda)
+    torch.cuda.synchronize()
+    assert K.kmeans_assign.launches > before
+    assert model.centers.shape == (100, 64) and idx.centers.shape[0] == 100
+    gathered = sc.gleanvec_quantized_scorer(model, x)
+    srt = sc.sorted_gleanvec_quantized_scorer(model, x, block=64)
+    got = K.scorer_topk(gathered, q[:40], 200)
+    want = K.scorer_topk(srt, q[:40], 200)
+    qs = gathered.prepare_queries(q[:40])
+    tol = _plain_tol(qs.q_scaled, gathered.codes, qs.q_lo)
+    assert_topk_close(got, want, tol, "gathered vs sorted at C=100")
