@@ -4,21 +4,25 @@ stores and the graph index) and its LM serving path on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
+    python3 chip_smoke.py --scan-timing    # build + phase 2 + fp32 scan times
 
 Phases (any failure raises and the script exits non-zero):
 
 1. Card and build: print the card, turn TF32 off, build the CUDA kernels
-   from ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
+   from ``src/repro_torch/csrc`` (one nvcc per source, in parallel), and
+   print every kernel's registers and spills (``-Xptxas -v``).
 2. Kernels against their plain PyTorch versions at ragged shapes: M and N
-   off the tiles, k in {10, 100, 200, 1000}, u8 and f32 codes, row_ids
-   with -1, gathered and sorted layouts, IVF schedules with pad slots
+   off the tiles, k in {1, 10, 49, 100, 200, 1000}, ip_topk at d in {1,
+   3, 160, 512, 513, 516} (rows off 16-byte alignment), u8 and f32 codes,
+   row_ids with -1, gathered and sorted layouts, IVF schedules with pad slots
    (middle, end, a whole row), slack blocks and k above the valid row
    count, exact ties; the dense kernels (sq_dot, gleanvec_ip, dense
    gleanvec_sq) with layout blocks off the tile, ``scorer_scores`` of every
    scorer class with dead columns, and graph hops (u8 and f32, d in {160,
    33}, S up to 4096, B in {96, 128, 200}, pads, repeats, dead rows,
    in-beam candidates, half-empty beams, exact ties); kmeans_assign at C
-   up to 129; the gathered GleanVec path at C = 100 tags with an empty tag
+   up to 300 and D up to 7000 (a tie across tiles of centers); the
+   gathered GleanVec path at C = 100 tags with an empty tag
    and with one tag (the bucketing bit for bit, top-k and dense);
    flash_attention (S in {1, 77, 100, 130, 300, 4097}, dh in {8, 16, 20,
    64, 120, 128}, GQA groups 1, 4 and 8, window None / 48 / 4096, causal
@@ -59,8 +63,9 @@ Phases (any failure raises and the script exits non-zero):
 4. Each kernel at its path's shapes and inputs: its time beside its
    bound, its plain version's time, the time of the composed PyTorch
    calls that compute the same function (``library_ms``), and its
-   agreement with the plain version; the gathered kernels' bucketing step
-   on its own.
+   agreement with the plain version; kmeans_assign at C = 48 and 100;
+   ip_topk's scan, fold and merge (flat linear modes, graph self-join);
+   the gathered kernels' bucketing step on its own.
 3e. LM serving, after the search phases' tensors are freed: h2o-danube-
    3-4b at its published widths with random weights drawn on the card,
    ``generate`` at B = 4, s0 = 8192, n_new = 32 (greedy): prefill ms and
@@ -239,6 +244,22 @@ def timed_once(fn):
     return start.elapsed_time(end), out
 
 
+def ptxas_summary(text: str) -> list:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: the mangled
+    entry name, its registers and its spill stores and loads."""
+    out, name, spill = [], None, ""
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            regs = ln.split("Used", 1)[1].split("registers")[0].strip()
+            out.append(f"{name}: {regs} registers; {spill}")
+            name, spill = None, ""
+    return out
+
+
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -307,16 +328,27 @@ def phase_kernels(K, testing, gen):
         return randn(n, d)
 
     # (130, 20011, 513, 49): the graph device build's self-join shape
+    # before its rows were padded (unaligned rows: 4-byte copies); d = 516
+    # after; d in {1, 3} and u8 at d = 513: 4-byte copies and byte loads
     for m, n, d, k, u8 in [(37, 5003, 160, 10, False),
                            (37, 5003, 160, 100, True),
                            (130, 20011, 512, 10, False),
                            (130, 20011, 513, 49, False),
-                           (3, 50, 20, 100, False)]:
+                           (3, 50, 20, 100, False),
+                           (1024, 4097, 516, 49, False),
+                           (1000, 3001, 513, 100, True),
+                           (1, 2999, 3, 1, False),
+                           (1000, 5003, 1, 10, True),
+                           (1024, 3001, 160, 200, True)]:
         q, x = randn(m, d), codes(n, d, u8)
         tol = testing.dot_tol(row_norm_max(q), row_norm_max(x), d)
         check_topk(f"ip_topk M={m} N={n} d={d} k={k} "
                    f"{'u8' if u8 else 'f32'}", K.ip_topk(q, x, k),
                    K.ip_topk_plain(q, x, k), tol, testing)
+        if d == 516:                    # rows one row into x: not 16-B aligned
+            check_topk(f"ip_topk M={m} N={n - 1} d={d} k={k} f32 rows off "
+                       "16-byte alignment", K.ip_topk(q, x[1:], k),
+                       K.ip_topk_plain(q, x[1:], k), tol, testing)
 
     for m, c, d, n, k, u8, masked in [(9, 48, 160, 7001, 100, True, True),
                                       (6, 5, 33, 3000, 10, False, False),
@@ -414,7 +446,10 @@ def phase_kernels(K, testing, gen):
                                  "toward the smaller id")
     log("  ivf_scan_topk exact ties: ids ascending as required")
 
-    for n, d, c in [(10007, 512, 48), (999, 100, 7), (300, 64, 64)]:
+    # C up to 300 (three tiles of 100 centers), D up to 7000 and off 4
+    for n, d, c in [(10007, 512, 48), (999, 100, 7), (300, 64, 64),
+                    (3001, 7000, 300), (4097, 513, 129), (3001, 3, 7),
+                    (999, 512, 1), (5000, 513, 100)]:
         x = randn(n, d)
         cent = randn(c, d)
         check_kmeans(f"kmeans_assign N={n} D={d} C={c}", x, cent,
@@ -439,7 +474,7 @@ def phase_wide_kernels(K, testing, gen):
     """The shapes above the kernels' one-pass limits against the plain
     versions: top-k at k = 200 and 1000 (ip_topk, both gleanvec_sq_topk
     layouts, ivf_scan_topk; k above the row count), a beam of 200,
-    kmeans_assign at C = 100 (two chunks of centers, a tie across them), and
+    kmeans_assign at C = 100 and 300 (a tie across tiles of centers), and
     the gathered GleanVec path at C = 100 tags with an empty tag and with a
     single tag: the bucketing (bit for bit), the fused top-k and the dense
     kernels; then exact ties through three passes."""
@@ -579,14 +614,16 @@ def phase_wide_kernels(K, testing, gen):
         check_kmeans(f"kmeans_assign N={n} D={d} C={c}", x, cent,
                      K.kmeans_assign(x, cent), K.kmeans_assign_plain(x, cent),
                      testing)
-    cent = randn(100, 64)
-    cent[70] = cent[3]                        # in the second chunk of 50
+    cent = randn(300, 64)
+    cent[250] = cent[3]                       # in the third tile of centers
+    cent[120] = cent[3]                       # and in the second
     x = cent[3].expand(50, 64).contiguous() + 0.0
     tags, _ = K.kmeans_assign(x, cent)
     if not bool((tags == 3).all()):
-        raise AssertionError("kmeans_assign: a tie across chunks of centers "
+        raise AssertionError("kmeans_assign: a tie across tiles of centers "
                              "must go to the first center")
-    log("  kmeans_assign C=100 exact ties across chunks: first center wins")
+    log("  kmeans_assign C=300 exact ties across center tiles: first center "
+        "wins")
 
     # exact ties through three passes: identical rows, ids ascending
     x = randn(1, 32).expand(1000, 32).contiguous()
@@ -1881,8 +1918,9 @@ def ivf_calls(K, testing, scorer, qstate, probe, kappa):
 
 def device_breakdown(fn, reps: int = 3) -> str:
     """Device time per call of each CUDA kernel ``fn`` launches, from
-    ``torch.profiler`` (``key_averages``); "not measured" when the profiler
-    records no device time on this machine."""
+    ``torch.profiler`` (``key_averages``), with the launches it recorded in
+    ``reps`` calls; "not measured" when the profiler records no device time
+    on this machine."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1900,11 +1938,28 @@ def device_breakdown(fn, reps: int = 3) -> str:
         if us is None:
             us = getattr(ev, "cuda_time_total", 0)
         if us > 0:
-            parts.append((us / reps / 1e3, ev.key))
+            parts.append((us / reps / 1e3, ev.key, ev.count))
     if not parts:
         return "not measured (no device time recorded)"
     parts.sort(reverse=True)
-    return "; ".join(f"{key[:60]}={ms:.3f}ms" for ms, key in parts)
+    return "; ".join(f"{key[:60]}={ms:.3f}ms ({n} in {reps} calls)"
+                     for ms, key, n in parts)
+
+
+def ip_topk_split(K, q, x, k) -> str:
+    """Where an ip_topk call's device time goes: scan and merge kernels
+    (``torch.profiler``), and the fold's share of the scan from the
+    kernel's own clock64 profile (thread 0 of each block: the kernel, its
+    folds, and the folds' compares + appends, barrier wait, inserts and
+    closing vote)."""
+    ipk = importlib.import_module("repro_torch.kernels.ip_topk")
+    prof = ipk.fold_profile(q, x, min(k, K.PASS_K))
+    total = max(prof["kernel"], 1)
+    parts = ", ".join(f"{p} {prof[p] / total:.1%}"
+                      for p in ipk.FOLD_PARTS[1:])
+    return (f"share of the scan's cycles (clock64, thread 0): {parts}; "
+            "device time by kernel (torch.profiler): "
+            + device_breakdown(lambda: K.ip_topk(q, x, k)))
 
 
 def time_kernel(name, label, calls, launches, testing, reps: int = 3):
@@ -2125,19 +2180,27 @@ def graph_timing(K, testing, x, hops, totals, per_batch):
                 f"{per_batch[mode]}; on the whole graph path: "
                 f"{totals['graph_scan_beam_step']}")
         table.append(row)
+    # the build's self-join batch as _device_knn lays it out: rows [x,
+    # -|x|^2 / 2] and queries [q, 1], zero columns up to a multiple of 4
+    # (513 -> 516); the bound counts the 513 columns the data needs
     xg = x[:GRAPH_ROWS]
-    xa = torch.cat([xg, -0.5 * torch.sum(xg * xg, dim=1, keepdim=True)],
-                   dim=1)
-    qa = torch.cat([xg[:1024], torch.ones((1024, 1), device=xg.device)],
-                   dim=1)
-    m, d = qa.shape
+    dx = xg.shape[1]
+    width = -(-(dx + 1) // 4) * 4
+    xa = torch.zeros((GRAPH_ROWS, width), device=xg.device)
+    xa[:, :dx] = xg
+    xa[:, dx] = -0.5 * torch.sum(xg * xg, dim=1)
+    qa = torch.zeros((1024, width), device=xg.device)
+    qa[:, :dx] = xg[:1024]
+    qa[:, dx] = 1.0
+    m, d = qa.shape[0], dx + 1
     tol = testing.dot_tol(row_norm_max(qa), row_norm_max(xa), d)
     table.append(time_kernel(
-        "ip_topk", "graph self-join d=513 k=49",
+        "ip_topk", f"graph self-join d={d} k=49",
         (lambda: K.ip_topk(qa, xa, 49), lambda: K.ip_topk_plain(qa, xa, 49),
-         2.0 * m * GRAPH_ROWS * d, (qa.numel() + xa.numel()) * 4 + m * 49 * 8,
+         2.0 * m * GRAPH_ROWS * d, (m + GRAPH_ROWS) * d * 4 + m * 49 * 8,
          tol, lambda: torch.topk(qa @ xa.T, 49, dim=1)),
         totals["ip_topk"], testing))
+    log("    ip_topk[graph self-join] " + ip_topk_split(K, qa, xa, 49))
     return table
 
 
@@ -2154,6 +2217,10 @@ def phase_timing(K, testing, x, glv, states, per_mode, totals, ivf_inputs,
         table.append(time_kernel(name, mode,
                                  mode_calls(K, mode, scorer, qstate, kappa),
                                  per_mode[mode][name], testing))
+        if name == "ip_topk":
+            q = qstate if mode != "sphering-int8" else qstate.q_scaled
+            xs = scorer.x_low if mode != "sphering-int8" else scorer.codes
+            log(f"    ip_topk[{mode}] " + ip_topk_split(K, q, xs, kappa))
         if mode in ("gleanvec", "gleanvec-int8"):
             log(f"    flat {mode} batch p50 (phase 3): "
                 f"{flat_p50[mode]:.1f} ms; device time by kernel "
@@ -2174,42 +2241,124 @@ def phase_timing(K, testing, x, glv, states, per_mode, totals, ivf_inputs,
         log(f"  ivf_scan_topk[{mode}] device time by kernel (torch.profiler): "
             + device_breakdown(calls[0]))
     x_unit = normalize_rows(x)
-    cent = glv.centers.contiguous()
-    n, d = x_unit.shape
-    c = cent.shape[0]
-    ms, out_k = timed(lambda: K.kmeans_assign(x_unit, cent), 3)
-    plain_ms, out_p = timed_once(lambda: K.kmeans_assign_plain(x_unit, cent))
-    err = check_kmeans("kmeans_assign vs plain", x_unit, cent, out_k, out_p,
-                       testing)
-    lib_ms, _ = timed(lambda: torch.max(x_unit @ cent.T, dim=1), 3)
-    b, by = bound_ms(2.0 * n * c * d, n * d * 4 + c * d * 4 + n * 8)
-    log(f"  kmeans_assign: ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        f"bound_ms={b:.3f} ({by}) library_ms={lib_ms:.3f} "
-        f"launches={totals['kmeans_assign']}")
-    src, repl = KERNEL_FILES["kmeans_assign"]
-    table.append({"name": "kmeans_assign", "route": "cuda", "source": src,
-                  "replaces": repl, "launches": totals["kmeans_assign"],
-                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": b, "bound_by": by, "library_ms": lib_ms})
-    # the paper's C = 100 (two chunks of centers), off the main path
-    cent = normalize_rows(x[:100])
-    c = cent.shape[0]
-    ms, out_k = timed(lambda: K.kmeans_assign(x_unit, cent), 3)
-    plain_ms, out_p = timed_once(lambda: K.kmeans_assign_plain(x_unit, cent))
-    check_kmeans("kmeans_assign C=100 vs plain", x_unit, cent, out_k, out_p,
-                 testing)
-    lib_ms, _ = timed(lambda: torch.max(x_unit @ cent.T, dim=1), 3)
-    b, by = bound_ms(2.0 * n * c * d, n * d * 4 + c * d * 4 + n * 8)
-    log(f"  kmeans_assign[C=100]: ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        f"bound_ms={b:.3f} ({by}) library_ms={lib_ms:.3f} (not on the "
-        "main path)")
+    # the main path's C = 48 (the GleanVec fit's centers), and the paper's
+    # largest C = 100 (off the main path: gleanvec.fit(C=100) and
+    # ivf.build(n_lists=100) reach it); launches: the kernel's on the main
+    # path, which runs C = 48
+    for cent in (glv.centers.contiguous(), normalize_rows(x[:100])):
+        n, d = x_unit.shape
+        c = cent.shape[0]
+        ms, out_k = timed(lambda: K.kmeans_assign(x_unit, cent), 3)
+        plain_ms, out_p = timed_once(
+            lambda: K.kmeans_assign_plain(x_unit, cent))
+        err = check_kmeans(f"kmeans_assign[C={c}] vs plain", x_unit, cent,
+                           out_k, out_p, testing)
+        lib_ms, _ = timed(lambda: torch.max(x_unit @ cent.T, dim=1), 3)
+        b, by = bound_ms(2.0 * n * c * d, n * d * 4 + c * d * 4 + n * 8)
+        log(f"  kmeans_assign[C={c}]: ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={b:.3f} ({by}) library_ms={lib_ms:.3f} "
+            f"launches={totals['kmeans_assign']}")
+        src, repl = KERNEL_FILES["kmeans_assign"]
+        table.append({"name": f"kmeans_assign[C={c}]", "route": "cuda",
+                      "source": src, "replaces": repl,
+                      "launches": totals["kmeans_assign"],
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b, "bound_by": by, "library_ms": lib_ms})
+        del out_k, out_p
     return table
+
+
+def clocks_during(fn, seconds: float = 1.5) -> str:
+    """The SM clock and power draw (``nvidia-smi``, every 100 ms) while
+    ``fn`` runs back to back for about ``seconds``: medians."""
+    mon = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                           text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        mon.terminate()
+        out = mon.communicate(timeout=30)[0]
+    rows = [ln.split(",") for ln in out.splitlines() if ln.count(",") == 1]
+    if not rows:
+        return "clocks not read"
+    mhz = sorted(float(r[0]) for r in rows)
+    watts = sorted(float(r[1]) for r in rows)
+    return (f"sm clock {mhz[len(mhz) // 2]:.0f} MHz, power "
+            f"{watts[len(watts) // 2]:.0f} W (median of {len(rows)})")
+
+
+def scan_timing(K, gen):
+    """The two fp32 scans at the main path's shapes on random data drawn
+    on the card, for tuning runs (phase 4 times them on the main path's own
+    inputs): ip_topk as `full`, sphering, sphering-int8 and the graph
+    build's padded self-join, kmeans_assign at C = 48 and 100; each beside
+    the library call and the bound, ip_topk with its scan / fold / merge."""
+    dev = torch.device("cuda")
+    log("scan timing (random data; CUDA events, mean of 3 after a warm-up)")
+
+    def report(label, fn, library, flops, nbytes):
+        ms, _ = timed(fn, 3)
+        lib_ms, _ = timed(library, 2)
+        b, by = bound_ms(flops, nbytes)
+        log(f"  {label}: ms={ms:.3f} library_ms={lib_ms:.3f} "
+            f"bound_ms={b:.3f} ({by}) share_of_bound={b / ms:.1%}; "
+            f"{clocks_during(fn)}")
+
+    m = 1024
+    for label, n, d, k, u8 in (("full", N_ROWS, 512, 10, False),
+                               ("sphering", N_ROWS, 160, 100, False),
+                               ("sphering-int8", N_ROWS, 160, 100, True)):
+        q = torch.randn(m, d, generator=gen, device=dev)
+        x = (torch.randint(0, 256, (n, d), generator=gen, device=dev,
+                           dtype=torch.uint8) if u8 else
+             torch.randn(n, d, generator=gen, device=dev))
+        report(f"ip_topk[{label}]", lambda: K.ip_topk(q, x, k),
+               lambda: torch.topk(q @ x.to(torch.float32).T, k, dim=1),
+               2.0 * m * n * d, (m + n * x.element_size() / 4) * d * 4
+               + m * k * 8)
+        log(f"    {ip_topk_split(K, q, x, k)}")
+        log(f"    at k = 1 (the least fold): "
+            f"{timed(lambda: K.ip_topk(q, x, 1), 3)[0]:.3f} ms")
+        del q, x
+    xg = torch.randn(GRAPH_ROWS, 512, generator=gen, device=dev)
+    xa = torch.zeros((GRAPH_ROWS, 516), device=dev)
+    xa[:, :512] = xg
+    xa[:, 512] = -0.5 * torch.sum(xg * xg, dim=1)
+    qa = torch.zeros((m, 516), device=dev)
+    qa[:, :512] = xg[:m]
+    qa[:, 512] = 1.0
+    del xg
+    report("ip_topk[graph self-join d=513 k=49]",
+           lambda: K.ip_topk(qa, xa, 49),
+           lambda: torch.topk(qa @ xa.T, 49, dim=1),
+           2.0 * m * GRAPH_ROWS * 513, (m + GRAPH_ROWS) * 513 * 4 + m * 49 * 8)
+    log(f"    {ip_topk_split(K, qa, xa, 49)}")
+    log(f"    at k = 1 (the least fold): "
+        f"{timed(lambda: K.ip_topk(qa, xa, 1), 3)[0]:.3f} ms")
+    del qa, xa
+    x = torch.nn.functional.normalize(
+        torch.randn(N_ROWS, 512, generator=gen, device=dev), dim=1)
+    for c in (48, 100):
+        cent = x[torch.randperm(N_ROWS, generator=gen, device=dev)[:c]]
+        report(f"kmeans_assign[C={c}]", lambda: K.kmeans_assign(x, cent),
+               lambda: torch.max(x @ cent.T, dim=1),
+               2.0 * N_ROWS * c * 512, (N_ROWS + c) * 512 * 4 + N_ROWS * 8)
+    del x
+    torch.cuda.synchronize()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build + ragged checks)")
+    ap.add_argument("--scan-timing", action="store_true",
+                    help="after phase 2, time ip_topk and kmeans_assign at "
+                    "the main path's shapes on random data, then stop")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2236,14 +2385,16 @@ def main(argv=None) -> int:
     for name in K.KERNEL_SOURCES:
         log_path = Path(f"{K.library_path(name)}.log")
         if log_path.exists():
-            ptxas = [ln.strip() for ln in log_path.read_text().splitlines()
-                     if "registers" in ln or "spill" in ln]
-            log(f"  {name} ptxas: " + " | ".join(ptxas[:12]))
+            log(f"  {name} ptxas (-Xptxas -v):")
+            for line in ptxas_summary(log_path.read_text()):
+                log(f"    {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase_kernels(K, testing, gen)
     torch.cuda.synchronize()
-    if args.kernels_only:
+    if args.scan_timing:
+        scan_timing(K, gen)
+    if args.kernels_only or args.scan_timing:
         log(f"kernels-only: stopping after phase 2 "
             f"({time.perf_counter() - t_start:.0f} s)")
         return 0

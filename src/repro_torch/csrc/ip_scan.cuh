@@ -1,0 +1,497 @@
+// Pipelined fp32 MIPS scan + per-block top-k lists for ip_topk.cu: the plain
+// MIPS case only (one query view, no offsets, no row ids, no work list).
+// The sorted, gathered, IVF and dense scans keep scan_gemm.cuh.
+//
+// A block owns IP_TM = 64 queries and one split of the database's tiles of
+// IP_TN = 512 rows, one block an SM (256 threads with up to 255 registers).
+// Its 8 warps form a 2 x 4 grid of 32-query x 128-row warp tiles; a lane
+// keeps an 8 x 16 register tile of scores: queries lq + 4 i against rows
+// lr + 8 j of its warp tile (lq = lane / 8, lr = lane % 8). Operands reach
+// shared memory through a ring of IP_STAGES depth chunks, filled by cp.async
+// (async_copy.cuh) with no register staging: chunk c + IP_STAGES - 1 is in
+// flight while chunk c is multiplied, one barrier a chunk. The ring flows
+// across tile boundaries.
+//
+// Staged rows keep depth contiguous (row-major), padded so that consecutive
+// rows fall on distinct banks. A lane reads 4 depths of a query or a row
+// with one 16-byte load (u8: one 4-byte word, converted to floats exactly
+// through the 2^23 bias), so a 4-depth step costs 8 query loads and 16 row
+// loads for 512 FMAs (21 a load); a warp's loads touch 4 queries and 8 rows
+// each. The steps of a chunk run as a loop: unrolled, the chunk body
+// outgrew the instruction cache (6 % slower on an H100); the last chunk of a
+// row stops at d rounded up to 4. Rows that are not 16-byte aligned take
+// 4-byte copies (u8 always does: its 20-byte staged stride keeps 8 rows'
+// same word on distinct banks), and u8 rows that are not 4-byte aligned
+// take byte loads into the same ring. Each thread's copies keep one depth
+// and a fixed row step for the whole call (stage_chunk_rows): with the
+// addresses worked out per copy the scan was 5 to 6 % slower (H100).
+//
+// Arithmetic: each score is one fp32 FMA chain over depth 0, 1, ..., d - 1
+// (zero-filled up to a multiple of 4), then + 0.f -- the chain
+// scan_gemm.cuh computes (its further zero FMAs change at most the sign of
+// a zero, which + 0.f clears), so scores and top-k lists are bit-identical
+// to it. No TF32, no tensor cores, no split-K. (The fold compares scores
+// before the + 0.f: -0.0 and +0.0 compare equal.)
+//
+// The fold: a score is a candidate only if it outranks its query's current
+// k-th list entry (and, in a later pass, ranks below the pass's ceiling);
+// after the first tiles of a split few do, and a query whose best score of
+// the tile does not reach the k-th value costs 15 max and a compare.
+// Candidates go to a per-query buffer of IP_CAP (shared-memory atomics);
+// after a barrier one warp per 8 queries runs topk_update_row
+// (topk_common.cuh) over it; a barrier vote ends the fold unless a full
+// buffer left candidates for another round. N is split for one wave of
+// blocks (ip_topk's wrapper): fewer splits, fewer list insertions. For
+// long lists (k >= IP_FLOORS_MIN_K) the splits of a query also share a
+// floor through device memory (ip_share_floor) that cuts their insertions
+// further. The result is the exact top-k whatever order the splits run in.
+#pragma once
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include "async_copy.cuh"
+#include "topk_common.cuh"
+
+constexpr int IP_TM = 64;        // queries per block
+constexpr int IP_TN = 512;       // database rows per tile
+constexpr int IP_RX = 16;        // rows per lane: IP_TN / 32
+constexpr int IP_THREADS = 256;  // 8 warps: 2 x 4 warp tiles of 32 x 128
+static_assert(IP_TN == 32 * IP_RX, "4 warps x 8 lanes share a tile's rows");
+constexpr int IP_STAGES = 3;     // depth chunks in the ring
+constexpr int IP_CAP = 32;       // fold candidates per query and round
+// Lists at least this long share floors across splits (FLOORS): measured on
+// an H100, the floors take a fifth of the fold at k = 100 (sphering 24.0 ->
+// 22.3 ms, sphering-int8 26.7 -> 23.3) but slow the FMA loop of their
+// instantiation by 5 % (full, k = 10: 55.6 -> 58.6; the self-join, k = 49:
+// 30.7 -> 31.5).
+constexpr int IP_FLOORS_MIN_K = 64;
+
+// Depth chunk BK and staged row strides (queries in floats, rows in bytes).
+template <typename XT>
+struct IpChunk;
+template <>
+struct IpChunk<float> {
+  static constexpr int BK = 16;
+  static constexpr int QSTR = 20;  // 80 B: 8 consecutive rows on distinct 16-B slots
+  static constexpr int XSTR = 80;
+};
+template <>
+struct IpChunk<uint8_t> {
+  static constexpr int BK = 16;
+  static constexpr int QSTR = 20;
+  static constexpr int XSTR = 20;  // 20 B: word w of 8 consecutive rows on 8 banks
+};
+
+template <typename XT>
+__host__ __device__ constexpr int ip_stage_bytes() {
+  return IP_TM * IpChunk<XT>::QSTR * 4 + IP_TN * IpChunk<XT>::XSTR;
+}
+
+struct IpScanArgs {
+  const float* q;        // (M, d)
+  const void* x;         // (N, d) float or uint8
+  int M, N, d;
+  int k;                 // list length of this pass (<= TOPK_PASS_K)
+  int S;                 // splits of the row tiles (partial slots per query)
+  float* pv;             // (M, S, k) partial lists
+  int* pi;
+  int* floors;           // FLOORS: (M, S) each split's floor, ip_order; INT_MIN = none
+  const float* ceil_v;   // CEIL: query m's ceiling at ceil_v[m * ceil_ld]
+  const int* ceil_i;
+  int ceil_ld;
+  int q_vec;             // q rows take 16-byte copies
+  int x_vec;             // f32: 16-byte copies; u8: 4-byte copies (else bytes)
+  unsigned long long* clocks;  // optional fold profile (IP_CLK_N sums), else null
+};
+
+// A float as an int of the same order (no NaN), and back; INT_MIN (no
+// floor yet) back to -inf.
+__device__ __forceinline__ int ip_order(float v) {
+  const int i = __float_as_int(v);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float ip_unorder(int i) {
+  return i == INT_MIN ? -CUDART_INF_F : __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// Byte b of w as an exact float: the bits 0x4B0000bb are 2^23 + b.
+__device__ __forceinline__ float ip_byte(unsigned w, int b) {
+  return __int_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | b)) - 8388608.0f;
+}
+
+// Stage the chunk of depths [kc, kc + BK) of the block's queries and of
+// tile rows [n0, n0 + IP_TN) into one ring slot.
+template <typename XT>
+__device__ __forceinline__ void ip_load_chunk(const IpScanArgs& a, unsigned char* st,
+                                              int m0, int n0, int kc) {
+  using CH = IpChunk<XT>;
+  constexpr int BK = CH::BK, QB = CH::QSTR * 4, XSTR = CH::XSTR, T = IP_THREADS;
+  unsigned char* xs = st + IP_TM * QB;
+  const XT* x = static_cast<const XT*>(a.x);
+  if (a.q_vec) stage_chunk_rows<T, float, BK, IP_TM, 16>(st, QB, a.q, m0, a.M, a.d, kc);
+  else stage_chunk_rows<T, float, BK, IP_TM, 4>(st, QB, a.q, m0, a.M, a.d, kc);
+  if constexpr (sizeof(XT) == 4) {
+    if (a.x_vec) stage_chunk_rows<T, XT, BK, IP_TN, 16>(xs, XSTR, x, n0, a.N, a.d, kc);
+    else stage_chunk_rows<T, XT, BK, IP_TN, 4>(xs, XSTR, x, n0, a.N, a.d, kc);
+  } else {
+    if (a.x_vec) stage_chunk_rows<T, XT, BK, IP_TN, 4>(xs, XSTR, x, n0, a.N, a.d, kc);
+    else stage_chunk_rows<T, XT, BK, IP_TN, 1>(xs, XSTR, x, n0, a.N, a.d, kc);
+  }
+}
+
+// Multiply depths s4 .. s4 + 3 of one staged chunk into the lane's 8 x 16
+// scores: block queries q0 + 4 i against tile rows r0 + 8 j, in depth
+// order.
+template <typename XT>
+__device__ __forceinline__ void ip_compute_steps(const unsigned char* st, int q0, int r0,
+                                                 int s4, float (&acc)[8][IP_RX]) {
+  using CH = IpChunk<XT>;
+  constexpr int QSTR = CH::QSTR, XSTR = CH::XSTR;
+  const float* qs = reinterpret_cast<const float*>(st) + q0 * QSTR;
+  const unsigned char* xs = st + IP_TM * QSTR * 4 + r0 * XSTR;
+  float4 qv[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    qv[i] = *reinterpret_cast<const float4*>(qs + 4 * i * QSTR + s4);
+#pragma unroll
+  for (int j = 0; j < IP_RX; ++j) {
+    float4 xv;
+    if constexpr (sizeof(XT) == 4) {
+      xv = *reinterpret_cast<const float4*>(xs + 8 * j * XSTR + s4 * 4);
+    } else {
+      const unsigned w = *reinterpret_cast<const unsigned*>(xs + 8 * j * XSTR + s4);
+      xv = make_float4(ip_byte(w, 0), ip_byte(w, 1), ip_byte(w, 2), ip_byte(w, 3));
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc[i][j] = fmaf(qv[i].x, xv.x, acc[i][j]);
+      acc[i][j] = fmaf(qv[i].y, xv.y, acc[i][j]);
+      acc[i][j] = fmaf(qv[i].z, xv.z, acc[i][j]);
+      acc[i][j] = fmaf(qv[i].w, xv.w, acc[i][j]);
+    }
+  }
+}
+
+// One staged chunk, depths ascending: all BK depths, or (the last chunk of
+// a row) the `left` < BK depths that remain, rounded up to 4.
+template <typename XT>
+__device__ __forceinline__ void ip_compute_chunk(const unsigned char* st, int q0, int r0,
+                                                 int left, float (&acc)[8][IP_RX]) {
+  constexpr int BK = IpChunk<XT>::BK;
+  if (left >= BK) {
+#pragma unroll 1
+    for (int s4 = 0; s4 < BK; s4 += 4) ip_compute_steps<XT>(st, q0, r0, s4, acc);
+  } else {
+#pragma unroll 1
+    for (int s4 = 0; s4 < left; s4 += 4) ip_compute_steps<XT>(st, q0, r0, s4, acc);
+  }
+}
+
+// Fold profile (IpScanArgs::clocks): thread 0's clock64 cycles summed over
+// the blocks of a pass: the kernel, its folds, and inside the folds the
+// compares and appends, the wait at the barrier after them, the inserts
+// (thread 0's warp), the wait at the closing vote. Thread 0's clock also
+// runs while the other warp of its scheduler issues, so the parts are
+// upper bounds.
+enum { IP_CLK_KERNEL, IP_CLK_FOLD, IP_CLK_APPEND, IP_CLK_WAIT, IP_CLK_INSERT, IP_CLK_VOTE,
+       IP_CLK_N };
+
+// The shared-memory layout after the ring, at list length k: the lists
+// (IP_TM x k values, then ids), the candidates (IP_TM x IP_CAP values, then
+// ids), their counts, the ceilings (CEIL), the shared floors (FLOORS), the
+// profile.
+struct IpFoldLayout {
+  float* lv;
+  int* li;
+  float* cv;
+  int* ci;
+  int* cnt;
+  float* ceil_v;
+  int* ceil_i;
+  float* floor_v;
+  unsigned long long* clk;
+  __device__ __forceinline__ IpFoldLayout(unsigned char* base, int k) {
+    lv = reinterpret_cast<float*>(base);
+    li = reinterpret_cast<int*>(lv + IP_TM * k);
+    cv = reinterpret_cast<float*>(li + IP_TM * k);
+    ci = reinterpret_cast<int*>(cv + IP_TM * IP_CAP);
+    cnt = ci + IP_TM * IP_CAP;
+    ceil_v = reinterpret_cast<float*>(cnt + IP_TM);
+    ceil_i = reinterpret_cast<int*>(ceil_v + IP_TM);
+    floor_v = reinterpret_cast<float*>(ceil_i + IP_TM);
+    clk = reinterpret_cast<unsigned long long*>(floor_v + 2 * IP_TM);  // 8-B aligned
+  }
+};
+
+__device__ __forceinline__ void ip_clock(bool on, unsigned long long* slot, long long& t) {
+  if (on) {
+    const long long now = clock64();
+    *slot += now - t;
+    t = now;
+  }
+}
+
+// Publish and refresh the shared floor of block query row r (m0 + r < M),
+// by its inserting warp after its list changed. A split whose list holds
+// rank = ceil(k / S) entries publishes its rank-th value; the floor of a
+// query is the least of its S splits' (INT_MIN until each has one). The S
+// splits then hold S rank >= k entries at or above it, so no score below
+// it can reach the final top-k, while it rises about as fast as the k-th
+// value of all the query's rows seen so far: a split admits about S times
+// fewer scores than its own k-th entry would let through.
+__device__ __forceinline__ void ip_share_floor(const IpScanArgs& a, const IpFoldLayout& f,
+                                               int m0, int r, int lane) {
+  const int k = a.k, rank = (k + a.S - 1) / a.S;
+  const size_t row = (size_t)(m0 + r) * a.S;
+  if (lane == 0 && f.li[r * k + rank - 1] >= 0)
+    a.floors[row + blockIdx.y] = ip_order(f.lv[r * k + rank - 1]);
+  int v = INT_MAX;
+  for (int s2 = lane; s2 < a.S; s2 += 32) v = min(v, __ldcg(a.floors + row + s2));
+  v = __reduce_min_sync(0xffffffffu, v);
+  if (lane == 0) f.floor_v[r] = ip_unorder(v);
+}
+
+// Fold the block's finished tile into its queries' lists: the lane's scores
+// are queries q0 + 4 i against rows n0 + 8 j. Every thread of the block
+// calls it (it holds barriers). `fold_base`: the layout's start.
+template <bool CEIL, bool FLOORS>
+__device__ __forceinline__ void ip_fold_tile(const IpScanArgs& a, unsigned char* fold_base,
+                                             float (&acc)[8][IP_RX], int m0, int q0,
+                                             int n0) {
+  static_assert(IP_RX < 32, "a query's pending scores are one 32-bit mask");
+  const int k = a.k, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const IpFoldLayout f(fold_base, k);
+  const bool prof = a.clocks != nullptr && threadIdx.x == 0;
+  long long t = prof ? clock64() : 0;
+  const long long t_fold = t;
+  unsigned pend[8];  // per query, the scores (bit j: row n0 + 8 j) still to offer
+  // keep the scores that outrank their query's k-th entry, are not below
+  // its shared floor (and rank below its ceiling); a query whose best
+  // score of the tile does not reach them (the common case) costs 15 max
+  // and two compares
+  auto refilter = [&]() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = q0 + 4 * i;
+      const float tv = f.lv[r * k + k - 1];
+      const int ti = f.li[r * k + k - 1];
+      const float fv = FLOORS ? f.floor_v[r] : 0.f;
+      float best = acc[i][0];
+#pragma unroll
+      for (int j = 1; j < IP_RX; ++j) best = fmaxf(best, acc[i][j]);
+      if (m0 + r >= a.M || best < tv || (FLOORS && best < fv)) {
+        pend[i] = 0;
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < IP_RX; ++j) {
+        const int n = n0 + 8 * j;
+        bool p = n < a.N && topk_better(acc[i][j], n, tv, ti);
+        if constexpr (FLOORS) p = p && acc[i][j] >= fv;
+        if constexpr (CEIL) p = p && topk_better(f.ceil_v[r], f.ceil_i[r], acc[i][j], n);
+        if (!p) pend[i] &= ~(1u << j);
+      }
+    }
+  };
+  auto any_pending = [&]() {
+    unsigned u = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) u |= pend[i];
+    return u != 0;
+  };
+#pragma unroll
+  for (int i = 0; i < 8; ++i) pend[i] = (1u << IP_RX) - 1;
+  refilter();
+  while (true) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (!pend[i]) continue;
+#pragma unroll
+      for (int j = 0; j < IP_RX; ++j) {
+        if (pend[i] & (1u << j)) {
+          const int r = q0 + 4 * i;
+          const int slot = atomicAdd(&f.cnt[r], 1);
+          if (slot < IP_CAP) {
+            f.cv[r * IP_CAP + slot] = acc[i][j] + 0.f;
+            f.ci[r * IP_CAP + slot] = n0 + 8 * j;
+            pend[i] &= ~(1u << j);
+          }
+        }
+      }
+    }
+    ip_clock(prof, &f.clk[IP_CLK_APPEND], t);
+    __syncthreads();
+    ip_clock(prof, &f.clk[IP_CLK_WAIT], t);
+#pragma unroll 1
+    for (int qq = 0; qq < 8; ++qq) {
+      const int r = warp * 8 + qq;
+      const int c = min(f.cnt[r], IP_CAP);
+      if (c > 0) {
+        topk_update_row<CEIL>(f.cv + r * IP_CAP, f.ci + r * IP_CAP, c, f.lv + r * k,
+                              f.li + r * k, k, lane, CEIL ? f.ceil_v[r] : 0.f,
+                              CEIL ? f.ceil_i[r] : 0);
+        __syncwarp();
+        if (lane == 0) f.cnt[r] = 0;
+        if constexpr (FLOORS) ip_share_floor(a, f, m0, r, lane);
+      }
+    }
+    ip_clock(prof, &f.clk[IP_CLK_INSERT], t);
+    const bool again = __syncthreads_or(any_pending());
+    ip_clock(prof, &f.clk[IP_CLK_VOTE], t);
+    if (!again) break;
+    refilter();  // what a full buffer left, against the risen lists
+  }
+  if (prof) f.clk[IP_CLK_FOLD] += clock64() - t_fold;
+}
+
+// One block an SM (the lane's 8 x 16 tile needs up to 255 registers) for
+// IP_TM queries (blockIdx.x) and split blockIdx.y of the row tiles, whose
+// lists go to partial slot blockIdx.y. Query blocks are the fastest grid
+// dimension, so the blocks resident at one time read the same row tiles
+// and x streams from device memory about once. CEIL: a later pass of a
+// k > TOPK_PASS_K scan; FLOORS: the splits share floors (a.floors).
+template <typename XT, bool CEIL, bool FLOORS>
+__global__ void __launch_bounds__(IP_THREADS, 1) ip_scan_kernel(IpScanArgs a) {
+  constexpr int BK = IpChunk<XT>::BK, STAGE = ip_stage_bytes<XT>();
+  extern __shared__ __align__(16) unsigned char ism[];
+  unsigned char* ring = ism;  // IP_STAGES x STAGE
+  unsigned char* fold_base = ism + IP_STAGES * STAGE;
+  const IpFoldLayout f(fold_base, a.k);
+  const long long t_kernel = a.clocks ? clock64() : 0;
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int q0 = (warp >> 2) * 32 + (lane >> 3);      // the lane's first query row
+  const int r0 = (warp & 3) * 8 * IP_RX + (lane & 7);  // and first tile row
+  const int m0 = blockIdx.x * IP_TM, s = blockIdx.y;
+  const int nk = (a.d + BK - 1) / BK;
+  const long long T = (a.N + IP_TN - 1) / IP_TN;
+  const int t_begin = (int)(T * s / a.S), t_end = (int)(T * (s + 1) / a.S);
+  const long long total = (long long)(t_end - t_begin) * nk;
+
+  for (int e = t; e < IP_TM * a.k; e += IP_THREADS) {
+    f.lv[e] = NEG_INF_F;
+    f.li[e] = -1;
+  }
+  if (t < IP_TM) {
+    const int m = m0 + t;
+    f.cnt[t] = 0;
+    f.floor_v[t] = -CUDART_INF_F;
+    if (CEIL) {
+      f.ceil_v[t] = m < a.M ? a.ceil_v[(size_t)m * a.ceil_ld] : NEG_INF_F;
+      f.ceil_i[t] = m < a.M ? a.ceil_i[(size_t)m * a.ceil_ld] : -1;
+    }
+  }
+  if (t < IP_CLK_N) f.clk[t] = 0;
+
+  // producer position (tile, chunk) of the next chunk to load
+  int lt = t_begin, lk = 0;
+  auto load_next = [&](unsigned char* st) {
+    ip_load_chunk<XT>(a, st, m0, lt * IP_TN, lk * BK);
+    if (++lk == nk) {
+      lk = 0;
+      ++lt;
+    }
+  };
+  for (int g = 0; g < IP_STAGES - 1; ++g) {
+    if (g < total) load_next(ring + g * STAGE);
+    cp_async_commit();
+  }
+
+  float acc[8][IP_RX];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < IP_RX; ++j) acc[i][j] = 0.f;
+
+  int ct = t_begin, ck = 0, slot = 0;  // consumer position and ring slot
+  for (long long g = 0; g < total; ++g) {
+    cp_async_wait<IP_STAGES - 2>();
+    __syncthreads();  // chunk g visible; every warp is done with chunk g - 1
+    if (g + IP_STAGES - 1 < total)
+      load_next(ring + (slot == 0 ? IP_STAGES - 1 : slot - 1) * STAGE);
+    cp_async_commit();
+    ip_compute_chunk<XT>(ring + slot * STAGE, q0, r0, a.d - ck * BK, acc);
+    slot = slot + 1 == IP_STAGES ? 0 : slot + 1;
+    if (++ck == nk) {
+      ip_fold_tile<CEIL, FLOORS>(a, fold_base, acc, m0, q0, ct * IP_TN + r0);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < IP_RX; ++j) acc[i][j] = 0.f;
+      ck = 0;
+      ++ct;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int e = t; e < IP_TM * a.k; e += IP_THREADS) {
+    const int r = e / a.k, j = e % a.k, m = m0 + r;
+    if (m < a.M) {
+      const size_t o = ((size_t)m * a.S + s) * a.k + j;
+      a.pv[o] = f.lv[e];
+      a.pi[o] = f.li[e];
+    }
+  }
+  if (a.clocks && t == 0) {
+    f.clk[IP_CLK_KERNEL] = clock64() - t_kernel;
+    for (int c = 0; c < IP_CLK_N; ++c) atomicAdd(a.clocks + c, f.clk[c]);
+  }
+}
+
+// Shared memory of one block at list length k.
+template <typename XT>
+static size_t ip_scan_smem(int k) {
+  return (size_t)IP_STAGES * ip_stage_bytes<XT>() + (size_t)IP_TM * k * 8 +
+         (size_t)IP_TM * IP_CAP * 8 + IP_TM * 20 + IP_CLK_N * 8;
+}
+
+__global__ void ip_floor_reset_kernel(int* floors, long long n) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e < n) floors[e] = INT_MIN;
+}
+
+// One pass of the scan (a.k <= TOPK_PASS_K) on ceil(M / IP_TM) x a.S blocks,
+// the shared floors reset first.
+template <typename XT, bool CEIL>
+static cudaError_t launch_ip_scan_pass(const IpScanArgs& a, cudaStream_t stream) {
+  const bool floors = a.k >= IP_FLOORS_MIN_K;
+  if (floors) {
+    const long long nf = (long long)a.M * a.S;
+    ip_floor_reset_kernel<<<(unsigned)((nf + 255) / 256), 256, 0, stream>>>(a.floors, nf);
+  }
+  const size_t smem = ip_scan_smem<XT>(a.k);
+  auto kernel = floors ? ip_scan_kernel<XT, CEIL, true> : ip_scan_kernel<XT, CEIL, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.M + IP_TM - 1) / IP_TM, a.S), IP_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Any k >= 1: one pass per TOPK_PASS_K columns of the output, each after the
+// first under the previous pass's ceiling, each followed by the merge of
+// the S partial lists (topk_common.cuh). a.pv / a.pi hold (M, S,
+// min(k, TOPK_PASS_K)) entries.
+template <typename XT>
+static cudaError_t launch_ip_scan(IpScanArgs a, int k, float* out_v, int* out_i,
+                                  cudaStream_t stream) {
+  for (int k0 = 0; k0 < k; k0 += TOPK_PASS_K) {
+    a.k = k - k0 < TOPK_PASS_K ? k - k0 : TOPK_PASS_K;
+    cudaError_t err;
+    if (k0 == 0) {
+      err = launch_ip_scan_pass<XT, false>(a, stream);
+    } else {
+      a.ceil_v = out_v + k0 - 1;
+      a.ceil_i = out_i + k0 - 1;
+      a.ceil_ld = k;
+      err = launch_ip_scan_pass<XT, true>(a, stream);
+    }
+    if (err != cudaSuccess) return err;
+    err = launch_topk_merge(a.pv, a.pi, a.M, a.S, a.k, k, out_v + k0, out_i + k0, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}

@@ -5,58 +5,96 @@
 // uint8 (cast on load), vals/ids (M, k) = the k largest <q_m, x_n> per query,
 // ids = column index, columns >= N masked.
 //
-// What bounds it on an H100 SXM: at the flat path's shapes (M = 1024,
+// What bounds it on an H100 SXM: at the main path's shapes (M = 1024,
 // N = 2,000,000; d = 512, k = 10 for `full`; d = 160, k = 100 for the
-// sphering modes) each query-row pair costs 2 d flops. `full`:
+// sphering modes; N = 1,000,000, d = 513, k = 49 for the graph build's
+// self-join) each query-row pair costs 2 d flops. `full`:
 // 2 * 1024 * 2e6 * 512 = 2.10e12 flop over the 67 TFLOP/s fp32 (non tensor
 // core) peak = 31.3 ms, against 4.1 GB of x over 3.35 TB/s = 1.2 ms.
 // `sphering`: 6.6e11 flop = 9.8 ms against 1.3 GB (f32) or 0.33 GB (u8) =
 // 0.4 / 0.1 ms. So the kernel is bound by fp32 FMA throughput, not bytes.
 //
-// What the design does about it: a register-tiled fp32 product (each thread
-// 4 x 8 scores, 3 vector shared loads per 32 FMAs) over 64 x 128 tiles
-// (scan_gemm.cuh); the top-k fold only touches scores above the running
-// k-th value, so after the first tiles it costs a compare per score.
-// Query tiles are the fastest grid dimension, so the blocks resident at one
-// time read the same x tiles and x streams from device memory about once.
-// N is split across blocks (Hopper blocks run in parallel, unlike the TPU's
-// sequential grid); a second kernel merges the (M, S, k) partial lists.
-// No TF32 and no tensor cores: all arithmetic is fp32 FMA, as the reference's
-// f32 dot. wgmma / TMA pipelining is later work.
-#include "scan_gemm.cuh"
+// What the design does about it (ip_scan.cuh): an 8 x 16 register tile of
+// scores per thread over 64 x 512 tiles, 21 FMAs per shared load, one block
+// an SM, operands streamed by cp.async through a ring of three depth chunks
+// so that copies overlap the FMAs; a score reaches the top-k fold only if
+// it beats its query's k-th entry (and, for k >= 64, a floor the splits of
+// a query share), so after the first tiles the fold costs a compare per
+// score. Query blocks are the fastest grid dimension, so the
+// blocks resident at one time read the same x tiles and x streams from
+// device memory about once. N is split across blocks for one wave (Hopper
+// blocks run in parallel, unlike the TPU's sequential grid); a second
+// kernel merges the (M, S, k) partial lists. No TF32 and no tensor cores:
+// all arithmetic is fp32 FMA, as the reference's f32 dot.
+#include <cstdint>
+
 #include "error.cuh"
+#include "ip_scan.cuh"
 
 template <typename XT>
-static int ip_topk_impl(const float* q, const XT* x, int M, int N, int d, int k,
-                        int S, float* pv, int* pi, float* out_v, int* out_i,
-                        void* stream) {
-  GemmScanArgs a;
+static IpScanArgs ip_args(const float* q, const XT* x, int M, int N, int d, int k, int S,
+                          float* pv, int* pi, int* floors) {
+  IpScanArgs a;
   a.q = q;
-  a.q_stride = d;
-  a.d = d;
-  a.qlo = nullptr;
-  a.C = 1;
-  a.seg_tags = nullptr;
-  a.row_ids = nullptr;
   a.x = x;
-  a.N = N;
-  a.L = GT_N;
   a.M = M;
+  a.N = N;
+  a.d = d;
   a.k = k;
   a.S = S;
   a.pv = pv;
   a.pi = pi;
-  return (int)launch_gemm_scan<XT>(a, out_v, out_i, (cudaStream_t)stream);
+  a.floors = floors;
+  a.ceil_v = nullptr;
+  a.ceil_i = nullptr;
+  a.ceil_ld = 0;
+  a.q_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  a.x_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (sizeof(XT) == 4 ? 16 : 4) == 0;
+  a.clocks = nullptr;
+  return a;
 }
 
-extern "C" int ip_topk_f32(const float* q, const float* x, int M, int N, int d,
-                           int k, int S, float* pv, int* pi, float* out_v,
+// S splits of the row tiles; pv / pi: (M, S, min(k, TOPK_PASS_K)) partial
+// lists; floors: (M, S) int scratch (the splits' shared floors).
+template <typename XT>
+static int ip_topk_impl(const float* q, const XT* x, int M, int N, int d, int k, int S,
+                        float* pv, int* pi, int* floors, float* out_v, int* out_i,
+                        void* stream) {
+  return (int)launch_ip_scan<XT>(ip_args(q, x, M, N, d, k, S, pv, pi, floors), k, out_v,
+                                 out_i, (cudaStream_t)stream);
+}
+
+extern "C" int ip_topk_f32(const float* q, const float* x, int M, int N, int d, int k,
+                           int S, float* pv, int* pi, int* floors, float* out_v,
                            int* out_i, void* stream) {
-  return ip_topk_impl<float>(q, x, M, N, d, k, S, pv, pi, out_v, out_i, stream);
+  return ip_topk_impl<float>(q, x, M, N, d, k, S, pv, pi, floors, out_v, out_i, stream);
 }
 
-extern "C" int ip_topk_u8(const float* q, const uint8_t* x, int M, int N, int d,
-                          int k, int S, float* pv, int* pi, float* out_v,
+extern "C" int ip_topk_u8(const float* q, const uint8_t* x, int M, int N, int d, int k,
+                          int S, float* pv, int* pi, int* floors, float* out_v,
                           int* out_i, void* stream) {
-  return ip_topk_impl<uint8_t>(q, x, M, N, d, k, S, pv, pi, out_v, out_i, stream);
+  return ip_topk_impl<uint8_t>(q, x, M, N, d, k, S, pv, pi, floors, out_v, out_i, stream);
 }
+
+// One pass of the scan alone (k <= TOPK_PASS_K; no merge) with its fold
+// profile summed into clocks[IP_CLK_N] (zeroed by the caller): thread 0's
+// clock64 cycles in the kernel, in its folds, and in the folds' parts.
+extern "C" int ip_topk_profile(const float* q, const void* x, int x_u8, int M, int N, int d,
+                               int k, int S, float* pv, int* pi, int* floors,
+                               unsigned long long* clocks, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k < 1 || k > TOPK_PASS_K) return (int)cudaErrorInvalidValue;
+  if (x_u8) {
+    const uint8_t* xb = static_cast<const uint8_t*>(x);
+    IpScanArgs a = ip_args(q, xb, M, N, d, k, S, pv, pi, floors);
+    a.clocks = clocks;
+    return (int)launch_ip_scan_pass<uint8_t, false>(a, st);
+  }
+  IpScanArgs a = ip_args(q, static_cast<const float*>(x), M, N, d, k, S, pv, pi, floors);
+  a.clocks = clocks;
+  return (int)launch_ip_scan_pass<float, false>(a, st);
+}
+
+// The block tile the wrapper sizes its grid and partial lists by: 0 ->
+// queries per block (IP_TM), 1 -> rows per tile (IP_TN).
+extern "C" int ip_topk_tile(int which) { return which == 0 ? IP_TM : IP_TN; }

@@ -459,18 +459,25 @@ def _device_knn(x: torch.Tensor, k: int, batch: int = 1024) -> torch.Tensor:
     ``x``'s device, through the fused ``scorer_topk`` kernel: rows ``[x,
     -||x||^2 / 2]`` and queries ``[q, 1]`` make inner-product top-k return
     exact L2 order, so the self-join is a blocked ``ip_topk`` (k + 1 per
-    query, d + 1 wide)."""
+    query, d + 1 wide). Rows and queries carry zero columns up to a
+    multiple of 4 wide (d = 512: 513 -> 516), so the kernel stages
+    16-byte-aligned rows; a zero column adds fma(0, 0, acc) = acc to a
+    score, so the ids and values are those of the d + 1 columns."""
     from repro_torch import kernels
-    n = x.shape[0]
-    xsq = torch.sum(x * x, dim=1)
-    scorer = LinearScorer(
-        x_low=torch.cat([x, -0.5 * xsq[:, None]], dim=1).contiguous())
+    n, d = x.shape
+    width = -(-(d + 1) // 4) * 4
+    xa = torch.zeros((n, width), dtype=torch.float32, device=x.device)
+    xa[:, :d] = x
+    xa[:, d] = -0.5 * torch.sum(x * x, dim=1)
+    scorer = LinearScorer(x_low=xa)
     out = torch.empty((n, k), dtype=torch.int64, device=x.device)
-    ones = torch.ones((min(batch, n), 1), dtype=torch.float32,
-                      device=x.device)
+    qa = torch.zeros((min(batch, n), width), dtype=torch.float32,
+                     device=x.device)
+    qa[:, d] = 1.0
     for s in range(0, n, batch):
         e = min(s + batch, n)
-        q = torch.cat([x[s:e], ones[:e - s]], dim=1)
+        q = qa[:e - s]
+        q[:, :d] = x[s:e]
         _, ids = kernels.scorer_topk(scorer, q, k + 1)
         # drop self (rank 0 barring exact duplicates); a stable compaction
         # keeps the remaining k in distance order

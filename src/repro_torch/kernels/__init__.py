@@ -80,6 +80,8 @@ PASS_K = 128            # entries a top-k scan pass keeps per query; a larger
 MERGE_MAX = 8192        # most partial candidates the merge kernel sorts
 GEMM_TILE_M = 64        # queries per block of the tiled scan (scan_gemm.cuh)
 GEMM_TILE_N = 128       # rows per tile of the tiled scan
+IP_TILE_M = 64          # queries per block of ip_topk's pipelined scan
+IP_TILE_N = 512         # rows per tile of it (ip_scan.cuh: IP_TM, IP_TN)
 
 _LIBS: dict = {}
 

@@ -6,12 +6,14 @@ Port of ``repro/kernels/ip_topk`` (TPU kernel ``ip_topk``, body
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.index.topk import blocked_topk
 
-__all__ = ["ip_topk", "ip_topk_plain"]
+__all__ = ["ip_topk", "ip_topk_plain", "ScanPlan", "scan_plan",
+           "fold_profile"]
 
 
 def ip_topk_plain(q: torch.Tensor, x: torch.Tensor, k: int,
@@ -26,12 +28,60 @@ def ip_topk_plain(q: torch.Tensor, x: torch.Tensor, k: int,
     return blocked_topk(score, x.shape[0], k, block, q.shape[0], q.device)
 
 
+class ScanPlan(NamedTuple):
+    """Launch shape of one ``ip_topk`` call: the scan's grid (query
+    blocks, splits), the splits S, and the shape (M, S, pass_k(k)) of the
+    partial lists every pass writes."""
+    grid: tuple
+    splits: int
+    partial_shape: tuple
+
+
+def scan_plan(m: int, n: int, k: int, sms: int) -> ScanPlan:
+    """The grid and partial-list sizes of the pipelined scan
+    (``csrc/ip_scan.cuh``, one block an SM) for ``m`` queries, ``n`` rows
+    and any k >= 1 on a card with ``sms`` SMs: blocks of ``K.IP_TILE_M``
+    queries, row tiles of ``K.IP_TILE_N``, and N split so that the grid
+    fills at most one wave (fewer splits, fewer top-k insertions: each
+    split's list takes about k (1 + ln(rows / k))); S is at most the row
+    tiles and S * pass_k(k) at most ``K.MERGE_MAX``."""
+    from repro_torch import kernels as K
+    query_blocks = -(-m // K.IP_TILE_M)
+    s = max(1, min(sms // query_blocks, -(-n // K.IP_TILE_N),
+                   K.MERGE_MAX // K.pass_k(k)))
+    return ScanPlan((query_blocks, s), s, (m, s, K.pass_k(k)))
+
+
+def _scratch(q, x, k):
+    """The plan, the partial lists (values, ids) and the splits' shared
+    floors (M, S) of one call on CUDA tensors."""
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = scan_plan(q.shape[0], x.shape[0], k, sms)
+    pv = torch.empty(plan.partial_shape, dtype=torch.float32,
+                     device=q.device)
+    pi = torch.empty(plan.partial_shape, dtype=torch.int32, device=q.device)
+    floors = torch.empty(plan.partial_shape[:2], dtype=torch.int32,
+                         device=q.device)
+    return plan, pv, pi, floors
+
+
 def _bind(lib):
+    from repro_torch import kernels as K
     p, i = ctypes.c_void_p, ctypes.c_int
     for name in ("ip_topk_f32", "ip_topk_u8"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
+        fn.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
+    lib.ip_topk_profile.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, p]
+    lib.ip_topk_profile.restype = ctypes.c_int
+    lib.ip_topk_tile.argtypes = [i]
+    lib.ip_topk_tile.restype = ctypes.c_int
+    tile = (lib.ip_topk_tile(0), lib.ip_topk_tile(1))
+    if tile != (K.IP_TILE_M, K.IP_TILE_N):
+        raise RuntimeError(
+            f"ip_topk: the kernel's tile {tile} is not (IP_TILE_M, "
+            f"IP_TILE_N) = {(K.IP_TILE_M, K.IP_TILE_N)}: its partial lists "
+            "would be sized wrong")
 
 
 def ip_topk(q: torch.Tensor, x: torch.Tensor, k: int):
@@ -57,20 +107,43 @@ def ip_topk(q: torch.Tensor, x: torch.Tensor, k: int):
     ids = torch.empty((m, k), dtype=torch.int32, device=q.device)
     if m == 0:
         return vals, ids
-    s = K.splits(row_tiles=-(-n // K.GEMM_TILE_N),
-                 query_blocks=-(-m // K.GEMM_TILE_M), k=k,
-                 blocks_per_sm=2, device=q.device)
-    pv = torch.empty((m, s, K.pass_k(k)), dtype=torch.float32,
-                     device=q.device)
-    pi = torch.empty((m, s, K.pass_k(k)), dtype=torch.int32, device=q.device)
     lib = K.load_library("ip_topk", _bind)
+    plan, pv, pi, floors = _scratch(q, x, k)
     fn = lib.ip_topk_f32 if x.dtype == torch.float32 else lib.ip_topk_u8
-    err = fn(q.data_ptr(), x.data_ptr(), m, n, d, k, s, pv.data_ptr(),
-             pi.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-             K.current_stream(q.device))
+    err = fn(q.data_ptr(), x.data_ptr(), m, n, d, k, plan.splits,
+             pv.data_ptr(), pi.data_ptr(), floors.data_ptr(), vals.data_ptr(),
+             ids.data_ptr(), K.current_stream(q.device))
     K.check_launch("ip_topk", err, lib)
     ip_topk.launches += 1
     return vals, ids
 
 
 ip_topk.launches = 0
+
+
+FOLD_PARTS = ("kernel", "fold", "append", "wait", "insert", "vote")
+
+
+def fold_profile(q: torch.Tensor, x: torch.Tensor, k: int) -> dict:
+    """One pass of the kernel's scan on CUDA tensors (k <= ``K.PASS_K``,
+    no merge) with its fold profiled: {part: cycles} of ``FOLD_PARTS``,
+    thread 0's ``clock64`` summed over the blocks -- the kernel, its top-k
+    folds, and inside them the compares and appends, the wait at the
+    barrier after them, the list inserts and the wait at the closing
+    vote. For timing only: not counted in ``ip_topk.launches``."""
+    from repro_torch import kernels as K
+    K.check_cuda_inputs("ip_topk", q=q, x=x)
+    if not 1 <= k <= K.PASS_K:
+        raise ValueError(f"one scan pass takes 1 <= k <= {K.PASS_K}")
+    m, d = q.shape
+    n = x.shape[0]
+    lib = K.load_library("ip_topk", _bind)
+    plan, pv, pi, floors = _scratch(q, x, k)
+    clocks = torch.zeros(len(FOLD_PARTS), dtype=torch.int64, device=q.device)
+    err = lib.ip_topk_profile(q.data_ptr(), x.data_ptr(),
+                              int(x.dtype == torch.uint8), m, n, d, k,
+                              plan.splits, pv.data_ptr(), pi.data_ptr(),
+                              floors.data_ptr(), clocks.data_ptr(),
+                              K.current_stream(q.device))
+    K.check_launch("ip_topk profile", err, lib)
+    return dict(zip(FOLD_PARTS, clocks.tolist()))

@@ -30,17 +30,15 @@ def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.kmeans_assign_f32.argtypes = [p, p, i, i, i, p, p, p]
     lib.kmeans_assign_f32.restype = ctypes.c_int
-    lib.kmeans_assign_chunk_centers.argtypes = [i]
-    lib.kmeans_assign_chunk_centers.restype = ctypes.c_int
 
 
 def kmeans_assign(x: torch.Tensor, centers: torch.Tensor):
     """``x (N, D)`` f32, ``centers (C, D)`` f32 -> (tags (N,) i32,
-    maxsim (N,) f32), ties to the first center. Any C >= 1: the kernel
-    keeps up to 64 centers resident in shared memory and takes more in
-    chunks, one pass over x each. CPU tensors take
-    :func:`kmeans_assign_plain`; CUDA tensors launch the kernel or
-    raise."""
+    maxsim (N,) f32), ties to the first center. Any C >= 1 and any D in
+    one launch: the kernel streams the centers with the rows, one pass
+    over x for up to 128 centers (more re-read each row tile from L2 per
+    further tile of centers). CPU tensors take :func:`kmeans_assign_plain`;
+    CUDA tensors launch the kernel or raise."""
     from repro_torch import kernels as K
     if K.on_cpu(x, centers):
         return kmeans_assign_plain(x, centers)
@@ -55,9 +53,6 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor):
     if c < 1:
         raise ValueError("kmeans_assign needs at least one center")
     lib = K.load_library("kmeans_assign", _bind)
-    if lib.kmeans_assign_chunk_centers(d) == 0:
-        raise ValueError(f"kmeans_assign: 8 centers of dim {d} do not fit "
-                         "a block's shared memory")
     tags = torch.empty(n, dtype=torch.int32, device=x.device)
     sims = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:

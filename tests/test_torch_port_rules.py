@@ -423,18 +423,20 @@ def test_cuda_topk_above_one_pass_matches_plain(cuda, k):
 
 @pytest.mark.cuda
 def test_cuda_kmeans_assign_many_centers_matches_plain(cuda):
-    """C = 100 at D = 512 (two chunks of centers): the kernel against its
-    plain version, and a tie across the chunks goes to the first center."""
+    """C = 100 at D = 512 (one tile of centers) and C = 300 (three tiles):
+    the kernel against its plain version, and a tie across the tiles goes
+    to the first center."""
     from repro_torch import kernels as K
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(3001, 512, device=cuda, generator=g)
-    cent = torch.randn(100, 512, device=cuda, generator=g)
-    tags, sims = K.kmeans_assign(x, cent)
-    want_tags, want_sims = K.kmeans_assign_plain(x, cent)
-    tol = _plain_tol(x, cent)
-    assert float((sims - want_sims).abs().max()) <= tol
-    assert float((tags != want_tags).float().mean()) <= 0.001  # near-ties
-    cent[70] = cent[3]
+    for c in (100, 300):
+        cent = torch.randn(c, 512, device=cuda, generator=g)
+        tags, sims = K.kmeans_assign(x, cent)
+        want_tags, want_sims = K.kmeans_assign_plain(x, cent)
+        tol = _plain_tol(x, cent)
+        assert float((sims - want_sims).abs().max()) <= tol
+        assert float((tags != want_tags).float().mean()) <= 0.001  # near-ties
+    cent[250] = cent[3]
     tags, _ = K.kmeans_assign(cent[3].expand(20, 512).contiguous() + 0.0,
                               cent)
     assert bool((tags == 3).all())
@@ -481,7 +483,7 @@ def test_cuda_gathered_matches_plain_at_ragged_n(cuda, n, monkeypatch):
 @pytest.mark.cuda
 def test_cuda_entry_points_take_100_clusters(cuda):
     """``gleanvec.fit(C=100)`` and ``ivf.build(n_lists=100)`` run on the
-    card (k-means assignment in two chunks of centers); the gathered and
+    card (k-means assignment over one tile of 100 centers); the gathered and
     sorted GleanVec scans over 100 clusters serve kappa = 200 and agree."""
     from repro_torch import kernels as K
     from repro_torch.core import gleanvec as gv
