@@ -4,7 +4,7 @@ stores and the graph index) and its LM serving path on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
-    python3 chip_smoke.py --scan-timing    # build + phase 2 + fp32 scan times
+    python3 chip_smoke.py --kernel-timing  # build + every kernel's time
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -23,9 +23,13 @@ Phases (any failure raises and the script exits non-zero):
    in-beam candidates, half-empty beams, exact ties); kmeans_assign at C
    up to 300 and D up to 7000 (a tie across tiles of centers); the
    gathered GleanVec path at C = 100 tags with an empty tag
-   and with one tag (the bucketing bit for bit, top-k and dense);
-   flash_attention (S in {1, 77, 100, 130, 300, 4097}, dh in {8, 16, 20,
-   64, 120, 128}, GQA groups 1, 4 and 8, window None / 48 / 4096, causal
+   and with one tag (the bucketing bit for bit, top-k and dense); the
+   sorted gleanvec_sq_topk and sq_dot on the pipelined scan bit for bit on
+   integer data (layout blocks 1, 64, 200, 256, 512, 4096, k up to 200, u8
+   and f32, a tie across layout blocks of different tags; sq_dot at d in
+   {1, 3, 160, 513} with rows off alignment); flash_attention (S in {1,
+   77, 100, 130, 300, 4097}, dh in {8, 16, 20, 64, 120, 128}, GQA groups
+   1, 4 and 8, window None / 48 / 4096, causal
    and not, bf16 and f32, transposed views).
 3. The flat main path: synthetic OOD data (D = 512), LeanVec-Sphering
    (d = 160) and GleanVec (C = 48, d = 160) fits, then for each of the 7
@@ -65,7 +69,9 @@ Phases (any failure raises and the script exits non-zero):
    calls that compute the same function (``library_ms``), and its
    agreement with the plain version; kmeans_assign at C = 48 and 100;
    ip_topk's scan, fold and merge (flat linear modes, graph self-join);
-   the gathered kernels' bucketing step on its own.
+   the gathered kernels' bucketing step on its own; the GleanVec top-k
+   and sq_dot with their device time by kernel, the sorted top-k also at
+   the stream's layout block 256 (its final sorted stores).
 3e. LM serving, after the search phases' tensors are freed: h2o-danube-
    3-4b at its published widths with random weights drawn on the card,
    ``generate`` at B = 4, s0 = 8192, n_new = 32 (greedy): prefill ms and
@@ -218,8 +224,13 @@ def card_line() -> str:
 
 
 def timed(fn, reps: int):
-    """Mean milliseconds of ``fn`` over ``reps`` back-to-back runs after one
-    warm-up, from CUDA events; returns (ms, last result)."""
+    """Mean milliseconds of ``fn`` over ``reps`` back-to-back runs after two
+    warm-ups, from CUDA events; returns (ms, last result). Two, so that the
+    caching allocator holds a block for the result alive across a call and
+    one for the next: a multi-GB output (the dense kernels' 8.2 GB) is
+    otherwise allocated inside the timed runs (sq_dot on the stream's
+    store read 40.8 ms with one warm-up, 19.6 with two, H100)."""
+    out = fn()
     out = fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -465,6 +476,7 @@ def phase_kernels(K, testing, gen):
                              "center")
     log("  kmeans_assign exact ties: first center wins")
     phase_wide_kernels(K, testing, gen)
+    phase_pipelined_kernels(K, testing, gen)
     phase_dense_kernels(K, testing, gen)
     phase_graph_kernels(K, testing, gen)
     phase_flash_kernels(K, testing, gen)
@@ -784,6 +796,87 @@ def phase_graph_kernels(K, testing, gen):
         raise AssertionError("graph_scan_beam_step: equal scores must "
                              "break toward the smaller id")
     log("  graph_scan_beam_step exact ties: ids ascending as required")
+
+
+def phase_pipelined_kernels(K, testing, gen):
+    """The sorted gleanvec_sq_topk and sq_dot on the pipelined scan, on
+    small-integer data (every score exact in fp32 in any order): the sorted
+    top-k equal to ``testing.exact_sorted_topk`` bit for bit at layout
+    blocks L in {1, 64, 200, 256, 512, 4096} (one view a tile, tiles cut at
+    L's end; two views at L = 256), u8 and f32 codes, row_ids with -1, k in
+    {1, 10, 100, 200}, ragged M and N, and at the stream's shape family
+    (M = 1030, C = 48, d = 160, L = 256); a tie across layout blocks of
+    different tags; sq_dot equal to its plain version bit for bit at d in
+    {1, 3, 160, 513}, rows off 4-byte alignment."""
+    dev = torch.device("cuda")
+
+    def ints(lo, hi, *shape, u8=False):
+        if u8:
+            return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                                 dtype=torch.uint8)
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device=dev).float()
+
+    def sorted_case(m, n, c, d, lb, u8, ks):
+        qs, qlo = ints(-3, 4, m, c, d), ints(-50, 51, m, c)
+        x = ints(0, 4, n, d, u8=True) if u8 else ints(-3, 4, n, d)
+        btags = torch.randint(0, c, (-(-n // lb),), generator=gen,
+                              device=dev, dtype=torch.int32)
+        rid = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        rid[torch.rand(n, generator=gen, device=dev) < 0.2] = -1
+        for k in ks:
+            got = K.gleanvec_sq_topk(qs, qlo, btags, x, k, row_ids=rid,
+                                     layout_block=lb)
+            want = testing.exact_sorted_topk(qs, qlo, btags, x, rid, k, lb)
+            label = (f"gleanvec_sq_topk sorted L={lb} "
+                     f"{'u8' if u8 else 'f32'} M={m} N={n} C={c} d={d} k={k}")
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{label}: differs from the exact top-k")
+        log(f"  gleanvec_sq_topk sorted L={lb} {'u8' if u8 else 'f32'} M={m} "
+            f"N={n} C={c} d={d} k={ks}: equal to the exact top-k (integer "
+            "data)")
+
+    for lb in (1, 64, 200, 256, 512, 4096):
+        for u8 in (False, True):
+            n = 1000 if lb == 1 else max(2999, 3 * lb + 37)
+            sorted_case(1, n, 3, 20, lb, u8, (1, 10, 100, 200))
+            sorted_case(130, n, 5, 33, lb, u8, (1, 10, 100, 200))
+    sorted_case(1030, 20011, 48, 160, 256, True, (100, 200))
+    sorted_case(1030, 20011, 48, 160, 256, False, (100,))
+
+    # equal scores through different views: view t reads depth t of rows
+    # that hold 2 at every depth
+    for lb in (64, 256, 4096):
+        c, d, nb = 4, 16, 6
+        n = nb * lb
+        qs = torch.zeros(3, c, d, device=dev)
+        for t in range(c):
+            qs[:, t, t] = 1.0
+        btags = (torch.arange(nb, device=dev) % c).to(torch.int32)
+        rid = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        vals, ids = K.gleanvec_sq_topk(qs, torch.zeros(3, c, device=dev),
+                                       btags, torch.full((n, d), 2.0,
+                                                         device=dev),
+                                       200, row_ids=rid, layout_block=lb)
+        if not (torch.equal(ids, torch.sort(rid).values[:200].expand(3, -1))
+                and bool((vals == 2.0).all())):
+            raise AssertionError(f"gleanvec_sq_topk sorted L={lb}: a tie "
+                                 "across layout blocks must go to the "
+                                 "smaller ids")
+    log("  gleanvec_sq_topk sorted exact ties across layout blocks of "
+        "different tags: ids ascending as required")
+
+    for d in (1, 3, 160, 513):
+        for m, n, shift in ((70, 5003, 0), (1030, 2049, 1), (64, 512, 3)):
+            q, lo = ints(-3, 4, m, d), ints(-40, 41, m)
+            codes = ints(0, 256, n * d + shift, u8=True)[shift:].view(n, d)
+            if not torch.equal(K.sq_dot_folded(q, lo, codes),
+                               K.sq_dot_folded_plain(q, lo, codes)):
+                raise AssertionError(f"sq_dot M={m} N={n} d={d} shift={shift}:"
+                                     " differs from its plain version")
+        log(f"  sq_dot d={d} (M, N) in (70, 5003), (1030, 2049), (64, 512), "
+            "rows off alignment: equal to its plain version (integer data)")
 
 
 def check_dense(label, got, want, tol):
@@ -1145,7 +1238,7 @@ def dense_check(K, testing, scorer, queries, k):
 def phase_stream(K, testing, ds, x):
     """The stream at capacity N_ROWS: six DR modes over the flat index, both
     sorted modes over the aligned IVF. Returns ({(index, mode): scorer},
-    launches of the whole phase)."""
+    launches of the whole phase, {(index, mode): launches of that run})."""
     from repro_torch.core import gleanvec as gv
     from repro_torch.core import leanvec_sphering as lvs
     from repro_torch.core import streaming
@@ -1174,7 +1267,7 @@ def phase_stream(K, testing, ds, x):
     q_check = torch.as_tensor(obs[:DENSE_CHECK_QUERIES], device=dev)
     runs = [("flat", m, STREAM_FLOORS[m]) for m in STREAM_FLOORS] + \
         [("ivf", m, STREAM_IVF_FLOORS[m]) for m in STREAM_IVF_FLOORS]
-    finals, below = {}, []
+    finals, below, per_run = {}, [], {}
     for index, mode, floors in runs:
         model = sph if mode.startswith("sphering") else glv
         before = {fn.__name__: fn.launches for fn in all_counters(K)}
@@ -1227,6 +1320,7 @@ def phase_stream(K, testing, ds, x):
         log(f"    launches={delta} peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
         finals[(index, mode)] = engine.state.artifacts.scorer
+        per_run[(index, mode)] = delta
         del engine, state, stream
     totals = {fn.__name__: fn.launches for fn in all_counters(K)}
     log(f"  stream launches: {totals}")
@@ -1238,7 +1332,7 @@ def phase_stream(K, testing, ds, x):
         if totals[name] <= 0:
             raise AssertionError(f"{name} was not launched on the stream "
                                  "path")
-    return finals, totals
+    return finals, totals, per_run
 
 
 # ---------------------------------------------------------------------------
@@ -1680,19 +1774,54 @@ def phase_lm(K, testing):
     return (q, k, v, window), launches
 
 
+def sdpa_library(q, k, v, window, reps):
+    """``flash_attention``'s library call, timed (mean of ``reps``):
+    ``scaled_dot_product_attention`` with a boolean causal + window mask (a
+    dense (S, S) mask: it computes every KV tile). Returns (ms, output, how
+    the KV heads were given)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    s, h, kv = q.shape[2], q.shape[1], k.shape[1]
+    pos = torch.arange(s, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        try:
+            ms, out = timed(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True), reps)
+            return ms, out, "enable_gqa=True"
+        except RuntimeError as e:      # no fused backend takes GQA + mask
+            log(f"    SDPA enable_gqa with a mask: {str(e)[:120]}")
+            kr = k.repeat_interleave(h // kv, dim=1)
+            vr = v.repeat_interleave(h // kv, dim=1)
+            ms, out = timed(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kr, vr, attn_mask=mask), reps)
+            return ms, out, "k, v repeated to H heads outside the timing"
+
+
+def flash_work(q, k, v, window):
+    """(flops, bytes) of one causal (windowed) attention forward: 4 dh flops
+    a (query, key) pair it keeps; q, k and v read once, the output written
+    once."""
+    b, h, s, dh = q.shape
+    pairs = int(np.minimum(np.arange(s, dtype=np.int64) + 1,
+                           window if window else s).sum())
+    return (4.0 * dh * h * b * pairs,
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
+
+
 def lm_timing(K, testing, qkv, launches):
     """``flash_attention`` at the LM path's captured shape: its time beside
     its bf16 tensor-core bound, its plain version and the library call
     (``scaled_dot_product_attention`` with a boolean causal + window mask,
     timed as a yardstick only)."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
     q, k, v, window = qkv
     b, h, s, dh = q.shape
     kv = k.shape[1]
-    i = np.arange(s, dtype=np.int64)
-    pairs = int(np.minimum(i + 1, window if window else s).sum())
-    flops = 4.0 * dh * h * b * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops, nbytes = flash_work(q, k, v, window)
     ms, out_k = timed(lambda: K.flash_attention(q, k, v, True, window), 5)
     plain_ms, out_p = timed_once(
         lambda: K.flash_attention_plain(q, k, v, True, window))
@@ -1718,25 +1847,7 @@ def lm_timing(K, testing, qkv, launches):
         if must and f_used <= 1:
             raise AssertionError(f"the attention tolerance misses: {what}")
     del out_p
-    pos = torch.arange(s, device=q.device)
-    mask = pos[:, None] >= pos[None, :]
-    if window:
-        mask &= (pos[:, None] - pos[None, :]) < window
-    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
-                      SDPBackend.CUDNN_ATTENTION]):
-        try:
-            lib_ms, out_l = timed(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True), 3)
-            how = "enable_gqa=True"
-        except RuntimeError as e:      # no fused backend takes GQA + mask
-            log(f"    SDPA enable_gqa with a mask: {str(e)[:120]}")
-            kr = k.repeat_interleave(h // kv, dim=1)
-            vr = v.repeat_interleave(h // kv, dim=1)
-            lib_ms, out_l = timed(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, kr, vr, attn_mask=mask), 3)
-            how = "k, v repeated to H heads outside the timing"
+    lib_ms, out_l, how = sdpa_library(q, k, v, window, 3)
     lib_err, lib_used = testing.attention_error(out_l, out_k, abs_mix)
     del abs_mix
     b16, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
@@ -1890,30 +2001,36 @@ def mode_calls(K, mode, scorer, qstate, kappa):
 
 def ivf_calls(K, testing, scorer, qstate, probe, kappa):
     """(kernel call, plain call, flops, bytes, tolerance, library call) of
-    the IVF fine step on the IVF phase's inputs. The work is what this
-    schedule needs: flops count the valid rows of each query's scheduled
-    blocks, bytes read each scheduled block once."""
+    the IVF fine step on the IVF phase's inputs (the work:
+    :func:`ivf_work`)."""
     if isinstance(qstate, tuple):
         qs, qlo, x = qstate.q_scaled, qstate.q_lo, scorer.codes
     else:
         qs, x = qstate, scorer.x_low
         qlo = torch.zeros(qs.shape[:2], dtype=torch.float32, device=qs.device)
-    m, c, d = qs.shape
-    lb = scorer.layout_block
+    m = qs.shape[0]
     sched = scorer.list_block_ranges[probe].reshape(m, -1)
-    args = (qs, qlo, scorer.block_tags, scorer.perm, x, sched, kappa, lb)
-    valid_rows = (scorer.perm.reshape(-1, lb) >= 0).sum(dim=1)
-    ok = sched >= 0
-    pairs = int(valid_rows[sched.clamp(min=0).long()][ok].sum())
-    blocks = torch.unique(sched[ok]).numel()
-    flops = 2.0 * pairs * d
-    nbytes = (qs.numel() + qlo.numel() + sched.numel()) * 4 \
-        + blocks * (lb * (d * x.element_size() + 4) + 4) + m * kappa * 8
-    tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), d,
+    args = (qs, qlo, scorer.block_tags, scorer.perm, x, sched, kappa,
+            scorer.layout_block)
+    flops, nbytes = ivf_work(*args)
+    tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), qs.shape[2],
                           float(qlo.abs().max()))
     return (lambda: K.ivf_scan_topk(*args),
             lambda: K.ivf_scan_topk_plain(*args), flops, nbytes, tol,
             lambda: ivf_library(qs, qlo, scorer, probe, kappa))
+
+
+def ivf_work(qs, qlo, btags, rid, x, sched, kappa, lb):
+    """(flops, bytes) the IVF fine step needs on this schedule: flops count
+    the valid rows of each query's scheduled blocks, bytes read each
+    scheduled block once."""
+    m, _, d = qs.shape
+    valid_rows = (rid.reshape(-1, lb) >= 0).sum(dim=1)
+    ok = sched >= 0
+    pairs = int(valid_rows[sched.clamp(min=0).long()][ok].sum())
+    blocks = torch.unique(sched[ok]).numel()
+    return 2.0 * pairs * d, (qs.numel() + qlo.numel() + sched.numel()) * 4 \
+        + blocks * (lb * (d * x.element_size() + 4) + 4) + m * kappa * 8
 
 
 def device_breakdown(fn, reps: int = 3) -> str:
@@ -2034,9 +2151,12 @@ def time_dense(name, label, kern, plain, library, flops, nbytes, tol,
             "library_ms": lib_ms}
 
 
-def stream_timing(K, testing, finals, totals, queries):
+def stream_timing(K, testing, finals, totals, runs, queries):
     """The three dense kernels at the stream's shapes: M = 1024 queries
-    against each final stream store (capacity or sorted rows, d = 160)."""
+    against each final stream store (capacity or sorted rows, d = 160);
+    and the sorted gleanvec_sq_topk on the final sorted stores (layout
+    block 256), its launches those of the stream's sorted runs (flat and
+    IVF: the fused scan of each cycle's dense check)."""
     table = []
     s = finals[("flat", "sphering-int8")]
     qst = s.prepare_queries(queries)
@@ -2051,7 +2171,20 @@ def stream_timing(K, testing, finals, totals, queries):
         lambda: q @ codes.to(torch.float32).T + lo_v[:, None],
         2.0 * m * n * d, (q.numel() + m + m * n) * 4 + codes.numel(), tol,
         totals["sq_dot"]))
+    log("  sq_dot[sphering-int8] device time by kernel (torch.profiler): "
+        + device_breakdown(lambda: K.sq_dot_folded(q, lo_v, codes)))
     del q, lo_v, qst
+    for mode in ("gleanvec-sorted", "gleanvec-int8-sorted"):
+        s = finals[("flat", mode)]
+        calls = mode_calls(K, mode, s, s.prepare_queries(queries), 100)
+        label = f"{mode} stream L={s.layout_block}"
+        table.append(time_kernel(
+            "gleanvec_sq_topk", label, calls,
+            sum(runs[(index, mode)]["gleanvec_sq_topk"]
+                for index in ("flat", "ivf")), testing))
+        log(f"  gleanvec_sq_topk[{label}] device time by kernel "
+            "(torch.profiler): " + device_breakdown(calls[0]))
+        del calls
     s = finals[("flat", "gleanvec")]
     qv = s.prepare_queries(queries)
     m, c, d = qv.shape
@@ -2221,7 +2354,7 @@ def phase_timing(K, testing, x, glv, states, per_mode, totals, ivf_inputs,
             q = qstate if mode != "sphering-int8" else qstate.q_scaled
             xs = scorer.x_low if mode != "sphering-int8" else scorer.codes
             log(f"    ip_topk[{mode}] " + ip_topk_split(K, q, xs, kappa))
-        if mode in ("gleanvec", "gleanvec-int8"):
+        if name == "gleanvec_sq_topk":
             log(f"    flat {mode} batch p50 (phase 3): "
                 f"{flat_p50[mode]:.1f} ms; device time by kernel "
                 "(torch.profiler): " + device_breakdown(
@@ -2292,31 +2425,55 @@ def clocks_during(fn, seconds: float = 1.5) -> str:
             f"{watts[len(watts) // 2]:.0f} W (median of {len(rows)})")
 
 
-def scan_timing(K, gen):
-    """The two fp32 scans at the main path's shapes on random data drawn
-    on the card, for tuning runs (phase 4 times them on the main path's own
-    inputs): ip_topk as `full`, sphering, sphering-int8 and the graph
-    build's padded self-join, kmeans_assign at C = 48 and 100; each beside
-    the library call and the bound, ip_topk with its scan / fold / merge."""
+def kernel_timing(K, gen):
+    """Every kernel at the main path's shapes on random data drawn on the
+    card, through the public wrappers only, so that this script times
+    another tree's kernels with the same calls (phase 4 times them on the
+    main path's own inputs): ip_topk as `full`, sphering, sphering-int8 and
+    the graph build's padded self-join; kmeans_assign at C = 48 and 100;
+    gleanvec_sq_topk (C = 48, d = 160, kappa = 100, u8 and f32) sorted at
+    the flat path's layout block 4096 and the stream's 256, and gathered;
+    ivf_scan_topk (nprobe 12, layout block 4096); the dense sq_dot,
+    gleanvec_sq (gathered, and sorted at 256) and gleanvec_ip at the
+    stream's shape; graph_scan_beam_step (B 128, S 28 and 112); and
+    flash_attention at the LM prefill's shape. Each beside its library
+    call and its bound, ip_topk with its scan / fold / merge, the GleanVec
+    scans and sq_dot with their device time by kernel."""
+    from types import SimpleNamespace
+    from repro_torch.core.scorer import _list_block_ranges
     dev = torch.device("cuda")
-    log("scan timing (random data; CUDA events, mean of 3 after a warm-up)")
+    log("kernel timing (random data; CUDA events, mean of 3 after two "
+        "warm-ups)")
 
-    def report(label, fn, library, flops, nbytes):
-        ms, _ = timed(fn, 3)
+    def report(label, fn, library, flops, nbytes, reps=3):
+        ms, _ = timed(fn, reps)
         lib_ms, _ = timed(library, 2)
         b, by = bound_ms(flops, nbytes)
         log(f"  {label}: ms={ms:.3f} library_ms={lib_ms:.3f} "
             f"bound_ms={b:.3f} ({by}) share_of_bound={b / ms:.1%}; "
             f"{clocks_during(fn)}")
 
+    def codes(n, d, u8):
+        return (torch.randint(0, 256, (n, d), generator=gen, device=dev,
+                              dtype=torch.uint8) if u8 else
+                torch.randn(n, d, generator=gen, device=dev))
+
+    def sorted_layout(nb, lb, c, dead):
+        """Block tags in tag order and row ids with a share of -1."""
+        btags = torch.sort(torch.randint(0, c, (nb,), generator=gen,
+                                         device=dev,
+                                         dtype=torch.int32)).values
+        rid = torch.randperm(nb * lb, generator=gen, device=dev).to(
+            torch.int32)
+        rid[torch.rand(nb * lb, generator=gen, device=dev) < dead] = -1
+        return btags, rid
+
     m = 1024
     for label, n, d, k, u8 in (("full", N_ROWS, 512, 10, False),
                                ("sphering", N_ROWS, 160, 100, False),
                                ("sphering-int8", N_ROWS, 160, 100, True)):
         q = torch.randn(m, d, generator=gen, device=dev)
-        x = (torch.randint(0, 256, (n, d), generator=gen, device=dev,
-                           dtype=torch.uint8) if u8 else
-             torch.randn(n, d, generator=gen, device=dev))
+        x = codes(n, d, u8)
         report(f"ip_topk[{label}]", lambda: K.ip_topk(q, x, k),
                lambda: torch.topk(q @ x.to(torch.float32).T, k, dim=1),
                2.0 * m * n * d, (m + n * x.element_size() / 4) * d * 4
@@ -2349,6 +2506,135 @@ def scan_timing(K, gen):
                lambda: torch.max(x @ cent.T, dim=1),
                2.0 * N_ROWS * c * 512, (N_ROWS + c) * 512 * 4 + N_ROWS * 8)
     del x
+    c, d, k = 48, 160, 100
+    qs = torch.randn(m, c, d, generator=gen, device=dev)
+    qlo = torch.randn(m, c, generator=gen, device=dev)
+    for lb in (4096, 256):
+        nb = -(-N_ROWS // lb)                    # clusters in tag order
+        btags, rid = sorted_layout(nb, lb, c, 0.05)
+        live = int((rid >= 0).sum())
+        for u8 in (False, True):
+            x = codes(nb * lb, d, u8)
+            label = f"gleanvec_sq_topk[sorted L={lb} {'u8' if u8 else 'f32'}]"
+
+            def fn():
+                return K.gleanvec_sq_topk(qs, qlo, btags, x, k, row_ids=rid,
+                                          layout_block=lb)
+            report(label, fn,
+                   lambda: per_cluster_library(qs, qlo, btags, x, k, rid,
+                                               lb),
+                   2.0 * m * live * d, (qs.numel() + qlo.numel()) * 4
+                   + live * d * x.element_size() + nb * 4 + live * 4
+                   + m * k * 8)
+            log(f"    device time by kernel (torch.profiler): "
+                + device_breakdown(fn))
+            del x
+    tags = torch.randint(0, c, (N_ROWS,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    for u8 in (False, True):
+        x = codes(N_ROWS, d, u8)
+
+        def fn():
+            return K.gleanvec_sq_topk(qs, qlo, tags, x, k)
+        report(f"gleanvec_sq_topk[gathered {'u8' if u8 else 'f32'}]", fn,
+               lambda: per_cluster_library(qs, qlo, tags, x, k, None, 0),
+               2.0 * m * N_ROWS * d, (qs.numel() + qlo.numel()) * 4
+               + N_ROWS * (d * x.element_size() + 4) + m * k * 8)
+        log(f"    device time by kernel (torch.profiler): "
+            + device_breakdown(fn))
+        del x
+    # the IVF fine step: each query probes IVF_NPROBE of the C clusters
+    lb = 4096
+    nb = -(-N_ROWS // lb)
+    btags, rid = sorted_layout(nb, lb, c, 0.05)
+    probe = torch.rand(m, c, generator=gen, device=dev).argsort(dim=1)[
+        :, :IVF_NPROBE]
+    sched = _list_block_ranges(btags, c)[probe].reshape(m, -1)
+    for u8 in (False, True):
+        x = codes(nb * lb, d, u8)
+        args = (qs, qlo, btags, rid, x, sched, k, lb)
+        layout = SimpleNamespace(layout_block=lb, codes=x, block_tags=btags,
+                                 perm=rid)
+        report(f"ivf_scan_topk[nprobe={IVF_NPROBE} {'u8' if u8 else 'f32'}]",
+               lambda: K.ivf_scan_topk(*args),
+               lambda: ivf_library(qs, qlo, layout, probe, k),
+               *ivf_work(*args))
+        del x, args, layout
+    # the dense kernels at the stream's shape (one (M, N) f32 output)
+    for label, lb, u8 in (("gathered f32", 0, False),
+                          ("gathered u8", 0, True),
+                          ("sorted f32 L=256", 256, False),
+                          ("sorted u8 L=256", 256, True)):
+        nb = -(-N_ROWS // lb) if lb else 0
+        n = nb * lb if lb else N_ROWS
+        t = sorted_layout(nb, lb, c, 0.0)[0] if lb else tags
+        x = codes(n, d, u8)
+        report(f"gleanvec_sq[{label}]",
+               lambda: K.gleanvec_sq(qs, qlo, t, x, layout_block=lb),
+               lambda: per_cluster_dense_library(qs, qlo, t, x, lb),
+               2.0 * m * n * d, (qs.numel() + qlo.numel() + m * n
+                                 + t.numel()) * 4 + n * d * x.element_size())
+        del x
+    x = codes(N_ROWS, d, False)
+    zeros = torch.zeros((m, c), device=dev)
+    report("gleanvec_ip[gathered f32]", lambda: K.gleanvec_ip(qs, tags, x),
+           lambda: per_cluster_dense_library(qs, zeros, tags, x, 0),
+           2.0 * m * N_ROWS * d, (qs.numel() + m * N_ROWS + N_ROWS * d
+                                  + N_ROWS) * 4)
+    del x, zeros, tags
+    # one graph hop at the graph path's shapes: batch 1024, beam 128, S
+    # neighbor rows (pads, repeats, dead rows) of a 1M-row sorted layout
+    lb = 4096
+    nb = -(-GRAPH_ROWS // lb)
+    n = nb * lb
+    btags, rid = sorted_layout(nb, lb, c, 0.05)
+    beam_rows = (torch.arange(GRAPH_BEAM, device=dev) * (n // GRAPH_BEAM))[
+        None] + torch.randint(0, n // GRAPH_BEAM, (m, 1), generator=gen,
+                              device=dev)
+    beam_ids = rid[beam_rows]
+    beam_vals = torch.where(beam_ids >= 0,
+                            3 * torch.randn(m, GRAPH_BEAM, generator=gen,
+                                            device=dev),
+                            torch.full((m, GRAPH_BEAM), -3.4e38, device=dev))
+    beam_vals, order = torch.sort(beam_vals, dim=1, descending=True)
+    beam_ids = torch.gather(beam_ids, 1, order)
+    for u8 in (False, True):
+        x = codes(n, d, u8)
+        for s in (28, 112):
+            nbr = torch.randint(0, n, (m, s), generator=gen, device=dev,
+                                dtype=torch.int32)
+            nbr[torch.rand(m, s, generator=gen, device=dev) < 0.15] = -1
+            nbr[:, 1::7] = nbr[:, :1]                 # repeated rows
+            args = (qs, qlo, btags, rid, x, nbr, beam_vals, beam_ids)
+            report(f"graph_scan_beam_step[{'u8' if u8 else 'f32'} S={s}]",
+                   lambda: K.graph_scan_beam_step(*args, layout_block=lb),
+                   lambda: hop_library(*args, lb), *hop_work(*args, lb),
+                   reps=50)
+        del x
+    del qs, qlo, btags, rid, beam_ids, beam_vals
+    q = torch.randn(m, d, generator=gen, device=dev)
+    lo = torch.randn(m, generator=gen, device=dev)
+    x = codes(N_ROWS, d, True)
+    report("sq_dot[stream shape]", lambda: K.sq_dot_folded(q, lo, x),
+           lambda: q @ x.to(torch.float32).T + lo[:, None],
+           2.0 * m * N_ROWS * d, (q.numel() + m + m * N_ROWS) * 4
+           + x.numel())
+    log("    device time by kernel (torch.profiler): " + device_breakdown(
+        lambda: K.sq_dot_folded(q, lo, x), reps=2))
+    del q, lo, x
+    # flash_attention at the LM prefill's shape (h2o-danube-3-4b heads)
+    b, h, kv, s, dh, window = LM_BATCH, 32, 8, LM_PROMPT, 120, 4096
+    q, k_, v = (torch.randn(b, heads, s, dh, generator=gen,
+                            device=dev).to(torch.bfloat16)
+                for heads in (h, kv, kv))
+    ms, _ = timed(lambda: K.flash_attention(q, k_, v, True, window), 5)
+    lib_ms, _, how = sdpa_library(q, k_, v, window, 3)
+    bnd, by = bound_ms(*flash_work(q, k_, v, window), PEAK_BF16_FLOPS)
+    log(f"  flash_attention[B={b} H={h} KV={kv} S={s} dh={dh} W={window} "
+        f"bf16]: ms={ms:.3f} library_ms={lib_ms:.3f} (SDPA, {how}) "
+        f"bound_ms={bnd:.3f} ({by}) share_of_bound={bnd / ms:.1%}; "
+        f"{clocks_during(lambda: K.flash_attention(q, k_, v, True, window))}")
+    del q, k_, v
     torch.cuda.synchronize()
 
 
@@ -2356,9 +2642,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build + ragged checks)")
-    ap.add_argument("--scan-timing", action="store_true",
-                    help="after phase 2, time ip_topk and kmeans_assign at "
-                    "the main path's shapes on random data, then stop")
+    ap.add_argument("--kernel-timing", action="store_true",
+                    help="after the build, time every kernel at the main "
+                    "path's shapes on random data through the public "
+                    "wrappers (no phase 2), then stop")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2390,23 +2677,25 @@ def main(argv=None) -> int:
                 log(f"    {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.kernel_timing:
+        kernel_timing(K, gen)
+        log(f"kernel timing: done ({time.perf_counter() - t_start:.0f} s)")
+        return 0
     phase_kernels(K, testing, gen)
     torch.cuda.synchronize()
-    if args.scan_timing:
-        scan_timing(K, gen)
-    if args.kernels_only or args.scan_timing:
+    if args.kernels_only:
         log(f"kernels-only: stopping after phase 2 "
             f"({time.perf_counter() - t_start:.0f} s)")
         return 0
 
     ds, x, sph, glv, states, per_mode, totals, flat_p50 = phase_main(K)
     ivf_inputs, ivf_launches = phase_ivf(K, testing, ds, x, glv, states)
-    finals, stream_totals = phase_stream(K, testing, ds, x)
+    finals, stream_totals, stream_runs = phase_stream(K, testing, ds, x)
     hops, graph_totals, per_batch = phase_graph(K, testing, ds, x, sph, glv)
     table = phase_timing(K, testing, x, glv, states, per_mode, totals,
                          ivf_inputs, ivf_launches, flat_p50)
     del states, ivf_inputs
-    table += stream_timing(K, testing, finals, stream_totals,
+    table += stream_timing(K, testing, finals, stream_totals, stream_runs,
                            torch.as_tensor(ds.queries_test,
                                            device=torch.device("cuda")))
     del finals

@@ -39,16 +39,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy rows [row0, row0 + ROWS) of a row-major (n_rows, d) array, depths
-// [kc, kc + BK), into a shared slot of `stride` bytes a row, with THREADS
-// threads and UNIT bytes a copy (16 or 4: cp.async; 1: a plain load and
-// store). Thread t copies unit t % UPR of rows t / UPR + i * (THREADS /
-// UPR), so its depth and its pointer step are fixed for the call. Units
-// past d or n_rows are zeros.
+// Copy rows [row0, row0 + ROWS) of a row-major array of n_rows rows of
+// `ld` elements (depths [0, d) used), depths [kc, kc + BK), into a shared
+// slot of `stride` bytes a row, with THREADS threads and UNIT bytes a copy
+// (16 or 4: cp.async; 1: a plain load and store). Thread t copies unit
+// t % UPR of rows t / UPR + i * (THREADS / UPR), so its depth and its
+// pointer step are fixed for the call. Units past d or n_rows are zeros.
 template <int THREADS, typename T, int BK, int ROWS, int UNIT>
 __device__ __forceinline__ void stage_chunk_rows(unsigned char* dst, int stride,
                                                  const T* src, int row0, int n_rows, int d,
-                                                 int kc) {
+                                                 int kc, long long ld) {
   constexpr int PER = UNIT >= (int)sizeof(T) ? UNIT / (int)sizeof(T) : 1;  // T a copy
   constexpr int UPR = BK / PER;                // copies a row
   constexpr int STEP = THREADS / UPR;          // rows a pass
@@ -56,15 +56,23 @@ __device__ __forceinline__ void stage_chunk_rows(unsigned char* dst, int stride,
   const int u = threadIdx.x % UPR, r = threadIdx.x / UPR, dd = kc + u * PER;
   const bool in_depth = dd < d;
   unsigned char* out = dst + r * stride + u * UNIT;
-  const T* in = src + (size_t)(row0 + r) * d + dd;
+  const T* in = src + (size_t)(row0 + r) * ld + dd;
 #pragma unroll
   for (int i = 0; i < (ROWS + STEP - 1) / STEP; ++i) {
     if (ROWS % STEP != 0 && r + i * STEP >= ROWS) break;
     const bool ok = in_depth && row0 + r + i * STEP < n_rows;
-    const T* p = ok ? in + (size_t)i * STEP * d : src;
+    const T* p = ok ? in + (size_t)i * STEP * ld : src;
     unsigned char* o = out + i * STEP * stride;
     if constexpr (UNIT == 16) cp_async16(o, p, ok);
     else if constexpr (UNIT == 4) cp_async4(o, p, ok);
     else *reinterpret_cast<T*>(o) = ok ? *p : T(0);
   }
+}
+
+// Rows of exactly d elements (ld = d).
+template <int THREADS, typename T, int BK, int ROWS, int UNIT>
+__device__ __forceinline__ void stage_chunk_rows(unsigned char* dst, int stride,
+                                                 const T* src, int row0, int n_rows, int d,
+                                                 int kc) {
+  stage_chunk_rows<THREADS, T, BK, ROWS, UNIT>(dst, stride, src, row0, n_rows, d, kc, d);
 }

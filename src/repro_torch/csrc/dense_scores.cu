@@ -22,13 +22,17 @@
 // f32 rows) = 2.5-2.8 ms at 3.35 TB/s: fp32 FMA bound, as the fused scans.
 //
 // What the design does about it: the fused scans' tiles with a dense-store
-// epilogue in place of the top-k fold: the register-tiled fp32 product of
-// scan_gemm.cuh (64 x 128 tiles, each thread 4 x 8 scores; a tile's one
-// view and its offset per query), staged through shared memory; each warp
-// writes one query row of the tile.
-//   * sq_dot and the sorted layout: the tile's 128 columns are consecutive,
-//     so consecutive lanes store consecutive columns. sq_dot is the one-view
-//     case (C = 1).
+// epilogue in place of the top-k fold.
+//   * sq_dot: the pipelined scan of ip_scan.cuh, its one-view case (64 x
+//     512 tiles, an 8 x 16 register tile a thread, a cp.async ring, one
+//     block an SM, one wave of splits); each warp stages its finished
+//     32 x 128 piece through shared memory, 4 queries at a time, and writes
+//     whole 128-byte lines with streaming stores.
+//   * dense gleanvec_sq, sorted layout: the register-tiled fp32 product of
+//     scan_gemm.cuh (64 x 128 tiles, each thread 4 x 8 scores; a tile's one
+//     view and its offset per query), staged through shared memory; each
+//     warp writes one query row of the tile, consecutive lanes consecutive
+//     columns.
 //   * gleanvec_ip and the gathered layout: the per-call bucketing of
 //     bucket_rows.cuh gives every 128-slot tile one tag; the tile stages
 //     x[rows[slot], :] and writes its scores in slot order to a buffer of a
@@ -42,6 +46,7 @@
 #include "scan_gemm.cuh"
 #include "bucket_rows.cuh"
 #include "error.cuh"
+#include "ip_scan.cuh"
 
 template <typename XT>
 static int gemm_dense(const float* q, long long q_stride, const float* qlo, int C,
@@ -113,13 +118,22 @@ extern "C" long long dense_bucket_workspace_bytes(int N, int C) {
   return (long long)bucket_offsets(N, C, off);
 }
 
-// sq_dot: q_scaled (M, d) f32, q_lo (M,) f32, codes (N, d) u8 -> (M, N).
+// sq_dot: q_scaled (M, d) f32, q_lo (M,) f32, codes (N, d) u8 -> (M, N), on
+// ceil(M / IP_TM) x S blocks.
 extern "C" int sq_dot_u8(const float* q_scaled, const float* q_lo,
                          const uint8_t* codes, int M, int d, int N, int S,
                          float* out, void* stream) {
-  return gemm_dense<uint8_t>(q_scaled, d, q_lo, 1, nullptr, codes, M, d, N, GT_N,
-                             S, out, stream);
+  IpSegArgs a = ip_seg_args(q_scaled, codes, M, N, d, 0, S, nullptr, nullptr, nullptr);
+  a.qlo = q_lo;
+  a.L = N;  // one layout block: one view
+  a.out = out;
+  a.out_vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return (int)launch_ip_dense<uint8_t>(a, (cudaStream_t)stream);
 }
+
+// sq_dot's block tile: 0 -> queries per block (IP_TM), 1 -> rows per tile
+// (IP_TN).
+extern "C" int sq_dot_tile(int which) { return which == 0 ? IP_TM : IP_TN; }
 
 // gleanvec_ip: q_views (M, C, d) f32, tags (N,) i32, x_low (N, d) f32 -> (M, N)
 // (no affine term).

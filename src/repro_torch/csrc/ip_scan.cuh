@@ -1,6 +1,13 @@
-// Pipelined fp32 MIPS scan + per-block top-k lists for ip_topk.cu: the plain
-// MIPS case only (one query view, no offsets, no row ids, no work list).
-// The sorted, gathered, IVF and dense scans keep scan_gemm.cuh.
+// Pipelined fp32 scan + per-block top-k lists or dense scores, one kernel
+// body for three users:
+//   * plain MIPS (V = 0): ip_topk.cu;
+//   * per-segment views (V = 1 or 2): the tag-sorted layout of
+//     gleanvec_sq.cu, whose layout blocks of L rows each score against one
+//     query view q[m, tag] and add its offset q_lo[m, tag], with ids read
+//     through row_ids (-1 = padding, never listed);
+//   * dense scores (V = 1, DENSE): sq_dot in dense_scores.cu, the one-view
+//     case (C = 1) with a store of every score tile in place of the fold.
+// The gathered, IVF and the other dense scans keep scan_gemm.cuh.
 //
 // A block owns IP_TM = 64 queries and one split of the database's tiles of
 // IP_TN = 512 rows, one block an SM (256 threads with up to 255 registers).
@@ -26,12 +33,24 @@
 // and a fixed row step for the whole call (stage_chunk_rows): with the
 // addresses worked out per copy the scan was 5 to 6 % slower (H100).
 //
+// Views (V >= 1). A tile never multiplies a row by another view than its
+// layout block's. V = 1: tiles are cut at layout-block ends (ceil(L /
+// IP_TN) tiles a block; any L >= 1, no waste when IP_TN divides L). V = 2
+// (IP_TN / 2 divides L, not IP_TN: the stream's L = 256): tiles are the
+// plain IP_TN-row tiles, and warp columns 0-1 and 2-3 each take the view of
+// their own IP_TN / 2 rows, so two query views are staged a chunk. With the
+// first chunk of a tile each block also stages, through the same cp.async
+// groups, the tile's ids and its views' offsets into a side buffer (one a
+// ring stage, so a tile's side outlives its chunks' ring slots). The views'
+// tags are read when the tile's first chunk is issued.
+//
 // Arithmetic: each score is one fp32 FMA chain over depth 0, 1, ..., d - 1
-// (zero-filled up to a multiple of 4), then + 0.f -- the chain
-// scan_gemm.cuh computes (its further zero FMAs change at most the sign of
-// a zero, which + 0.f clears), so scores and top-k lists are bit-identical
-// to it. No TF32, no tensor cores, no split-K. (The fold compares scores
-// before the + 0.f: -0.0 and +0.0 compare equal.)
+// (zero-filled up to a multiple of 4), then + 0.f (V = 0) or + the view's
+// offset (V >= 1) -- the chain scan_gemm.cuh computes (its further zero
+// FMAs change at most the sign of a zero, which the addition clears), so
+// scores and top-k lists are bit-identical to it. No TF32, no tensor
+// cores, no split-K. (The plain fold compares scores before the + 0.f:
+// -0.0 and +0.0 compare equal.)
 //
 // The fold: a score is a candidate only if it outranks its query's current
 // k-th list entry (and, in a later pass, ranks below the pass's ceiling);
@@ -41,13 +60,19 @@
 // after a barrier one warp per 8 queries runs topk_update_row
 // (topk_common.cuh) over it; a barrier vote ends the fold unless a full
 // buffer left candidates for another round. N is split for one wave of
-// blocks (ip_topk's wrapper): fewer splits, fewer list insertions. For
+// blocks (the wrappers' plans): fewer splits, fewer list insertions. For
 // long lists (k >= IP_FLOORS_MIN_K) the splits of a query also share a
 // floor through device memory (ip_share_floor) that cuts their insertions
 // further. The result is the exact top-k whatever order the splits run in.
+//
+// DENSE: each warp writes its 32 x 128 piece of a finished tile through its
+// own slice of shared memory, 4 queries at a time, so that every store
+// instruction writes 4 whole 128-byte lines, with streaming stores (the
+// (M, N) output is written once and would only evict the rows from L2).
 #pragma once
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -84,16 +109,31 @@ struct IpChunk<uint8_t> {
   static constexpr int XSTR = 20;  // 20 B: word w of 8 consecutive rows on 8 banks
 };
 
-template <typename XT>
-__host__ __device__ constexpr int ip_stage_bytes() {
-  return IP_TM * IpChunk<XT>::QSTR * 4 + IP_TN * IpChunk<XT>::XSTR;
+// Query views staged a chunk: one, or V.
+template <int V>
+__host__ __device__ constexpr int ip_views() {
+  return V > 1 ? V : 1;
 }
 
+template <typename XT, int V = 0>
+__host__ __device__ constexpr int ip_stage_bytes() {
+  return ip_views<V>() * IP_TM * IpChunk<XT>::QSTR * 4 + IP_TN * IpChunk<XT>::XSTR;
+}
+
+// V >= 1: a tile's side buffer: its IP_TN ids, then its views' IP_TM offsets.
+template <int V>
+__host__ __device__ constexpr int ip_side_bytes() {
+  return V == 0 ? 0 : (IP_TN + ip_views<V>() * IP_TM) * 4;
+}
+
+constexpr int IP_DSTR = IP_RX * 8 + 8;  // DENSE: floats a staged row (8 banks apart)
+constexpr int IP_SMEM_MAX = 232448;     // a block's shared memory on an H100
+
 struct IpScanArgs {
-  const float* q;        // (M, d)
+  const float* q;        // (M, d); IpSegArgs: query m's view t at q + m * q_ld + t * d
   const void* x;         // (N, d) float or uint8
   int M, N, d;
-  int k;                 // list length of this pass (<= TOPK_PASS_K)
+  int k;                 // list length of this pass (<= TOPK_PASS_K); DENSE: 0
   int S;                 // splits of the row tiles (partial slots per query)
   float* pv;             // (M, S, k) partial lists
   int* pi;
@@ -105,6 +145,98 @@ struct IpScanArgs {
   int x_vec;             // f32: 16-byte copies; u8: 4-byte copies (else bytes)
   unsigned long long* clocks;  // optional fold profile (IP_CLK_N sums), else null
 };
+
+// The arguments of the scans with views (V >= 1). A kernel parameter of its
+// own, so that the plain scan's (IpScanArgs) stays as it was: with the
+// fields below in it, ptxas gave ip_topk's FLOORS instantiations other
+// register counts (H100 build, the code otherwise unchanged).
+struct IpSegArgs : IpScanArgs {
+  long long q_ld = 0;
+  const float* qlo = nullptr;     // (M, C) offsets qlo[m * C + t], or null (none)
+  int C = 1;
+  const int* seg_tags = nullptr;  // view of each layout block, or null (view 0)
+  const int* row_ids = nullptr;   // id of each row, -1 = padding; or null (the row)
+  int L = 1;                      // rows a layout block
+  float* out = nullptr;           // DENSE: (M, N) scores
+  int out_vec = 0;                // DENSE: out rows take 16-byte stores
+};
+
+// The kernel parameter of a scan with V views.
+template <int V>
+using IpArgs = std::conditional_t<V == 0, IpScanArgs, IpSegArgs>;
+
+// The arguments of a scan of q against x (N, d): no ceiling, no profile
+// (and with views: rows of d elements, every other option at its default).
+template <typename XT>
+static IpScanArgs ip_scan_args(const float* q, const XT* x, int M, int N, int d, int k,
+                               int S, float* pv, int* pi, int* floors) {
+  IpScanArgs a;
+  a.q = q;
+  a.x = x;
+  a.M = M;
+  a.N = N;
+  a.d = d;
+  a.k = k;
+  a.S = S;
+  a.pv = pv;
+  a.pi = pi;
+  a.floors = floors;
+  a.ceil_v = nullptr;
+  a.ceil_i = nullptr;
+  a.ceil_ld = 0;
+  a.q_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  a.x_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (sizeof(XT) == 4 ? 16 : 4) == 0;
+  a.clocks = nullptr;
+  return a;
+}
+
+template <typename XT>
+static IpSegArgs ip_seg_args(const float* q, const XT* x, int M, int N, int d, int k,
+                             int S, float* pv, int* pi, int* floors) {
+  IpSegArgs a{ip_scan_args(q, x, M, N, d, k, S, pv, pi, floors)};
+  a.q_ld = d;
+  return a;
+}
+
+// The tiles of the row space, and (V >= 1) tile t's rows [n0, n1) (n0 =
+// n1 = N past the last row).
+template <int V>
+__device__ __forceinline__ long long ip_tiles(const IpArgs<V>& a) {
+  if constexpr (V == 1) {
+    const long long nseg = (a.N + (long long)a.L - 1) / a.L;
+    return nseg * ((a.L + IP_TN - 1) / IP_TN);
+  } else {
+    return (a.N + IP_TN - 1) / IP_TN;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void ip_seg_tile(const IpSegArgs& a, int t, int& n0, int& n1) {
+  if (V == 2) {
+    n0 = t * IP_TN;
+    n1 = min(n0 + IP_TN, a.N);
+    return;
+  }
+  const int tps = (a.L + IP_TN - 1) / IP_TN;
+  const long long seg0 = (long long)(t / tps) * a.L;
+  const long long r0 = seg0 + (long long)(t % tps) * IP_TN;
+  n0 = (int)min(r0, (long long)a.N);
+  n1 = (int)min(min(r0 + IP_TN, seg0 + a.L), (long long)a.N);
+}
+
+// V >= 1: the view of warp-column group v of tile t, clamped to [0, C).
+template <int V>
+__device__ __forceinline__ int ip_seg_tag(const IpSegArgs& a, int t, int v) {
+  if (a.seg_tags == nullptr) return 0;
+  long long seg;
+  if (V == 2) {
+    const long long nseg = (a.N + (long long)a.L - 1) / a.L;
+    seg = min(((long long)t * IP_TN + v * (IP_TN / 2)) / a.L, nseg - 1);
+  } else {
+    seg = t / ((a.L + IP_TN - 1) / IP_TN);
+  }
+  return min(max(a.seg_tags[seg], 0), a.C - 1);
+}
 
 // A float as an int of the same order (no NaN), and back; INT_MIN (no
 // floor yet) back to -inf.
@@ -122,35 +254,79 @@ __device__ __forceinline__ float ip_byte(unsigned w, int b) {
 }
 
 // Stage the chunk of depths [kc, kc + BK) of the block's queries and of
-// tile rows [n0, n0 + IP_TN) into one ring slot.
-template <typename XT>
-__device__ __forceinline__ void ip_load_chunk(const IpScanArgs& a, unsigned char* st,
-                                              int m0, int n0, int kc) {
+// tile rows [n0, n0 + IP_TN) (rows from n1 on are zeros) into one ring
+// slot. V >= 1: the queries of each view tags[v], one slab a view.
+template <typename XT, int V>
+__device__ __forceinline__ void ip_load_chunk(const IpArgs<V>& a, unsigned char* st,
+                                              int m0, int n0, int n1, int kc,
+                                              const int (&tags)[ip_views<V>()]) {
   using CH = IpChunk<XT>;
   constexpr int BK = CH::BK, QB = CH::QSTR * 4, XSTR = CH::XSTR, T = IP_THREADS;
-  unsigned char* xs = st + IP_TM * QB;
+  unsigned char* xs = st + ip_views<V>() * IP_TM * QB;
   const XT* x = static_cast<const XT*>(a.x);
-  if (a.q_vec) stage_chunk_rows<T, float, BK, IP_TM, 16>(st, QB, a.q, m0, a.M, a.d, kc);
-  else stage_chunk_rows<T, float, BK, IP_TM, 4>(st, QB, a.q, m0, a.M, a.d, kc);
-  if constexpr (sizeof(XT) == 4) {
-    if (a.x_vec) stage_chunk_rows<T, XT, BK, IP_TN, 16>(xs, XSTR, x, n0, a.N, a.d, kc);
-    else stage_chunk_rows<T, XT, BK, IP_TN, 4>(xs, XSTR, x, n0, a.N, a.d, kc);
+  if constexpr (V == 0) {
+    if (a.q_vec) stage_chunk_rows<T, float, BK, IP_TM, 16>(st, QB, a.q, m0, a.M, a.d, kc);
+    else stage_chunk_rows<T, float, BK, IP_TM, 4>(st, QB, a.q, m0, a.M, a.d, kc);
   } else {
-    if (a.x_vec) stage_chunk_rows<T, XT, BK, IP_TN, 4>(xs, XSTR, x, n0, a.N, a.d, kc);
-    else stage_chunk_rows<T, XT, BK, IP_TN, 1>(xs, XSTR, x, n0, a.N, a.d, kc);
+#pragma unroll
+    for (int v = 0; v < ip_views<V>(); ++v) {
+      const float* qv = a.q + (size_t)tags[v] * a.d;
+      unsigned char* dst = st + v * IP_TM * QB;
+      if (a.q_vec)
+        stage_chunk_rows<T, float, BK, IP_TM, 16>(dst, QB, qv, m0, a.M, a.d, kc, a.q_ld);
+      else stage_chunk_rows<T, float, BK, IP_TM, 4>(dst, QB, qv, m0, a.M, a.d, kc, a.q_ld);
+    }
+  }
+  if constexpr (sizeof(XT) == 4) {
+    if (a.x_vec) stage_chunk_rows<T, XT, BK, IP_TN, 16>(xs, XSTR, x, n0, n1, a.d, kc);
+    else stage_chunk_rows<T, XT, BK, IP_TN, 4>(xs, XSTR, x, n0, n1, a.d, kc);
+  } else {
+    if (a.x_vec) stage_chunk_rows<T, XT, BK, IP_TN, 4>(xs, XSTR, x, n0, n1, a.d, kc);
+    else stage_chunk_rows<T, XT, BK, IP_TN, 1>(xs, XSTR, x, n0, n1, a.d, kc);
+  }
+}
+
+// V >= 1: stage tile rows [n0, n1)'s ids (when a.row_ids is set) and the
+// block's offsets of each view tags[v] into a side buffer, with the tile's
+// first chunk (the same cp.async group). Out of range: zeros.
+template <int V>
+__device__ __forceinline__ void ip_load_side(const IpSegArgs& a, unsigned char* side, int m0,
+                                             int n0, int n1,
+                                             const int (&tags)[ip_views<V>()]) {
+  static_assert(IP_TN % IP_THREADS == 0 && ip_views<V>() * IP_TM <= IP_THREADS,
+                "a fixed number of side copies a thread");
+  const int t = threadIdx.x;
+  if (a.row_ids != nullptr) {
+#pragma unroll
+    for (int i = 0; i < IP_TN / IP_THREADS; ++i) {
+      const int r = t + i * IP_THREADS;
+      const bool ok = n0 + r < n1;
+      cp_async4(side + 4 * r, ok ? a.row_ids + n0 + r : a.row_ids, ok);
+    }
+  }
+  if (t < ip_views<V>() * IP_TM) {
+    int tag = tags[0];  // of view t / IP_TM (tags stay in registers)
+#pragma unroll
+    for (int v = 1; v < ip_views<V>(); ++v)
+      if (t >= v * IP_TM) tag = tags[v];
+    const int m = m0 + t % IP_TM;
+    const bool ok = a.qlo != nullptr && m < a.M;
+    const float* src = ok ? a.qlo + (size_t)m * a.C + tag : a.q;
+    cp_async4(side + 4 * (IP_TN + t), src, ok);
   }
 }
 
 // Multiply depths s4 .. s4 + 3 of one staged chunk into the lane's 8 x 16
-// scores: block queries q0 + 4 i against tile rows r0 + 8 j, in depth
-// order.
-template <typename XT>
+// scores: block queries q0 + 4 i (of query slab `slab`) against tile rows
+// r0 + 8 j, in depth order.
+template <typename XT, int V>
 __device__ __forceinline__ void ip_compute_steps(const unsigned char* st, int q0, int r0,
-                                                 int s4, float (&acc)[8][IP_RX]) {
+                                                 int slab, int s4, float (&acc)[8][IP_RX]) {
   using CH = IpChunk<XT>;
   constexpr int QSTR = CH::QSTR, XSTR = CH::XSTR;
-  const float* qs = reinterpret_cast<const float*>(st) + q0 * QSTR;
-  const unsigned char* xs = st + IP_TM * QSTR * 4 + r0 * XSTR;
+  const float* qs = reinterpret_cast<const float*>(st) + (V > 1 ? slab * IP_TM * QSTR : 0) +
+                    q0 * QSTR;
+  const unsigned char* xs = st + ip_views<V>() * IP_TM * QSTR * 4 + r0 * XSTR;
   float4 qv[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -176,16 +352,16 @@ __device__ __forceinline__ void ip_compute_steps(const unsigned char* st, int q0
 
 // One staged chunk, depths ascending: all BK depths, or (the last chunk of
 // a row) the `left` < BK depths that remain, rounded up to 4.
-template <typename XT>
+template <typename XT, int V>
 __device__ __forceinline__ void ip_compute_chunk(const unsigned char* st, int q0, int r0,
-                                                 int left, float (&acc)[8][IP_RX]) {
+                                                 int slab, int left, float (&acc)[8][IP_RX]) {
   constexpr int BK = IpChunk<XT>::BK;
   if (left >= BK) {
 #pragma unroll 1
-    for (int s4 = 0; s4 < BK; s4 += 4) ip_compute_steps<XT>(st, q0, r0, s4, acc);
+    for (int s4 = 0; s4 < BK; s4 += 4) ip_compute_steps<XT, V>(st, q0, r0, slab, s4, acc);
   } else {
 #pragma unroll 1
-    for (int s4 = 0; s4 < left; s4 += 4) ip_compute_steps<XT>(st, q0, r0, s4, acc);
+    for (int s4 = 0; s4 < left; s4 += 4) ip_compute_steps<XT, V>(st, q0, r0, slab, s4, acc);
   }
 }
 
@@ -241,25 +417,50 @@ __device__ __forceinline__ void ip_clock(bool on, unsigned long long* slot, long
 // it can reach the final top-k, while it rises about as fast as the k-th
 // value of all the query's rows seen so far: a split admits about S times
 // fewer scores than its own k-th entry would let through.
+// V >= 1 (a.floors (M, 2 S)): each split also publishes its k-th value, and
+// the floor is the larger of that least rank-th value and the greatest
+// k-th value (a split with a full list alone holds k entries at or above
+// its k-th). In the tag-sorted layout a query's best rows sit in the
+// clusters of a few splits, so the least rank-th value stays low while
+// those splits' k-th values rise: on the main path's data (H100, k = 100)
+// this floor took the sorted scan from 33.9 to 25.2 ms (f32) and 35.6 to
+// 27.5 ms (u8). Plain MIPS (V = 0), whose splits see alike rows, keeps the
+// one floor: with the second floor too, ip_topk's FLOORS instantiations
+// took 237 / 254 / 254 registers in place of 251 / 251 / 247, and at k =
+// 100 sphering-int8 ran 23.51 -> 24.65 ms on the main path's data (23.28
+// -> 24.56 on random data) while sphering stayed at 22.3-22.4 (H100,
+// chip_smoke.py phase 4 and --kernel-timing).
+template <int V>
 __device__ __forceinline__ void ip_share_floor(const IpScanArgs& a, const IpFoldLayout& f,
                                                int m0, int r, int lane) {
   const int k = a.k, rank = (k + a.S - 1) / a.S;
-  const size_t row = (size_t)(m0 + r) * a.S;
+  const size_t row = (size_t)(m0 + r) * a.S * (V > 0 ? 2 : 1);
   if (lane == 0 && f.li[r * k + rank - 1] >= 0)
     a.floors[row + blockIdx.y] = ip_order(f.lv[r * k + rank - 1]);
-  int v = INT_MAX;
-  for (int s2 = lane; s2 < a.S; s2 += 32) v = min(v, __ldcg(a.floors + row + s2));
+  if constexpr (V > 0) {
+    if (lane == 0 && f.li[r * k + k - 1] >= 0)
+      a.floors[row + a.S + blockIdx.y] = ip_order(f.lv[r * k + k - 1]);
+  }
+  // both floors' loads in one loop: one trip to device memory, not two
+  int v = INT_MAX, w = INT_MIN;
+  for (int s2 = lane; s2 < a.S; s2 += 32) {
+    v = min(v, __ldcg(a.floors + row + s2));
+    if constexpr (V > 0) w = max(w, __ldcg(a.floors + row + a.S + s2));
+  }
   v = __reduce_min_sync(0xffffffffu, v);
+  if constexpr (V > 0) v = max(v, __reduce_max_sync(0xffffffffu, w));
   if (lane == 0) f.floor_v[r] = ip_unorder(v);
 }
 
 // Fold the block's finished tile into its queries' lists: the lane's scores
-// are queries q0 + 4 i against rows n0 + 8 j. Every thread of the block
-// calls it (it holds barriers). `fold_base`: the layout's start.
-template <bool CEIL, bool FLOORS>
+// are queries q0 + 4 i against rows n0 + 8 j, of which those below n_end
+// count. Their ids: the rows (V = 0, or no row_ids), else ids[8 j] (shared
+// memory; -1 = padding, never listed). Every thread of the block calls it
+// (it holds barriers). `fold_base`: the layout's start.
+template <int V, bool CEIL, bool FLOORS>
 __device__ __forceinline__ void ip_fold_tile(const IpScanArgs& a, unsigned char* fold_base,
                                              float (&acc)[8][IP_RX], int m0, int q0,
-                                             int n0) {
+                                             int n0, int n_end, const int* ids) {
   static_assert(IP_RX < 32, "a query's pending scores are one 32-bit mask");
   const int k = a.k, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const IpFoldLayout f(fold_base, k);
@@ -288,9 +489,11 @@ __device__ __forceinline__ void ip_fold_tile(const IpScanArgs& a, unsigned char*
 #pragma unroll
       for (int j = 0; j < IP_RX; ++j) {
         const int n = n0 + 8 * j;
-        bool p = n < a.N && topk_better(acc[i][j], n, tv, ti);
+        const int id = (V > 0 && ids != nullptr) ? ids[8 * j] : n;
+        bool p = n < n_end && topk_better(acc[i][j], id, tv, ti);
+        if constexpr (V > 0) p = p && id >= 0;
         if constexpr (FLOORS) p = p && acc[i][j] >= fv;
-        if constexpr (CEIL) p = p && topk_better(f.ceil_v[r], f.ceil_i[r], acc[i][j], n);
+        if constexpr (CEIL) p = p && topk_better(f.ceil_v[r], f.ceil_i[r], acc[i][j], id);
         if (!p) pend[i] &= ~(1u << j);
       }
     }
@@ -315,7 +518,7 @@ __device__ __forceinline__ void ip_fold_tile(const IpScanArgs& a, unsigned char*
           const int slot = atomicAdd(&f.cnt[r], 1);
           if (slot < IP_CAP) {
             f.cv[r * IP_CAP + slot] = acc[i][j] + 0.f;
-            f.ci[r * IP_CAP + slot] = n0 + 8 * j;
+            f.ci[r * IP_CAP + slot] = (V > 0 && ids != nullptr) ? ids[8 * j] : n0 + 8 * j;
             pend[i] &= ~(1u << j);
           }
         }
@@ -334,7 +537,7 @@ __device__ __forceinline__ void ip_fold_tile(const IpScanArgs& a, unsigned char*
                               CEIL ? f.ceil_i[r] : 0);
         __syncwarp();
         if (lane == 0) f.cnt[r] = 0;
-        if constexpr (FLOORS) ip_share_floor(a, f, m0, r, lane);
+        if constexpr (FLOORS) ip_share_floor<V>(a, f, m0, r, lane);
       }
     }
     ip_clock(prof, &f.clk[IP_CLK_INSERT], t);
@@ -346,49 +549,113 @@ __device__ __forceinline__ void ip_fold_tile(const IpScanArgs& a, unsigned char*
   if (prof) f.clk[IP_CLK_FOLD] += clock64() - t_fold;
 }
 
+// DENSE: the lane's scores of a finished tile (output columns from n0,
+// those below n1; the block's queries from m0) to a.out, through the
+// warp's slice `wst` of shared memory (4 x IP_DSTR floats): per query group
+// i the warp stages 4 queries x its 128 columns, then each lane stores 16
+// bytes, so one store instruction writes 4 whole 128-byte lines (when
+// a.out_vec and n0 % 4 == 0; else 4-byte stores).
+__device__ __forceinline__ void ip_store_tile(const IpSegArgs& a, float* wst,
+                                              const float (&acc)[8][IP_RX], int m0, int n0,
+                                              int n1) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 3, c = lane & 7;          // staged row, lane in the row
+  const int col0 = (warp & 3) * 8 * IP_RX;        // the warp's first column
+  const int mg = m0 + (warp >> 2) * 32 + g;       // query of staged row g at i = 0
+  const bool vec = a.out_vec && n0 % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < IP_RX; ++j) wst[g * IP_DSTR + c + 8 * j] = acc[i][j];
+    __syncwarp();
+    const int m = mg + 4 * i;
+#pragma unroll
+    for (int s = 0; s < IP_RX / 4; ++s) {
+      const int col = 32 * s + 4 * c;
+      const float4 v = *reinterpret_cast<const float4*>(wst + g * IP_DSTR + col);
+      const int n = n0 + col0 + col;
+      if (m < a.M) {
+        float* o = a.out + (size_t)m * a.N + n;
+        if (vec && n + 4 <= n1) {
+          __stcs(reinterpret_cast<float4*>(o), v);
+        } else {
+          if (n < n1) __stcs(o, v.x);
+          if (n + 1 < n1) __stcs(o + 1, v.y);
+          if (n + 2 < n1) __stcs(o + 2, v.z);
+          if (n + 3 < n1) __stcs(o + 3, v.w);
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
 // One block an SM (the lane's 8 x 16 tile needs up to 255 registers) for
 // IP_TM queries (blockIdx.x) and split blockIdx.y of the row tiles, whose
 // lists go to partial slot blockIdx.y. Query blocks are the fastest grid
 // dimension, so the blocks resident at one time read the same row tiles
-// and x streams from device memory about once. CEIL: a later pass of a
-// k > TOPK_PASS_K scan; FLOORS: the splits share floors (a.floors).
-template <typename XT, bool CEIL, bool FLOORS>
-__global__ void __launch_bounds__(IP_THREADS, 1) ip_scan_kernel(IpScanArgs a) {
-  constexpr int BK = IpChunk<XT>::BK, STAGE = ip_stage_bytes<XT>();
+// and x streams from device memory about once. V: plain MIPS (0) or views
+// per layout block (1, 2; see the top). DENSE (V = 1): store the scores,
+// no lists. CEIL: a later pass of a k > TOPK_PASS_K scan; FLOORS: the
+// splits share floors (a.floors). Each option is a template parameter, so
+// the plain instantiations compile to the code they ran before the others
+// existed.
+template <typename XT, int V, bool DENSE, bool CEIL, bool FLOORS>
+__global__ void __launch_bounds__(IP_THREADS, 1) ip_scan_kernel(IpArgs<V> a) {
+  static_assert(!DENSE || V == 1, "dense scores take one view a tile");
+  constexpr int BK = IpChunk<XT>::BK, STAGE = ip_stage_bytes<XT, V>();
+  constexpr int SIDE = ip_side_bytes<V>();
   extern __shared__ __align__(16) unsigned char ism[];
-  unsigned char* ring = ism;  // IP_STAGES x STAGE
-  unsigned char* fold_base = ism + IP_STAGES * STAGE;
+  unsigned char* ring = ism;                            // IP_STAGES x STAGE
+  unsigned char* side = ism + IP_STAGES * STAGE;        // V >= 1: IP_STAGES x SIDE
+  unsigned char* fold_base = side + IP_STAGES * SIDE;   // the fold, or DENSE's staging
   const IpFoldLayout f(fold_base, a.k);
   const long long t_kernel = a.clocks ? clock64() : 0;
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int q0 = (warp >> 2) * 32 + (lane >> 3);      // the lane's first query row
   const int r0 = (warp & 3) * 8 * IP_RX + (lane & 7);  // and first tile row
+  const int slab = V > 1 ? (warp & 3) * V / 4 : 0;     // and query view
   const int m0 = blockIdx.x * IP_TM, s = blockIdx.y;
   const int nk = (a.d + BK - 1) / BK;
-  const long long T = (a.N + IP_TN - 1) / IP_TN;
+  const long long T = ip_tiles<V>(a);
   const int t_begin = (int)(T * s / a.S), t_end = (int)(T * (s + 1) / a.S);
   const long long total = (long long)(t_end - t_begin) * nk;
 
-  for (int e = t; e < IP_TM * a.k; e += IP_THREADS) {
-    f.lv[e] = NEG_INF_F;
-    f.li[e] = -1;
-  }
-  if (t < IP_TM) {
-    const int m = m0 + t;
-    f.cnt[t] = 0;
-    f.floor_v[t] = -CUDART_INF_F;
-    if (CEIL) {
-      f.ceil_v[t] = m < a.M ? a.ceil_v[(size_t)m * a.ceil_ld] : NEG_INF_F;
-      f.ceil_i[t] = m < a.M ? a.ceil_i[(size_t)m * a.ceil_ld] : -1;
+  if constexpr (!DENSE) {
+    for (int e = t; e < IP_TM * a.k; e += IP_THREADS) {
+      f.lv[e] = NEG_INF_F;
+      f.li[e] = -1;
     }
+    if (t < IP_TM) {
+      const int m = m0 + t;
+      f.cnt[t] = 0;
+      f.floor_v[t] = -CUDART_INF_F;
+      if (CEIL) {
+        f.ceil_v[t] = m < a.M ? a.ceil_v[(size_t)m * a.ceil_ld] : NEG_INF_F;
+        f.ceil_i[t] = m < a.M ? a.ceil_i[(size_t)m * a.ceil_ld] : -1;
+      }
+    }
+    if (t < IP_CLK_N) f.clk[t] = 0;
   }
-  if (t < IP_CLK_N) f.clk[t] = 0;
 
-  // producer position (tile, chunk) of the next chunk to load
-  int lt = t_begin, lk = 0;
+  // producer position (tile, chunk) of the next chunk to load; V >= 1: its
+  // tile's rows, views and side buffer
+  int lt = t_begin, lk = 0, pn0 = 0, pn1 = 0, pside = 0;
+  int ptag[ip_views<V>()] = {};
   auto load_next = [&](unsigned char* st) {
-    ip_load_chunk<XT>(a, st, m0, lt * IP_TN, lk * BK);
+    if constexpr (V == 0) {
+      ip_load_chunk<XT, V>(a, st, m0, lt * IP_TN, a.N, lk * BK, ptag);
+    } else {
+      if (lk == 0) {
+        ip_seg_tile<V>(a, lt, pn0, pn1);
+#pragma unroll
+        for (int v = 0; v < ip_views<V>(); ++v) ptag[v] = ip_seg_tag<V>(a, lt, v);
+        ip_load_side<V>(a, side + pside * SIDE, m0, pn0, pn1, ptag);
+        pside = pside + 1 == IP_STAGES ? 0 : pside + 1;
+      }
+      ip_load_chunk<XT, V>(a, st, m0, pn0, pn1, lk * BK, ptag);
+    }
     if (++lk == nk) {
       lk = 0;
       ++lt;
@@ -405,17 +672,39 @@ __global__ void __launch_bounds__(IP_THREADS, 1) ip_scan_kernel(IpScanArgs a) {
 #pragma unroll
     for (int j = 0; j < IP_RX; ++j) acc[i][j] = 0.f;
 
-  int ct = t_begin, ck = 0, slot = 0;  // consumer position and ring slot
+  int ct = t_begin, ck = 0, slot = 0, cside = 0;  // consumer position, ring slot, side
   for (long long g = 0; g < total; ++g) {
     cp_async_wait<IP_STAGES - 2>();
     __syncthreads();  // chunk g visible; every warp is done with chunk g - 1
     if (g + IP_STAGES - 1 < total)
       load_next(ring + (slot == 0 ? IP_STAGES - 1 : slot - 1) * STAGE);
     cp_async_commit();
-    ip_compute_chunk<XT>(ring + slot * STAGE, q0, r0, a.d - ck * BK, acc);
+    ip_compute_chunk<XT, V>(ring + slot * STAGE, q0, r0, slab, a.d - ck * BK, acc);
     slot = slot + 1 == IP_STAGES ? 0 : slot + 1;
     if (++ck == nk) {
-      ip_fold_tile<CEIL, FLOORS>(a, fold_base, acc, m0, q0, ct * IP_TN + r0);
+      if constexpr (V == 0) {
+        ip_fold_tile<V, CEIL, FLOORS>(a, fold_base, acc, m0, q0, ct * IP_TN + r0, a.N,
+                                      nullptr);
+      } else {
+        int n0, n1;
+        ip_seg_tile<V>(a, ct, n0, n1);
+        const unsigned char* sd = side + cside * SIDE;
+        const float* lo = reinterpret_cast<const float*>(sd) + IP_TN + slab * IP_TM + q0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float l = lo[4 * i];
+#pragma unroll
+          for (int j = 0; j < IP_RX; ++j) acc[i][j] = acc[i][j] + l;  // after the chain
+        }
+        if constexpr (DENSE)
+          ip_store_tile(a, reinterpret_cast<float*>(fold_base) + warp * 4 * IP_DSTR, acc, m0,
+                        n0, n1);
+        else
+          ip_fold_tile<V, CEIL, FLOORS>(
+              a, fold_base, acc, m0, q0, n0 + r0, n1,
+              a.row_ids != nullptr ? reinterpret_cast<const int*>(sd) + r0 : nullptr);
+        cside = cside + 1 == IP_STAGES ? 0 : cside + 1;
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -427,25 +716,29 @@ __global__ void __launch_bounds__(IP_THREADS, 1) ip_scan_kernel(IpScanArgs a) {
   cp_async_wait<0>();
   __syncthreads();
 
-  for (int e = t; e < IP_TM * a.k; e += IP_THREADS) {
-    const int r = e / a.k, j = e % a.k, m = m0 + r;
-    if (m < a.M) {
-      const size_t o = ((size_t)m * a.S + s) * a.k + j;
-      a.pv[o] = f.lv[e];
-      a.pi[o] = f.li[e];
+  if constexpr (!DENSE) {
+    for (int e = t; e < IP_TM * a.k; e += IP_THREADS) {
+      const int r = e / a.k, j = e % a.k, m = m0 + r;
+      if (m < a.M) {
+        const size_t o = ((size_t)m * a.S + s) * a.k + j;
+        a.pv[o] = f.lv[e];
+        a.pi[o] = f.li[e];
+      }
     }
-  }
-  if (a.clocks && t == 0) {
-    f.clk[IP_CLK_KERNEL] = clock64() - t_kernel;
-    for (int c = 0; c < IP_CLK_N; ++c) atomicAdd(a.clocks + c, f.clk[c]);
+    if (a.clocks && t == 0) {
+      f.clk[IP_CLK_KERNEL] = clock64() - t_kernel;
+      for (int c = 0; c < IP_CLK_N; ++c) atomicAdd(a.clocks + c, f.clk[c]);
+    }
   }
 }
 
-// Shared memory of one block at list length k.
-template <typename XT>
+// Shared memory of one block at list length k (DENSE: k = 0).
+template <typename XT, int V = 0, bool DENSE = false>
 static size_t ip_scan_smem(int k) {
-  return (size_t)IP_STAGES * ip_stage_bytes<XT>() + (size_t)IP_TM * k * 8 +
-         (size_t)IP_TM * IP_CAP * 8 + IP_TM * 20 + IP_CLK_N * 8;
+  const size_t ring = (size_t)IP_STAGES * (ip_stage_bytes<XT, V>() + ip_side_bytes<V>());
+  if (DENSE) return ring + (size_t)(IP_THREADS / 32) * 4 * IP_DSTR * 4;
+  return ring + (size_t)IP_TM * k * 8 + (size_t)IP_TM * IP_CAP * 8 + IP_TM * 20 +
+         IP_CLK_N * 8;
 }
 
 __global__ void ip_floor_reset_kernel(int* floors, long long n) {
@@ -455,15 +748,16 @@ __global__ void ip_floor_reset_kernel(int* floors, long long n) {
 
 // One pass of the scan (a.k <= TOPK_PASS_K) on ceil(M / IP_TM) x a.S blocks,
 // the shared floors reset first.
-template <typename XT, bool CEIL>
-static cudaError_t launch_ip_scan_pass(const IpScanArgs& a, cudaStream_t stream) {
+template <typename XT, int V, bool CEIL>
+static cudaError_t launch_ip_scan_pass(const IpArgs<V>& a, cudaStream_t stream) {
   const bool floors = a.k >= IP_FLOORS_MIN_K;
   if (floors) {
-    const long long nf = (long long)a.M * a.S;
+    const long long nf = (long long)a.M * a.S * (V > 0 ? 2 : 1);
     ip_floor_reset_kernel<<<(unsigned)((nf + 255) / 256), 256, 0, stream>>>(a.floors, nf);
   }
-  const size_t smem = ip_scan_smem<XT>(a.k);
-  auto kernel = floors ? ip_scan_kernel<XT, CEIL, true> : ip_scan_kernel<XT, CEIL, false>;
+  const size_t smem = ip_scan_smem<XT, V>(a.k);
+  auto kernel = floors ? ip_scan_kernel<XT, V, false, CEIL, true>
+                       : ip_scan_kernel<XT, V, false, CEIL, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -475,23 +769,60 @@ static cudaError_t launch_ip_scan_pass(const IpScanArgs& a, cudaStream_t stream)
 // first under the previous pass's ceiling, each followed by the merge of
 // the S partial lists (topk_common.cuh). a.pv / a.pi hold (M, S,
 // min(k, TOPK_PASS_K)) entries.
-template <typename XT>
-static cudaError_t launch_ip_scan(IpScanArgs a, int k, float* out_v, int* out_i,
+template <typename XT, int V = 0>
+static cudaError_t launch_ip_scan(IpArgs<V> a, int k, float* out_v, int* out_i,
                                   cudaStream_t stream) {
   for (int k0 = 0; k0 < k; k0 += TOPK_PASS_K) {
     a.k = k - k0 < TOPK_PASS_K ? k - k0 : TOPK_PASS_K;
     cudaError_t err;
     if (k0 == 0) {
-      err = launch_ip_scan_pass<XT, false>(a, stream);
+      err = launch_ip_scan_pass<XT, V, false>(a, stream);
+    } else if constexpr (V == 2 && sizeof(XT) == 4) {
+      return cudaErrorInvalidValue;  // ip_seg_views: f32 takes two views at k <= 104 only
     } else {
       a.ceil_v = out_v + k0 - 1;
       a.ceil_i = out_i + k0 - 1;
       a.ceil_ld = k;
-      err = launch_ip_scan_pass<XT, true>(a, stream);
+      err = launch_ip_scan_pass<XT, V, true>(a, stream);
     }
     if (err != cudaSuccess) return err;
     err = launch_topk_merge(a.pv, a.pi, a.M, a.S, a.k, k, out_v + k0, out_i + k0, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// The views (1 or 2) a scan of layout blocks of L rows takes at list length
+// k: two where IP_TN / 2 divides L but IP_TN does not, and the two query
+// slabs fit a block's shared memory (f32 rows: k <= 104), else one.
+template <typename XT>
+static int ip_seg_views(int L, int k) {
+  const int pk = k < TOPK_PASS_K ? k : TOPK_PASS_K;
+  if (L % IP_TN != 0 && L % (IP_TN / 2) == 0 && ip_scan_smem<XT, 2>(pk) <= IP_SMEM_MAX)
+    return 2;
+  return 1;
+}
+
+// The scan of layout blocks (V >= 1) with `views` = ip_seg_views(a.L, k).
+template <typename XT>
+static cudaError_t launch_ip_seg_scan(const IpSegArgs& a, int views, int k, float* out_v,
+                                      int* out_i, cudaStream_t stream) {
+  if (a.L < 1 || views != ip_seg_views<XT>(a.L, k)) return cudaErrorInvalidValue;
+  return views == 2 ? launch_ip_scan<XT, 2>(a, k, out_v, out_i, stream)
+                    : launch_ip_scan<XT, 1>(a, k, out_v, out_i, stream);
+}
+
+// Dense (M, N) scores of one view a row space (V = 1, a.L rows a block) on
+// ceil(M / IP_TM) x a.S blocks: no lists, no merge.
+template <typename XT>
+static cudaError_t launch_ip_dense(IpSegArgs a, cudaStream_t stream) {
+  if (a.L < 1) return cudaErrorInvalidValue;
+  a.k = 0;
+  const size_t smem = ip_scan_smem<XT, 1, true>(0);
+  auto kernel = ip_scan_kernel<XT, 1, true, false, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.M + IP_TM - 1) / IP_TM, a.S), IP_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
 }

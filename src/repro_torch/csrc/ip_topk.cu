@@ -31,37 +31,14 @@
 #include "error.cuh"
 #include "ip_scan.cuh"
 
-template <typename XT>
-static IpScanArgs ip_args(const float* q, const XT* x, int M, int N, int d, int k, int S,
-                          float* pv, int* pi, int* floors) {
-  IpScanArgs a;
-  a.q = q;
-  a.x = x;
-  a.M = M;
-  a.N = N;
-  a.d = d;
-  a.k = k;
-  a.S = S;
-  a.pv = pv;
-  a.pi = pi;
-  a.floors = floors;
-  a.ceil_v = nullptr;
-  a.ceil_i = nullptr;
-  a.ceil_ld = 0;
-  a.q_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  a.x_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (sizeof(XT) == 4 ? 16 : 4) == 0;
-  a.clocks = nullptr;
-  return a;
-}
-
 // S splits of the row tiles; pv / pi: (M, S, min(k, TOPK_PASS_K)) partial
 // lists; floors: (M, S) int scratch (the splits' shared floors).
 template <typename XT>
 static int ip_topk_impl(const float* q, const XT* x, int M, int N, int d, int k, int S,
                         float* pv, int* pi, int* floors, float* out_v, int* out_i,
                         void* stream) {
-  return (int)launch_ip_scan<XT>(ip_args(q, x, M, N, d, k, S, pv, pi, floors), k, out_v,
-                                 out_i, (cudaStream_t)stream);
+  const IpScanArgs a = ip_scan_args(q, x, M, N, d, k, S, pv, pi, floors);
+  return (int)launch_ip_scan<XT>(a, k, out_v, out_i, (cudaStream_t)stream);
 }
 
 extern "C" int ip_topk_f32(const float* q, const float* x, int M, int N, int d, int k,
@@ -86,13 +63,13 @@ extern "C" int ip_topk_profile(const float* q, const void* x, int x_u8, int M, i
   if (k < 1 || k > TOPK_PASS_K) return (int)cudaErrorInvalidValue;
   if (x_u8) {
     const uint8_t* xb = static_cast<const uint8_t*>(x);
-    IpScanArgs a = ip_args(q, xb, M, N, d, k, S, pv, pi, floors);
+    IpScanArgs a = ip_scan_args(q, xb, M, N, d, k, S, pv, pi, floors);
     a.clocks = clocks;
-    return (int)launch_ip_scan_pass<uint8_t, false>(a, st);
+    return (int)launch_ip_scan_pass<uint8_t, 0, false>(a, st);
   }
-  IpScanArgs a = ip_args(q, static_cast<const float*>(x), M, N, d, k, S, pv, pi, floors);
+  IpScanArgs a = ip_scan_args(q, static_cast<const float*>(x), M, N, d, k, S, pv, pi, floors);
   a.clocks = clocks;
-  return (int)launch_ip_scan_pass<float, false>(a, st);
+  return (int)launch_ip_scan_pass<float, 0, false>(a, st);
 }
 
 // The block tile the wrapper sizes its grid and partial lists by: 0 ->

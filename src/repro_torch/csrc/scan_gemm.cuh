@@ -1,7 +1,8 @@
-// Tiled fp32 scan + per-block top-k, shared by ip_topk.cu (plain MIPS), both
-// layouts of gleanvec_sq.cu (the sorted one, and the gathered one through
-// its per-call bucketing, bucket_rows.cuh) and ivf_scan.cu (the probed slabs
-// of a sorted IVF).
+// Tiled fp32 scan + per-block top-k, shared by the gathered layout of
+// gleanvec_sq.cu (through its per-call bucketing, bucket_rows.cuh) and
+// ivf_scan.cu (the probed slabs of a sorted IVF). ip_topk.cu, the sorted
+// layout of gleanvec_sq.cu and sq_dot run the pipelined scan of
+// ip_scan.cuh instead.
 //
 // A block owns GT_M = 64 queries and one split of the database's row tiles.
 // With a work list (ivf_scan.cu) block w instead owns ONE segment,
@@ -9,14 +10,14 @@
 // q_index[work[3w + 1] + i] for i < work[3w + 2]; it writes query i's list
 // to partial slot q_slot[work[3w + 1] + i]. Blocks past *n_work exit.
 // Rows are grouped in segments of L rows that share ONE query view (the
-// tag-sorted layout's layout block; for plain MIPS L = GT_N and every
-// segment has tag 0), and a tile of GT_N = 128 rows never crosses a
+// tag-sorted layout's layout block; with no tags every segment has tag
+// 0), and a tile of GT_N = 128 rows never crosses a
 // segment. Per tile the block computes the (64, 128) score tile with a
 // register-tiled fp32 FMA product (each thread 4 x 8 scores, operands staged
 // through shared memory in depth chunks of GT_K = 32), adds the per-query
 // affine offset of the tile's view, and folds the tile into its per-query
 // top-k lists (topk_common.cuh). The dense (M, N) score matrix never exists.
-// The DENSE instantiation (dense_scores.cu: sq_dot, dense gleanvec_sq and
+// The DENSE instantiation (dense_scores.cu: dense gleanvec_sq and
 // gleanvec_ip) runs the same tiles and writes each score tile to the
 // (M, N) output instead of folding it.
 // ROWS (the bucketed gathered layout, L = GT_N): slot n of the layout holds
@@ -354,25 +355,26 @@ static cudaError_t launch_gemm_scan_blocks(const GemmScanArgs& a, dim3 grid,
   return cudaGetLastError();
 }
 
-// Query tiles x S splits of the row tiles, then the merge of the S partial
-// lists of every query, for any a.k >= 1: one pass per TOPK_PASS_K columns
-// of the output, each after the first under the previous pass's ceiling.
-// a.pv / a.pi hold (M, S, min(a.k, TOPK_PASS_K)) entries.
-template <typename XT, bool ROWS = false>
-static cudaError_t launch_gemm_scan(GemmScanArgs a, float* out_v, int* out_i,
-                                    cudaStream_t stream) {
+// The bucketed gathered layout (ROWS): query tiles x S splits of the row
+// tiles, then the merge of the S partial lists of every query, for any
+// a.k >= 1: one pass per TOPK_PASS_K columns of the output, each after the
+// first under the previous pass's ceiling. a.pv / a.pi hold (M, S,
+// min(a.k, TOPK_PASS_K)) entries.
+template <typename XT>
+static cudaError_t launch_gemm_scan_rows(GemmScanArgs a, float* out_v, int* out_i,
+                                         cudaStream_t stream) {
   const int k = a.k;
   const dim3 grid((a.M + GT_M - 1) / GT_M, a.S);
   for (int k0 = 0; k0 < k; k0 += TOPK_PASS_K) {
     a.k = k - k0 < TOPK_PASS_K ? k - k0 : TOPK_PASS_K;
     cudaError_t err;
     if (k0 == 0) {
-      err = launch_gemm_scan_blocks<XT, false, ROWS>(a, grid, stream);
+      err = launch_gemm_scan_blocks<XT, false, true>(a, grid, stream);
     } else {
       a.ceil_v = out_v + k0 - 1;
       a.ceil_i = out_i + k0 - 1;
       a.ceil_ld = k;
-      err = launch_gemm_scan_blocks<XT, false, ROWS, true>(a, grid, stream);
+      err = launch_gemm_scan_blocks<XT, false, true, true>(a, grid, stream);
     }
     if (err != cudaSuccess) return err;
     err = launch_topk_merge(a.pv, a.pi, a.M, a.S, a.k, k, out_v + k0, out_i + k0, stream);

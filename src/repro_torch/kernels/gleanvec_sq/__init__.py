@@ -12,8 +12,10 @@ body ``_topk_kernel``, and ``gleanvec_sq``, body ``_dense_kernel``):
 kernels first bucket the rows by tag (``bucket_rows_by_tag``, per call) so
 that every 128-row tile has one view, as in the sorted layout.
 ``layout_block > 0``: tag-sorted layout, ``tags (ceil(N / layout_block),)``
-per block; every kernel tile stays inside one block, so any block size
-works (the reference's tile-shrink / gathered fallbacks are not needed).
+per block; the fused scan (``csrc/ip_scan.cuh``) multiplies every row by
+its own block's view only, so any block size works (the reference's
+tile-shrink / gathered fallbacks are not needed); its launch shape is
+:func:`sorted_scan_plan`.
 """
 from __future__ import annotations
 
@@ -22,11 +24,13 @@ import ctypes
 import torch
 
 from repro_torch.index.topk import NEG_INF, blocked_topk
+from repro_torch.kernels.ip_topk import ScanPlan, split_plan
 
 __all__ = ["gleanvec_sq_topk", "gleanvec_sq_topk_plain", "gleanvec_sq",
            "gleanvec_sq_plain", "tile_scores", "dense_plain",
            "bucket_rows_by_tag", "bucket_rows_by_tag_plain", "bucket_tiles",
-           "bucket_workspace", "dense_buffer"]
+           "bucket_workspace", "dense_buffer", "sorted_tiles",
+           "sorted_scan_plan"]
 
 BUCKET_TILE = 128       # slots per tile of the bucketed layout (scan_gemm.cuh)
 DENSE_BUFFER = 1 << 28  # most floats of the gathered dense kernels' buffer
@@ -111,6 +115,30 @@ def bucket_tiles(n: int, c: int) -> int:
     return (n + (BUCKET_TILE - 1) * c) // BUCKET_TILE
 
 
+def sorted_tiles(n: int, layout_block: int, views: int) -> int:
+    """Tiles of the sorted scan over ``n`` rows in layout blocks of
+    ``layout_block``: with two views a tile (``views == 2``, half a tile a
+    view) the plain ``K.IP_TILE_N``-row tiles, else ceil(layout_block /
+    ``K.IP_TILE_N``) tiles a layout block, cut at its end."""
+    from repro_torch import kernels as K
+    if views == 2:
+        return -(-n // K.IP_TILE_N)
+    return -(-n // layout_block) * -(-layout_block // K.IP_TILE_N)
+
+
+def sorted_scan_plan(m: int, n: int, k: int, layout_block: int, views: int,
+                     sms: int) -> ScanPlan:
+    """The launch shape of the sorted ``gleanvec_sq_topk`` on a card with
+    ``sms`` SMs: ``ip_topk.split_plan`` (one wave of one block an SM) over
+    :func:`sorted_tiles`. ``views`` is the library's
+    ``gleanvec_sq_sorted_views(layout_block, k, u8)``: 2 where half a tile
+    divides the layout block but a tile does not and two query slabs fit
+    (the stream's layout block of 256), else 1."""
+    if views not in (1, 2):
+        raise ValueError(f"the sorted scan takes 1 or 2 views, got {views}")
+    return split_plan(m, sorted_tiles(n, layout_block, views), k, sms)
+
+
 def bucket_rows_by_tag_plain(tags, c: int):
     """The gathered layout's rows grouped by tag: ``tags (N,)`` (clamped to
     [0, c), as the kernels clamp a view index) -> ``(rows (T * 128,) i32,
@@ -186,14 +214,26 @@ bucket_rows_by_tag.launches = 0
 
 
 def _bind(lib):
+    from repro_torch import kernels as K
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "u8"):
         fn = getattr(lib, f"gleanvec_sq_gathered_topk_{dt}")
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"gleanvec_sq_sorted_topk_{dt}")
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p,
+                       p]
         fn.restype = ctypes.c_int
+    lib.gleanvec_sq_sorted_views.argtypes = [i, i, i]
+    lib.gleanvec_sq_sorted_views.restype = ctypes.c_int
+    lib.gleanvec_sq_sorted_tile.argtypes = [i]
+    lib.gleanvec_sq_sorted_tile.restype = ctypes.c_int
+    tile = (lib.gleanvec_sq_sorted_tile(0), lib.gleanvec_sq_sorted_tile(1))
+    if tile != (K.IP_TILE_M, K.IP_TILE_N):
+        raise RuntimeError(
+            f"gleanvec_sq_topk: the sorted scan's tile {tile} is not "
+            f"(IP_TILE_M, IP_TILE_N) = {(K.IP_TILE_M, K.IP_TILE_N)}: its "
+            "partial lists would be sized wrong")
     lib.gleanvec_sq_bucket_workspace.argtypes = [
         i, i, ctypes.POINTER(ctypes.c_longlong)]
     lib.gleanvec_sq_bucket_workspace.restype = ctypes.c_longlong
@@ -243,18 +283,27 @@ def gleanvec_sq_topk(q_scaled, q_lo, tags, codes, k: int, row_ids=None,
     dt = "f32" if codes.dtype == torch.float32 else "u8"
     rid = row_ids.data_ptr() if row_ids is not None else None
     stream = K.current_stream(dev)
-    tiles = (n_tags * -(-layout_block // K.GEMM_TILE_N) if layout_block > 0
-             else bucket_tiles(n, c))
-    s = K.splits(row_tiles=tiles, query_blocks=-(-m // K.GEMM_TILE_M), k=k,
-                 blocks_per_sm=2, device=dev)
-    pv = torch.empty((m, s, K.pass_k(k)), dtype=torch.float32, device=dev)
-    pi = torch.empty((m, s, K.pass_k(k)), dtype=torch.int32, device=dev)
     if layout_block > 0:
+        views = lib.gleanvec_sq_sorted_views(layout_block, k,
+                                             int(dt == "u8"))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = sorted_scan_plan(m, n, k, layout_block, views, sms)
+        pv = torch.empty(plan.partial_shape, dtype=torch.float32, device=dev)
+        pi = torch.empty(plan.partial_shape, dtype=torch.int32, device=dev)
+        floors = torch.empty((m, 2 * plan.splits), dtype=torch.int32,
+                             device=dev)     # rank-th and k-th values
         err = getattr(lib, f"gleanvec_sq_sorted_topk_{dt}")(
             q_scaled.data_ptr(), q_lo.data_ptr(), tags.data_ptr(), rid,
-            codes.data_ptr(), m, c, d, n, layout_block, k, s, pv.data_ptr(),
-            pi.data_ptr(), vals.data_ptr(), ids.data_ptr(), stream)
+            codes.data_ptr(), m, c, d, n, layout_block, views, k,
+            plan.splits, pv.data_ptr(), pi.data_ptr(), floors.data_ptr(),
+            vals.data_ptr(), ids.data_ptr(), stream)
     else:
+        s = K.splits(row_tiles=bucket_tiles(n, c),
+                     query_blocks=-(-m // K.GEMM_TILE_M), k=k,
+                     blocks_per_sm=2, device=dev)
+        pv = torch.empty((m, s, K.pass_k(k)), dtype=torch.float32,
+                         device=dev)
+        pi = torch.empty((m, s, K.pass_k(k)), dtype=torch.int32, device=dev)
         ws, _ = bucket_workspace(lib, n, c, dev)
         err = getattr(lib, f"gleanvec_sq_gathered_topk_{dt}")(
             q_scaled.data_ptr(), q_lo.data_ptr(), tags.data_ptr(), rid,

@@ -13,7 +13,7 @@ import torch
 from repro_torch.index.topk import blocked_topk
 
 __all__ = ["ip_topk", "ip_topk_plain", "ScanPlan", "scan_plan",
-           "fold_profile"]
+           "split_plan", "fold_profile"]
 
 
 def ip_topk_plain(q: torch.Tensor, x: torch.Tensor, k: int,
@@ -37,19 +37,26 @@ class ScanPlan(NamedTuple):
     partial_shape: tuple
 
 
-def scan_plan(m: int, n: int, k: int, sms: int) -> ScanPlan:
+def split_plan(m: int, tiles: int, k: int, sms: int) -> ScanPlan:
     """The grid and partial-list sizes of the pipelined scan
-    (``csrc/ip_scan.cuh``, one block an SM) for ``m`` queries, ``n`` rows
-    and any k >= 1 on a card with ``sms`` SMs: blocks of ``K.IP_TILE_M``
-    queries, row tiles of ``K.IP_TILE_N``, and N split so that the grid
-    fills at most one wave (fewer splits, fewer top-k insertions: each
-    split's list takes about k (1 + ln(rows / k))); S is at most the row
-    tiles and S * pass_k(k) at most ``K.MERGE_MAX``."""
+    (``csrc/ip_scan.cuh``, one block an SM) for ``m`` queries, ``tiles`` row
+    tiles and any k >= 1 on a card with ``sms`` SMs: blocks of
+    ``K.IP_TILE_M`` queries, and the tiles split so that the grid fills at
+    most one wave (fewer splits, fewer top-k insertions: each split's list
+    takes about k (1 + ln(rows / k))); S is at most the tiles and
+    S * pass_k(k) at most ``K.MERGE_MAX``."""
     from repro_torch import kernels as K
     query_blocks = -(-m // K.IP_TILE_M)
-    s = max(1, min(sms // query_blocks, -(-n // K.IP_TILE_N),
+    s = max(1, min(sms // max(query_blocks, 1), tiles,
                    K.MERGE_MAX // K.pass_k(k)))
     return ScanPlan((query_blocks, s), s, (m, s, K.pass_k(k)))
+
+
+def scan_plan(m: int, n: int, k: int, sms: int) -> ScanPlan:
+    """:func:`split_plan` of ``ip_topk`` over ``n`` rows: row tiles of
+    ``K.IP_TILE_N``."""
+    from repro_torch import kernels as K
+    return split_plan(m, -(-n // K.IP_TILE_N), k, sms)
 
 
 def _scratch(q, x, k):

@@ -10,7 +10,9 @@ Port of ``repro/kernels/sq_dot`` (TPU kernel ``sq_dot``, body
 ``sq_dot(q, codes, lo, delta)`` folds as the reference's wrapper does and
 launches; ``sq_dot_folded(q_scaled, q_lo, codes)`` takes the folded
 operands (a ``QuantizedScorer``'s prepared queries). Both launch the same
-kernel and count in ``sq_dot.launches``.
+kernel (the dense instantiation of the pipelined scan, ``csrc/ip_scan.cuh``,
+with the launch shape of :func:`dense_plan`) and count in
+``sq_dot.launches``.
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels.gleanvec_sq import dense_plain
+from repro_torch.kernels.ip_topk import ScanPlan, split_plan
 
-__all__ = ["sq_dot", "sq_dot_folded", "sq_dot_folded_plain"]
+__all__ = ["sq_dot", "sq_dot_folded", "sq_dot_folded_plain", "dense_plan"]
 
 
 def _fold(q, lo, delta):
@@ -41,10 +44,29 @@ def sq_dot_folded_plain(q_scaled, q_lo, codes, block: int = 65536):
                        q_scaled.device, block)
 
 
+def dense_plan(m: int, n: int, sms: int) -> ScanPlan:
+    """The grid of ``sq_dot`` on a card with ``sms`` SMs: ``ip_topk``'s
+    one-wave split of the ``K.IP_TILE_N``-row tiles, one block an SM. The
+    blocks write disjoint columns: no partial lists (``partial_shape`` is
+    None), no merge."""
+    from repro_torch import kernels as K
+    return split_plan(m, -(-n // K.IP_TILE_N), 1, sms)._replace(
+        partial_shape=None)
+
+
 def _bind(lib):
+    from repro_torch import kernels as K
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sq_dot_u8.argtypes = [p, p, p, i, i, i, i, p, p]
     lib.sq_dot_u8.restype = ctypes.c_int
+    lib.sq_dot_tile.argtypes = [i]
+    lib.sq_dot_tile.restype = ctypes.c_int
+    tile = (lib.sq_dot_tile(0), lib.sq_dot_tile(1))
+    if tile != (K.IP_TILE_M, K.IP_TILE_N):
+        raise RuntimeError(
+            f"sq_dot: the kernel's tile {tile} is not (IP_TILE_M, "
+            f"IP_TILE_N) = {(K.IP_TILE_M, K.IP_TILE_N)}: its grid would be "
+            "sized wrong")
 
 
 def sq_dot_folded(q_scaled, q_lo, codes):
@@ -68,13 +90,12 @@ def sq_dot_folded(q_scaled, q_lo, codes):
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
-    s = K.splits(row_tiles=-(-n // K.GEMM_TILE_N),
-                 query_blocks=-(-m // K.GEMM_TILE_M), k=1, blocks_per_sm=3,
-                 device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = dense_plan(m, n, sms)
     lib = K.load_library("dense_scores", _bind)
     err = lib.sq_dot_u8(q_scaled.data_ptr(), q_lo.data_ptr(),
-                        codes.data_ptr(), m, d, n, s, out.data_ptr(),
-                        K.current_stream(dev))
+                        codes.data_ptr(), m, d, n, plan.splits,
+                        out.data_ptr(), K.current_stream(dev))
     K.check_launch("sq_dot", err, lib)
     sq_dot.launches += 1
     return out

@@ -11,7 +11,9 @@ Two top-k results of the same scan agree when, per query:
 
 ``dot_tol`` states the tolerance of two fp32 dot products that add the
 same terms in a different order; ``attention_error`` compares two
-evaluations of one attention output.
+evaluations of one attention output; ``exact_sorted_topk`` is the exact
+top-k of the tag-sorted GleanVec layout on integer data, which an fp32
+kernel must match bit for bit.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 __all__ = ["dot_tol", "topk_agreement", "assert_topk_close",
-           "attention_abs_mix", "attention_error"]
+           "attention_abs_mix", "attention_error", "exact_sorted_topk"]
 
 EPS32 = 2.0 ** -24
 
@@ -139,3 +141,33 @@ def assert_topk_close(res_a, res_b, tol: float, label: str = "") -> dict:
             f"  a ids {ia[r].tolist()}\n  a vals {va[r].tolist()}\n"
             f"  b ids {ib[r].tolist()}\n  b vals {vb[r].tolist()}")
     return rep
+
+
+def exact_sorted_topk(q_scaled, q_lo, block_tags, codes, row_ids, k: int,
+                      layout_block: int):
+    """The top-k of ``<q_scaled[m, tag_n], codes_n> + q_lo[m, tag_n]`` (tag_n
+    = ``block_tags[n // layout_block]``) scored in float64: exact for
+    small-integer data, where every fp32 evaluation is exact too. Value
+    descending, ties to the smaller id, rows with ``row_ids`` -1 left out;
+    (-3.4e38, -1) past the live rows. -> (vals (M, k) f32, ids (M, k)
+    i32)."""
+    n = codes.shape[0]
+    dev = codes.device
+    tag = block_tags.long()[torch.arange(n, device=dev) // layout_block]
+    s = torch.empty((q_scaled.shape[0], n), dtype=torch.float64, device=dev)
+    for t in torch.unique(tag).tolist():      # one matmul a view
+        rows = torch.nonzero(tag == t).squeeze(1)
+        s[:, rows] = q_scaled[:, t].double() @ codes[rows].double().T \
+            + q_lo[:, t:t + 1].double()
+    live = row_ids >= 0
+    s, ids = s[:, live], row_ids[live].long()
+    order = torch.argsort(ids)
+    s, ids = s[:, order], ids[order]        # ascending ids, then a stable sort
+    vals, sel = torch.sort(s, dim=1, descending=True, stable=True)
+    kk = min(k, ids.numel())
+    m = q_scaled.shape[0]
+    v = torch.full((m, k), -3.4e38, dtype=torch.float32, device=dev)
+    i = torch.full((m, k), -1, dtype=torch.int32, device=dev)
+    v[:, :kk] = vals[:, :kk].float()
+    i[:, :kk] = ids[sel[:, :kk]].int()
+    return v, i
