@@ -12,25 +12,26 @@ Phases (any failure raises and the script exits non-zero):
    from ``src/repro_torch/csrc`` (one nvcc per source, in parallel), and
    print every kernel's registers and spills (``-Xptxas -v``).
 2. Kernels against their plain PyTorch versions at ragged shapes: M and N
-   off the tiles, k in {1, 10, 49, 100, 200, 1000}, ip_topk at d in {1,
-   3, 160, 512, 513, 516} (rows off 16-byte alignment), u8 and f32 codes,
-   row_ids with -1, gathered and sorted layouts, IVF schedules with pad slots
-   (middle, end, a whole row), slack blocks and k above the valid row
-   count, exact ties; the dense kernels (sq_dot, gleanvec_ip, dense
-   gleanvec_sq) with layout blocks off the tile, ``scorer_scores`` of every
-   scorer class with dead columns, and graph hops (u8 and f32, d in {160,
-   33}, S up to 4096, B in {96, 128, 200}, pads, repeats, dead rows,
-   in-beam candidates, half-empty beams, exact ties); kmeans_assign at C
-   up to 300 and D up to 7000 (a tie across tiles of centers); the
-   gathered GleanVec path at C = 100 tags with an empty tag
-   and with one tag (the bucketing bit for bit, top-k and dense); the
-   sorted gleanvec_sq_topk and sq_dot on the pipelined scan bit for bit on
-   integer data (layout blocks 1, 64, 200, 256, 512, 4096, k up to 200, u8
-   and f32, a tie across layout blocks of different tags; sq_dot at d in
-   {1, 3, 160, 513} with rows off alignment); flash_attention (S in {1,
-   77, 100, 130, 300, 4097}, dh in {8, 16, 20, 64, 120, 128}, GQA groups
-   1, 4 and 8, window None / 48 / 4096, causal
-   and not, bf16 and f32, transposed views).
+   off the tiles, k in {1, 10, 49, 100, 200, 1000}, ip_topk at d in {1, 3,
+   160, 512, 513, 516} (rows off 16-byte alignment), u8 and f32 codes,
+   row_ids with -1, gathered and sorted layouts, IVF schedules with pad
+   slots (middle, end, a whole row), slack blocks and k above the valid row
+   count, exact ties, every kind of ``testing.IVF_SCHEDULES`` (bit for bit
+   on integer data) and whole lists cut into pieces; the dense kernels
+   (sq_dot, gleanvec_ip, dense gleanvec_sq) with layout blocks off the
+   tile, ``scorer_scores`` of every scorer class with dead columns, and
+   graph hops (u8 and f32, d in {160, 33}, S up to 4096, B in {96, 128,
+   200}, pads, repeats, dead rows, in-beam candidates, half-empty beams,
+   exact ties); kmeans_assign at C up to 300 and D up to 7000 (a tie across
+   tiles of centers); the gathered GleanVec path at C = 100 tags with an
+   empty tag and with one tag (the bucketing bit for bit, top-k and dense);
+   the sorted gleanvec_sq_topk and sq_dot on the pipelined scan bit for bit
+   on integer data (layout blocks 1, 64, 200, 256, 512, 4096, k up to 200,
+   u8 and f32, a tie across layout blocks of different tags; sq_dot at d in
+   {1, 3, 160, 513} with rows off alignment); flash_attention (S in {1, 77,
+   100, 130, 300, 4097}, dh in {8, 16, 20, 64, 120, 128}, GQA groups 1, 4
+   and 8, window None / 48 / 4096, causal and not, bf16 and f32, transposed
+   views).
 3. The flat main path: synthetic OOD data (D = 512), LeanVec-Sphering
    (d = 160) and GleanVec (C = 48, d = 160) fits, then for each of the 7
    scorer modes an encoded scorer behind a ServingEngine (batch 1024,
@@ -42,7 +43,9 @@ Phases (any failure raises and the script exits non-zero):
    clustering, nprobe = 12, reduced-space probe) in front of both sorted
    modes behind a ServingEngine (same batch, k, kappa, 5 batches), with
    the same readings and the counters zeroed just before and read just
-   after; then fused against gathered fine step on the first 200,000 rows.
+   after, and a digest of the fine step's values and ids on the batch's
+   probes (k = 100; two trees' runs compare bit for bit through it); then
+   fused against gathered fine step on the first 200,000 rows.
 3c. The stream (paper Section 3.2) on the same data: a fixed-capacity store
    of 2,000,000 slots holding the first 70 %, models fit on
    in-distribution queries, OOD traffic, then 3 cycles of serve one batch
@@ -64,14 +67,15 @@ Phases (any failure raises and the script exits non-zero):
    captured hop through kernel and plain version; whole traversals at
    expand 1 and 4), and churn on a streaming store: 10,000 removes, 2,000
    inserts linked by ``insert_ids``, ``refreshed``, swapped and served.
-4. Each kernel at its path's shapes and inputs: its time beside its
-   bound, its plain version's time, the time of the composed PyTorch
-   calls that compute the same function (``library_ms``), and its
-   agreement with the plain version; kmeans_assign at C = 48 and 100;
-   ip_topk's scan, fold and merge (flat linear modes, graph self-join);
-   the gathered kernels' bucketing step on its own; the GleanVec top-k
-   and sq_dot with their device time by kernel, the sorted top-k also at
-   the stream's layout block 256 (its final sorted stores).
+4. Each kernel at its path's shapes and inputs: its time beside its bound,
+   its plain version's time, the time of the composed PyTorch calls that
+   compute the same function (``library_ms``), and its agreement with the
+   plain version; kmeans_assign at C = 48 and 100; ip_topk's scan, fold and
+   merge (flat linear modes, graph self-join); the gathered kernels'
+   bucketing step on its own; the GleanVec top-k and sq_dot with their
+   device time by kernel; ivf_scan_topk with its time at k = 1, its fold
+   profile and its device time by kernel, the sorted top-k also at the
+   stream's layout block 256 (its final sorted stores).
 3e. LM serving, after the search phases' tensors are freed: h2o-danube-
    3-4b at its published widths with random weights drawn on the card,
    ``generate`` at B = 4, s0 = 8192, n_new = 32 (greedy): prefill ms and
@@ -93,6 +97,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import importlib
 import json
 import subprocess
@@ -476,6 +481,7 @@ def phase_kernels(K, testing, gen):
                              "center")
     log("  kmeans_assign exact ties: first center wins")
     phase_wide_kernels(K, testing, gen)
+    phase_ivf_kernels(K, testing, gen)
     phase_pipelined_kernels(K, testing, gen)
     phase_dense_kernels(K, testing, gen)
     phase_graph_kernels(K, testing, gen)
@@ -671,6 +677,85 @@ FLASH_CASES = [
     (2, 8, 8, 77, 128, None, False, torch.bfloat16, False),
     (1, 4, 2, 300, 20, 48, True, torch.float32, False),
 ]
+
+
+def phase_ivf_kernels(K, testing, gen):
+    """ivf_scan_topk on every kind of probe schedule the kernel must take
+    (``testing.IVF_SCHEDULES``: whole lists, a pad slot inside a list,
+    non-contiguous blocks, a tag change inside consecutive blocks, a
+    duplicated block and list, all pad, no queries, 256-row layout blocks
+    with slack blocks), u8 and f32, k in {1, 10, 100, 200}: on random data
+    against the plain version, on small integers bit for bit against the
+    exact top-k (``testing.exact_ivf_topk``). Then whole lists of 4096-row
+    blocks at M = 300, C = 48, d = 160 (long runs cut into pieces, a skewed
+    probe) at k = 100 and 200 against the plain version."""
+    dev = torch.device("cuda")
+    for kind in testing.IVF_SCHEDULES:
+        for u8 in (False, True):
+            worst = 0.0
+            for integer in (False, True):
+                args = testing.ivf_schedule_case(kind, u8, seed=11,
+                                                 integer=integer)
+                lb = args[6]
+                t = [torch.from_numpy(a).to(dev) for a in args[:6]]
+                for k in (1, 10, 100, 200):
+                    got = K.ivf_scan_topk(*t, k, lb)
+                    if t[0].shape[0] == 0:
+                        if got[0].shape != (0, k) or got[1].shape != (0, k):
+                            raise AssertionError("ivf_scan_topk: M = 0 "
+                                                 "gives the wrong shapes")
+                    elif integer:
+                        want = testing.exact_ivf_topk(*t, k, lb)
+                        if not (torch.equal(got[0], want[0])
+                                and torch.equal(got[1], want[1])):
+                            raise AssertionError(
+                                f"ivf_scan_topk {kind} "
+                                f"{'u8' if u8 else 'f32'} k={k}: not the "
+                                "exact top-k on integer data")
+                    else:
+                        tol = testing.dot_tol(row_norm_max(t[0]),
+                                              row_norm_max(t[4]),
+                                              t[4].shape[1],
+                                              float(t[1].abs().max()))
+                        want = K.ivf_scan_topk_plain(*t, k, lb)
+                        rep = testing.assert_topk_close(
+                            got, want, tol, f"ivf_scan_topk {kind} k={k}")
+                        worst = max(worst, rep["max_abs_err"])
+                        if not torch.equal(got[1] < 0, want[1] < 0):
+                            raise AssertionError(
+                                f"ivf_scan_topk {kind} k={k}: -1 ids differ "
+                                "from the plain version's")
+            log(f"  ivf_scan_topk schedule={kind} {'u8' if u8 else 'f32'} "
+                f"k in (1, 10, 100, 200): max_abs_err={worst:.3e} against "
+                "the plain version, bit for bit on integer data")
+    from repro_torch.core.scorer import _list_block_ranges
+    m, c, d, lb = 300, 48, 160, 4096
+    sizes = torch.randint(1, 8, (c,), generator=gen, device=dev)
+    btags = torch.repeat_interleave(torch.arange(c, device=dev),
+                                    sizes).to(torch.int32)
+    nb = btags.numel()
+    rid = torch.randperm(nb * lb, generator=gen, device=dev).to(torch.int32)
+    rid[torch.rand(nb * lb, generator=gen, device=dev) < 0.05] = -1
+    weight = 1.0 / torch.arange(1, c + 1, device=dev, dtype=torch.float32)
+    probe = torch.multinomial(weight.expand(m, c), IVF_NPROBE,
+                              generator=gen)
+    sched = _list_block_ranges(btags, c)[probe].reshape(m, -1)
+    qs = torch.randn(m, c, d, generator=gen, device=dev)
+    qlo = torch.randn(m, c, generator=gen, device=dev)
+    for u8 in (False, True):
+        x = (torch.randint(0, 256, (nb * lb, d), generator=gen, device=dev,
+                           dtype=torch.uint8) if u8 else
+             torch.randn(nb * lb, d, generator=gen, device=dev))
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), d,
+                              float(qlo.abs().max()))
+        for k in (100, 200):
+            args = (qs, qlo, btags, rid, x, sched, k, lb)
+            check_topk(f"ivf_scan_topk whole lists M={m} C={c} d={d} "
+                       f"layout_block={lb} N={nb * lb} S={sched.shape[1]} "
+                       f"k={k} {'u8' if u8 else 'f32'}",
+                       K.ivf_scan_topk(*args), K.ivf_scan_topk_plain(*args),
+                       tol, testing)
+        del x
 
 
 def check_flash(K, testing, label, q, k, v, causal, window):
@@ -1168,7 +1253,11 @@ def phase_ivf(K, testing, ds, x, glv, states):
         probe = torch.sort(ivf.coarse_scores(index, qstate), dim=1,
                            descending=True, stable=True).indices[:, :IVF_NPROBE]
         inputs[mode] = (scorer, qstate.qstate, probe)
-        del engine
+        vals, ids = K.ivf_scan_topk(*ivf_args(scorer, qstate.qstate, probe,
+                                              100))
+        log(f"  mode={mode} fine step on this batch's probes (k=100): "
+            f"digest of values and ids {digest(vals, ids)}")
+        del engine, vals, ids
     totals = {fn.__name__: fn.launches for fn in all_counters(K)}
     log(f"  IVF-path launches: {totals}")
 
@@ -1999,19 +2088,26 @@ def mode_calls(K, mode, scorer, qstate, kappa):
             lambda: per_cluster_library(qs, qlo, tags, x, kappa, rid, lb))
 
 
-def ivf_calls(K, testing, scorer, qstate, probe, kappa):
-    """(kernel call, plain call, flops, bytes, tolerance, library call) of
-    the IVF fine step on the IVF phase's inputs (the work:
-    :func:`ivf_work`)."""
+def ivf_args(scorer, qstate, probe, kappa):
+    """The arguments of ``ivf_scan_topk`` for a sorted scorer's prepared
+    queries and their probed clusters: (q_scaled, q_lo, block_tags, perm,
+    rows, sched, kappa, layout_block)."""
     if isinstance(qstate, tuple):
         qs, qlo, x = qstate.q_scaled, qstate.q_lo, scorer.codes
     else:
         qs, x = qstate, scorer.x_low
         qlo = torch.zeros(qs.shape[:2], dtype=torch.float32, device=qs.device)
-    m = qs.shape[0]
-    sched = scorer.list_block_ranges[probe].reshape(m, -1)
-    args = (qs, qlo, scorer.block_tags, scorer.perm, x, sched, kappa,
+    sched = scorer.list_block_ranges[probe].reshape(qs.shape[0], -1)
+    return (qs, qlo, scorer.block_tags, scorer.perm, x, sched, kappa,
             scorer.layout_block)
+
+
+def ivf_calls(K, testing, scorer, qstate, probe, kappa):
+    """(kernel call, plain call, flops, bytes, tolerance, library call) of
+    the IVF fine step on the IVF phase's inputs (the work:
+    :func:`ivf_work`)."""
+    args = ivf_args(scorer, qstate, probe, kappa)
+    qs, qlo, x = args[0], args[1], args[4]
     flops, nbytes = ivf_work(*args)
     tol = testing.dot_tol(row_norm_max(qs), row_norm_max(x), qs.shape[2],
                           float(qlo.abs().max()))
@@ -2077,6 +2173,38 @@ def ip_topk_split(K, q, x, k) -> str:
     return (f"share of the scan's cycles (clock64, thread 0): {parts}; "
             "device time by kernel (torch.profiler): "
             + device_breakdown(lambda: K.ip_topk(q, x, k)))
+
+
+def ivf_split(K, args) -> str:
+    """Where an ivf_scan_topk call's time goes: its device time by kernel
+    (``torch.profiler``), its time at k = 1 beside its time at the call's
+    k (the fold's share estimated as 1 - t(k = 1) / t(k), public wrappers
+    only, so any tree's kernel reads the same way), and, where the kernel
+    has one, its own clock64 fold profile (``fold_profile``: thread 0 of
+    each block, one pass)."""
+    ivs = importlib.import_module("repro_torch.kernels.ivf_scan")
+    k = args[6]
+    t_k, _ = timed(lambda: K.ivf_scan_topk(*args), 3)
+    t_1, _ = timed(lambda: K.ivf_scan_topk(*args[:6], 1, args[7]), 3)
+    out = (f"at k = {k} {t_k:.3f} ms, at k = 1 (the least fold) {t_1:.3f} "
+           f"ms: fold share ~{1 - t_1 / t_k:.1%}")
+    if hasattr(ivs, "fold_profile"):
+        prof = ivs.fold_profile(*args[:6], min(k, K.PASS_K), args[7])
+        total = max(prof["kernel"], 1)
+        out += "; share of the scan's cycles (clock64, thread 0): " + \
+            ", ".join(f"{p} {prof[p] / total:.1%}"
+                      for p in ivs.FOLD_PARTS[1:])
+    return out + "; device time by kernel (torch.profiler): " + \
+        device_breakdown(lambda: K.ivf_scan_topk(*args))
+
+
+def digest(*tensors) -> str:
+    """A SHA-256 prefix of the tensors' bytes: equal digests in two runs
+    mean bit-identical results."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def time_kernel(name, label, calls, launches, testing, reps: int = 3):
@@ -2371,8 +2499,8 @@ def phase_timing(K, testing, x, glv, states, per_mode, totals, ivf_inputs,
         table.append(time_kernel("ivf_scan_topk", mode, calls,
                                  ivf_launches[mode]["ivf_scan_topk"],
                                  testing))
-        log(f"  ivf_scan_topk[{mode}] device time by kernel (torch.profiler): "
-            + device_breakdown(calls[0]))
+        log(f"  ivf_scan_topk[{mode}] "
+            + ivf_split(K, ivf_args(scorer, qstate, probe, 100)))
     x_unit = normalize_rows(x)
     # the main path's C = 48 (the GleanVec fit's centers), and the paper's
     # largest C = 100 (off the main path: gleanvec.fit(C=100) and
@@ -2425,15 +2553,16 @@ def clocks_during(fn, seconds: float = 1.5) -> str:
             f"{watts[len(watts) // 2]:.0f} W (median of {len(rows)})")
 
 
-def kernel_timing(K, gen):
-    """Every kernel at the main path's shapes on random data drawn on the
+def kernel_timing(K, gen, only=()):
+    """Every kernel (or those named in ``only``) at the main path's shapes
+    on random data drawn on the
     card, through the public wrappers only, so that this script times
     another tree's kernels with the same calls (phase 4 times them on the
     main path's own inputs): ip_topk as `full`, sphering, sphering-int8 and
     the graph build's padded self-join; kmeans_assign at C = 48 and 100;
     gleanvec_sq_topk (C = 48, d = 160, kappa = 100, u8 and f32) sorted at
     the flat path's layout block 4096 and the stream's 256, and gathered;
-    ivf_scan_topk (nprobe 12, layout block 4096); the dense sq_dot,
+    ivf_scan_topk (nprobe 12, layout blocks 4096 and 256); the dense sq_dot,
     gleanvec_sq (gathered, and sorted at 256) and gleanvec_ip at the
     stream's shape; graph_scan_beam_step (B 128, S 28 and 112); and
     flash_attention at the LM prefill's shape. Each beside its library
@@ -2442,6 +2571,9 @@ def kernel_timing(K, gen):
     from types import SimpleNamespace
     from repro_torch.core.scorer import _list_block_ranges
     dev = torch.device("cuda")
+
+    def want(name):
+        return not only or name in only
     log("kernel timing (random data; CUDA events, mean of 3 after two "
         "warm-ups)")
 
@@ -2469,172 +2601,192 @@ def kernel_timing(K, gen):
         return btags, rid
 
     m = 1024
-    for label, n, d, k, u8 in (("full", N_ROWS, 512, 10, False),
-                               ("sphering", N_ROWS, 160, 100, False),
-                               ("sphering-int8", N_ROWS, 160, 100, True)):
-        q = torch.randn(m, d, generator=gen, device=dev)
-        x = codes(n, d, u8)
-        report(f"ip_topk[{label}]", lambda: K.ip_topk(q, x, k),
-               lambda: torch.topk(q @ x.to(torch.float32).T, k, dim=1),
-               2.0 * m * n * d, (m + n * x.element_size() / 4) * d * 4
-               + m * k * 8)
-        log(f"    {ip_topk_split(K, q, x, k)}")
+    if want("ip_topk"):
+        for label, n, d, k, u8 in (("full", N_ROWS, 512, 10, False),
+                                   ("sphering", N_ROWS, 160, 100, False),
+                                   ("sphering-int8", N_ROWS, 160, 100, True)):
+            q = torch.randn(m, d, generator=gen, device=dev)
+            x = codes(n, d, u8)
+            report(f"ip_topk[{label}]", lambda: K.ip_topk(q, x, k),
+                   lambda: torch.topk(q @ x.to(torch.float32).T, k, dim=1),
+                   2.0 * m * n * d, (m + n * x.element_size() / 4) * d * 4
+                   + m * k * 8)
+            log(f"    {ip_topk_split(K, q, x, k)}")
+            log(f"    at k = 1 (the least fold): "
+                f"{timed(lambda: K.ip_topk(q, x, 1), 3)[0]:.3f} ms")
+            del q, x
+        xg = torch.randn(GRAPH_ROWS, 512, generator=gen, device=dev)
+        xa = torch.zeros((GRAPH_ROWS, 516), device=dev)
+        xa[:, :512] = xg
+        xa[:, 512] = -0.5 * torch.sum(xg * xg, dim=1)
+        qa = torch.zeros((m, 516), device=dev)
+        qa[:, :512] = xg[:m]
+        qa[:, 512] = 1.0
+        del xg
+        report("ip_topk[graph self-join d=513 k=49]",
+               lambda: K.ip_topk(qa, xa, 49),
+               lambda: torch.topk(qa @ xa.T, 49, dim=1),
+               2.0 * m * GRAPH_ROWS * 513,
+               (m + GRAPH_ROWS) * 513 * 4 + m * 49 * 8)
+        log(f"    {ip_topk_split(K, qa, xa, 49)}")
         log(f"    at k = 1 (the least fold): "
-            f"{timed(lambda: K.ip_topk(q, x, 1), 3)[0]:.3f} ms")
-        del q, x
-    xg = torch.randn(GRAPH_ROWS, 512, generator=gen, device=dev)
-    xa = torch.zeros((GRAPH_ROWS, 516), device=dev)
-    xa[:, :512] = xg
-    xa[:, 512] = -0.5 * torch.sum(xg * xg, dim=1)
-    qa = torch.zeros((m, 516), device=dev)
-    qa[:, :512] = xg[:m]
-    qa[:, 512] = 1.0
-    del xg
-    report("ip_topk[graph self-join d=513 k=49]",
-           lambda: K.ip_topk(qa, xa, 49),
-           lambda: torch.topk(qa @ xa.T, 49, dim=1),
-           2.0 * m * GRAPH_ROWS * 513, (m + GRAPH_ROWS) * 513 * 4 + m * 49 * 8)
-    log(f"    {ip_topk_split(K, qa, xa, 49)}")
-    log(f"    at k = 1 (the least fold): "
-        f"{timed(lambda: K.ip_topk(qa, xa, 1), 3)[0]:.3f} ms")
-    del qa, xa
-    x = torch.nn.functional.normalize(
-        torch.randn(N_ROWS, 512, generator=gen, device=dev), dim=1)
-    for c in (48, 100):
-        cent = x[torch.randperm(N_ROWS, generator=gen, device=dev)[:c]]
-        report(f"kmeans_assign[C={c}]", lambda: K.kmeans_assign(x, cent),
-               lambda: torch.max(x @ cent.T, dim=1),
-               2.0 * N_ROWS * c * 512, (N_ROWS + c) * 512 * 4 + N_ROWS * 8)
-    del x
+            f"{timed(lambda: K.ip_topk(qa, xa, 1), 3)[0]:.3f} ms")
+        del qa, xa
+    if want("kmeans_assign"):
+        x = torch.nn.functional.normalize(
+            torch.randn(N_ROWS, 512, generator=gen, device=dev), dim=1)
+        for c in (48, 100):
+            cent = x[torch.randperm(N_ROWS, generator=gen, device=dev)[:c]]
+            report(f"kmeans_assign[C={c}]", lambda: K.kmeans_assign(x, cent),
+                   lambda: torch.max(x @ cent.T, dim=1),
+                   2.0 * N_ROWS * c * 512, (N_ROWS + c) * 512 * 4 + N_ROWS * 8)
+        del x
     c, d, k = 48, 160, 100
     qs = torch.randn(m, c, d, generator=gen, device=dev)
     qlo = torch.randn(m, c, generator=gen, device=dev)
-    for lb in (4096, 256):
-        nb = -(-N_ROWS // lb)                    # clusters in tag order
-        btags, rid = sorted_layout(nb, lb, c, 0.05)
-        live = int((rid >= 0).sum())
+    if want("gleanvec_sq_topk"):
+        for lb in (4096, 256):
+            nb = -(-N_ROWS // lb)                    # clusters in tag order
+            btags, rid = sorted_layout(nb, lb, c, 0.05)
+            live = int((rid >= 0).sum())
+            for u8 in (False, True):
+                x = codes(nb * lb, d, u8)
+                label = (f"gleanvec_sq_topk[sorted L={lb} "
+                         f"{'u8' if u8 else 'f32'}]")
+
+                def fn():
+                    return K.gleanvec_sq_topk(qs, qlo, btags, x, k,
+                                              row_ids=rid, layout_block=lb)
+                report(label, fn,
+                       lambda: per_cluster_library(qs, qlo, btags, x, k, rid,
+                                                   lb),
+                       2.0 * m * live * d, (qs.numel() + qlo.numel()) * 4
+                       + live * d * x.element_size() + nb * 4 + live * 4
+                       + m * k * 8)
+                log(f"    device time by kernel (torch.profiler): "
+                    + device_breakdown(fn))
+                del x
+    tags = torch.randint(0, c, (N_ROWS,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    if want("gleanvec_sq_topk"):
         for u8 in (False, True):
-            x = codes(nb * lb, d, u8)
-            label = f"gleanvec_sq_topk[sorted L={lb} {'u8' if u8 else 'f32'}]"
+            x = codes(N_ROWS, d, u8)
 
             def fn():
-                return K.gleanvec_sq_topk(qs, qlo, btags, x, k, row_ids=rid,
-                                          layout_block=lb)
-            report(label, fn,
-                   lambda: per_cluster_library(qs, qlo, btags, x, k, rid,
-                                               lb),
-                   2.0 * m * live * d, (qs.numel() + qlo.numel()) * 4
-                   + live * d * x.element_size() + nb * 4 + live * 4
-                   + m * k * 8)
+                return K.gleanvec_sq_topk(qs, qlo, tags, x, k)
+            report(f"gleanvec_sq_topk[gathered {'u8' if u8 else 'f32'}]", fn,
+                   lambda: per_cluster_library(qs, qlo, tags, x, k, None, 0),
+                   2.0 * m * N_ROWS * d, (qs.numel() + qlo.numel()) * 4
+                   + N_ROWS * (d * x.element_size() + 4) + m * k * 8)
             log(f"    device time by kernel (torch.profiler): "
                 + device_breakdown(fn))
             del x
-    tags = torch.randint(0, c, (N_ROWS,), generator=gen, device=dev,
-                         dtype=torch.int32)
-    for u8 in (False, True):
-        x = codes(N_ROWS, d, u8)
-
-        def fn():
-            return K.gleanvec_sq_topk(qs, qlo, tags, x, k)
-        report(f"gleanvec_sq_topk[gathered {'u8' if u8 else 'f32'}]", fn,
-               lambda: per_cluster_library(qs, qlo, tags, x, k, None, 0),
-               2.0 * m * N_ROWS * d, (qs.numel() + qlo.numel()) * 4
-               + N_ROWS * (d * x.element_size() + 4) + m * k * 8)
-        log(f"    device time by kernel (torch.profiler): "
-            + device_breakdown(fn))
-        del x
-    # the IVF fine step: each query probes IVF_NPROBE of the C clusters
-    lb = 4096
-    nb = -(-N_ROWS // lb)
-    btags, rid = sorted_layout(nb, lb, c, 0.05)
-    probe = torch.rand(m, c, generator=gen, device=dev).argsort(dim=1)[
-        :, :IVF_NPROBE]
-    sched = _list_block_ranges(btags, c)[probe].reshape(m, -1)
-    for u8 in (False, True):
-        x = codes(nb * lb, d, u8)
-        args = (qs, qlo, btags, rid, x, sched, k, lb)
-        layout = SimpleNamespace(layout_block=lb, codes=x, block_tags=btags,
-                                 perm=rid)
-        report(f"ivf_scan_topk[nprobe={IVF_NPROBE} {'u8' if u8 else 'f32'}]",
-               lambda: K.ivf_scan_topk(*args),
-               lambda: ivf_library(qs, qlo, layout, probe, k),
-               *ivf_work(*args))
-        del x, args, layout
+    # the IVF fine step: each query probes IVF_NPROBE of the C clusters,
+    # at the flat path's layout block and the stream's
+    if want("ivf_scan_topk"):
+        probe = torch.rand(m, c, generator=gen, device=dev).argsort(dim=1)[
+            :, :IVF_NPROBE]
+        for lb in (4096, 256):
+            nb = -(-N_ROWS // lb)
+            btags, rid = sorted_layout(nb, lb, c, 0.05)
+            sched = _list_block_ranges(btags, c)[probe].reshape(m, -1)
+            for u8 in (False, True):
+                x = codes(nb * lb, d, u8)
+                args = (qs, qlo, btags, rid, x, sched, k, lb)
+                layout = SimpleNamespace(layout_block=lb, codes=x,
+                                         block_tags=btags, perm=rid)
+                report(f"ivf_scan_topk[nprobe={IVF_NPROBE} L={lb} "
+                       f"{'u8' if u8 else 'f32'}]",
+                       lambda: K.ivf_scan_topk(*args),
+                       lambda: ivf_library(qs, qlo, layout, probe, k),
+                       *ivf_work(*args))
+                log(f"    {ivf_split(K, args)}")
+                del x, args, layout
     # the dense kernels at the stream's shape (one (M, N) f32 output)
-    for label, lb, u8 in (("gathered f32", 0, False),
-                          ("gathered u8", 0, True),
-                          ("sorted f32 L=256", 256, False),
-                          ("sorted u8 L=256", 256, True)):
-        nb = -(-N_ROWS // lb) if lb else 0
-        n = nb * lb if lb else N_ROWS
-        t = sorted_layout(nb, lb, c, 0.0)[0] if lb else tags
-        x = codes(n, d, u8)
-        report(f"gleanvec_sq[{label}]",
-               lambda: K.gleanvec_sq(qs, qlo, t, x, layout_block=lb),
-               lambda: per_cluster_dense_library(qs, qlo, t, x, lb),
-               2.0 * m * n * d, (qs.numel() + qlo.numel() + m * n
-                                 + t.numel()) * 4 + n * d * x.element_size())
-        del x
-    x = codes(N_ROWS, d, False)
-    zeros = torch.zeros((m, c), device=dev)
-    report("gleanvec_ip[gathered f32]", lambda: K.gleanvec_ip(qs, tags, x),
-           lambda: per_cluster_dense_library(qs, zeros, tags, x, 0),
-           2.0 * m * N_ROWS * d, (qs.numel() + m * N_ROWS + N_ROWS * d
-                                  + N_ROWS) * 4)
-    del x, zeros, tags
+    if want("gleanvec_sq"):
+        for label, lb, u8 in (("gathered f32", 0, False),
+                              ("gathered u8", 0, True),
+                              ("sorted f32 L=256", 256, False),
+                              ("sorted u8 L=256", 256, True)):
+            nb = -(-N_ROWS // lb) if lb else 0
+            n = nb * lb if lb else N_ROWS
+            t = sorted_layout(nb, lb, c, 0.0)[0] if lb else tags
+            x = codes(n, d, u8)
+            report(f"gleanvec_sq[{label}]",
+                   lambda: K.gleanvec_sq(qs, qlo, t, x, layout_block=lb),
+                   lambda: per_cluster_dense_library(qs, qlo, t, x, lb),
+                   2.0 * m * n * d, (qs.numel() + qlo.numel() + m * n
+                                     + t.numel()) * 4
+                   + n * d * x.element_size())
+            del x
+    if want("gleanvec_ip"):
+        x = codes(N_ROWS, d, False)
+        zeros = torch.zeros((m, c), device=dev)
+        report("gleanvec_ip[gathered f32]", lambda: K.gleanvec_ip(qs, tags, x),
+               lambda: per_cluster_dense_library(qs, zeros, tags, x, 0),
+               2.0 * m * N_ROWS * d, (qs.numel() + m * N_ROWS + N_ROWS * d
+                                      + N_ROWS) * 4)
+        del x, zeros
+    del tags
     # one graph hop at the graph path's shapes: batch 1024, beam 128, S
     # neighbor rows (pads, repeats, dead rows) of a 1M-row sorted layout
-    lb = 4096
-    nb = -(-GRAPH_ROWS // lb)
-    n = nb * lb
-    btags, rid = sorted_layout(nb, lb, c, 0.05)
-    beam_rows = (torch.arange(GRAPH_BEAM, device=dev) * (n // GRAPH_BEAM))[
-        None] + torch.randint(0, n // GRAPH_BEAM, (m, 1), generator=gen,
-                              device=dev)
-    beam_ids = rid[beam_rows]
-    beam_vals = torch.where(beam_ids >= 0,
-                            3 * torch.randn(m, GRAPH_BEAM, generator=gen,
-                                            device=dev),
-                            torch.full((m, GRAPH_BEAM), -3.4e38, device=dev))
-    beam_vals, order = torch.sort(beam_vals, dim=1, descending=True)
-    beam_ids = torch.gather(beam_ids, 1, order)
-    for u8 in (False, True):
-        x = codes(n, d, u8)
-        for s in (28, 112):
-            nbr = torch.randint(0, n, (m, s), generator=gen, device=dev,
-                                dtype=torch.int32)
-            nbr[torch.rand(m, s, generator=gen, device=dev) < 0.15] = -1
-            nbr[:, 1::7] = nbr[:, :1]                 # repeated rows
-            args = (qs, qlo, btags, rid, x, nbr, beam_vals, beam_ids)
-            report(f"graph_scan_beam_step[{'u8' if u8 else 'f32'} S={s}]",
-                   lambda: K.graph_scan_beam_step(*args, layout_block=lb),
-                   lambda: hop_library(*args, lb), *hop_work(*args, lb),
-                   reps=50)
-        del x
-    del qs, qlo, btags, rid, beam_ids, beam_vals
-    q = torch.randn(m, d, generator=gen, device=dev)
-    lo = torch.randn(m, generator=gen, device=dev)
-    x = codes(N_ROWS, d, True)
-    report("sq_dot[stream shape]", lambda: K.sq_dot_folded(q, lo, x),
-           lambda: q @ x.to(torch.float32).T + lo[:, None],
-           2.0 * m * N_ROWS * d, (q.numel() + m + m * N_ROWS) * 4
-           + x.numel())
-    log("    device time by kernel (torch.profiler): " + device_breakdown(
-        lambda: K.sq_dot_folded(q, lo, x), reps=2))
-    del q, lo, x
+    if want("graph_scan_beam_step"):
+        lb = 4096
+        nb = -(-GRAPH_ROWS // lb)
+        n = nb * lb
+        btags, rid = sorted_layout(nb, lb, c, 0.05)
+        beam_rows = (torch.arange(GRAPH_BEAM, device=dev) * (n // GRAPH_BEAM))[
+            None] + torch.randint(0, n // GRAPH_BEAM, (m, 1), generator=gen,
+                                  device=dev)
+        beam_ids = rid[beam_rows]
+        beam_vals = torch.where(beam_ids >= 0,
+                                3 * torch.randn(m, GRAPH_BEAM, generator=gen,
+                                                device=dev),
+                                torch.full((m, GRAPH_BEAM), -3.4e38,
+                                           device=dev))
+        beam_vals, order = torch.sort(beam_vals, dim=1, descending=True)
+        beam_ids = torch.gather(beam_ids, 1, order)
+        for u8 in (False, True):
+            x = codes(n, d, u8)
+            for s in (28, 112):
+                nbr = torch.randint(0, n, (m, s), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                nbr[torch.rand(m, s, generator=gen, device=dev) < 0.15] = -1
+                nbr[:, 1::7] = nbr[:, :1]                 # repeated rows
+                args = (qs, qlo, btags, rid, x, nbr, beam_vals, beam_ids)
+                report(f"graph_scan_beam_step[{'u8' if u8 else 'f32'} S={s}]",
+                       lambda: K.graph_scan_beam_step(*args, layout_block=lb),
+                       lambda: hop_library(*args, lb), *hop_work(*args, lb),
+                       reps=50)
+            del x
+        del btags, rid, beam_ids, beam_vals
+    del qs, qlo
+    if want("sq_dot"):
+        q = torch.randn(m, d, generator=gen, device=dev)
+        lo = torch.randn(m, generator=gen, device=dev)
+        x = codes(N_ROWS, d, True)
+        report("sq_dot[stream shape]", lambda: K.sq_dot_folded(q, lo, x),
+               lambda: q @ x.to(torch.float32).T + lo[:, None],
+               2.0 * m * N_ROWS * d, (q.numel() + m + m * N_ROWS) * 4
+               + x.numel())
+        log("    device time by kernel (torch.profiler): " + device_breakdown(
+            lambda: K.sq_dot_folded(q, lo, x), reps=2))
+        del q, lo, x
     # flash_attention at the LM prefill's shape (h2o-danube-3-4b heads)
-    b, h, kv, s, dh, window = LM_BATCH, 32, 8, LM_PROMPT, 120, 4096
-    q, k_, v = (torch.randn(b, heads, s, dh, generator=gen,
-                            device=dev).to(torch.bfloat16)
-                for heads in (h, kv, kv))
-    ms, _ = timed(lambda: K.flash_attention(q, k_, v, True, window), 5)
-    lib_ms, _, how = sdpa_library(q, k_, v, window, 3)
-    bnd, by = bound_ms(*flash_work(q, k_, v, window), PEAK_BF16_FLOPS)
-    log(f"  flash_attention[B={b} H={h} KV={kv} S={s} dh={dh} W={window} "
-        f"bf16]: ms={ms:.3f} library_ms={lib_ms:.3f} (SDPA, {how}) "
-        f"bound_ms={bnd:.3f} ({by}) share_of_bound={bnd / ms:.1%}; "
-        f"{clocks_during(lambda: K.flash_attention(q, k_, v, True, window))}")
-    del q, k_, v
+    if want("flash_attention"):
+        b, h, kv, s, dh, window = LM_BATCH, 32, 8, LM_PROMPT, 120, 4096
+        q, k_, v = (torch.randn(b, heads, s, dh, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for heads in (h, kv, kv))
+        ms, _ = timed(lambda: K.flash_attention(q, k_, v, True, window), 5)
+        lib_ms, _, how = sdpa_library(q, k_, v, window, 3)
+        bnd, by = bound_ms(*flash_work(q, k_, v, window), PEAK_BF16_FLOPS)
+        log(f"  flash_attention[B={b} H={h} KV={kv} S={s} dh={dh} W={window} "
+            f"bf16]: ms={ms:.3f} library_ms={lib_ms:.3f} (SDPA, {how}) "
+            f"bound_ms={bnd:.3f} ({by}) share_of_bound={bnd / ms:.1%}; "
+            + clocks_during(lambda: K.flash_attention(q, k_, v, True,
+                                                      window)))
+        del q, k_, v
     torch.cuda.synchronize()
 
 
@@ -2642,10 +2794,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build + ragged checks)")
-    ap.add_argument("--kernel-timing", action="store_true",
-                    help="after the build, time every kernel at the main "
-                    "path's shapes on random data through the public "
-                    "wrappers (no phase 2), then stop")
+    ap.add_argument("--kernel-timing", nargs="*", metavar="KERNEL",
+                    help="after the build, time every kernel (or those "
+                    "named) at the main path's shapes on random data "
+                    "through the public wrappers (no phase 2), then stop")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2677,8 +2829,8 @@ def main(argv=None) -> int:
                 log(f"    {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.kernel_timing:
-        kernel_timing(K, gen)
+    if args.kernel_timing is not None:
+        kernel_timing(K, gen, args.kernel_timing)
         log(f"kernel timing: done ({time.perf_counter() - t_start:.0f} s)")
         return 0
     phase_kernels(K, testing, gen)

@@ -76,3 +76,29 @@ __device__ __forceinline__ void stage_chunk_rows(unsigned char* dst, int stride,
                                                  int kc) {
   stage_chunk_rows<THREADS, T, BK, ROWS, UNIT>(dst, stride, src, row0, n_rows, d, kc, d);
 }
+
+// As stage_chunk_rows, for the rows rows[0 .. ROWS) of a row-major array
+// (row i at src + rows[i] * ld; rows[i] < 0: zeros), `rows` in shared
+// memory: one shared load a copy for the row's index.
+template <int THREADS, typename T, int BK, int ROWS, int UNIT>
+__device__ __forceinline__ void stage_chunk_rows_at(unsigned char* dst, int stride,
+                                                    const T* src, const int* rows, int d,
+                                                    int kc, long long ld) {
+  constexpr int PER = UNIT >= (int)sizeof(T) ? UNIT / (int)sizeof(T) : 1;
+  constexpr int UPR = BK / PER;
+  constexpr int STEP = THREADS / UPR;
+  static_assert(THREADS % UPR == 0 && UNIT >= 4, "whole rows a pass, cp.async copies");
+  const int u = threadIdx.x % UPR, r = threadIdx.x / UPR, dd = kc + u * PER;
+  const bool in_depth = dd < d;
+  unsigned char* out = dst + r * stride + u * UNIT;
+#pragma unroll
+  for (int i = 0; i < (ROWS + STEP - 1) / STEP; ++i) {
+    if (ROWS % STEP != 0 && r + i * STEP >= ROWS) break;
+    const int row = rows[r + i * STEP];
+    const bool ok = in_depth && row >= 0;
+    const T* p = ok ? src + (size_t)row * ld + dd : src;
+    unsigned char* o = out + i * STEP * stride;
+    if constexpr (UNIT == 16) cp_async16(o, p, ok);
+    else cp_async4(o, p, ok);
+  }
+}

@@ -6,8 +6,11 @@
 //     query view q[m, tag] and add its offset q_lo[m, tag], with ids read
 //     through row_ids (-1 = padding, never listed);
 //   * dense scores (V = 1, DENSE): sq_dot in dense_scores.cu, the one-view
-//     case (C = 1) with a store of every score tile in place of the fold.
-// The gathered, IVF and the other dense scans keep scan_gemm.cuh.
+//     case (C = 1) with a store of every score tile in place of the fold;
+//   * work items (ip_list_kernel, at the end): ivf_scan.cu's runs of layout
+//     blocks, each scanned by one block for up to IP_TM queries gathered
+//     through an index list, one view an item.
+// The gathered and the other dense scans keep scan_gemm.cuh.
 //
 // A block owns IP_TM = 64 queries and one split of the database's tiles of
 // IP_TN = 512 rows, one block an SM (256 threads with up to 255 registers).
@@ -401,6 +404,22 @@ struct IpFoldLayout {
   }
 };
 
+// LIST (ip_list_kernel): the block query rows of the work item being
+// scanned, in shared memory. Row r is query m[r] (-1: none), whose list goes
+// to its partial slot slot[r] and who has nslots[r] partial slots in all;
+// rows from end[r] on are not its run's. A row listed in two of a query's
+// slots is two entries of equal value and id, so a later pass's ceiling
+// also names the slot its entry came from (cslot[r]): an equal entry is
+// below the ceiling when its slot comes after that one.
+struct IpListRows {
+  int* m = nullptr;
+  int* slot = nullptr;
+  int* end = nullptr;
+  int* nslots = nullptr;
+  float* lo = nullptr;  // the offset of its view
+  int* cslot = nullptr;
+};
+
 __device__ __forceinline__ void ip_clock(bool on, unsigned long long* slot, long long& t) {
   if (on) {
     const long long now = clock64();
@@ -452,15 +471,110 @@ __device__ __forceinline__ void ip_share_floor(const IpScanArgs& a, const IpFold
   if (lane == 0) f.floor_v[r] = ip_unorder(v);
 }
 
+// LIST: ip_share_floor<1> for block query row r of a work item, whose
+// query lr.m[r] has lr.nslots[r] partial slots (its runs' pieces) in place
+// of the splits, this item's being lr.slot[r]; a.floors is (M, 2 a.S).
+__device__ __forceinline__ void ip_list_share_floor(const IpScanArgs& a, const IpFoldLayout& f,
+                                                    int r, int lane, const IpListRows& lr) {
+  const int k = a.k, ns = lr.nslots[r], rank = (k + ns - 1) / ns, own = lr.slot[r];
+  const size_t row = (size_t)lr.m[r] * a.S * 2;
+  if (lane == 0 && f.li[r * k + rank - 1] >= 0)
+    a.floors[row + own] = ip_order(f.lv[r * k + rank - 1]);
+  if (lane == 0 && f.li[r * k + k - 1] >= 0)
+    a.floors[row + a.S + own] = ip_order(f.lv[r * k + k - 1]);
+  int v = INT_MAX, w = INT_MIN;
+  for (int s2 = lane; s2 < ns; s2 += 32) {
+    v = min(v, __ldcg(a.floors + row + s2));
+    w = max(w, __ldcg(a.floors + row + a.S + s2));
+  }
+  v = max(__reduce_min_sync(0xffffffffu, v), __reduce_max_sync(0xffffffffu, w));
+  if (lane == 0) f.floor_v[r] = ip_unorder(v);
+}
+
+// LIST: fold the c (1 <= c <= IP_CAP) candidates cv/ci of one query into
+// its sorted list lv/li (k <= TOPK_PASS_K entries, best first) in one pass
+// of the warp, not one candidate at a time (topk_update_row): the lanes sort
+// the candidates (a bitonic network over the 32 lanes), each candidate
+// finds its place among the list's entries and each entry its place among
+// the candidates (binary searches), and every entry moves at once. A work
+// item's cold lists take hundreds of candidates a query in their first
+// tiles. Candidates and entries are distinct (one row, one entry a slot),
+// so the places are a permutation; entries moved past k drop out.
+__device__ __forceinline__ void ip_list_insert(float* cv, int* ci, int c, float* lv, int* li,
+                                               int k, int lane) {
+  static_assert(IP_CAP == 32 && TOPK_PASS_K % 32 == 0, "one candidate a lane");
+  const unsigned full = 0xffffffffu;
+  float v = lane < c ? cv[lane] : -CUDART_INF_F;  // padding sorts last
+  int id = lane < c ? ci[lane] : -1;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float ov = __shfl_xor_sync(full, v, stride);
+      const int oi = __shfl_xor_sync(full, id, stride);
+      const bool keep_better = ((lane & stride) == 0) == ((lane & size) == 0);
+      const bool ob = topk_better(ov, oi, v, id);
+      if (keep_better ? ob : !ob) {
+        v = ov;
+        id = oi;
+      }
+    }
+  }
+  cv[lane] = v;  // best first
+  ci[lane] = id;
+  int lo = 0, hi = k;  // the list entries that outrank candidate `lane`
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (topk_better(lv[mid], li[mid], v, id)) lo = mid + 1;
+    else hi = mid;
+  }
+  const int cpos = lane + lo;
+  __syncwarp();
+  float ev[TOPK_PASS_K / 32];
+  int ei[TOPK_PASS_K / 32], epos[TOPK_PASS_K / 32];
+#pragma unroll
+  for (int t = 0; t < TOPK_PASS_K / 32; ++t) {
+    const int e = lane + 32 * t;
+    epos[t] = k;
+    if (e < k) {
+      ev[t] = lv[e];
+      ei[t] = li[e];
+      int a = 0, b = c;  // the candidates that outrank entry e
+      while (a < b) {
+        const int mid = (a + b) >> 1;
+        if (topk_better(cv[mid], ci[mid], ev[t], ei[t])) a = mid + 1;
+        else b = mid;
+      }
+      epos[t] = e + a;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < TOPK_PASS_K / 32; ++t) {
+    if (epos[t] < k) {
+      lv[epos[t]] = ev[t];
+      li[epos[t]] = ei[t];
+    }
+  }
+  if (lane < c && cpos < k) {
+    lv[cpos] = v;
+    li[cpos] = id;
+  }
+  __syncwarp();
+}
+
 // Fold the block's finished tile into its queries' lists: the lane's scores
 // are queries q0 + 4 i against rows n0 + 8 j, of which those below n_end
 // count. Their ids: the rows (V = 0, or no row_ids), else ids[8 j] (shared
 // memory; -1 = padding, never listed). Every thread of the block calls it
-// (it holds barriers). `fold_base`: the layout's start.
-template <int V, bool CEIL, bool FLOORS>
+// (it holds barriers). `fold_base`: the layout's start. LIST: the block's
+// query rows are lr's (m0 unused), and row r's scores count below
+// min(n_end, lr.end[r]).
+template <int V, bool CEIL, bool FLOORS, bool LIST = false>
 __device__ __forceinline__ void ip_fold_tile(const IpScanArgs& a, unsigned char* fold_base,
                                              float (&acc)[8][IP_RX], int m0, int q0,
-                                             int n0, int n_end, const int* ids) {
+                                             int n0, int n_end, const int* ids,
+                                             const IpListRows& lr = IpListRows{}) {
   static_assert(IP_RX < 32, "a query's pending scores are one 32-bit mask");
   const int k = a.k, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const IpFoldLayout f(fold_base, k);
@@ -482,18 +596,25 @@ __device__ __forceinline__ void ip_fold_tile(const IpScanArgs& a, unsigned char*
       float best = acc[i][0];
 #pragma unroll
       for (int j = 1; j < IP_RX; ++j) best = fmaxf(best, acc[i][j]);
-      if (m0 + r >= a.M || best < tv || (FLOORS && best < fv)) {
+      const bool none = LIST ? lr.m[r] < 0 : m0 + r >= a.M;
+      if (none || best < tv || (FLOORS && best < fv)) {
         pend[i] = 0;
         continue;
       }
+      const int ne = LIST ? min(n_end, lr.end[r]) : n_end;
 #pragma unroll
       for (int j = 0; j < IP_RX; ++j) {
         const int n = n0 + 8 * j;
         const int id = (V > 0 && ids != nullptr) ? ids[8 * j] : n;
-        bool p = n < n_end && topk_better(acc[i][j], id, tv, ti);
+        bool p = n < ne && topk_better(acc[i][j], id, tv, ti);
         if constexpr (V > 0) p = p && id >= 0;
         if constexpr (FLOORS) p = p && acc[i][j] >= fv;
-        if constexpr (CEIL) p = p && topk_better(f.ceil_v[r], f.ceil_i[r], acc[i][j], id);
+        if constexpr (CEIL && LIST)
+          p = p && (topk_better(f.ceil_v[r], f.ceil_i[r], acc[i][j], id) ||
+                    (acc[i][j] == f.ceil_v[r] && id == f.ceil_i[r] &&
+                     lr.slot[r] > lr.cslot[r]));
+        else if constexpr (CEIL)
+          p = p && topk_better(f.ceil_v[r], f.ceil_i[r], acc[i][j], id);
         if (!p) pend[i] &= ~(1u << j);
       }
     }
@@ -532,12 +653,17 @@ __device__ __forceinline__ void ip_fold_tile(const IpScanArgs& a, unsigned char*
       const int r = warp * 8 + qq;
       const int c = min(f.cnt[r], IP_CAP);
       if (c > 0) {
-        topk_update_row<CEIL>(f.cv + r * IP_CAP, f.ci + r * IP_CAP, c, f.lv + r * k,
-                              f.li + r * k, k, lane, CEIL ? f.ceil_v[r] : 0.f,
-                              CEIL ? f.ceil_i[r] : 0);
+        if constexpr (LIST)  // the candidates passed the ceiling (and its slot) above
+          ip_list_insert(f.cv + r * IP_CAP, f.ci + r * IP_CAP, c, f.lv + r * k,
+                         f.li + r * k, k, lane);
+        else
+          topk_update_row<CEIL>(f.cv + r * IP_CAP, f.ci + r * IP_CAP, c, f.lv + r * k,
+                                f.li + r * k, k, lane, CEIL ? f.ceil_v[r] : 0.f,
+                                CEIL ? f.ceil_i[r] : 0);
         __syncwarp();
         if (lane == 0) f.cnt[r] = 0;
-        if constexpr (FLOORS) ip_share_floor<V>(a, f, m0, r, lane);
+        if constexpr (FLOORS && LIST) ip_list_share_floor(a, f, r, lane, lr);
+        else if constexpr (FLOORS) ip_share_floor<V>(a, f, m0, r, lane);
       }
     }
     ip_clock(prof, &f.clk[IP_CLK_INSERT], t);
@@ -824,5 +950,238 @@ static cudaError_t launch_ip_dense(IpSegArgs a, cudaStream_t stream) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.M + IP_TM - 1) / IP_TM, a.S), IP_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Work items (ivf_scan.cu). A run is a sequence of consecutive layout blocks
+// of one tag that a query visits in consecutive schedule slots; the runs
+// that start at layout block b0 form b0's entry list, and b0's "pieces" cut
+// the rows of its longest run (grp_blocks[b0] blocks) into grp_pieces[b0]
+// spans of whole blocks. Work item w = work[w] = {b0, e0, cnt, j} is piece
+// j for the entries e0 .. e0 + cnt - 1 (cnt <= IP_TM) of b0's list: entry e
+// is query q_index[e], whose run has q_blocks[e] blocks and whose pieces
+// take its partial slots q_slot[e], q_slot[e] + 1, ...; an entry whose run
+// ends before piece j starts is not in the item. One block an SM takes
+// items through the counter `next` until n_work is reached.
+// ---------------------------------------------------------------------------
+
+struct IpListArgs : IpSegArgs {
+  const int4* work = nullptr;
+  const int* n_work = nullptr;
+  int* next = nullptr;              // the next item to take; zero at launch
+  const int* q_index = nullptr;     // entry -> query
+  const int* q_slot = nullptr;      // entry -> its run's first partial slot
+  const int* q_blocks = nullptr;    // entry -> its run's layout blocks
+  const int* nslots = nullptr;      // query -> its partial slots in all
+  const int* grp_blocks = nullptr;  // b0 -> blocks of its longest run
+  const int* grp_pieces = nullptr;  // b0 -> pieces its runs are cut into
+  const int* ceil_slot = nullptr;   // CEIL: query -> the slot of its ceiling
+};
+
+// Shared memory after the ring: the tiles' ids (IP_STAGES x IP_TN), the
+// item's query rows (IpListRows: 6 x IP_TM), the item taken, then the fold.
+constexpr int IP_LIST_HEAD = (IP_STAGES * IP_TN + 7 * IP_TM) * 4;
+
+// Stage the chunk of depths [kc, kc + BK) of the item's queries (view
+// `tag`, rows lr_m through the index list) and of rows [n0, n1) of x.
+template <typename XT>
+__device__ __forceinline__ void ip_load_list_chunk(const IpListArgs& a, unsigned char* st,
+                                                   const int* lr_m, int tag, int n0, int n1,
+                                                   int kc) {
+  using CH = IpChunk<XT>;
+  constexpr int BK = CH::BK, QB = CH::QSTR * 4, XSTR = CH::XSTR, T = IP_THREADS;
+  unsigned char* xs = st + IP_TM * QB;
+  const XT* x = static_cast<const XT*>(a.x);
+  const float* qv = a.q + (size_t)tag * a.d;
+  if (a.q_vec) stage_chunk_rows_at<T, float, BK, IP_TM, 16>(st, QB, qv, lr_m, a.d, kc, a.q_ld);
+  else stage_chunk_rows_at<T, float, BK, IP_TM, 4>(st, QB, qv, lr_m, a.d, kc, a.q_ld);
+  if constexpr (sizeof(XT) == 4) {
+    if (a.x_vec) stage_chunk_rows<T, XT, BK, IP_TN, 16>(xs, XSTR, x, n0, n1, a.d, kc);
+    else stage_chunk_rows<T, XT, BK, IP_TN, 4>(xs, XSTR, x, n0, n1, a.d, kc);
+  } else {
+    if (a.x_vec) stage_chunk_rows<T, XT, BK, IP_TN, 4>(xs, XSTR, x, n0, n1, a.d, kc);
+    else stage_chunk_rows<T, XT, BK, IP_TN, 1>(xs, XSTR, x, n0, n1, a.d, kc);
+  }
+}
+
+// The scan of work items: per item the pipelined tile of ip_scan_kernel
+// over the piece's rows (tiles of IP_TN rows from the piece's first row, cut
+// at its end), one view (the tag of block b0), each query's offset added
+// after the FMA chain, one running list per query for the whole piece,
+// written to the query's partial slot. a.row_ids must be set. CEIL / FLOORS
+// as ip_scan_kernel's (a.floors: (M, 2 S), the slots of a query sharing
+// them).
+template <typename XT, bool CEIL, bool FLOORS>
+__global__ void __launch_bounds__(IP_THREADS, 1) ip_list_kernel(IpListArgs a) {
+  constexpr int BK = IpChunk<XT>::BK, STAGE = ip_stage_bytes<XT, 1>();
+  extern __shared__ __align__(16) unsigned char ism[];
+  unsigned char* ring = ism;                                      // IP_STAGES x STAGE
+  int* side = reinterpret_cast<int*>(ism + IP_STAGES * STAGE);    // IP_STAGES x IP_TN ids
+  int* head = side + IP_STAGES * IP_TN;
+  const IpListRows lr{head, head + IP_TM, head + 2 * IP_TM, head + 3 * IP_TM,
+                      reinterpret_cast<float*>(head + 4 * IP_TM), head + 5 * IP_TM};
+  int* taken = head + 6 * IP_TM;
+  unsigned char* fold_base = ism + IP_STAGES * STAGE + IP_LIST_HEAD;
+  const IpFoldLayout f(fold_base, a.k);
+  const long long t_kernel = a.clocks ? clock64() : 0;
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int q0 = (warp >> 2) * 32 + (lane >> 3);
+  const int r0 = (warp & 3) * 8 * IP_RX + (lane & 7);
+  const int nk = (a.d + BK - 1) / BK;
+  const int n_work = *a.n_work;
+  if (t < IP_CLK_N) f.clk[t] = 0;
+
+  while (true) {
+    if (t == 0) *taken = atomicAdd(a.next, 1);
+    __syncthreads();  // the item; every thread is done with the last one
+    const int w = *taken;
+    if (w >= n_work) break;
+    const int4 it = a.work[w];
+    const int b0 = it.x, j = it.w;
+    const int nbk = a.grp_blocks[b0], np = a.grp_pieces[b0];
+    const long long base = (long long)b0 * a.L;
+    const int bs = (int)((long long)nbk * j / np), be = (int)((long long)nbk * (j + 1) / np);
+    const int p0 = (int)min(base + (long long)bs * a.L, (long long)a.N);
+    const int p1 = (int)min(base + (long long)be * a.L, (long long)a.N);
+    const int tag = min(max(a.seg_tags[b0], 0), a.C - 1);
+    if (t < IP_TM) {
+      int m = -1, slot = 0, end = 0, ns = 1;
+      float lo = 0.f;
+      if (t < it.z) {
+        const int e = it.y + t, nq = a.q_blocks[e];
+        if (bs < nq) {  // the entry's run reaches the piece
+          m = a.q_index[e];
+          slot = a.q_slot[e] + j;
+          end = (int)min(base + (long long)nq * a.L, (long long)a.N);
+          ns = a.nslots[m];
+          if (a.qlo != nullptr) lo = a.qlo[(size_t)m * a.C + tag];
+        }
+      }
+      lr.m[t] = m;
+      lr.slot[t] = slot;
+      lr.end[t] = end;
+      lr.nslots[t] = ns;
+      lr.lo[t] = lo;
+      f.cnt[t] = 0;
+      f.floor_v[t] = -CUDART_INF_F;
+      if (CEIL) {
+        f.ceil_v[t] = m >= 0 ? a.ceil_v[(size_t)m * a.ceil_ld] : NEG_INF_F;
+        f.ceil_i[t] = m >= 0 ? a.ceil_i[(size_t)m * a.ceil_ld] : -1;
+        lr.cslot[t] = m >= 0 ? a.ceil_slot[m] : 0;
+      }
+    }
+    for (int e = t; e < IP_TM * a.k; e += IP_THREADS) {
+      f.lv[e] = NEG_INF_F;
+      f.li[e] = -1;
+    }
+    __syncthreads();  // the query rows, read by the staging
+
+    const long long total = (long long)((p1 - p0 + IP_TN - 1) / IP_TN) * nk;
+    // a warp whose 32 query rows the item leaves empty multiplies nothing:
+    // the other warp of its scheduler then issues alone
+    const bool active = it.z > (warp >> 2) * 32;
+    int lt = 0, lk = 0, pside = 0;  // producer tile (from p0), chunk, side slot
+    auto load_next = [&](unsigned char* st) {
+      const int n0 = p0 + lt * IP_TN, n1 = min(n0 + IP_TN, p1);
+      if (lk == 0) {  // the tile's ids ride with its first chunk
+        int* ids = side + pside * IP_TN;
+#pragma unroll
+        for (int i = 0; i < IP_TN / IP_THREADS; ++i) {
+          const int r = t + i * IP_THREADS;
+          const bool ok = n0 + r < n1;
+          cp_async4(ids + r, ok ? a.row_ids + n0 + r : a.row_ids, ok);
+        }
+        pside = pside + 1 == IP_STAGES ? 0 : pside + 1;
+      }
+      ip_load_list_chunk<XT>(a, st, lr.m, tag, n0, n1, lk * BK);
+      if (++lk == nk) {
+        lk = 0;
+        ++lt;
+      }
+    };
+    for (int g = 0; g < IP_STAGES - 1; ++g) {
+      if (g < total) load_next(ring + g * STAGE);
+      cp_async_commit();
+    }
+
+    float acc[8][IP_RX];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jj = 0; jj < IP_RX; ++jj) acc[i][jj] = 0.f;
+
+    int ct = 0, ck = 0, slot = 0, cside = 0;
+    for (long long g = 0; g < total; ++g) {
+      cp_async_wait<IP_STAGES - 2>();
+      __syncthreads();  // chunk g visible; every warp is done with chunk g - 1
+      if (g + IP_STAGES - 1 < total)
+        load_next(ring + (slot == 0 ? IP_STAGES - 1 : slot - 1) * STAGE);
+      cp_async_commit();
+      if (active) ip_compute_chunk<XT, 1>(ring + slot * STAGE, q0, r0, 0, a.d - ck * BK, acc);
+      slot = slot + 1 == IP_STAGES ? 0 : slot + 1;
+      if (++ck == nk) {
+        const int n0 = p0 + ct * IP_TN, n1 = min(n0 + IP_TN, p1);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float l = lr.lo[q0 + 4 * i];
+#pragma unroll
+          for (int jj = 0; jj < IP_RX; ++jj) acc[i][jj] = acc[i][jj] + l;  // after the chain
+        }
+        ip_fold_tile<1, CEIL, FLOORS, true>(a, fold_base, acc, 0, q0, n0 + r0, n1,
+                                            side + cside * IP_TN + r0, lr);
+        cside = cside + 1 == IP_STAGES ? 0 : cside + 1;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < IP_RX; ++jj) acc[i][jj] = 0.f;
+        ck = 0;
+        ++ct;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    for (int e = t; e < IP_TM * a.k; e += IP_THREADS) {
+      const int r = e / a.k, m = lr.m[r];
+      if (m >= 0) {
+        const size_t o = ((size_t)m * a.S + lr.slot[r]) * a.k + e % a.k;
+        a.pv[o] = f.lv[e];
+        a.pi[o] = f.li[e];
+      }
+    }
+  }
+  if (a.clocks && t == 0) {
+    f.clk[IP_CLK_KERNEL] = clock64() - t_kernel;
+    for (int c = 0; c < IP_CLK_N; ++c) atomicAdd(a.clocks + c, f.clk[c]);
+  }
+}
+
+// Shared memory of one block of ip_list_kernel at list length k.
+template <typename XT>
+static size_t ip_list_smem(int k) {
+  return (size_t)IP_STAGES * ip_stage_bytes<XT, 1>() + IP_LIST_HEAD + (size_t)IP_TM * k * 8 +
+         (size_t)IP_TM * IP_CAP * 8 + IP_TM * 20 + IP_CLK_N * 8;
+}
+
+// One pass of the work-item scan (a.k <= TOPK_PASS_K) on `blocks` blocks
+// (one an SM): the item counter and (k >= IP_FLOORS_MIN_K) the shared floors
+// (a.M x 2 a.S) reset first.
+template <typename XT, bool CEIL>
+static cudaError_t launch_ip_list_pass(const IpListArgs& a, int blocks, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(a.next, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  const bool floors = a.k >= IP_FLOORS_MIN_K;
+  const long long nf = (long long)a.M * a.S * 2;
+  if (floors && nf > 0) {
+    ip_floor_reset_kernel<<<(unsigned)((nf + 255) / 256), 256, 0, stream>>>(a.floors, nf);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const size_t smem = ip_list_smem<XT>(a.k);
+  auto kernel = floors ? ip_list_kernel<XT, CEIL, true> : ip_list_kernel<XT, CEIL, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, IP_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }

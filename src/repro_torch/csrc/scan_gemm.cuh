@@ -1,14 +1,10 @@
-// Tiled fp32 scan + per-block top-k, shared by the gathered layout of
-// gleanvec_sq.cu (through its per-call bucketing, bucket_rows.cuh) and
-// ivf_scan.cu (the probed slabs of a sorted IVF). ip_topk.cu, the sorted
-// layout of gleanvec_sq.cu and sq_dot run the pipelined scan of
-// ip_scan.cuh instead.
+// Tiled fp32 scan + per-block top-k of the gathered layout of
+// gleanvec_sq.cu (through its per-call bucketing, bucket_rows.cuh) and of
+// the dense gathered scores (dense_scores.cu). ip_topk.cu, the sorted
+// layout of gleanvec_sq.cu, sq_dot and ivf_scan.cu run the pipelined scan
+// of ip_scan.cuh instead.
 //
 // A block owns GT_M = 64 queries and one split of the database's row tiles.
-// With a work list (ivf_scan.cu) block w instead owns ONE segment,
-// work[3w], and up to 64 queries gathered from an index list,
-// q_index[work[3w + 1] + i] for i < work[3w + 2]; it writes query i's list
-// to partial slot q_slot[work[3w + 1] + i]. Blocks past *n_work exit.
 // Rows are grouped in segments of L rows that share ONE query view (the
 // tag-sorted layout's layout block; with no tags every segment has tag
 // 0), and a tile of GT_N = 128 rows never crosses a
@@ -63,26 +59,20 @@ struct GemmScanArgs {
   int S;                // splits of the row tiles (partial slots per query)
   float* pv;            // (M, S, k) partial lists; DENSE: (M, N) scores
   int* pi;
-  const int* work = nullptr;     // optional (W, 3): segment, first entry, count
-  const int* n_work = nullptr;   // device count of valid work items
-  const int* q_index = nullptr;  // entry -> query row
-  const int* q_slot = nullptr;   // entry -> partial slot
   const int* rows = nullptr;     // ROWS: (N,) row of x per layout slot, -1 = padding
   const float* ceil_v = nullptr; // CEIL: query m's ceiling at ceil_v[m * ceil_ld]
   const int* ceil_i = nullptr;
   int ceil_ld = 0;
 };
 
-// LIST = false: query tiles x splits (the flat scans); LIST = true: the work
-// list of ivf_scan.cu. Separate instantiations keep the flat scans' query
-// staging plain arithmetic. MIN_BLOCKS resident blocks per SM set the
+// Query tiles x splits. MIN_BLOCKS resident blocks per SM set the
 // register budget: 3 (at most 85 a thread) where the shared memory of three
 // blocks fits (small k), else 2 (at most 128, which the scan needs to run
-// without spills). DENSE (with k = 0, LIST = false) stores every tile to
+// without spills). DENSE (with k = 0) stores every tile to
 // the (M, N) matrix at a.pv; the top-k lists are empty and nothing is
 // folded. ROWS: the slot -> row indirection above. CEIL: a later pass of a
 // k > TOPK_PASS_K scan (topk_common.cuh).
-template <typename XT, bool LIST, int MIN_BLOCKS, bool DENSE = false, bool ROWS = false,
+template <typename XT, int MIN_BLOCKS, bool DENSE = false, bool ROWS = false,
           bool CEIL = false>
 __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
     gemm_scan_topk_kernel(GemmScanArgs a) {
@@ -91,9 +81,7 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
   int* li = reinterpret_cast<int*>(lv + GT_M * a.k);
   int* tile_ids = li + GT_M * a.k;              // GT_N
   float* lo_s = reinterpret_cast<float*>(tile_ids + GT_N);  // GT_M
-  int* qrow = reinterpret_cast<int*>(lo_s + GT_M);          // LIST: GT_M rows, -1 = none
-  int* qslot = qrow + GT_M;                     // LIST: GT_M partial slots
-  int* tail = LIST ? qslot + GT_M : qrow;
+  int* tail = reinterpret_cast<int*>(lo_s + GT_M);
   int* tile_rows = tail;                        // ROWS: GT_N rows of x, -1 = padding
   tail += ROWS ? GT_N : 0;
   float* ceil_vs = reinterpret_cast<float*>(tail);  // CEIL: GT_M ceilings
@@ -109,39 +97,17 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
   const XT* x = static_cast<const XT*>(a.x);
 
   const int tps = (a.L + GT_N - 1) / GT_N;
-  int m0 = 0, s = 0;
-  long long t_begin, t_end;
-  if constexpr (LIST) {
-    const int w = blockIdx.x;
-    if (w >= *a.n_work) return;  // the whole block, before any barrier
-    const int seg = a.work[3 * w], e0 = a.work[3 * w + 1], cnt = a.work[3 * w + 2];
-    if (t < GT_M) {
-      qrow[t] = t < cnt ? a.q_index[e0 + t] : -1;
-      qslot[t] = t < cnt ? a.q_slot[e0 + t] : 0;
-    }
-    t_begin = (long long)seg * tps;
-    t_end = t_begin + tps;
-  } else {
-    m0 = blockIdx.x * GT_M;
-    s = blockIdx.y;
-    const long long nseg = (a.N + (long long)a.L - 1) / a.L;
-    const long long T = nseg * tps;
-    t_begin = T * s / a.S;
-    t_end = T * (s + 1) / a.S;
-  }
+  const int m0 = blockIdx.x * GT_M, s = blockIdx.y;
+  const long long nseg = (a.N + (long long)a.L - 1) / a.L;
+  const long long T = nseg * tps;
+  const long long t_begin = T * s / a.S, t_end = T * (s + 1) / a.S;
   for (int e = t; e < GT_M * a.k; e += GT_THREADS) {
     lv[e] = NEG_INF_F;
     li[e] = -1;
   }
   __syncthreads();
   // query row of tile row r, -1 = none
-  auto query_of = [&](int r) -> int {
-    if constexpr (LIST) return qrow[r];
-    else return m0 + r < a.M ? m0 + r : -1;
-  };
-  int qm[GT_M / 8];  // LIST: the query rows this thread stages, in registers
-#pragma unroll
-  for (int r = 0; r < GT_M / 8; ++r) qm[r] = LIST ? query_of(warp + 8 * r) : 0;
+  auto query_of = [&](int r) -> int { return m0 + r < a.M ? m0 + r : -1; };
   if constexpr (CEIL) {  // read by the fold, after the first tile's barriers
     if (t < GT_M) {
       const int m = query_of(t);
@@ -205,7 +171,6 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
       // The slots' rows are scattered, so their loads wait longer than a
       // contiguous tile's: chunk kc + GT_K is loaded into registers while
       // chunk kc is folded.
-      static_assert(!LIST, "the row indirection serves the flat scans");
       float qn[GT_M / 8], xn[GT_N / 8];
       auto load_chunk = [&](int kc) {
         const int dd = kc + lane;
@@ -256,9 +221,7 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
 #pragma unroll
         for (int r = 0; r < GT_M / 8; ++r) {
           const int mm = warp + 8 * r;
-          int m;
-          if constexpr (LIST) m = qm[r];
-          else m = m0 + mm < a.M ? m0 + mm : -1;
+          const int m = m0 + mm < a.M ? m0 + mm : -1;
           float val = 0.f;
           if (m >= 0 && dd < a.d)
             val = a.q[(size_t)m * a.q_stride + (size_t)tag * a.d + dd];
@@ -321,8 +284,7 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
   for (int e = t; e < GT_M * a.k; e += GT_THREADS) {
     const int r = e / a.k, j = e % a.k, m = query_of(r);
     if (m >= 0) {
-      const int slot = LIST ? qslot[r] : s;
-      const size_t o = ((size_t)m * a.S + slot) * a.k + j;
+      const size_t o = ((size_t)m * a.S + s) * a.k + j;
       a.pv[o] = lv[e];
       a.pi[o] = li[e];
     }
@@ -330,23 +292,22 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
 }
 
 // Shared memory of one block of the top-k scan at list length a.k.
-template <bool LIST, bool ROWS, bool CEIL>
+template <bool ROWS, bool CEIL>
 static size_t gemm_scan_smem(const GemmScanArgs& a) {
-  return (size_t)GT_M * a.k * 8 + GT_N * 4 + GT_M * 4 + (LIST ? GT_M * 8 : 0) +
-         (ROWS ? GT_N * 4 : 0) + (CEIL ? GT_M * 8 : 0) + GT_STAGE * 4;
+  return (size_t)GT_M * a.k * 8 + GT_N * 4 + GT_M * 4 + (ROWS ? GT_N * 4 : 0) +
+         (CEIL ? GT_M * 8 : 0) + GT_STAGE * 4;
 }
 
-// The scan alone, on `grid` blocks (partial lists only, a.k <= TOPK_PASS_K);
-// LIST selects the work-list instantiation of ivf_scan.cu.
-template <typename XT, bool LIST, bool ROWS = false, bool CEIL = false>
+// The scan alone, on `grid` blocks (partial lists only, a.k <= TOPK_PASS_K).
+template <typename XT, bool ROWS = false, bool CEIL = false>
 static cudaError_t launch_gemm_scan_blocks(const GemmScanArgs& a, dim3 grid,
                                            cudaStream_t stream) {
-  const size_t smem = gemm_scan_smem<LIST, ROWS, CEIL>(a);
-  auto kernel = gemm_scan_topk_kernel<XT, LIST, 2, false, ROWS, CEIL>;
+  const size_t smem = gemm_scan_smem<ROWS, CEIL>(a);
+  auto kernel = gemm_scan_topk_kernel<XT, 2, false, ROWS, CEIL>;
   // ROWS keeps its register-staged chunk only under the 2-block budget
   if constexpr (!ROWS) {
     if (3 * (smem + 1024) <= 233472)  // 228 KB per SM, 1 KB per block
-      kernel = gemm_scan_topk_kernel<XT, LIST, 3, false, ROWS, CEIL>;
+      kernel = gemm_scan_topk_kernel<XT, 3, false, ROWS, CEIL>;
   }
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -369,12 +330,12 @@ static cudaError_t launch_gemm_scan_rows(GemmScanArgs a, float* out_v, int* out_
     a.k = k - k0 < TOPK_PASS_K ? k - k0 : TOPK_PASS_K;
     cudaError_t err;
     if (k0 == 0) {
-      err = launch_gemm_scan_blocks<XT, false, true>(a, grid, stream);
+      err = launch_gemm_scan_blocks<XT, true>(a, grid, stream);
     } else {
       a.ceil_v = out_v + k0 - 1;
       a.ceil_i = out_i + k0 - 1;
       a.ceil_ld = k;
-      err = launch_gemm_scan_blocks<XT, false, true, true>(a, grid, stream);
+      err = launch_gemm_scan_blocks<XT, true, true>(a, grid, stream);
     }
     if (err != cudaSuccess) return err;
     err = launch_topk_merge(a.pv, a.pi, a.M, a.S, a.k, k, out_v + k0, out_i + k0, stream);
@@ -388,7 +349,7 @@ static cudaError_t launch_gemm_scan_rows(GemmScanArgs a, float* out_v, int* out_
 template <typename XT, bool ROWS = false>
 static cudaError_t launch_gemm_dense(const GemmScanArgs& a, cudaStream_t stream) {
   const size_t smem = GT_N * 4 + GT_M * 4 + (ROWS ? GT_N * 4 : 0) + GT_STAGE * 4;
-  auto kernel = gemm_scan_topk_kernel<XT, false, 3, true, ROWS>;
+  auto kernel = gemm_scan_topk_kernel<XT, 3, true, ROWS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -13,7 +13,9 @@ Two top-k results of the same scan agree when, per query:
 same terms in a different order; ``attention_error`` compares two
 evaluations of one attention output; ``exact_sorted_topk`` is the exact
 top-k of the tag-sorted GleanVec layout on integer data, which an fp32
-kernel must match bit for bit.
+kernel must match bit for bit; ``ivf_schedule_case`` makes the inputs of
+``ivf_scan_topk`` for each kind of probe schedule the kernel must take,
+and ``exact_ivf_topk`` their exact top-k.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 
 __all__ = ["dot_tol", "topk_agreement", "assert_topk_close",
-           "attention_abs_mix", "attention_error", "exact_sorted_topk"]
+           "attention_abs_mix", "attention_error", "exact_sorted_topk",
+           "IVF_SCHEDULES", "ivf_schedule_case", "exact_ivf_topk"]
 
 EPS32 = 2.0 ** -24
 
@@ -171,3 +174,117 @@ def exact_sorted_topk(q_scaled, q_lo, block_tags, codes, row_ids, k: int,
     v[:, :kk] = vals[:, :kk].float()
     i[:, :kk] = ids[sel[:, :kk]].int()
     return v, i
+
+
+# The kinds of probe schedule ``ivf_scan_topk`` must take (its runs:
+# ``kernels.ivf_scan.schedule_runs``): whole lists (the main path), a pad
+# slot inside a list, blocks in random order, consecutive blocks across a
+# tag change, a list and a block listed twice, all pad, no queries, and a
+# streaming layout of 256-row blocks whose lists end in slack blocks.
+IVF_SCHEDULES = ("contiguous", "pad_inside", "non_contiguous", "tag_change",
+                 "duplicate", "all_pad", "no_queries", "slack_256")
+
+
+def ivf_schedule_case(kind: str, u8: bool, seed: int = 0,
+                      integer: bool = False, m: int = 6, c: int = 4,
+                      d: int = 8, layout_block: int = 32):
+    """numpy inputs ``(q_scaled, q_lo, block_tags, row_ids, codes, sched,
+    layout_block)`` of ``ivf_scan_topk`` for one of ``IVF_SCHEDULES``, made
+    from ``seed``: a tag-sorted layout (clusters of 1 to 4 layout blocks in
+    tag order; ``slack_256``: blocks of 256 rows and one all-padding slack
+    block a cluster), ~15 % padding rows, and each query's schedule built
+    from the clusters' block ranges as the IVF builds it (two probed lists,
+    each padded with -1 to the longest list). ``integer``: small integers
+    everywhere, so every fp32 evaluation is exact."""
+    if kind not in IVF_SCHEDULES:
+        raise ValueError(f"unknown schedule kind {kind!r}")
+    rng = np.random.default_rng(seed * 131 + IVF_SCHEDULES.index(kind))
+    slack = kind == "slack_256"
+    lb = 256 if slack else layout_block
+    if kind == "no_queries":
+        m = 0
+    sizes = rng.integers(1, 5, c)
+    sizes[rng.integers(c)] = 4                     # one list of 4 blocks
+    sizes = sizes + (1 if slack else 0)
+    tags = np.repeat(np.arange(c), sizes).astype(np.int32)
+    nb = tags.size
+    n = nb * lb
+    row_ids = rng.permutation(n).astype(np.int32)
+    row_ids[rng.random(n) < 0.15] = -1
+    ends = np.cumsum(sizes)
+    if slack:
+        for e in ends:
+            row_ids[(e - 1) * lb:e * lb] = -1      # the slack blocks
+    if integer:
+        q_scaled = rng.integers(-3, 4, (m, c, d)).astype(np.float32)
+        q_lo = rng.integers(-8, 9, (m, c)).astype(np.float32)
+        codes = rng.integers(0, 9, (n, d)) if u8 \
+            else rng.integers(-4, 5, (n, d))
+    else:
+        q_scaled = rng.standard_normal((m, c, d)).astype(np.float32)
+        q_lo = rng.standard_normal((m, c)).astype(np.float32)
+        codes = rng.integers(0, 256, (n, d)) if u8 \
+            else rng.standard_normal((n, d))
+    codes = codes.astype(np.uint8 if u8 else np.float32)
+    maxb = int(sizes.max())
+    ranges = np.full((c, maxb), -1, np.int32)
+    for t in range(c):
+        ranges[t, :sizes[t]] = np.arange(ends[t] - sizes[t], ends[t])
+    probe = np.array([rng.permutation(c)[:2] for _ in range(m)],
+                     dtype=np.int64).reshape(m, 2)
+    if kind == "pad_inside":
+        probe[:, 0] = int(np.argmax(sizes))        # a list of >= 3 blocks
+    sched = ranges[probe].reshape(m, 2 * maxb)
+    if kind == "pad_inside":
+        sched[:, 1] = -1
+    elif kind == "non_contiguous":
+        sched = np.full((m, 2 * maxb), -1)
+        for q in range(m):
+            blocks = rng.permutation(nb)[:2 * maxb]
+            sched[q, :blocks.size] = blocks
+        sched[:, maxb // 2] = -1
+    elif kind == "tag_change":
+        win = min(2 * maxb, nb)
+        start = rng.integers(0, nb - win + 1, m)
+        sched = np.full((m, 2 * maxb), -1)
+        sched[:, :win] = start[:, None] + np.arange(win)[None, :]
+    elif kind == "duplicate":
+        sched = np.concatenate([ranges[probe[:, 0]], ranges[probe[:, 0]],
+                                np.repeat(ranges[probe[:, 1], :1], 2, 1)],
+                               axis=1)
+    elif kind == "all_pad":
+        sched = np.full_like(sched, -1)
+    if m > 1 and kind != "all_pad":
+        sched[1] = -1                              # an all-pad query
+    return (q_scaled, q_lo, tags, row_ids, codes,
+            np.ascontiguousarray(sched, dtype=np.int32), lb)
+
+
+def exact_ivf_topk(q_scaled, q_lo, block_tags, row_ids, codes, sched,
+                   k: int, layout_block: int):
+    """The exact top-k of each query over its scheduled blocks' rows (pad
+    slots and blocks outside the layout left out; a block listed twice
+    counted twice), scored in float64 by :func:`exact_sorted_topk` over
+    the query's own gathered layout: on integer data an fp32 kernel must
+    match it bit for bit. Tensors in, (vals (M, k) f32, ids (M, k) i32)
+    on their device out."""
+    nb = block_tags.shape[0]
+    m = sched.shape[0]
+    dev = codes.device
+    vals = torch.full((m, k), -3.4e38, dtype=torch.float32, device=dev)
+    ids = torch.full((m, k), -1, dtype=torch.int32, device=dev)
+    for q in range(m):
+        blocks = [b for b in sched[q].tolist() if 0 <= b < nb]
+        if not blocks:
+            continue
+        rows = torch.cat([torch.arange(b * layout_block,
+                                       min((b + 1) * layout_block,
+                                           codes.shape[0]), device=dev)
+                          for b in blocks])
+        tags = torch.cat([block_tags[b:b + 1].expand(
+            min(layout_block, codes.shape[0] - b * layout_block))
+            for b in blocks])
+        v, i = exact_sorted_topk(q_scaled[q:q + 1], q_lo[q:q + 1], tags,
+                                 codes[rows], row_ids[rows], k, 1)
+        vals[q], ids[q] = v[0], i[0]
+    return vals, ids

@@ -212,7 +212,8 @@ def test_cpu_wide_calls_take_plain_versions():
         torch.randn(2, 3, 8), torch.zeros(2, 3),
         torch.zeros(n // 64, dtype=torch.int32),
         torch.arange(n, dtype=torch.int32), torch.randn(n, 8),
-        torch.randint(0, n, (2, 112), dtype=torch.int32), beam_v, beam_i,
+        torch.stack([torch.randperm(n)[:112] for _ in range(2)]).to(
+            torch.int32), beam_v, beam_i,      # 112 distinct live rows a query
         layout_block=64)
     assert v.shape == (2, 200) and (i[:, :100] >= 0).all()
     assert [fn.launches for fn in counters] == before
