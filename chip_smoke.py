@@ -29,9 +29,10 @@ Phases (any failure raises and the script exits non-zero):
    on integer data (layout blocks 1, 64, 200, 256, 512, 4096, k up to 200,
    u8 and f32, a tie across layout blocks of different tags; sq_dot at d in
    {1, 3, 160, 513} with rows off alignment); flash_attention (S in {1, 77,
-   100, 130, 300, 4097}, dh in {8, 16, 20, 64, 120, 128}, GQA groups 1, 4
-   and 8, window None / 48 / 4096, causal and not, bf16 and f32, transposed
-   views).
+   100, 127, 128, 129, 130, 300, 4097}, dh in {8, 16, 20, 64, 72, 80, 96,
+   120, 128}, GQA groups 1, 4 and 8, window None / 1 / 48 / 127 / 128 / 129
+   / 4096, causal and not, bf16 and f32, transposed views; each case names
+   the kernel it took and a digest of its output).
 3. The flat main path: synthetic OOD data (D = 512), LeanVec-Sphering
    (d = 160) and GleanVec (C = 48, d = 160) fits, then for each of the 7
    scorer modes an encoded scorer behind a ServingEngine (batch 1024,
@@ -80,12 +81,16 @@ Phases (any failure raises and the script exits non-zero):
    3-4b at its published widths with random weights drawn on the card,
    ``generate`` at B = 4, s0 = 8192, n_new = 32 (greedy): prefill ms and
    tokens/s, decode ms per token, flash_attention launches (one per layer
-   of the prefill, never the plain version), peak device memory; the
-   first decode step against a prefill over the same s0 + 1 tokens; the
-   kernel's share of the prefill's device time (``torch.profiler``); the
-   kernel against its plain version on layer 0's captured q, k, v. Then
-   phase 4's row of flash_attention at that shape, with
-   ``scaled_dot_product_attention`` as its library yardstick.
+   of the prefill, never the plain version, every one picking
+   ``flash_wgmma_kernel``), peak device memory; the first decode step
+   against a prefill over the same s0 + 1 tokens; the kernel's share of
+   the prefill's device time and its launches there (``torch.profiler``,
+   by the kernel's name: all of them ``flash_wgmma_kernel``); the kernel
+   against its plain version on layer 0's captured q, k, v. Then phase 4's
+   row of flash_attention at that shape, with
+   ``scaled_dot_product_attention`` (a dense causal + window mask) as its
+   library yardstick, and the same inputs without the window beside SDPA's
+   flash backend at ``is_causal=True``.
 
 Then the card's name and power limit, one JSON line with the kernel table,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -211,6 +216,9 @@ CHURN_REMOVES, CHURN_INSERTS = 10_000, 2_000
 # and the prefill's window fills the ring slots in order.
 LM_ARCH = "h2o-danube-3-4b"
 LM_BATCH, LM_PROMPT, LM_NEW, LM_SEED = 4, 8192, 32, 0
+# the kernel the prefill's attention must take (bf16, dh 120, the
+# transformer's (B, S, H, dh) views), by its name in the profiler
+LM_FLASH_KERNEL = "flash_wgmma_kernel"
 # first decode step against a prefill over the same s0 + 1 tokens, both in
 # bf16 on the card: the reference's own bf16 tolerance for its LM
 # (|a - b| <= 0.2 + 0.02 |b|), from bf16 roundings in another order
@@ -262,7 +270,8 @@ def timed_once(fn):
 
 def ptxas_summary(text: str) -> list:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: the mangled
-    entry name, its registers and its spill stores and loads."""
+    entry name, its registers and its spill stores and loads; and ptxas's
+    notes on wgmma (serialised pipelines) and setmaxnreg (ignored)."""
     out, name, spill = [], None, ""
     for ln in text.splitlines():
         if "Compiling entry function" in ln:
@@ -273,6 +282,8 @@ def ptxas_summary(text: str) -> list:
             regs = ln.split("Used", 1)[1].split("registers")[0].strip()
             out.append(f"{name}: {regs} registers; {spill}")
             name, spill = None, ""
+        elif "wgmma.mma_async" in ln or "setmaxnreg" in ln:
+            out.append(f"  note: {ln.strip()}")
     return out
 
 
@@ -660,9 +671,12 @@ def phase_wide_kernels(K, testing, gen):
 
 # (B, H, KV, S, dh, window, causal, dtype, strided): S off the 64-query
 # tile (1, 77, 300, 4097), dh in {8, 16, 20, 64, 120, 128} (8 and 16 are
-# the smoke configs', 20 takes the kernel's unaligned loads, 120 danube's,
-# 128 the others'), group 1, 4 and 8, window None / 48 / 4096, causal and
-# not, bf16 and f32, (B, S, H, dh) tensors passed transposed.
+# the smoke configs', 20 takes the mma.sync kernel's unaligned loads, 120
+# danube's, 128 the others'), group 1, 4 and 8, window None / 48 / 4096,
+# causal and not, bf16 and f32, (B, S, H, dh) tensors passed transposed.
+# bf16 with dh 72-128 takes the wgmma kernel: the last rows put S and the
+# window on its 128-query and 128-key tiles' edges (1, 127, 128, 129, 300,
+# 4097; 1, 127, 128, 129, 4096) at dh 72, 80, 96, 120 and 128.
 FLASH_CASES = [
     (1, 4, 4, 1, 16, None, True, torch.float32, False),
     (2, 8, 2, 77, 64, None, True, torch.bfloat16, False),
@@ -676,6 +690,15 @@ FLASH_CASES = [
     (1, 4, 2, 100, 20, None, True, torch.bfloat16, True),
     (2, 8, 8, 77, 128, None, False, torch.bfloat16, False),
     (1, 4, 2, 300, 20, 48, True, torch.float32, False),
+    (2, 8, 2, 1, 120, None, True, torch.bfloat16, True),
+    (2, 8, 2, 127, 120, 1, True, torch.bfloat16, True),
+    (2, 8, 8, 128, 72, 127, True, torch.bfloat16, False),
+    (2, 8, 1, 129, 128, 128, True, torch.bfloat16, True),
+    (2, 8, 2, 300, 120, 129, True, torch.bfloat16, True),
+    (2, 4, 4, 129, 96, 129, False, torch.bfloat16, False),
+    (1, 16, 2, 300, 80, None, False, torch.bfloat16, True),
+    (2, 8, 2, 4097, 128, 129, True, torch.bfloat16, False),
+    (2, 32, 8, 4097, 120, 4096, True, torch.bfloat16, True),
 ]
 
 
@@ -769,8 +792,9 @@ def check_flash(K, testing, label, q, k, v, causal, window):
     want = K.flash_attention_plain(q, k, v, causal=causal, window=window)
     err, used = testing.attention_error(
         got, want, testing.attention_abs_mix(q, k, v, causal, window))
-    log(f"  flash_attention[{label}]: max_abs_err={err:.3e} "
-        f"(worst element at {used:.3f} of its tolerance)")
+    log(f"  flash_attention[{label}] {flash_kernel_name(q, k, v)}: "
+        f"max_abs_err={err:.3e} (worst element at {used:.3f} of its "
+        f"tolerance), digest {digest(got)}")
     if used > 1:
         raise AssertionError(f"flash_attention[{label}]: kernel and plain "
                              "version disagree")
@@ -1481,8 +1505,8 @@ def overlap(a, b) -> float:
 def device_split(fn, kernel_key: str):
     """One call of ``fn`` under ``torch.profiler``: (host-clock ms, device
     busy ms, device ms of the kernels whose name holds ``kernel_key``,
-    device kernels launched); busy is 0 when the profiler records no
-    device time on this machine."""
+    device kernels launched, launches of those kernels); busy is 0 when the
+    profiler records no device time on this machine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1494,7 +1518,7 @@ def device_split(fn, kernel_key: str):
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     hit_us = all_us = 0.0
-    kernels = 0
+    kernels = hits = 0
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
             continue
@@ -1505,13 +1529,14 @@ def device_split(fn, kernel_key: str):
         kernels += ev.count
         if kernel_key in ev.key:
             hit_us += us
-    return wall, all_us / 1e3, hit_us / 1e3, kernels
+            hits += ev.count
+    return wall, all_us / 1e3, hit_us / 1e3, kernels, hits
 
 
 def kernel_share(fn) -> str:
     """Device time of the graph kernel and of every kernel in one call of
     ``fn`` (``torch.profiler``), beside its host-clock time."""
-    wall, busy, hop, _ = device_split(fn, "graph_scan_kernel")
+    wall, busy, hop, _, _ = device_split(fn, "graph_scan_kernel")
     if busy <= 0:
         return (f"split not measured (no device time recorded; batch "
                 f"{wall:.1f} ms under the profiler)")
@@ -1769,6 +1794,7 @@ def phase_lm(K, testing):
     def spy_fa(q, k, v, causal=True, window=None):
         if "qkv" not in seen:
             seen["qkv"] = (q.clone(), k.clone(), v.clone(), window)
+        seen.setdefault("kernels", []).append(flash_kernel_name(q, k, v))
         return orig_fa(q, k, v, causal=causal, window=window)
 
     tfm.prefill_step, tfm.decode_step = spy_pre, spy_dec
@@ -1804,11 +1830,16 @@ def phase_lm(K, testing):
         f"tokens/s); decode {np.mean(dec_ms):.2f} ms per token (median "
         f"{np.median(dec_ms):.2f}, {len(dec_ms)} steps, B={LM_BATCH}); "
         f"peak device memory {peak:.2f} GiB")
+    picked = sorted(set(seen["kernels"]))
     log(f"  flash_attention launches: {launches} (one per layer of the "
-        f"prefill: {cfg.n_layers}); other kernels launched: {others or 0}")
+        f"prefill: {cfg.n_layers}), kernel picked: {', '.join(picked)}; "
+        f"other kernels launched: {others or 0}")
     if launches != cfg.n_layers or others:
         raise AssertionError("the prefill did not run each layer's "
                              "attention through the kernel exactly once")
+    if picked != [LM_FLASH_KERNEL]:
+        raise AssertionError(f"the prefill's attention took {picked}, not "
+                             f"{LM_FLASH_KERNEL}")
 
     # outputs: tokens in range, then the first decode step against a
     # prefill over the same s0 + 1 tokens
@@ -1832,19 +1863,23 @@ def phase_lm(K, testing):
         raise AssertionError("the decode step disagrees with the prefill")
     del ref
 
-    _, busy, fa, _ = device_split(
-        lambda: tfm.prefill_step(params, prompt, cfg), "flash_bf16_kernel")
+    _, busy, fa, _, fa_n = device_split(
+        lambda: tfm.prefill_step(params, prompt, cfg), LM_FLASH_KERNEL)
     if busy > 0:
         log(f"  prefill under torch.profiler: device busy {busy:.1f} ms, of "
-            f"it flash_attention {fa:.1f} ms ({fa / busy:.1%})")
+            f"it flash_attention ({LM_FLASH_KERNEL}, {fa_n} launches) "
+            f"{fa:.1f} ms ({fa / busy:.1%})")
+        if fa_n != cfg.n_layers:
+            raise AssertionError(f"the profiled prefill ran {LM_FLASH_KERNEL}"
+                                 f" {fa_n} times, not {cfg.n_layers}")
     else:
         log("  prefill device split: not measured (no device time "
             "recorded)")
 
     cache = tfm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW, device=dev)
-    wall, busy, _, n_kern = device_split(
+    wall, busy, _, n_kern, _ = device_split(
         lambda: tfm.decode_step(params, cache, new[:, 0], LM_PROMPT, cfg),
-        "flash_bf16_kernel")
+        LM_FLASH_KERNEL)
     step = float(np.mean(dec_ms))
     log(f"  one decode step under torch.profiler: {wall:.1f} ms host clock "
         "(the profiler's own cost included), "
@@ -1891,6 +1926,78 @@ def sdpa_library(q, k, v, window, reps):
             return ms, out, "k, v repeated to H heads outside the timing"
 
 
+def sdpa_flash_causal(q, k, v, reps):
+    """The fair yardstick of ``flash_attention(q, k, v, True, None)``:
+    ``scaled_dot_product_attention`` on PyTorch's flash backend with
+    ``is_causal=True`` (it skips the masked KV tiles as the kernel does),
+    timed (mean of ``reps``). Returns (ms, output, how the KV heads were
+    given)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    h, kv = q.shape[1], k.shape[1]
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        try:
+            ms, out = timed(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), reps)
+            return ms, out, "enable_gqa=True"
+        except RuntimeError as e:      # the backend does not take GQA
+            log(f"    SDPA flash backend with enable_gqa: {str(e)[:120]}")
+            kr = k.repeat_interleave(h // kv, dim=1)
+            vr = v.repeat_interleave(h // kv, dim=1)
+            ms, out = timed(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kr, vr, is_causal=True), reps)
+            return ms, out, "k, v repeated to H heads outside the timing"
+
+
+def causal_yardstick(K, testing, q, k, v, check: bool) -> str:
+    """``flash_attention`` without a window beside PyTorch's flash backend
+    at causal (the same function, both skipping masked tiles): one log
+    line. With ``check`` the kernel's output is held against the plain
+    version and the library's against the kernel's."""
+    flops, nbytes = flash_work(q, k, v, None)
+    bnd, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    ms, out_k = timed(lambda: K.flash_attention(q, k, v, True, None), 5)
+    lib_ms, out_l, how = sdpa_flash_causal(q, k, v, 3)
+    line = (f"causal, no window: ms={ms:.3f} ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s) library_ms={lib_ms:.3f} (SDPA flash backend, "
+            f"is_causal=True, {how}; {flops / lib_ms / 1e9:.1f} TFLOP/s) "
+            f"bound_ms={bnd:.3f} ({by}) share_of_bound={bnd / ms:.1%}")
+    if check:
+        abs_mix = testing.attention_abs_mix(q, k, v, True, None)
+        out_p = K.flash_attention_plain(q, k, v, True, None)
+        err, used = testing.attention_error(out_k, out_p, abs_mix)
+        lib_err, lib_used = testing.attention_error(out_l, out_k, abs_mix)
+        line += (f"; kernel vs plain max_abs_err={err:.3e} (worst element "
+                 f"at {used:.3f} of its tolerance), library vs kernel "
+                 f"{lib_err:.2e} ({lib_used:.3f})")
+        if used > 1:
+            raise AssertionError("flash_attention vs plain, causal without "
+                                 "a window at the LM shape")
+    return line
+
+
+def flash_kernel_name(q, k, v) -> str:
+    """The kernel ``flash_attention`` picks for these inputs."""
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+    pick = getattr(fa_mod, "_variant", None)
+    return fa_mod.VARIANTS[pick(q, k, v)] if pick else "one bf16 kernel"
+
+
+def flash_profile(q, k, v, window) -> str:
+    """Where the wgmma kernel's consumers spend their cycles (its clock64
+    profile, thread 0 of each consumer warpgroup), where the tree has
+    one."""
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+    if not hasattr(fa_mod, "wgmma_profile"):
+        return "no clock64 profile in this tree"
+    prof = fa_mod.wgmma_profile(q, k, v, True, window)
+    total = max(prof["kernel"], 1)
+    return ("share of the consumers' cycles (clock64, thread 0 of each): "
+            + ", ".join(f"{p} {prof[p] / total:.1%}"
+                        for p in fa_mod.PROFILE_PARTS[1:]))
+
+
 def flash_work(q, k, v, window):
     """(flops, bytes) of one causal (windowed) attention forward: 4 dh flops
     a (query, key) pair it keeps; q, k and v read once, the output written
@@ -1906,7 +2013,9 @@ def lm_timing(K, testing, qkv, launches):
     """``flash_attention`` at the LM path's captured shape: its time beside
     its bf16 tensor-core bound, its plain version and the library call
     (``scaled_dot_product_attention`` with a boolean causal + window mask,
-    timed as a yardstick only)."""
+    timed as a yardstick only); then the same inputs without the window
+    beside SDPA's flash backend at ``is_causal=True``, the fair yardstick
+    (both skip the masked tiles)."""
     q, k, v, window = qkv
     b, h, s, dh = q.shape
     kv = k.shape[1]
@@ -1942,7 +2051,8 @@ def lm_timing(K, testing, qkv, launches):
     b16, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
     b32, _ = bound_ms(flops, nbytes)
     log(f"  flash_attention[B={b} H={h} KV={kv} S={s} dh={dh} W={window} "
-        f"bf16]: ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={b16:.3f} "
+        f"bf16, {flash_kernel_name(q, k, v)}]: ms={ms:.3f} "
+        f"plain_ms={plain_ms:.3f} bound_ms={b16:.3f} "
         f"({by}; {flops / 1e12:.3f} TFLOP over 989 TFLOP/s bf16, "
         f"{nbytes / 1e9:.3f} GB over 3.35 TB/s; {b32:.2f} ms at the 67 "
         f"TFLOP/s fp32 FMA rate) achieved {flops / ms / 1e9:.1f} TFLOP/s; "
@@ -1953,6 +2063,8 @@ def lm_timing(K, testing, qkv, launches):
         f"{lib_err:.2e}, worst element at {lib_used:.3f} of the kernel's "
         f"tolerance) "
         f"launches={launches}")
+    log("    " + causal_yardstick(K, testing, q, k, v, check=True))
+    log("    " + flash_profile(q, k, v, window))
     src, repl = KERNEL_FILES["flash_attention"]
     return {"name": f"flash_attention[danube prefill B={b} S={s}]",
             "route": "cuda", "source": src, "replaces": repl,
@@ -2200,10 +2312,12 @@ def ivf_split(K, args) -> str:
 
 def digest(*tensors) -> str:
     """A SHA-256 prefix of the tensors' bytes: equal digests in two runs
-    mean bit-identical results."""
+    mean bit-identical results. The bytes go through a uint8 view, so any
+    type (bf16 too, which numpy lacks) hashes as its raw bytes."""
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                 .numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -2782,10 +2896,13 @@ def kernel_timing(K, gen, only=()):
         lib_ms, _, how = sdpa_library(q, k_, v, window, 3)
         bnd, by = bound_ms(*flash_work(q, k_, v, window), PEAK_BF16_FLOPS)
         log(f"  flash_attention[B={b} H={h} KV={kv} S={s} dh={dh} W={window} "
-            f"bf16]: ms={ms:.3f} library_ms={lib_ms:.3f} (SDPA, {how}) "
+            f"bf16, {flash_kernel_name(q, k_, v)}]: ms={ms:.3f} "
+            f"library_ms={lib_ms:.3f} (SDPA, {how}, a dense (S, S) mask) "
             f"bound_ms={bnd:.3f} ({by}) share_of_bound={bnd / ms:.1%}; "
             + clocks_during(lambda: K.flash_attention(q, k_, v, True,
                                                       window)))
+        log("    " + causal_yardstick(K, None, q, k_, v, check=False))
+        log("    " + flash_profile(q, k_, v, window))
         del q, k_, v
     torch.cuda.synchronize()
 
@@ -2817,11 +2934,16 @@ def main(argv=None) -> int:
     log(f"  card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # --kernel-timing with names builds only their sources
+    sources = K.KERNEL_SOURCES
+    if args.kernel_timing:
+        sources = tuple(dict.fromkeys(Path(KERNEL_FILES[n][0]).stem
+                                      for n in args.kernel_timing))
     t0 = time.perf_counter()
-    built = K.build()
+    built = K.build(sources)
     log(f"  build: {time.perf_counter() - t0:.1f} s wall, per source "
         + ", ".join(f"{k}={v:.1f}s" for k, v in built.items()))
-    for name in K.KERNEL_SOURCES:
+    for name in sources:
         log_path = Path(f"{K.library_path(name)}.log")
         if log_path.exists():
             log(f"  {name} ptxas (-Xptxas -v):")
