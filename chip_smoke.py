@@ -22,13 +22,21 @@ Phases (any failure raises and the script exits non-zero):
    tile, ``scorer_scores`` of every scorer class with dead columns, and
    graph hops (u8 and f32, d in {160, 33}, S up to 4096, B in {96, 128,
    200}, pads, repeats, dead rows, in-beam candidates, half-empty beams,
-   exact ties); kmeans_assign at C up to 300 and D up to 7000 (a tie across
+   exact ties); whole graph traversals (graph_beam_search) bit for bit on
+   integer data against their plain version (u8 and f32, d in {160, 33},
+   B in {96, 128}, expand 1 and 4, pad edges, dead rows and a dead entry,
+   a hit max_hops cap, exact ties, and the graph path's per-query shape
+   (C 48, d 160, R 28, B 128, expand 4) in u8 and f32; ids, values and
+   every query's hops);
+   kmeans_assign at C up to 300 and D up to 7000 (a tie across
    tiles of centers); the gathered GleanVec path at C = 100 tags with an
    empty tag and with one tag (the bucketing bit for bit, top-k and dense);
    the sorted gleanvec_sq_topk and sq_dot on the pipelined scan bit for bit
    on integer data (layout blocks 1, 64, 200, 256, 512, 4096, k up to 200,
    u8 and f32, a tie across layout blocks of different tags; sq_dot at d in
-   {1, 3, 160, 513} with rows off alignment); flash_attention (S in {1, 77,
+   {1, 3, 160, 513} with rows off alignment; the sorted dense gleanvec_sq
+   at layout blocks 1, 64, 200, 256, 768 and 4096 with ragged last blocks);
+   flash_attention (S in {1, 77,
    100, 127, 128, 129, 130, 300, 4097}, dh in {8, 16, 20, 64, 72, 80, 96,
    120, 128}, GQA groups 1, 4 and 8, window None / 1 / 48 / 127 / 128 / 129
    / 4096, causal and not, bf16 and f32, transposed views; each case names
@@ -60,12 +68,19 @@ Phases (any failure raises and the script exits non-zero):
    device build (k-NN self-join through ``ip_topk``, detour prune, reverse
    fill, entry points through ``kmeans_assign``), then beam search (beam
    128, max_hops 200, expand 4) behind a ServingEngine (batch 1024, k = 10,
-   kappa = 100, 5 batches) with both sorted modes fused (every hop through
-   ``graph_scan_beam_step``) and sphering gathered: QPS, p50, p99,
-   recall@10 against the exact top-10 on the card and its floor, hops per
-   batch, the kernel's share of a batch; counters zeroed just before the
-   build and read after the serving. Then fused against gathered (one
-   captured hop through kernel and plain version; whole traversals at
+   kappa = 100, 5 batches) with both sorted modes fused (the whole search
+   of a batch one ``graph_beam_search`` launch, ``graph_scan_beam_step``
+   never) and sphering gathered: QPS, p50, p99, recall@10 against the
+   exact top-10 on the card and its floor, hops per batch, device kernels
+   and host syncs a batch (none inside ``candidates`` on the fused path),
+   the kernel's share of a batch; counters zeroed just before the build,
+   and the kernel table's launches are those of the build, each mode's
+   serving and the churn's updates and serving, each read just after it
+   (the checks' launches are logged apart). The fused candidates and hops
+   equal those
+   of the per-hop loop (``_beam_loop`` through ``graph_scan_beam_step``) on
+   the same batch. Then fused against gathered (one hop captured from the
+   per-hop loop through kernel and plain version; whole traversals at
    expand 1 and 4), and churn on a streaming store: 10,000 removes, 2,000
    inserts linked by ``insert_ids``, ``refreshed``, swapped and served.
 4. Each kernel at its path's shapes and inputs: its time beside its bound,
@@ -76,7 +91,9 @@ Phases (any failure raises and the script exits non-zero):
    bucketing step on its own; the GleanVec top-k and sq_dot with their
    device time by kernel; ivf_scan_topk with its time at k = 1, its fold
    profile and its device time by kernel, the sorted top-k also at the
-   stream's layout block 256 (its final sorted stores).
+   stream's layout block 256 (its final sorted stores, with a digest of the
+   dense sorted scores); graph_beam_search on each fused mode's batch
+   beside its plain version and the gathered torch traversal.
 3e. LM serving, after the search phases' tensors are freed: h2o-danube-
    3-4b at its published widths with random weights drawn on the card,
    ``generate`` at B = 4, s0 = 8192, n_new = 32 (greedy): prefill ms and
@@ -186,6 +203,8 @@ KERNEL_FILES = {
                     "src/repro/kernels/gleanvec_sq/gleanvec_sq.py:178"),
     "graph_scan_beam_step": ("src/repro_torch/csrc/graph_scan.cu",
                              "src/repro/kernels/graph_scan/graph_scan.py:177"),
+    "graph_beam_search": ("src/repro_torch/csrc/graph_scan.cu",
+                          "src/repro/kernels/graph_scan/graph_scan.py:177"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/"
                         "flash_attention.py:109"),
@@ -496,6 +515,7 @@ def phase_kernels(K, testing, gen):
     phase_pipelined_kernels(K, testing, gen)
     phase_dense_kernels(K, testing, gen)
     phase_graph_kernels(K, testing, gen)
+    phase_search_kernels(K, gen)
     phase_flash_kernels(K, testing, gen)
 
 
@@ -907,6 +927,75 @@ def phase_graph_kernels(K, testing, gen):
     log("  graph_scan_beam_step exact ties: ids ascending as required")
 
 
+def search_inputs(gen, m, c, d, lb, nb, r, b, u8, ties=False):
+    """Integer inputs of a whole traversal on the card (every score exact
+    in fp32 in any order): a table of r sorted rows per vertex with -1
+    edges, repeated edges and dead rows (``row_ids`` -1); an entry beam of
+    16 ids in slot order with a -1 entry and a dead entry (id >= 0 at
+    NEG_INF, as ``score_ids`` scores a removed id), the rest -1. ``ties``:
+    every row holds the same codes, so every score ties. Returns the
+    wrapper's positional arguments and ``layout_block``."""
+    dev = torch.device("cuda")
+    n = lb * nb
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    qs, qlo = ints(-3, 4, m, c, d).float(), ints(-50, 51, m, c).float()
+    btags = ints(0, c, nb).to(torch.int32)
+    rid = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    rid[torch.rand(n, generator=gen, device=dev) < 0.1] = -1
+    codes = ints(0, 4, 1 if ties else n, d)
+    codes = codes.to(torch.uint8) if u8 else codes.float() - 2
+    codes = codes.expand(n, d).contiguous()
+    tbl = ints(0, n, n, r).to(torch.int32)
+    tbl[torch.rand(n, r, generator=gen, device=dev) < 0.15] = -1
+    tbl[:, 1] = tbl[:, 0]                          # repeated edges
+    entries = torch.randperm(n, generator=gen, device=dev)[:16].to(
+        torch.int32)
+    bi = torch.full((m, b), -1, dtype=torch.int32, device=dev)
+    bi[:, :16] = entries
+    bi[:, 5] = -1
+    bv = ints(-500, 501, m, b).float()
+    bv = torch.where(bi >= 0, bv, torch.full_like(bv, -3.4e38))
+    bv[:, 9] = -3.4e38                             # a dead entry
+    return (qs, qlo, btags, rid, codes, tbl, bv, bi), lb
+
+
+def phase_search_kernels(K, gen):
+    """graph_beam_search against its plain version on integer data: the
+    beams (values and ids) and every query's hop count bit for bit, u8 and
+    f32, d in {160, 33}, B in {96, 128}, expand 1 and 4, layout blocks on
+    and off the tile, a max_hops cap that stops every query, and exact ties
+    everywhere; the first two cases are the graph path's per-query shape
+    (C 48, d 160, layout block 256, R 28, B 128, expand 4)."""
+    for m, c, d, lb, nb, r, b, e, u8, hops, ties in [
+            (37, 48, 160, 256, 40, 28, 128, 4, True, 200, False),
+            (64, 48, 160, 256, 40, 28, 128, 4, False, 200, False),
+            (70, 7, 33, 100, 30, 28, 96, 1, False, 200, False),
+            (130, 5, 160, 64, 50, 24, 128, 4, False, 3, False),
+            (9, 3, 33, 37, 60, 28, 96, 4, True, 200, False),
+            (64, 4, 160, 4096, 3, 28, 128, 1, True, 40, False),
+            (20, 6, 160, 64, 40, 28, 128, 4, False, 200, True),
+            (11, 3, 33, 64, 40, 28, 96, 1, True, 200, True)]:
+        args, lb = search_inputs(gen, m, c, d, lb, nb, r, b, u8, ties)
+        got = K.graph_beam_search(*args, layout_block=lb, max_hops=hops,
+                                  expand=e)
+        want = K.graph_beam_search_plain(*args, layout_block=lb,
+                                         max_hops=hops, expand=e)
+        label = (f"graph_beam_search M={m} C={c} d={d} layout_block={lb} "
+                 f"N={lb * nb} R={r} B={b} expand={e} max_hops={hops} "
+                 f"{'u8' if u8 else 'f32'}{' ties' if ties else ''}")
+        if not all(torch.equal(a, w) for a, w in zip(got, want)):
+            bad = int((got[1] != want[1]).any(dim=1).sum())
+            raise AssertionError(f"{label}: differs from its plain version "
+                                 f"in {bad} rows (hops {got[2].tolist()[:8]}"
+                                 f" vs {want[2].tolist()[:8]})")
+        h = want[2]
+        log(f"  {label}: equal to its plain version (integer data); hops "
+            f"per query {int(h.min())}-{int(h.max())}")
+
+
 def phase_pipelined_kernels(K, testing, gen):
     """The sorted gleanvec_sq_topk and sq_dot on the pipelined scan, on
     small-integer data (every score exact in fp32 in any order): the sorted
@@ -915,8 +1004,10 @@ def phase_pipelined_kernels(K, testing, gen):
     L's end; two views at L = 256), u8 and f32 codes, row_ids with -1, k in
     {1, 10, 100, 200}, ragged M and N, and at the stream's shape family
     (M = 1030, C = 48, d = 160, L = 256); a tie across layout blocks of
-    different tags; sq_dot equal to its plain version bit for bit at d in
-    {1, 3, 160, 513}, rows off 4-byte alignment."""
+    different tags; the sorted dense gleanvec_sq equal to its plain version
+    bit for bit at L in {1, 64, 200, 256, 768, 4096} (two views a tile at
+    256 and 768), ragged last blocks; sq_dot equal to its plain version bit
+    for bit at d in {1, 3, 160, 513}, rows off 4-byte alignment."""
     dev = torch.device("cuda")
 
     def ints(lo, hi, *shape, u8=False):
@@ -975,6 +1066,26 @@ def phase_pipelined_kernels(K, testing, gen):
                                  "smaller ids")
     log("  gleanvec_sq_topk sorted exact ties across layout blocks of "
         "different tags: ids ascending as required")
+
+    # the sorted dense gleanvec_sq: one view a tile (L off 512: 1, 64,
+    # 200, 4096) and two (256, 768), ragged last blocks
+    for lb, nb, cut in ((1, 900, 0), (64, 40, 5), (200, 13, 37),
+                        (256, 31, 100), (256, 40, 0), (768, 7, 300),
+                        (4096, 3, 1000)):
+        for u8 in (False, True):
+            n, m, c, d = nb * lb - cut, 130, 5, 33 if lb < 256 else 160
+            qs, qlo = ints(-3, 4, m, c, d), ints(-50, 51, m, c)
+            x = ints(0, 4, n, d, u8=True) if u8 else ints(-3, 4, n, d)
+            btags = torch.randint(0, c, (-(-n // lb),), generator=gen,
+                                  device=dev, dtype=torch.int32)
+            if not torch.equal(
+                    K.gleanvec_sq(qs, qlo, btags, x, layout_block=lb),
+                    K.gleanvec_sq_plain(qs, qlo, btags, x, layout_block=lb)):
+                raise AssertionError(f"gleanvec_sq sorted L={lb} N={n} "
+                                     f"{'u8' if u8 else 'f32'}: differs from "
+                                     "its plain version (integer data)")
+        log(f"  gleanvec_sq sorted L={lb} N={n} M={m} C={c} d={d} u8 and "
+            "f32: equal to its plain version (integer data)")
 
     for d in (1, 3, 160, 513):
         for m, n, shift in ((70, 5003, 0), (1030, 2049, 1), (64, 512, 3)):
@@ -1214,7 +1325,7 @@ def all_counters(K):
     """Every kernel wrapper's launch counter."""
     return (K.ip_topk, K.gleanvec_sq_topk, K.kmeans_assign, K.ivf_scan_topk,
             K.sq_dot, K.gleanvec_ip, K.gleanvec_sq, K.graph_scan_beam_step,
-            K.flash_attention)
+            K.graph_beam_search, K.flash_attention)
 
 
 # ---------------------------------------------------------------------------
@@ -1457,24 +1568,45 @@ def counts(K):
     return {fn.__name__: fn.launches for fn in all_counters(K)}
 
 
-def capture_hop(K, fn, which: int):
-    """Run ``fn`` (a fused traversal) and return the inputs of its
-    ``which``-th hop as the sorted scorers hand them to the lowering
-    (``kernels.scorer_scan_neighbors``): (scorer, qstate, nbr_rows,
-    beam_vals, beam_ids)."""
+def capture_hops(K, fn):
+    """Run ``fn`` (a per-hop fused traversal) and return the inputs of
+    every hop as the sorted scorers hand them to the lowering
+    (``kernels.scorer_scan_neighbors``): [(scorer, qstate, nbr_rows,
+    beam_vals, beam_ids), ...], and ``fn``'s result."""
     orig = K.scorer_scan_neighbors
     seen = []
 
     def spy(scorer, qstate, nbr_rows, beam_vals, beam_ids, tn=8):
         seen.append((scorer, qstate, nbr_rows.clone(), beam_vals.clone(),
-                     beam_ids.clone()) if len(seen) == which else None)
+                     beam_ids.clone()))
         return orig(scorer, qstate, nbr_rows, beam_vals, beam_ids, tn)
 
     K.scorer_scan_neighbors = spy
     try:
-        fn()
+        out = fn()
     finally:
         K.scorer_scan_neighbors = orig
+    return seen, out
+
+
+def per_hop_search(index, scorer, qstate, k, expand):
+    """The fused traversal as the per-hop loop (``graph._beam_loop`` with
+    ``graph.fused_hop_step``: one ``graph_scan_beam_step`` launch and a
+    host sync a hop), cut to the top k as ``candidates`` cuts it: (vals,
+    ids, hops)."""
+    from repro_torch.index import graph
+    m = (qstate.q_scaled if isinstance(qstate, tuple) else qstate).shape[0]
+    step = graph.fused_hop_step(qstate, scorer, index, index.beam, expand)
+    vals, ids, hops, _ = graph._beam_loop(
+        graph._score_ids_of(qstate, scorer), index, m, index.beam,
+        index.max_hops, expand, fused_step=step)
+    sel = graph._best_slots(vals, k)
+    return torch.gather(vals, 1, sel), torch.gather(ids, 1, sel), hops
+
+
+def capture_hop(K, fn, which: int):
+    """The inputs of the ``which``-th hop of ``fn`` (:func:`capture_hops`)."""
+    seen, _ = capture_hops(K, fn)
     if len(seen) <= which:
         raise AssertionError(f"the traversal ran {len(seen)} fused hops, "
                              f"fewer than {which + 1}")
@@ -1534,20 +1666,35 @@ def device_split(fn, kernel_key: str):
 
 
 def kernel_share(fn) -> str:
-    """Device time of the graph kernel and of every kernel in one call of
-    ``fn`` (``torch.profiler``), beside its host-clock time."""
-    wall, busy, hop, _, _ = device_split(fn, "graph_scan_kernel")
+    """Device time of the traversal kernel and of every kernel in one call
+    of ``fn`` (``torch.profiler``), beside its host-clock time."""
+    wall, busy, hit, kernels, hits = device_split(fn, "graph_search_kernel")
     if busy <= 0:
         return (f"split not measured (no device time recorded; batch "
                 f"{wall:.1f} ms under the profiler)")
     return (f"under the profiler: batch {wall:.1f} ms host clock, device "
-            f"busy {busy:.1f} ms, of it graph_scan_beam_step "
-            f"{hop:.2f} ms; the rest of the batch is launches, "
-            "host syncs and small torch ops")
+            f"busy {busy:.2f} ms ({kernels} kernels), of it "
+            f"graph_beam_search {hit:.3f} ms ({hits} launches)")
+
+
+def sync_count(fn) -> int:
+    """Host syncs ``fn`` makes: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")`` ("called a synchronizing CUDA
+    operation"; the mode's own notice that it is a prototype is not one)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 def fused_vs_gathered(K, testing, label, art, index, q, expand, gt):
-    """One hop captured from the fused traversal through the kernel and
+    """One hop captured from the per-hop fused loop through the kernel and
     the plain version, then the whole traversal fused against gathered:
     kappa-candidate overlap and recall@10 after the rerank. ``gt``: a
     function of served ids -> recall@10. Returns the captured hop."""
@@ -1557,8 +1704,8 @@ def fused_vs_gathered(K, testing, label, art, index, q, expand, gt):
                                    nbr_rows=None)
     fused = graph.with_fused_scan(gathered, art.scorer)
     qstate = fused.prepare_queries(art.scorer, q)
-    hop = capture_hop(K, lambda: fused.candidates(qstate, art.scorer, 100),
-                      which=3)
+    hop = capture_hop(K, lambda: per_hop_search(fused, art.scorer, qstate,
+                                                100, expand), which=3)
     args, lb = hop_args(hop)
     check_hop(K, testing, f"{label} expand={expand} captured hop 3: kernel "
               "vs plain", args, lb)
@@ -1579,8 +1726,11 @@ def fused_vs_gathered(K, testing, label, art, index, q, expand, gt):
 
 def phase_graph(K, testing, ds, x, sph, glv):
     """The graph path on the first GRAPH_ROWS rows. Returns ({(mode,
-    expand): captured hop}, launches of the build and serving,
-    {mode: graph_scan launches per batch})."""
+    expand): captured hop}, launches of the main path (the build, the
+    serving and the churn's updates and serving; no check's), {mode: hops,
+    host syncs and graph_beam_search launches a batch}, {fused mode: the
+    traversal kernel's inputs on the batch, its work, the prepared queries,
+    the scorer and the gathered graph})."""
     from repro_torch.core import metrics
     from repro_torch.core import search as msearch
     from repro_torch.core import streaming
@@ -1605,6 +1755,7 @@ def phase_graph(K, testing, ds, x, sph, glv):
                     method="auto", device=dev, timings=steps)
     torch.cuda.synchronize()
     built = counts(K)
+    main = dict(built)
     log(f"  build (device, method=auto): {time.perf_counter() - t0:.1f} s = "
         + ", ".join(f"{k} {v:.1f} s" for k, v in steps.items())
         + f"; ip_topk launches={built['ip_topk']} kmeans_assign launches="
@@ -1615,7 +1766,7 @@ def phase_graph(K, testing, ds, x, sph, glv):
                              "kmeans_assign")
     g = dataclasses.replace(g, beam=GRAPH_BEAM, max_hops=GRAPH_HOPS,
                             expand=GRAPH_EXPAND)
-    arts, per_batch = {}, {}
+    arts, per_batch, searches = {}, {}, {}
     for mode in (*GRAPH_FUSED, "sphering"):
         fused = mode in GRAPH_FUSED
         art = msearch.build_artifacts(mode, xg, sph if mode == "sphering"
@@ -1628,34 +1779,79 @@ def phase_graph(K, testing, ds, x, sph, glv):
         for _ in range(5):
             ids = engine.submit(ds.queries_test)
         delta = {k: v - before[k] for k, v in counts(K).items()}
+        for k, v in delta.items():
+            main[k] += v
         rec = metrics.recall_at_k(ids, gt)
         st = engine.stats
-        hops = graph._beam_qstate(art.scorer.prepare_queries(q), art.scorer,
-                                  index, 100, GRAPH_BEAM, GRAPH_HOPS,
-                                  expand=GRAPH_EXPAND)[2]
-        p50 = st.percentile_ms(50)
-        per_batch[mode] = hops          # one kernel launch per fused hop
+        served, qps = st.n_batches, st.qps
+        p50, p99 = st.percentile_ms(50), st.percentile_ms(99)
+        qstate = art.scorer.prepare_queries(q)
+        cand = graph._beam_qstate(qstate, art.scorer, index, 100,
+                                  GRAPH_BEAM, GRAPH_HOPS,
+                                  expand=GRAPH_EXPAND)
+        hops = int(cand[2])
+        syncs_cand = sync_count(lambda: index.candidates(qstate, art.scorer,
+                                                         100))
+        syncs_batch = sync_count(lambda: engine.submit(ds.queries_test))
+        # the engine's warm-up batch (built at construction) is one more
+        per_batch[mode] = {"hops": hops, "syncs": syncs_batch,
+                           "search": delta["graph_beam_search"]
+                           / (served + 1)}
         log(f"  mode={mode} {'fused' if fused else 'gathered'}: batches="
-            f"{st.n_batches} QPS={st.qps:.0f} p50={p50:.1f}ms "
-            f"p99={st.percentile_ms(99):.1f}ms recall@10={rec:.4f} (floor "
+            f"{served} QPS={qps:.0f} p50={p50:.1f}ms "
+            f"p99={p99:.1f}ms recall@10={rec:.4f} (floor "
             f"{GRAPH_RECALL_FLOORS[mode]}) hops/batch={hops} ms/hop="
-            f"{p50 / max(hops, 1):.3f} (one host sync per hop) "
-            f"graph_scan_beam_step launches={delta['graph_scan_beam_step']}")
+            f"{p50 / max(hops, 1):.3f} host syncs: {syncs_batch} a batch, "
+            f"{syncs_cand} in candidates; graph_beam_search launches="
+            f"{delta['graph_beam_search']} graph_scan_beam_step launches="
+            f"{delta['graph_scan_beam_step']}")
         log("    " + kernel_share(lambda: engine.submit(ds.queries_test)))
+        _, busy, _, kernels, _ = device_split(
+            lambda: index.candidates(qstate, art.scorer, 100), "graph_search")
+        log(f"    candidates alone (the traversal and what feeds it, the "
+            f"prepared queries given): {kernels} device kernels, device busy "
+            f"{busy:.3f} ms")
         if not np.all((ids >= -1) & (ids < n)) or ids.shape != (1024, 10):
             raise AssertionError(f"graph {mode}: malformed ids {ids.shape}")
         if rec < GRAPH_RECALL_FLOORS[mode]:
             raise AssertionError(f"graph {mode}: recall@10 {rec:.4f} below "
                                  f"its floor {GRAPH_RECALL_FLOORS[mode]}")
-        launched = delta["graph_scan_beam_step"]
-        if (launched <= 0) if fused else (launched != 0):
-            raise AssertionError(f"graph {mode}: graph_scan_beam_step "
-                                 f"launches {launched} on the "
-                                 f"{'fused' if fused else 'gathered'} path")
+        want = (served + 1, 0) if fused else (0, 0)
+        got = (delta["graph_beam_search"], delta["graph_scan_beam_step"])
+        if got != want:
+            raise AssertionError(f"graph {mode}: (graph_beam_search, "
+                                 f"graph_scan_beam_step) launches {got} on "
+                                 f"the {'fused' if fused else 'gathered'} "
+                                 f"path over {served} batches and the "
+                                 f"warm-up, not {want}")
+        if fused:
+            if syncs_cand:
+                raise AssertionError(f"graph {mode}: {syncs_cand} host syncs "
+                                     "inside the fused candidates")
+            seen, loop = capture_hops(K, lambda: per_hop_search(
+                index, art.scorer, qstate, 100, GRAPH_EXPAND))
+            same = (torch.equal(cand[0], loop[0])
+                    and torch.equal(cand[1], loop[1]) and hops == loop[2])
+            log(f"    fused candidates (kappa 100) and hops against the "
+                f"per-hop loop over graph_scan_beam_step on the same batch: "
+                f"{'equal' if same else 'DIFFERENT'} (hops {hops} / "
+                f"{loop[2]}, digests {digest(*cand[:2])} / "
+                f"{digest(*loop[:2])})")
+            if not same:
+                raise AssertionError(f"graph {mode}: the traversal kernel "
+                                     "differs from the per-hop loop")
+            entry = graph._entry_beam(graph._score_ids_of(qstate, art.scorer),
+                                      index, q.shape[0], GRAPH_BEAM)
+            args, lb = hop_args((art.scorer, qstate, index.nbr_rows,
+                                 *entry))
+            searches[mode] = (args, lb, search_work(seen), qstate,
+                              art.scorer, g)
+            del seen
         arts[mode] = art
         del engine
-    totals = counts(K)
-    log(f"  graph-path launches (build + serving): {totals}")
+    checks = {k: v - main[k] for k, v in counts(K).items()}
+    log(f"  graph-path launches, build + serving: {main}; the checks' "
+        f"(the per-hop loop, sync counts, profiles): {checks}")
 
     def recall_all(ids):
         return metrics.recall_at_k(ids, gt)
@@ -1701,20 +1897,22 @@ def phase_graph(K, testing, ds, x, sph, glv):
     t3 = time.perf_counter()
     engine.swap(engine.state._replace(artifacts=art, index=index))
     served = engine.submit(ds.queries_test)
-    rec = serve.live_recall(engine, ds.queries_test, served)
     delta = {k: v - before[k] for k, v in counts(K).items()}
+    for k, v in delta.items():
+        main[k] += v
+    rec = serve.live_recall(engine, ds.queries_test, served)
     log(f"  churn ({mode}, capacity {cap}): store build "
         f"{t1 - t0:.1f} s; remove {CHURN_REMOVES} + insert {CHURN_INSERTS} "
         f"rows {(t2 - t1) * 1e3:.0f} ms; insert_ids + refreshed "
         f"{(t3 - t2) * 1e3:.0f} ms = {(t3 - t2) * 1e3 / CHURN_INSERTS:.2f} "
         f"ms per inserted row (a sequential host loop); served recall@10="
-        f"{rec:.4f} over the live rows; graph_scan_beam_step launches="
-        f"{delta['graph_scan_beam_step']}")
+        f"{rec:.4f} over the live rows; graph_beam_search launches="
+        f"{delta['graph_beam_search']}")
     if np.isin(served, removed.cpu().numpy()).any():
         raise AssertionError("churn: a removed id was returned")
-    if delta["graph_scan_beam_step"] <= 0:
-        raise AssertionError("churn: the fused graph did not launch "
-                             "graph_scan_beam_step")
+    if delta["graph_beam_search"] <= 0 or delta["graph_scan_beam_step"]:
+        raise AssertionError("churn: the fused graph did not serve through "
+                             "graph_beam_search alone")
     linked = np.isin(new_ids.cpu().numpy(), index.neighbors.cpu().numpy())
     log(f"    inserted rows with an in-edge: {int(linked.sum())} of "
         f"{CHURN_INSERTS}")
@@ -1725,7 +1923,8 @@ def phase_graph(K, testing, ds, x, sph, glv):
     fused_vs_gathered(K, testing, "churned graph", art, index, q,
                       GRAPH_EXPAND, recall_live)
     del engine, art, index
-    return hops, totals, per_batch
+    log(f"  graph-path main-path launches (build, serving, churn): {main}")
+    return hops, main, per_batch, searches
 
 
 # ---------------------------------------------------------------------------
@@ -2321,6 +2520,22 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
+def device_digest(t: torch.Tensor) -> str:
+    """A checksum of a tensor's 32-bit words computed on the card, for
+    outputs of gigabytes: the int64 sum of the words and of each word times
+    its position mod 65521. Equal in two runs: the bits agree but for a
+    vanishing chance."""
+    w = t.contiguous().view(torch.int32).reshape(-1)
+    s1 = s2 = 0
+    step = 1 << 26
+    for a in range(0, w.numel(), step):
+        c = w[a:a + step].to(torch.int64)
+        pos = torch.arange(a, a + c.numel(), device=w.device) % 65521
+        s1 += int(c.sum())
+        s2 += int((c * pos).sum())
+    return f"{s1 & 0xffffffffffff:012x}{s2 & 0xffffffffffff:012x}"
+
+
 def time_kernel(name, label, calls, launches, testing, reps: int = 3):
     """Time one kernel call (mean of ``reps``) beside its plain version and
     library composition; returns its row of the kernel table."""
@@ -2376,6 +2591,7 @@ def time_dense(name, label, kern, plain, library, flops, nbytes, tol,
     """Time one dense kernel beside its plain version and its library
     call, each checked against the kernel; returns its table row."""
     ms, out_k = timed(kern, 3)
+    log(f"  {name}[{label}] output digest {device_digest(out_k)}")
     plain_ms, out_p = timed_once(plain)
     err = check_dense(f"{name}[{label}] vs plain", out_k, out_p, tol)
     del out_p
@@ -2532,9 +2748,66 @@ def hop_work(qs, qlo, btags, rid, codes, nbr, bv, bi, lb):
     return 2.0 * d * n_scored, float(nbytes)
 
 
-def graph_timing(K, testing, x, hops, totals, per_batch):
+def search_work(hops):
+    """(flops, bytes) a whole traversal needs on the inputs of its hops
+    (the per-hop loop's, :func:`capture_hops`): at each hop, for the
+    queries still searching, the neighbor rows read from the table (4 bytes
+    each), each distinct valid row's id and block tag (8 bytes), and the
+    codes of the rows it scores (live, not in the beam; 2 d flops each);
+    over the search, the view row (d + 1 floats) of each distinct (query,
+    tag) it scores once, the entry beam read and the final beam and hop
+    counts written once."""
+    flops = nbytes = 0.0
+    pairs = []
+    for hop in hops:
+        (qs, qlo, btags, rid, codes, nbr, bv, bi), lb = hop_args(hop)
+        act = (nbr >= 0).any(dim=1)
+        nbr, bi = nbr[act], bi[act]
+        n = codes.shape[0]
+        m, c, d = qs.shape
+        rows = torch.sort(torch.where((nbr >= 0) & (nbr < n), nbr,
+                                      torch.full_like(nbr, n)), dim=1).values
+        valid = rows < n
+        first = valid & torch.cat([torch.ones_like(valid[:, :1]),
+                                   rows[:, 1:] != rows[:, :-1]], dim=1)
+        safe = torch.where(valid, rows, torch.zeros_like(rows)).long()
+        ids = rid[safe]
+        scored = first & (ids >= 0) \
+            & ~(ids[:, :, None] == bi[:, None, :]).any(2)
+        q_idx = torch.nonzero(act).squeeze(1)
+        pairs.append((q_idx[:, None] * c + btags[safe // lb].long())[scored])
+        n_scored = int(scored.sum())
+        flops += 2.0 * d * n_scored
+        nbytes += nbr.numel() * 4 + int(first.sum()) * 8 \
+            + n_scored * d * codes.element_size()
+    (qs, _, _, _, _, _, bv, _), _ = hop_args(hops[0])
+    d = qs.shape[2]
+    nbytes += torch.unique(torch.cat(pairs)).numel() * (d + 1) * 4 \
+        + 2 * bv.numel() * 8 + bv.shape[0] * 4
+    return flops, float(nbytes)
+
+
+def search_split(K, args, kw, hops) -> str:
+    """graph_beam_search's own ``clock64`` profile
+    (``graph_scan.search_profile``): each part's share of the kernel's
+    cycles and its cycles a hop a block."""
+    from repro_torch.kernels.graph_scan import search_profile
+    prof = search_profile(*args, **kw)
+    total = max(prof["kernel"], 1)
+    per_hop = max(int(hops.sum()), 1)
+    return ("share of the kernel's cycles (clock64, thread 0): " + ", ".join(
+        f"{part} {cyc / total:.1%} ({cyc / per_hop:.0f} a hop)"
+        for part, cyc in prof.items() if part != "kernel")
+        + f"; {total / per_hop:.0f} cycles a hop a block")
+
+
+def graph_timing(K, testing, x, hops, totals, per_batch, searches):
     """``graph_scan_beam_step`` on the captured hops (expand 1 and 4, u8
-    and f32), and ``ip_topk`` at the graph build's self-join shape."""
+    and f32), ``graph_beam_search`` on each fused mode's batch, and
+    ``ip_topk`` at the graph build's self-join shape. ``totals`` are the
+    main path's launches: the per-hop kernel's are 0, since a fused graph
+    serves through ``graph_beam_search`` and only the checks hop."""
+    from repro_torch.index import graph
     table = []
     for (mode, expand), hop in hops.items():
         args, lb = hop_args(hop)
@@ -2544,17 +2817,56 @@ def graph_timing(K, testing, x, hops, totals, per_batch):
                               qs.shape[2], float(qlo.abs().max()))
         label = (f"{'u8' if codes.dtype == torch.uint8 else 'f32'} "
                  f"expand={expand} S={args[5].shape[1]}")
-        row = time_kernel(
+        table.append(time_kernel(
             "graph_scan_beam_step", label,
             (lambda: K.graph_scan_beam_step(*args, layout_block=lb),
              lambda: K.graph_scan_beam_step_plain(*args, layout_block=lb),
              flops, nbytes, tol, lambda: hop_library(*args, lb)),
-            totals["graph_scan_beam_step"], testing, reps=50)
-        if expand == GRAPH_EXPAND:
-            log(f"    launches per served batch ({mode}, expand {expand}): "
-                f"{per_batch[mode]}; on the whole graph path: "
-                f"{totals['graph_scan_beam_step']}")
-        table.append(row)
+            totals["graph_scan_beam_step"], testing, reps=50))
+    for mode, (args, lb, work, qstate, scorer, gathered) in searches.items():
+        qs, qlo, codes = args[0], args[1], args[4]
+        tol = testing.dot_tol(row_norm_max(qs), row_norm_max(codes),
+                              qs.shape[2], float(qlo.abs().max()))
+        kw = dict(layout_block=lb, max_hops=GRAPH_HOPS, expand=GRAPH_EXPAND)
+        ms, out_k = timed(lambda: K.graph_beam_search(*args, **kw), 20)
+        plain_ms, out_p = timed_once(
+            lambda: K.graph_beam_search_plain(*args, **kw))
+        lib_ms, out_l = timed(lambda: graph._beam_qstate(
+            qstate, scorer, gathered, GRAPH_BEAM, GRAPH_BEAM, GRAPH_HOPS,
+            expand=GRAPH_EXPAND), 2)
+        rep = testing.topk_agreement(out_k[:2], out_p[:2], tol)
+        lib = testing.topk_agreement(out_k[:2], out_l[:2], tol)
+        b, by = bound_ms(*work)
+        pb = per_batch[mode]
+        label = (f"graph_beam_search[{mode} expand={GRAPH_EXPAND} "
+                 f"B={GRAPH_BEAM}]")
+        log(f"  {label}: ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms="
+            f"{b:.4f} ({by}; flops {work[0]:.3e}, bytes {work[1]:.3e}) "
+            f"library_ms={lib_ms:.3f} (the gathered torch traversal) "
+            f"launches={totals['graph_beam_search']}; hops max "
+            f"{int(out_k[2].max())}, per query {int(out_k[2].min())}-"
+            f"{int(out_k[2].max())} (mean {float(out_k[2].float().mean()):.1f})"
+            f"; vs plain: max_abs_err={rep['max_abs_err']:.3e} "
+            f"id_agreement={rep['id_agreement']:.4f} hops equal "
+            f"{torch.equal(out_k[2], out_p[2])}; vs gathered: id_agreement="
+            f"{lib['id_agreement']:.4f} (on real-valued data the plain "
+            f"version sums in torch's order, so near ties may reorder a "
+            f"beam and a query's hops; phase 2 holds the two bit for bit "
+            f"on integer data at this shape); served path a batch: "
+            f"{pb['search']:.0f} launch, {pb['hops']} hops, {pb['syncs']} "
+            f"host syncs")
+        if min(rep["id_agreement"], lib["id_agreement"]) < GRAPH_MIN_OVERLAP:
+            raise AssertionError(f"{label}: beams disagree with the plain "
+                                 "version or the gathered traversal")
+        log(f"    {label} " + search_split(K, args, kw, out_k[2]))
+        src, repl = KERNEL_FILES["graph_beam_search"]
+        table.append({"name": label, "route": "cuda", "source": src,
+                      "replaces": repl,
+                      "launches": totals["graph_beam_search"],
+                      "max_abs_err": rep["max_abs_err"], "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                      "library_ms": lib_ms})
+        del out_k, out_p, out_l
     # the build's self-join batch as _device_knn lays it out: rows [x,
     # -|x|^2 / 2] and queries [q, 1], zero columns up to a multiple of 4
     # (513 -> 516); the bound counts the 513 columns the data needs
@@ -2832,6 +3144,8 @@ def kernel_timing(K, gen, only=()):
                    2.0 * m * n * d, (qs.numel() + qlo.numel() + m * n
                                      + t.numel()) * 4
                    + n * d * x.element_size())
+            log("    output digest " + device_digest(
+                K.gleanvec_sq(qs, qlo, t, x, layout_block=lb)))
             del x
     if want("gleanvec_ip"):
         x = codes(N_ROWS, d, False)
@@ -2965,7 +3279,8 @@ def main(argv=None) -> int:
     ds, x, sph, glv, states, per_mode, totals, flat_p50 = phase_main(K)
     ivf_inputs, ivf_launches = phase_ivf(K, testing, ds, x, glv, states)
     finals, stream_totals, stream_runs = phase_stream(K, testing, ds, x)
-    hops, graph_totals, per_batch = phase_graph(K, testing, ds, x, sph, glv)
+    hops, graph_totals, per_batch, searches = phase_graph(K, testing, ds, x,
+                                                          sph, glv)
     table = phase_timing(K, testing, x, glv, states, per_mode, totals,
                          ivf_inputs, ivf_launches, flat_p50)
     del states, ivf_inputs
@@ -2973,8 +3288,9 @@ def main(argv=None) -> int:
                            torch.as_tensor(ds.queries_test,
                                            device=torch.device("cuda")))
     del finals
-    table += graph_timing(K, testing, x, hops, graph_totals, per_batch)
-    del ds, x, sph, glv, hops, stream_totals, graph_totals
+    table += graph_timing(K, testing, x, hops, graph_totals, per_batch,
+                          searches)
+    del ds, x, sph, glv, hops, stream_totals, graph_totals, searches
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     qkv, lm_launches = phase_lm(K, testing)

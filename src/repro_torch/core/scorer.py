@@ -22,7 +22,9 @@ whose clusters are their tags, lowered through
 ``kernels.scorer_scan_lists`` to the ``ivf_scan_topk`` kernel, and
 ``scan_neighbors(qstate, nbr_rows, beam_vals, beam_ids, tn)``: the
 gather-free hop of a graph bound to their layout, lowered through
-``kernels.scorer_scan_neighbors`` to ``graph_scan_beam_step``.
+``kernels.scorer_scan_neighbors`` to ``graph_scan_beam_step`` (the whole
+traversal of such a graph lowers through ``kernels.scorer_beam_search`` to
+``graph_beam_search``).
 
     ==========================  =========================  ================
     scorer                      storage                    scoring

@@ -7,7 +7,7 @@
 // The bucketing builds, for this call only, the tag-sorted order the sorted
 // layout fixes at layout time: every tag's rows, in ascending row order,
 // padded up to a multiple of GT_N = 128 slots, so each 128-slot tile holds
-// ONE tag and scan_gemm.cuh's register-tiled product scores it (ROWS).
+// ONE tag and scan_gemm.cuh's register-tiled product scores it.
 //
 //   rows (T * GT_N,)  i32: the row of x in each slot, -1 = padding;
 //   tile_tags (T,)    i32: the tag of each tile;

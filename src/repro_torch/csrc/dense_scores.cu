@@ -28,11 +28,12 @@
 //     block an SM, one wave of splits); each warp stages its finished
 //     32 x 128 piece through shared memory, 4 queries at a time, and writes
 //     whole 128-byte lines with streaming stores.
-//   * dense gleanvec_sq, sorted layout: the register-tiled fp32 product of
-//     scan_gemm.cuh (64 x 128 tiles, each thread 4 x 8 scores; a tile's one
-//     view and its offset per query), staged through shared memory; each
-//     warp writes one query row of the tile, consecutive lanes consecutive
-//     columns.
+//   * dense gleanvec_sq, sorted layout: the same scan and store with the
+//     query views (M, C, d) of the layout blocks: one view a tile, tiles cut
+//     at layout-block ends (V = 1, any layout block), or two views a tile,
+//     one a column half, for layout blocks of 256 (V = 2, the stream's);
+//     each tile's offsets q_lo[m, tag] ride in with its first chunk and are
+//     added after the FMA chain, as in the sorted top-k.
 //   * gleanvec_ip and the gathered layout: the per-call bucketing of
 //     bucket_rows.cuh gives every 128-slot tile one tag; the tile stages
 //     x[rows[slot], :] and writes its scores in slot order to a buffer of a
@@ -48,27 +49,21 @@
 #include "error.cuh"
 #include "ip_scan.cuh"
 
+// Dense sorted scores: qs (M, C, d) views, qlo (M, C), block_tags
+// (ceil(N / L),) on ceil(M / IP_TM) x S blocks (V = ip_dense_views(L)).
 template <typename XT>
-static int gemm_dense(const float* q, long long q_stride, const float* qlo, int C,
-                      const int* seg_tags, const XT* x, int M, int d, int N, int L,
-                      int S, float* out, void* stream) {
-  GemmScanArgs a;
-  a.q = q;
-  a.q_stride = q_stride;
-  a.d = d;
+static int sorted_dense(const float* qs, const float* qlo, const int* block_tags,
+                        const XT* x, int M, int C, int d, int N, int L, int S, float* out,
+                        void* stream) {
+  IpSegArgs a = ip_seg_args(qs, x, M, N, d, 0, S, nullptr, nullptr, nullptr);
+  a.q_ld = (long long)C * d;
   a.qlo = qlo;
   a.C = C;
-  a.seg_tags = seg_tags;
-  a.row_ids = nullptr;
-  a.x = x;
-  a.N = N;
+  a.seg_tags = block_tags;
   a.L = L;
-  a.M = M;
-  a.k = 0;
-  a.S = S;
-  a.pv = out;
-  a.pi = nullptr;
-  return (int)launch_gemm_dense<XT>(a, (cudaStream_t)stream);
+  a.out = out;
+  a.out_vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return (int)launch_ip_dense<XT>(a, (cudaStream_t)stream);
 }
 
 // qlo may be null (no affine term). buf holds mc * slots floats (slots =
@@ -101,7 +96,7 @@ static int gathered_dense(const float* qs, const float* qlo, const int* tags,
     a.S = S;
     a.pv = buf;
     a.pi = nullptr;
-    if ((err = launch_gemm_dense<XT, true>(a, st)) != cudaSuccess) return (int)err;
+    if ((err = launch_gemm_dense<XT>(a, st)) != cudaSuccess) return (int)err;
     if (N > 0) {
       const dim3 grid((unsigned)((N + BK_WINDOW - 1) / BK_WINDOW), (unsigned)mm);
       bucket_unpermute_kernel<<<grid, BK_THREADS, 0, st>>>(buf, b.slot_of, N, slots,
@@ -128,7 +123,7 @@ extern "C" int sq_dot_u8(const float* q_scaled, const float* q_lo,
   a.L = N;  // one layout block: one view
   a.out = out;
   a.out_vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  return (int)launch_ip_dense<uint8_t>(a, (cudaStream_t)stream);
+  return (int)launch_ip_dense_v<uint8_t, 1>(a, (cudaStream_t)stream);
 }
 
 // sq_dot's block tile: 0 -> queries per block (IP_TM), 1 -> rows per tile
@@ -164,14 +159,16 @@ extern "C" int gleanvec_sq_dense_gathered_u8(const float* qs, const float* qlo,
                                  out, stream);
 }
 
-// dense gleanvec_sq, sorted: block_tags (ceil(N / L),), one view per block.
+// dense gleanvec_sq, sorted: block_tags (ceil(N / L),), one view per block,
+// on ceil(M / IP_TM) x S blocks over the tiles of
+// gleanvec_sq_dense_sorted_views(layout_block, u8) views.
 extern "C" int gleanvec_sq_dense_sorted_f32(const float* qs, const float* qlo,
                                             const int* block_tags, const float* codes,
                                             int M, int C, int d, int N,
                                             int layout_block, int S, float* out,
                                             void* stream) {
-  return gemm_dense<float>(qs, (long long)C * d, qlo, C, block_tags, codes, M, d, N,
-                           layout_block, S, out, stream);
+  return sorted_dense<float>(qs, qlo, block_tags, codes, M, C, d, N, layout_block, S,
+                             out, stream);
 }
 
 extern "C" int gleanvec_sq_dense_sorted_u8(const float* qs, const float* qlo,
@@ -179,6 +176,13 @@ extern "C" int gleanvec_sq_dense_sorted_u8(const float* qs, const float* qlo,
                                            const uint8_t* codes, int M, int C, int d,
                                            int N, int layout_block, int S, float* out,
                                            void* stream) {
-  return gemm_dense<uint8_t>(qs, (long long)C * d, qlo, C, block_tags, codes, M, d, N,
-                             layout_block, S, out, stream);
+  return sorted_dense<uint8_t>(qs, qlo, block_tags, codes, M, C, d, N, layout_block, S,
+                               out, stream);
+}
+
+// The views (1 or 2) the sorted dense scan takes for layout blocks of L
+// rows (ip_dense_views): its tiles are ceil(N / tile rows) when 2, else
+// ceil(N / L) * ceil(L / tile rows).
+extern "C" int gleanvec_sq_dense_sorted_views(int L, int u8) {
+  return u8 ? ip_dense_views<uint8_t>(L) : ip_dense_views<float>(L);
 }

@@ -34,7 +34,7 @@
 //   * gathered: a per-call bucketing (bucket_rows.cuh, three small launches)
 //     lays each tag's rows out in 128-slot tiles of one tag, and the
 //     register-tiled scan of scan_gemm.cuh stages x[rows[slot], :] through
-//     that indirection (ROWS); ids are row_ids[row] (or the row), padding
+//     that indirection; ids are row_ids[row] (or the row), padding
 //     slots are -1 and never win.
 // Each (query, row) score is the same FMA chain in either layout and scan,
 // and the top-k order does not depend on the scan order. N is split across

@@ -5,12 +5,13 @@
 //     gleanvec_sq.cu, whose layout blocks of L rows each score against one
 //     query view q[m, tag] and add its offset q_lo[m, tag], with ids read
 //     through row_ids (-1 = padding, never listed);
-//   * dense scores (V = 1, DENSE): sq_dot in dense_scores.cu, the one-view
-//     case (C = 1) with a store of every score tile in place of the fold;
+//   * dense scores (V = 1 or 2, DENSE): dense_scores.cu's sq_dot, the
+//     one-view case (C = 1), and the sorted dense gleanvec_sq, with a store
+//     of every score tile in place of the fold;
 //   * work items (ip_list_kernel, at the end): ivf_scan.cu's runs of layout
 //     blocks, each scanned by one block for up to IP_TM queries gathered
 //     through an index list, one view an item.
-// The gathered and the other dense scans keep scan_gemm.cuh.
+// The gathered scans (top-k and dense) keep scan_gemm.cuh.
 //
 // A block owns IP_TM = 64 queries and one split of the database's tiles of
 // IP_TN = 512 rows, one block an SM (256 threads with up to 255 registers).
@@ -72,6 +73,8 @@
 // own slice of shared memory, 4 queries at a time, so that every store
 // instruction writes 4 whole 128-byte lines, with streaming stores (the
 // (M, N) output is written once and would only evict the rows from L2).
+// The store does not depend on the view: with V = 2 each warp's piece has
+// its own column half's view and offset, as in the fold.
 #pragma once
 #include <climits>
 #include <cstdint>
@@ -722,13 +725,13 @@ __device__ __forceinline__ void ip_store_tile(const IpSegArgs& a, float* wst,
 // dimension, so the blocks resident at one time read the same row tiles
 // and x streams from device memory about once. V: plain MIPS (0) or views
 // per layout block (1, 2; see the top). DENSE (V = 1): store the scores,
-// no lists. CEIL: a later pass of a k > TOPK_PASS_K scan; FLOORS: the
+// no lists (any V >= 1). CEIL: a later pass of a k > TOPK_PASS_K scan; FLOORS: the
 // splits share floors (a.floors). Each option is a template parameter, so
 // the plain instantiations compile to the code they ran before the others
 // existed.
 template <typename XT, int V, bool DENSE, bool CEIL, bool FLOORS>
 __global__ void __launch_bounds__(IP_THREADS, 1) ip_scan_kernel(IpArgs<V> a) {
-  static_assert(!DENSE || V == 1, "dense scores take one view a tile");
+  static_assert(!DENSE || V >= 1, "dense scores take the views' offsets");
   constexpr int BK = IpChunk<XT>::BK, STAGE = ip_stage_bytes<XT, V>();
   constexpr int SIDE = ip_side_bytes<V>();
   extern __shared__ __align__(16) unsigned char ism[];
@@ -938,19 +941,36 @@ static cudaError_t launch_ip_seg_scan(const IpSegArgs& a, int views, int k, floa
                     : launch_ip_scan<XT, 1>(a, k, out_v, out_i, stream);
 }
 
-// Dense (M, N) scores of one view a row space (V = 1, a.L rows a block) on
-// ceil(M / IP_TM) x a.S blocks: no lists, no merge.
+// The views (1 or 2) the dense scan takes for layout blocks of L rows: two
+// where IP_TN / 2 divides L but IP_TN does not (its tiles are then
+// ceil(N / IP_TN)), else one (ceil(N / L) * ceil(L / IP_TN) tiles).
 template <typename XT>
-static cudaError_t launch_ip_dense(IpSegArgs a, cudaStream_t stream) {
-  if (a.L < 1) return cudaErrorInvalidValue;
+static int ip_dense_views(int L) {
+  if (L % IP_TN != 0 && L % (IP_TN / 2) == 0 &&
+      ip_scan_smem<XT, 2, true>(0) <= IP_SMEM_MAX)
+    return 2;
+  return 1;
+}
+
+// Dense (M, N) scores of a.L rows a view (V = ip_dense_views(a.L)) on
+// ceil(M / IP_TM) x a.S blocks: no lists, no merge.
+template <typename XT, int V>
+static cudaError_t launch_ip_dense_v(IpSegArgs a, cudaStream_t stream) {
   a.k = 0;
-  const size_t smem = ip_scan_smem<XT, 1, true>(0);
-  auto kernel = ip_scan_kernel<XT, 1, true, false, false>;
+  const size_t smem = ip_scan_smem<XT, V, true>(0);
+  auto kernel = ip_scan_kernel<XT, V, true, false, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.M + IP_TM - 1) / IP_TM, a.S), IP_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename XT>
+static cudaError_t launch_ip_dense(const IpSegArgs& a, cudaStream_t stream) {
+  if (a.L < 1) return cudaErrorInvalidValue;
+  return ip_dense_views<XT>(a.L) == 2 ? launch_ip_dense_v<XT, 2>(a, stream)
+                                      : launch_ip_dense_v<XT, 1>(a, stream);
 }
 
 // ---------------------------------------------------------------------------

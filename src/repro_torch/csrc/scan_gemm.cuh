@@ -1,32 +1,26 @@
 // Tiled fp32 scan + per-block top-k of the gathered layout of
 // gleanvec_sq.cu (through its per-call bucketing, bucket_rows.cuh) and of
 // the dense gathered scores (dense_scores.cu). ip_topk.cu, the sorted
-// layout of gleanvec_sq.cu, sq_dot and ivf_scan.cu run the pipelined scan
-// of ip_scan.cuh instead.
+// layout of gleanvec_sq.cu (top-k and dense), sq_dot and ivf_scan.cu run
+// the pipelined scan of ip_scan.cuh instead.
 //
-// A block owns GT_M = 64 queries and one split of the database's row tiles.
-// Rows are grouped in segments of L rows that share ONE query view (the
-// tag-sorted layout's layout block; with no tags every segment has tag
-// 0), and a tile of GT_N = 128 rows never crosses a
-// segment. Per tile the block computes the (64, 128) score tile with a
-// register-tiled fp32 FMA product (each thread 4 x 8 scores, operands staged
-// through shared memory in depth chunks of GT_K = 32), adds the per-query
-// affine offset of the tile's view, and folds the tile into its per-query
-// top-k lists (topk_common.cuh). The dense (M, N) score matrix never exists.
-// The DENSE instantiation (dense_scores.cu: dense gleanvec_sq and
-// gleanvec_ip) runs the same tiles and writes each score tile to the
-// (M, N) output instead of folding it.
-// ROWS (the bucketed gathered layout, L = GT_N): slot n of the layout holds
-// row rows[n] of x (-1 = padding), so a tile stages x[rows[n], :] instead of
-// x[n, :]; a slot's id is row_ids[rows[n]] (or rows[n]); a tile whose first
-// slot is padding is all padding and is skipped. The indirection adds a
-// chain of dependent loads (slot -> row -> id) in front of each tile, so
-// the next tile's rows and tag are loaded a tile ahead, the ids and
-// offsets reach shared memory with the first depth chunk, and each depth
-// chunk's operands are loaded into registers while the previous chunk is
-// folded. DENSE writes the tile's slots in layout order, as without ROWS.
-// The indirection is a template parameter, so the other instantiations
-// compile to the code they ran before it existed.
+// A block owns GT_M = 64 queries and one split of the layout's tiles of
+// GT_N = 128 slots; the bucketing gives every tile ONE tag (a segment of
+// L = GT_N slots). Slot n of the layout holds row rows[n] of x (-1 =
+// padding), so a tile stages x[rows[n], :]; a slot's id is
+// row_ids[rows[n]] (or rows[n]); a tile whose first slot is padding is all
+// padding and is skipped. Per tile the block computes the (64, 128) score
+// tile with a register-tiled fp32 FMA product (each thread 4 x 8 scores,
+// operands staged through shared memory in depth chunks of GT_K = 32), adds
+// the per-query affine offset of the tile's view, and folds the tile into
+// its per-query top-k lists (topk_common.cuh). The dense (M, N) score
+// matrix never exists. The DENSE instantiation (dense_scores.cu: gathered
+// gleanvec_sq and gleanvec_ip) runs the same tiles and writes each score
+// tile to a slot-ordered buffer instead of folding it. The indirection adds
+// a chain of dependent loads (slot -> row -> id) in front of each tile, so
+// the next tile's rows and tag are loaded a tile ahead, the ids and offsets
+// reach shared memory with the first depth chunk, and each depth chunk's
+// operands are loaded into registers while the previous chunk is folded.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,21 +53,18 @@ struct GemmScanArgs {
   int S;                // splits of the row tiles (partial slots per query)
   float* pv;            // (M, S, k) partial lists; DENSE: (M, N) scores
   int* pi;
-  const int* rows = nullptr;     // ROWS: (N,) row of x per layout slot, -1 = padding
+  const int* rows = nullptr;     // (N,) row of x per layout slot, -1 = padding
   const float* ceil_v = nullptr; // CEIL: query m's ceiling at ceil_v[m * ceil_ld]
   const int* ceil_i = nullptr;
   int ceil_ld = 0;
 };
 
 // Query tiles x splits. MIN_BLOCKS resident blocks per SM set the
-// register budget: 3 (at most 85 a thread) where the shared memory of three
-// blocks fits (small k), else 2 (at most 128, which the scan needs to run
-// without spills). DENSE (with k = 0) stores every tile to
-// the (M, N) matrix at a.pv; the top-k lists are empty and nothing is
-// folded. ROWS: the slot -> row indirection above. CEIL: a later pass of a
-// k > TOPK_PASS_K scan (topk_common.cuh).
-template <typename XT, int MIN_BLOCKS, bool DENSE = false, bool ROWS = false,
-          bool CEIL = false>
+// register budget: 2 (at most 128 a thread) for the fold, 3 (at most 85)
+// for DENSE, which (with k = 0) stores every tile to the slot-ordered
+// matrix at a.pv; its top-k lists are empty and nothing is folded. CEIL: a
+// later pass of a k > TOPK_PASS_K scan (topk_common.cuh).
+template <typename XT, int MIN_BLOCKS, bool DENSE = false, bool CEIL = false>
 __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
     gemm_scan_topk_kernel(GemmScanArgs a) {
   extern __shared__ __align__(16) unsigned char gsmem[];
@@ -82,8 +73,8 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
   int* tile_ids = li + GT_M * a.k;              // GT_N
   float* lo_s = reinterpret_cast<float*>(tile_ids + GT_N);  // GT_M
   int* tail = reinterpret_cast<int*>(lo_s + GT_M);
-  int* tile_rows = tail;                        // ROWS: GT_N rows of x, -1 = padding
-  tail += ROWS ? GT_N : 0;
+  int* tile_rows = tail;                        // GT_N rows of x, -1 = padding
+  tail += GT_N;
   float* ceil_vs = reinterpret_cast<float*>(tail);  // CEIL: GT_M ceilings
   int* ceil_is = tail + GT_M;
   tail += CEIL ? 2 * GT_M : 0;
@@ -116,22 +107,20 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
     }
   }
 
-  // ROWS: the next tile's first slot, tag and (thread t < GT_N) slot t's row
+  // the next tile's first slot, tag and (thread t < GT_N) slot t's row
   int pf_first = -1, pf_tag = 0, pf_row = -1;
-  if constexpr (ROWS) {
-    if (t_begin < t_end) {
-      pf_first = a.rows[t_begin * GT_N];
-      pf_tag = a.seg_tags[t_begin];
-      if (t < GT_N) pf_row = a.rows[t_begin * GT_N + t];
-    }
+  if (t_begin < t_end) {
+    pf_first = a.rows[t_begin * GT_N];
+    pf_tag = a.seg_tags[t_begin];
+    if (t < GT_N) pf_row = a.rows[t_begin * GT_N + t];
   }
 
   for (long long tile = t_begin; tile < t_end; ++tile) {
     const int seg = (int)(tile / tps), sub = (int)(tile % tps);
     const long long seg0 = (long long)seg * a.L;
     const int n0 = (int)(seg0 + (long long)sub * GT_N);
-    const int cur_row = pf_row, cur_tag = pf_tag;  // ROWS: this tile's
-    if constexpr (ROWS) {
+    const int cur_row = pf_row, cur_tag = pf_tag;  // this tile's
+    {
       const int first = pf_first;
       if (tile + 1 < t_end) {
         pf_first = a.rows[(tile + 1) * GT_N];
@@ -140,34 +129,26 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
       }
       if (first < 0) continue;  // all padding; the whole block skips it
     }
-    const int n1 = ROWS ? n0 + GT_N
-                        : (int)min(min((long long)n0 + GT_N, seg0 + a.L), (long long)a.N);
-    const int tag = ROWS ? min(max(cur_tag, 0), a.C - 1)
-                         : (a.seg_tags ? min(max(a.seg_tags[seg], 0), a.C - 1) : 0);
-    int id = -1;          // ROWS: slot t's id and query t's offset, stored
+    const int n1 = n0 + GT_N;
+    const int tag = min(max(cur_tag, 0), a.C - 1);
+    int id = -1;          // slot t's id and query t's offset, stored
     float tile_lo = 0.f;  // with the first depth chunk
     if (t < GT_N) {
-      const int n = n0 + t;
-      if constexpr (ROWS) {
-        tile_rows[t] = cur_row;
-        id = cur_row >= 0 ? (a.row_ids ? a.row_ids[cur_row] : cur_row) : -1;
-      } else {
-        tile_ids[t] = n < n1 ? (a.row_ids ? a.row_ids[n] : n) : -1;
-      }
+      tile_rows[t] = cur_row;
+      id = cur_row >= 0 ? (a.row_ids ? a.row_ids[cur_row] : cur_row) : -1;
     }
     if (t < GT_M) {
       const int m = query_of(t);
-      if constexpr (ROWS) tile_lo = (a.qlo && m >= 0) ? a.qlo[(size_t)m * a.C + tag] : 0.f;
-      else lo_s[t] = (a.qlo && m >= 0) ? a.qlo[(size_t)m * a.C + tag] : 0.f;
+      tile_lo = (a.qlo && m >= 0) ? a.qlo[(size_t)m * a.C + tag] : 0.f;
     }
-    if constexpr (ROWS) __syncthreads();  // tile_rows, read by every warp's staging
+    __syncthreads();  // tile_rows, read by every warp's staging
     float acc[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-    if constexpr (ROWS) {
+    {
       // The slots' rows are scattered, so their loads wait longer than a
       // contiguous tile's: chunk kc + GT_K is loaded into registers while
       // chunk kc is folded.
@@ -200,41 +181,6 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
         }
         __syncthreads();
         if (kc + GT_K < a.d) load_chunk(kc + GT_K);
-#pragma unroll 4
-        for (int kk = 0; kk < GT_K; ++kk) {
-          const float4 qv = *reinterpret_cast<const float4*>(&qs[kk * QS_STRIDE + ty * 4]);
-          const float4 x0 = *reinterpret_cast<const float4*>(&xs[kk * XS_STRIDE + tx * 4]);
-          const float4 x1 =
-              *reinterpret_cast<const float4*>(&xs[kk * XS_STRIDE + 64 + tx * 4]);
-          const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-          const float xa[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qa[i], xa[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-    } else {
-      for (int kc = 0; kc < a.d; kc += GT_K) {
-        const int dd = kc + lane;
-#pragma unroll
-        for (int r = 0; r < GT_M / 8; ++r) {
-          const int mm = warp + 8 * r;
-          const int m = m0 + mm < a.M ? m0 + mm : -1;
-          float val = 0.f;
-          if (m >= 0 && dd < a.d)
-            val = a.q[(size_t)m * a.q_stride + (size_t)tag * a.d + dd];
-          qs[lane * QS_STRIDE + mm] = val;
-        }
-#pragma unroll
-        for (int r = 0; r < GT_N / 8; ++r) {
-          const int nn = warp + 8 * r, n = n0 + nn;
-          float val = 0.f;
-          if (n < n1 && dd < a.d) val = static_cast<float>(x[(size_t)n * a.d + dd]);
-          xs[lane * XS_STRIDE + nn] = val;
-        }
-        __syncthreads();
 #pragma unroll 4
         for (int kk = 0; kk < GT_K; ++kk) {
           const float4 qv = *reinterpret_cast<const float4*>(&qs[kk * QS_STRIDE + ty * 4]);
@@ -292,23 +238,20 @@ __global__ void __launch_bounds__(GT_THREADS, MIN_BLOCKS)
 }
 
 // Shared memory of one block of the top-k scan at list length a.k.
-template <bool ROWS, bool CEIL>
+template <bool CEIL>
 static size_t gemm_scan_smem(const GemmScanArgs& a) {
-  return (size_t)GT_M * a.k * 8 + GT_N * 4 + GT_M * 4 + (ROWS ? GT_N * 4 : 0) +
-         (CEIL ? GT_M * 8 : 0) + GT_STAGE * 4;
+  return (size_t)GT_M * a.k * 8 + GT_N * 4 + GT_M * 4 + GT_N * 4 + (CEIL ? GT_M * 8 : 0) +
+         GT_STAGE * 4;
 }
 
-// The scan alone, on `grid` blocks (partial lists only, a.k <= TOPK_PASS_K).
-template <typename XT, bool ROWS = false, bool CEIL = false>
+
+// The scan alone, on `grid` blocks (partial lists only, a.k <= TOPK_PASS_K),
+// under the 2-block budget that keeps its register-staged chunk.
+template <typename XT, bool CEIL = false>
 static cudaError_t launch_gemm_scan_blocks(const GemmScanArgs& a, dim3 grid,
                                            cudaStream_t stream) {
-  const size_t smem = gemm_scan_smem<ROWS, CEIL>(a);
-  auto kernel = gemm_scan_topk_kernel<XT, 2, false, ROWS, CEIL>;
-  // ROWS keeps its register-staged chunk only under the 2-block budget
-  if constexpr (!ROWS) {
-    if (3 * (smem + 1024) <= 233472)  // 228 KB per SM, 1 KB per block
-      kernel = gemm_scan_topk_kernel<XT, 3, false, ROWS, CEIL>;
-  }
+  const size_t smem = gemm_scan_smem<CEIL>(a);
+  auto kernel = gemm_scan_topk_kernel<XT, 2, false, CEIL>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -316,11 +259,11 @@ static cudaError_t launch_gemm_scan_blocks(const GemmScanArgs& a, dim3 grid,
   return cudaGetLastError();
 }
 
-// The bucketed gathered layout (ROWS): query tiles x S splits of the row
-// tiles, then the merge of the S partial lists of every query, for any
-// a.k >= 1: one pass per TOPK_PASS_K columns of the output, each after the
-// first under the previous pass's ceiling. a.pv / a.pi hold (M, S,
-// min(a.k, TOPK_PASS_K)) entries.
+// The bucketed gathered layout: query tiles x S splits of the row tiles,
+// then the merge of the S partial lists of every query, for any a.k >= 1:
+// one pass per TOPK_PASS_K columns of the output, each after the first
+// under the previous pass's ceiling. a.pv / a.pi hold (M, S, min(a.k,
+// TOPK_PASS_K)) entries.
 template <typename XT>
 static cudaError_t launch_gemm_scan_rows(GemmScanArgs a, float* out_v, int* out_i,
                                          cudaStream_t stream) {
@@ -330,12 +273,12 @@ static cudaError_t launch_gemm_scan_rows(GemmScanArgs a, float* out_v, int* out_
     a.k = k - k0 < TOPK_PASS_K ? k - k0 : TOPK_PASS_K;
     cudaError_t err;
     if (k0 == 0) {
-      err = launch_gemm_scan_blocks<XT, true>(a, grid, stream);
+      err = launch_gemm_scan_blocks<XT>(a, grid, stream);
     } else {
       a.ceil_v = out_v + k0 - 1;
       a.ceil_i = out_i + k0 - 1;
       a.ceil_ld = k;
-      err = launch_gemm_scan_blocks<XT, true, true>(a, grid, stream);
+      err = launch_gemm_scan_blocks<XT, true>(a, grid, stream);
     }
     if (err != cudaSuccess) return err;
     err = launch_topk_merge(a.pv, a.pi, a.M, a.S, a.k, k, out_v + k0, out_i + k0, stream);
@@ -344,12 +287,12 @@ static cudaError_t launch_gemm_scan_rows(GemmScanArgs a, float* out_v, int* out_
   return cudaSuccess;
 }
 
-// Dense (M, N) scores over query tiles x a.S splits of the row tiles (no
-// top-k lists, no merge). k must be 0.
-template <typename XT, bool ROWS = false>
+// Dense slot-ordered scores over query tiles x a.S splits of the row tiles
+// (no top-k lists, no merge). k must be 0.
+template <typename XT>
 static cudaError_t launch_gemm_dense(const GemmScanArgs& a, cudaStream_t stream) {
-  const size_t smem = GT_N * 4 + GT_M * 4 + (ROWS ? GT_N * 4 : 0) + GT_STAGE * 4;
-  auto kernel = gemm_scan_topk_kernel<XT, 3, true, ROWS>;
+  const size_t smem = GT_N * 4 + GT_M * 4 + GT_N * 4 + GT_STAGE * 4;
+  auto kernel = gemm_scan_topk_kernel<XT, 3, true>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -8,20 +8,25 @@ classic best-first loop) and scores their (batch, expand * R) neighbors.
 The scoring goes through the scorer protocol (``score_ids``), so the same
 traversal serves every scorer mode; graph edges hold ORIGINAL ids.
 
-Gather-free hops: a :class:`GraphIndex` carrying ``nbr_rows`` -- its edge
-lists translated into a tag-sorted scorer's SORTED-ROW space
-(:func:`with_fused_scan`) -- replaces each hop's gather + ``score_ids`` +
-top-k merge with the scorer's ``scan_neighbors``, which lowers to the
-``graph_scan_beam_step`` kernel. A graph that is not fused, or a scorer
-without ``scan_neighbors``, runs the gathered hop (:func:`gathered_beam_step`):
-that is the reference's own semantics, not a fallback. ``nbr_rows`` is bound
-to the layout's slot assignment: re-derive it (``refreshed``,
-:func:`with_fused_scan`) after slot churn, since an insert after a remove
-may reuse a freed slot.
+Gather-free traversal: a :class:`GraphIndex` carrying ``nbr_rows`` -- its
+edge lists translated into a tag-sorted scorer's SORTED-ROW space
+(:func:`with_fused_scan`) -- runs the whole search of a batch as one
+``graph_beam_search`` launch (``kernels.scorer_beam_search``): one block a
+query keeps its beam on the chip from the entry points to its last hop,
+each hop the gather-free ``graph_scan_beam_step`` body, with no host sync
+and no torch op between hops. A graph that is not fused, or a scorer
+without ``scan_neighbors``, runs the gathered hop
+(:func:`gathered_beam_step`): that is the reference's own semantics, not a
+fallback. ``nbr_rows`` is bound to the layout's slot assignment: re-derive
+it (``refreshed``, :func:`with_fused_scan`) after slot churn, since an
+insert after a remove may reuse a freed slot.
 
-The reference's ``jax.lax.while_loop`` is a Python loop here whose
-condition, ``hop < max_hops and any(expandable)``, reads one flag from the
-device per hop (a host sync per hop).
+The gathered traversal, and a fused one asked for Figure 7's tag trace,
+run the reference's ``jax.lax.while_loop`` as a Python loop (``_beam_loop``)
+whose condition, ``hop < max_hops and any(expandable)``, reads one flag
+from the device per hop (a host sync per hop); the traced fused loop hops
+through ``scan_neighbors`` (:func:`fused_hop_step`, one
+``graph_scan_beam_step`` launch a hop).
 
 Streamed growth: :func:`with_capacity` pads the edge table and
 :func:`insert_ids` links new rows (a sequential host loop, as the
@@ -45,7 +50,7 @@ from repro_torch.index.topk import NEG_INF
 __all__ = ["GraphIndex", "build", "build_device", "with_fused_scan",
            "with_capacity", "insert_ids", "beam_search_scorer",
            "beam_search", "beam_search_gleanvec", "beam_search_traced",
-           "gathered_beam_step"]
+           "gathered_beam_step", "fused_hop_step"]
 
 # build(method="auto") switches from numpy NN-descent to the device build at
 # this many rows.
@@ -65,11 +70,12 @@ class GraphIndex:
     path (``candidates``); the explicit entry points take overrides.
     Entries may be -1-padded: padded slots never enter the beam.
 
-    ``nbr_rows`` + ``fused`` enable the gather-free hop: ``nbr_rows`` is
-    ``neighbors`` translated into a tag-sorted scorer's sorted-row space
+    ``nbr_rows`` + ``fused`` enable the gather-free traversal: ``nbr_rows``
+    is ``neighbors`` translated into a tag-sorted scorer's sorted-row space
     (:func:`with_fused_scan`; removed ids -> -1), and ``candidates`` then
-    routes hops through ``scorer.scan_neighbors`` whenever the scorer has
-    one. ``scan_tn`` is the reference kernel's slab tile."""
+    runs the search as one ``graph_beam_search`` launch whenever the scorer
+    has ``scan_neighbors``. ``scan_tn`` is the reference kernel's slab
+    tile."""
 
     neighbors: torch.Tensor                 # (n, R) int32, -1 padded
     entries: torch.Tensor                   # (E,) int32 entry points
@@ -77,7 +83,7 @@ class GraphIndex:
     beam: int = 64
     max_hops: int = 256
     expand: int = 1       # frontier vertices expanded per hop
-    fused: bool = False   # route hops through scorer.scan_neighbors
+    fused: bool = False   # gather-free traversal (scorer.scan_neighbors)
     scan_tn: int = 8      # graph_scan slab tile of the reference
 
     # ---- Index protocol ----------------------------------------------------
@@ -109,8 +115,8 @@ class GraphIndex:
 def with_fused_scan(index: GraphIndex, scorer, tn: int = 8) -> GraphIndex:
     """Layout-aware variant of ``index`` bound to a tag-sorted ``scorer``:
     edge lists translated through ``scorer.inv_perm`` into sorted-row
-    space (removed ids -> -1), and ``candidates`` routes hops through the
-    fused ``scan_neighbors``. Re-run (or let ``refreshed`` run it) after
+    space (removed ids -> -1), and ``candidates`` runs the gather-free
+    traversal. Re-run (or let ``refreshed`` run it) after
     any slot churn."""
     inv = getattr(scorer, "inv_perm", None)
     if inv is None:
@@ -623,24 +629,10 @@ def gathered_beam_step(score_ids, nbr_tbl: torch.Tensor, scores, ids,
             torch.gather(all_vis, 1, sel))
 
 
-def _beam_loop(score_ids, graph: GraphIndex, batch: int, beam: int,
-               max_hops: int, expand: int = 1,
-               trace_tags: Optional[torch.Tensor] = None, fused_step=None):
-    """Shared traversal. ``score_ids(ids) -> (batch, p) scores`` for ids
-    >= 0. Returns (scores, ids, n_hops, tag_trace) with tag_trace (batch,
-    max_hops) = tag of the BEST vertex expanded at each hop (-1 = no hop),
-    for Figure 7. ``fused_step(scores, ids, visited, best_ids, sel_ok) ->
-    (scores, ids, visited)`` replaces the gathered merge with the
-    gather-free kernel (same top-``beam`` multiset; order is irrelevant
-    to every consumer).
-
-    The reference's ``while_loop`` as a Python loop: its condition reads
-    ``any(expandable)`` from the device once per hop."""
-    nbr_tbl = graph.neighbors
-    e = max(1, expand)
-    if e > beam:
-        raise ValueError(f"expand {e} must not exceed the beam width {beam}")
-    dev = nbr_tbl.device
+def _entry_beam(score_ids, graph: GraphIndex, batch: int, beam: int):
+    """The scored entry beam (scores, ids) (batch, beam) in slot order: the
+    entry points first (-1-padded entries at NEG_INF), then -1 slots."""
+    dev = graph.neighbors.device
     n_entry = graph.entries.shape[0]
     if n_entry > beam:
         raise ValueError(f"the beam ({beam}) must hold all {n_entry} entry "
@@ -654,6 +646,28 @@ def _beam_loop(score_ids, graph: GraphIndex, batch: int, beam: int,
                                        dtype=torch.int32, device=dev)], 1)
     scores = torch.cat([e_scores, torch.full((batch, beam - n_entry),
                                              NEG_INF, device=dev)], 1)
+    return scores, ids
+
+
+def _beam_loop(score_ids, graph: GraphIndex, batch: int, beam: int,
+               max_hops: int, expand: int = 1,
+               trace_tags: Optional[torch.Tensor] = None, fused_step=None):
+    """Shared traversal. ``score_ids(ids) -> (batch, p) scores`` for ids
+    >= 0. Returns (scores, ids, n_hops, tag_trace) with tag_trace (batch,
+    max_hops) = tag of the BEST vertex expanded at each hop (-1 = no hop),
+    for Figure 7. ``fused_step(scores, ids, visited, best_ids, sel_ok) ->
+    (scores, ids, visited)`` replaces the gathered merge with the
+    gather-free kernel (:func:`fused_hop_step`; same top-``beam``
+    multiset; order is irrelevant to every consumer).
+
+    The reference's ``while_loop`` as a Python loop: its condition reads
+    ``any(expandable)`` from the device once per hop."""
+    nbr_tbl = graph.neighbors
+    e = max(1, expand)
+    if e > beam:
+        raise ValueError(f"expand {e} must not exceed the beam width {beam}")
+    dev = nbr_tbl.device
+    scores, ids = _entry_beam(score_ids, graph, batch, beam)
     visited = torch.zeros((batch, beam), dtype=torch.bool, device=dev)
     tag_hist = torch.full((batch, max_hops), -1, dtype=torch.int32,
                           device=dev)
@@ -692,51 +706,80 @@ def _beam_loop(score_ids, graph: GraphIndex, batch: int, beam: int,
     return scores, ids, hop, tag_hist
 
 
+def _score_ids_of(qstate, scorer):
+    """``score_ids(ids)`` of prepared queries, ids < 0 read as row 0 (the
+    traversal masks them)."""
+    def score_ids(ids):
+        safe = torch.where(ids >= 0, ids, torch.zeros_like(ids))
+        return scorer.score_ids(qstate, safe)
+    return score_ids
+
+
+def fused_hop_step(qstate, scorer, graph: GraphIndex, beam: int,
+                   expand: int = 1):
+    """The per-hop gather-free step of :func:`_beam_loop` for a fused graph:
+    the popped vertices' pre-translated sorted rows (``nbr_rows``) go
+    straight to ``scorer.scan_neighbors`` (one ``graph_scan_beam_step``
+    launch), and the visited flags follow their entries' IDS through the
+    merge (sort + searchsorted against the pre-hop beam), which is the
+    gathered path's permutation of flags, since beam ids are distinct. The
+    traced fused traversal hops through it; ``graph_beam_search`` runs the
+    same hops in one launch."""
+    m = (qstate.q_scaled if isinstance(qstate, tuple) else qstate).shape[0]
+    nbr_rows_tbl = graph.nbr_rows
+    e = max(1, expand)
+
+    def step(scores, ids, visited, best_ids, sel_ok):
+        safe = torch.where(best_ids >= 0, best_ids,
+                           torch.zeros_like(best_ids))
+        nrows = nbr_rows_tbl[safe.long()]
+        nrows = torch.where((nrows >= 0) & sel_ok[:, :, None], nrows,
+                            torch.full_like(nrows, -1))
+        nrows = nrows.reshape(m, e * nbr_rows_tbl.shape[1]).contiguous()
+        new_scores, new_ids = scorer.scan_neighbors(
+            qstate, nrows, scores.contiguous(), ids.contiguous(),
+            tn=graph.scan_tn)
+        order = torch.argsort(ids, dim=1, stable=True)
+        sorted_ids = torch.gather(ids, 1, order)
+        sorted_vis = torch.gather(visited, 1, order)
+        pos = torch.searchsorted(sorted_ids, new_ids).clamp(0, beam - 1)
+        match = torch.gather(sorted_ids, 1, pos) == new_ids
+        new_vis = match & torch.gather(sorted_vis, 1, pos)
+        return new_scores, new_ids, new_vis
+
+    return step
+
+
 def _beam_qstate(qstate, scorer, graph: GraphIndex, k: int, beam: int,
                  max_hops: int, expand: int = 1,
                  trace_tags: Optional[torch.Tensor] = None):
     """Traversal over any scorer with prepared queries ``qstate``.
 
     A fused graph (``with_fused_scan``) paired with a scorer exposing
-    ``scan_neighbors`` routes each hop through the gather-free kernel: the
-    popped vertices' pre-translated sorted rows (``nbr_rows``) go straight
-    to it, and the visited flags follow their entries' IDS through the
-    merge (sort + searchsorted against the pre-hop beam), which is the
-    gathered path's permutation of flags, since beam ids are distinct."""
+    ``scan_neighbors`` runs the whole search in one ``graph_beam_search``
+    launch (``kernels.scorer_beam_search``) from the scored entry beam; its
+    hop count comes back as a device scalar (the most hops of any query),
+    so nothing waits on the device between the query upload and the
+    result. Asked for the tag trace, the fused graph hops through
+    :func:`_beam_loop` with :func:`fused_hop_step`; any other graph or
+    scorer runs the gathered loop. The hop count is then a Python int."""
     m = (qstate.q_scaled if isinstance(qstate, tuple) else qstate).shape[0]
-
-    def score_ids(ids):
-        safe = torch.where(ids >= 0, ids, torch.zeros_like(ids))
-        return scorer.score_ids(qstate, safe)
-
-    fused_step = None
-    if graph.fused and graph.nbr_rows is not None \
-            and hasattr(scorer, "scan_neighbors"):
-        nbr_rows_tbl = graph.nbr_rows
-        e = max(1, expand)
-
-        def fused_step(scores, ids, visited, best_ids, sel_ok):
-            safe = torch.where(best_ids >= 0, best_ids,
-                               torch.zeros_like(best_ids))
-            nrows = nbr_rows_tbl[safe.long()]
-            nrows = torch.where((nrows >= 0) & sel_ok[:, :, None], nrows,
-                                torch.full_like(nrows, -1))
-            nrows = nrows.reshape(m, e * nbr_rows_tbl.shape[1]).contiguous()
-            new_scores, new_ids = scorer.scan_neighbors(
-                qstate, nrows, scores.contiguous(), ids.contiguous(),
-                tn=graph.scan_tn)
-            order = torch.argsort(ids, dim=1, stable=True)
-            sorted_ids = torch.gather(ids, 1, order)
-            sorted_vis = torch.gather(visited, 1, order)
-            pos = torch.searchsorted(sorted_ids, new_ids).clamp(0, beam - 1)
-            match = torch.gather(sorted_ids, 1, pos) == new_ids
-            new_vis = match & torch.gather(sorted_vis, 1, pos)
-            return new_scores, new_ids, new_vis
-
-    scores, ids, hops, tag_hist = _beam_loop(score_ids, graph, m, beam,
-                                             max_hops, expand=expand,
-                                             trace_tags=trace_tags,
-                                             fused_step=fused_step)
+    score_ids = _score_ids_of(qstate, scorer)
+    fused = graph.fused and graph.nbr_rows is not None \
+        and hasattr(scorer, "scan_neighbors")
+    if fused and trace_tags is None:
+        from repro_torch import kernels
+        scores, ids = _entry_beam(score_ids, graph, m, beam)
+        scores, ids, q_hops = kernels.scorer_beam_search(
+            scorer, qstate, graph.nbr_rows, scores, ids, max_hops, expand)
+        hops = q_hops.amax() if m else q_hops.new_zeros(())
+        tag_hist = None
+    else:
+        fused_step = (fused_hop_step(qstate, scorer, graph, beam, expand)
+                      if fused else None)
+        scores, ids, hops, tag_hist = _beam_loop(
+            score_ids, graph, m, beam, max_hops, expand=expand,
+            trace_tags=trace_tags, fused_step=fused_step)
     if k > beam:        # kappa > beam (e.g. kappa > n): pad with -1 slots
         fill = k - beam
         scores = torch.cat([scores, torch.full((m, fill), NEG_INF,

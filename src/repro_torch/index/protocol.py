@@ -9,8 +9,8 @@ Members so far: ``FlatIndex`` here, ``IVFIndex`` in
 :mod:`repro_torch.index.ivf` (gathered fine step for every scorer, the
 gather-free ``ivf_scan_topk`` fine step for aligned sorted layouts), and
 ``GraphIndex`` in :mod:`repro_torch.index.graph` (gathered hops for every
-scorer, the gather-free ``graph_scan_beam_step`` hop for a graph bound to a
-sorted layout). All have the streaming hook ``refreshed(scorer, model)``,
+scorer, the gather-free traversal, one ``graph_beam_search`` launch a
+batch, for a graph bound to a sorted layout). All have the streaming hook ``refreshed(scorer, model)``,
 which ``streaming.refresh_state`` calls. Sharded indexes come with a later
 part of the port.
 """

@@ -13,8 +13,9 @@ through dense scores and ``torch.topk``), ``scorer_scores`` /
 ``scorer_scores``, and ``scorer_scan_lists`` lowers the sorted scorers' IVF
 fine step (``scan_lists``) to ``ivf_scan_topk``, and
 ``scorer_scan_neighbors`` their fused graph hop (``scan_neighbors``) to
-``graph_scan_beam_step``; index code talks to scorers, and scorers lower
-here and nowhere else. ``flash_attention`` is the LM prefill's attention
+``graph_scan_beam_step`` and ``scorer_beam_search`` their whole fused
+traversal (``beam_search``) to ``graph_beam_search``; index code talks to
+scorers, and scorers lower here and nowhere else. ``flash_attention`` is the LM prefill's attention
 (called by ``repro_torch.models.attention``).
 
 This module also builds the kernels: ``nvcc`` compiles each source into
@@ -45,7 +46,9 @@ from repro_torch.kernels.gleanvec_sq import (bucket_rows_by_tag,
                                              gleanvec_sq, gleanvec_sq_plain,
                                              gleanvec_sq_topk,
                                              gleanvec_sq_topk_plain)
-from repro_torch.kernels.graph_scan import (graph_scan_beam_step,
+from repro_torch.kernels.graph_scan import (graph_beam_search,
+                                            graph_beam_search_plain,
+                                            graph_scan_beam_step,
                                             graph_scan_beam_step_plain,
                                             graph_scan_scores_plain)
 from repro_torch.kernels.ip_topk import ip_topk, ip_topk_plain
@@ -62,9 +65,10 @@ __all__ = ["ip_topk", "ip_topk_plain", "gleanvec_sq_topk",
            "gleanvec_ip_plain", "gleanvec_sq", "gleanvec_sq_plain",
            "bucket_rows_by_tag", "bucket_rows_by_tag_plain",
            "graph_scan_beam_step", "graph_scan_beam_step_plain",
-           "graph_scan_scores_plain", "scorer_topk", "scorer_topk_prepared",
+           "graph_scan_scores_plain", "graph_beam_search",
+           "graph_beam_search_plain", "scorer_topk", "scorer_topk_prepared",
            "scorer_scores", "scorer_scores_prepared", "scorer_scan_lists",
-           "scorer_scan_neighbors", "flash_attention",
+           "scorer_scan_neighbors", "scorer_beam_search", "flash_attention",
            "flash_attention_plain", "build",
            "load_library", "library_path", "KERNEL_SOURCES", "BUILD_DIR"]
 
@@ -412,3 +416,31 @@ def scorer_scan_neighbors(scorer, qstate, nbr_rows, beam_vals, beam_ids,
                                     layout_block=scorer.layout_block, tn=tn)
     raise TypeError(f"no scan_neighbors lowering for "
                     f"{type(scorer).__name__}")
+
+
+def scorer_beam_search(scorer, qstate, nbr_tbl, beam_vals, beam_ids,
+                       max_hops: int, expand: int):
+    """The whole fused graph traversal of a sorted scorer: from the scored
+    entry beam ``(beam_vals, beam_ids) (m, B)`` (slot order), hops through
+    the graph's sorted-row table ``nbr_tbl (n, R)`` (``GraphIndex.nbr_rows``)
+    by ``graph_beam_search`` with the scorer's layout, each hop the one
+    :func:`scorer_scan_neighbors` lowers. Returns (vals, ids) (m, B), ids
+    ORIGINAL and best first, and each query's hop count (m,) i32, on the
+    device."""
+    from repro_torch.core import scorer as sc
+
+    if isinstance(scorer, sc.SortedGleanVecScorer):
+        q_lo = torch.zeros(qstate.shape[:2], dtype=torch.float32,
+                           device=qstate.device)        # no affine term
+        return graph_beam_search(qstate, q_lo, scorer.block_tags,
+                                 scorer.perm, scorer.x_low, nbr_tbl,
+                                 beam_vals, beam_ids,
+                                 layout_block=scorer.layout_block,
+                                 max_hops=max_hops, expand=expand)
+    if isinstance(scorer, sc.SortedGleanVecQuantizedScorer):
+        return graph_beam_search(qstate.q_scaled, qstate.q_lo,
+                                 scorer.block_tags, scorer.perm,
+                                 scorer.codes, nbr_tbl, beam_vals, beam_ids,
+                                 layout_block=scorer.layout_block,
+                                 max_hops=max_hops, expand=expand)
+    raise TypeError(f"no beam_search lowering for {type(scorer).__name__}")

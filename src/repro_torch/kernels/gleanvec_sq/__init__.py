@@ -12,10 +12,10 @@ body ``_topk_kernel``, and ``gleanvec_sq``, body ``_dense_kernel``):
 kernels first bucket the rows by tag (``bucket_rows_by_tag``, per call) so
 that every 128-row tile has one view, as in the sorted layout.
 ``layout_block > 0``: tag-sorted layout, ``tags (ceil(N / layout_block),)``
-per block; the fused scan (``csrc/ip_scan.cuh``) multiplies every row by
-its own block's view only, so any block size works (the reference's
-tile-shrink / gathered fallbacks are not needed); its launch shape is
-:func:`sorted_scan_plan`.
+per block; the pipelined scan (``csrc/ip_scan.cuh``) multiplies every row
+by its own block's view only, so any block size works (the reference's
+tile-shrink / gathered fallbacks are not needed); the launch shapes are
+:func:`sorted_scan_plan` (top-k) and :func:`sorted_dense_plan` (dense).
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ __all__ = ["gleanvec_sq_topk", "gleanvec_sq_topk_plain", "gleanvec_sq",
            "gleanvec_sq_plain", "tile_scores", "dense_plain",
            "bucket_rows_by_tag", "bucket_rows_by_tag_plain", "bucket_tiles",
            "bucket_workspace", "dense_buffer", "sorted_tiles",
-           "sorted_scan_plan"]
+           "sorted_scan_plan", "sorted_dense_plan"]
 
 BUCKET_TILE = 128       # slots per tile of the bucketed layout (scan_gemm.cuh)
 DENSE_BUFFER = 1 << 28  # most floats of the gathered dense kernels' buffer
@@ -137,6 +137,20 @@ def sorted_scan_plan(m: int, n: int, k: int, layout_block: int, views: int,
     if views not in (1, 2):
         raise ValueError(f"the sorted scan takes 1 or 2 views, got {views}")
     return split_plan(m, sorted_tiles(n, layout_block, views), k, sms)
+
+
+def sorted_dense_plan(m: int, n: int, layout_block: int, views: int,
+                      sms: int) -> ScanPlan:
+    """The grid of the sorted dense ``gleanvec_sq`` on a card with ``sms``
+    SMs: the one-wave split of :func:`sorted_tiles` (``sq_dot``'s plan with
+    views). ``views`` is the library's
+    ``gleanvec_sq_dense_sorted_views(layout_block, u8)``: 2 where half a
+    tile divides the layout block but a tile does not, else 1. The blocks
+    write disjoint columns: no partial lists, no merge."""
+    if views not in (1, 2):
+        raise ValueError(f"the sorted scan takes 1 or 2 views, got {views}")
+    return split_plan(m, sorted_tiles(n, layout_block, views), 1,
+                      sms)._replace(partial_shape=None)
 
 
 def bucket_rows_by_tag_plain(tags, c: int):
@@ -326,6 +340,8 @@ def _bind_dense(lib):
         fn = getattr(lib, f"gleanvec_sq_dense_sorted_{dt}")
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
+    lib.gleanvec_sq_dense_sorted_views.argtypes = [i, i]
+    lib.gleanvec_sq_dense_sorted_views.restype = ctypes.c_int
     lib.dense_bucket_workspace_bytes.argtypes = [i, i]
     lib.dense_bucket_workspace_bytes.restype = ctypes.c_longlong
 
@@ -364,13 +380,14 @@ def gleanvec_sq(q_scaled, q_lo, tags, codes, layout_block: int = 0):
     dt = "f32" if codes.dtype == torch.float32 else "u8"
     stream = K.current_stream(dev)
     if layout_block > 0:
-        tiles = n_tags * -(-layout_block // K.GEMM_TILE_N)
-        s = K.splits(row_tiles=tiles, query_blocks=-(-m // K.GEMM_TILE_M),
-                     k=1, blocks_per_sm=3, device=dev)
+        views = lib.gleanvec_sq_dense_sorted_views(layout_block,
+                                                   int(dt == "u8"))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = sorted_dense_plan(m, n, layout_block, views, sms)
         err = getattr(lib, f"gleanvec_sq_dense_sorted_{dt}")(
             q_scaled.data_ptr(), q_lo.data_ptr(), tags.data_ptr(),
-            codes.data_ptr(), m, c, d, n, layout_block, s, out.data_ptr(),
-            stream)
+            codes.data_ptr(), m, c, d, n, layout_block, plan.splits,
+            out.data_ptr(), stream)
     else:
         buf, mc = dense_buffer(m, n, c, dev)
         s = K.splits(row_tiles=bucket_tiles(n, c),

@@ -162,12 +162,13 @@ def test_hop_plain_matches_reference_kernel_and_oracle(case, u8):
 
 def test_hop_wrapper_takes_plain_on_cpu_and_counts_nothing():
     args = _hop_inputs("beam-not-full", False)
-    before = K.graph_scan_beam_step.launches
+    before = (K.graph_scan_beam_step.launches, K.graph_beam_search.launches)
     got = K.graph_scan_beam_step(*map(_t, args[:-1]), layout_block=args[-1],
                                  tn=8)
     want = K.graph_scan_beam_step_plain(*map(_t, args[:-1]), args[-1])
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert K.graph_scan_beam_step.launches == before
+    assert (K.graph_scan_beam_step.launches,
+            K.graph_beam_search.launches) == before
 
 
 # ---------------------------------------------------------------------------

@@ -279,10 +279,11 @@ def test_cuda_kernels_match_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_graph_hop_launches_kernel_not_plain(cuda, monkeypatch):
-    """A fused graph search on the card lowers every hop to the
-    ``graph_scan_beam_step`` kernel (one launch per hop, never the plain
-    version), equals the gathered traversal, and the kernel agrees with
-    the plain version on a hop with pads, repeats and dead rows."""
+    """A fused graph search on the card runs the whole traversal as one
+    ``graph_beam_search`` launch (never a plain version, never the per-hop
+    kernel), the gathered search launches neither, the fused search equals
+    the gathered traversal, and the per-hop kernel agrees with its plain
+    version on a hop with pads, repeats and dead rows."""
     import dataclasses
 
     import repro_torch.kernels.graph_scan as gs
@@ -309,17 +310,25 @@ def test_cuda_graph_hop_launches_kernel_not_plain(cuda, monkeypatch):
             torch.full((40, 32), -3.4e38, device=cuda),
             torch.full((40, 32), -1, dtype=torch.int32, device=cuda))
     plain = gs.graph_scan_beam_step_plain(*args, s.layout_block)
+
+    def counters():
+        return (K.graph_beam_search.launches,
+                K.graph_scan_beam_step.launches)
+
+    before = counters()
     want = gathered.search(q, s, 10)
+    assert counters() == before
 
     def refuse(*a, **k):
         raise AssertionError("plain path taken for a CUDA tensor")
 
     monkeypatch.setattr(gs, "graph_scan_beam_step_plain", refuse)
-    before = K.graph_scan_beam_step.launches
+    monkeypatch.setattr(gs, "graph_beam_search_plain", refuse)
     hops = graph._beam_qstate(qs, s, fused, 10, 32, 256, expand=4)[2]
     got = fused.search(q, s, 10)
     torch.cuda.synchronize()
-    assert K.graph_scan_beam_step.launches == before + 2 * hops > before
+    assert int(hops) > 0
+    assert counters() == (before[0] + 2, before[1])
     tol = dot_tol(float(qs.q_scaled.norm(dim=-1).max()),
                   float(s.codes.float().norm(dim=1).max()), 8,
                   float(qs.q_lo.abs().max()))
@@ -327,6 +336,7 @@ def test_cuda_graph_hop_launches_kernel_not_plain(cuda, monkeypatch):
     assert_topk_close(K.graph_scan_beam_step(*args,
                                              layout_block=s.layout_block),
                       plain, tol, "graph_scan_beam_step vs plain")
+    assert counters() == (before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ On the CPU:
   (one wave of one block an SM, S at most the tiles, S * pass_k(k) at most
   ``MERGE_MAX``; with one view a tile the tiles are cut at layout-block
   ends, with two they are the plain 512-row tiles) and ``sq_dot.dense_plan``
-  (one wave, no partial lists);
+  (one wave, no partial lists), and ``gleanvec_sq.sorted_dense_plan`` (the
+  sorted dense scores: one wave over the sorted tiles, no partial lists;
+  two views a tile at the stream's L = 256 and at 768);
 * the plans' tile against the kernel sources: ``IP_TM`` / ``IP_TN`` of
   ``ip_scan.cuh``, the tile that ``gleanvec_sq.cu`` and ``dense_scores.cu``
   report at bind time, and the shared memory of one view a tile at every
@@ -32,6 +34,10 @@ tests/test_torch_sorted_scans.py`` runs on a machine without it):
   ragged M and N; a tie across layout blocks of different tags;
 * ``sq_dot`` bit for bit against its plain version on integer data at d in
   {1, 3, 160, 513}, u8 rows off 4-byte alignment, ragged M and N;
+* the sorted dense ``gleanvec_sq`` bit for bit against its plain version
+  on integer data at L in {1, 64, 200, 256, 768, 4096} (one view a tile
+  off the 512-row tile, two at 256 and 768), f32 and u8, ragged last
+  blocks;
 * two identical calls give bit-identical outputs;
 * with the plain versions monkeypatched to raise, both wrappers launch
   their kernel on CUDA tensors.
@@ -45,7 +51,8 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
-from repro_torch.kernels.gleanvec_sq import sorted_scan_plan, sorted_tiles
+from repro_torch.kernels.gleanvec_sq import (sorted_dense_plan,
+                                             sorted_scan_plan, sorted_tiles)
 from repro_torch.kernels.sq_dot import dense_plan
 from repro_torch.testing import (assert_topk_close, dot_tol,
                                  exact_sorted_topk)
@@ -159,6 +166,36 @@ def test_sq_dot_dense_plan(m, n, sms):
         assert query_blocks * plan.splits <= sms
 
 
+@pytest.mark.parametrize("lb", LAYOUT_BLOCKS + (768,))
+@pytest.mark.parametrize("m,n", [(0, 5), (1, 1), (1030, 513), (65, 20011),
+                                 (1024, 2_000_256), (100_000, 5000)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_sorted_dense_plan(m, n, lb, sms):
+    views = _views(lb)
+    plan = sorted_dense_plan(m, n, lb, views, sms)
+    tiles = sorted_tiles(n, lb, views)
+    query_blocks = -(-m // K.IP_TILE_M)
+    assert plan.grid == (query_blocks, plan.splits)
+    assert plan.partial_shape is None
+    assert 1 <= plan.splits <= max(1, tiles)
+    if 0 < query_blocks <= sms:
+        assert query_blocks * plan.splits <= sms
+
+
+def test_sorted_dense_plan_stream_shape():
+    """The stream's final sorted stores (L = 256, two views a tile) at
+    M = 1024 on 132 SMs: 16 query blocks x 8 splits of the plain 512-row
+    tiles, as ``sq_dot``'s plan on the same rows; one view would cut every
+    tile in half."""
+    n = 9383 * 256
+    assert sorted_dense_plan(1024, n, 256, 2, 132) == dense_plan(1024, n, 132)
+    assert sorted_dense_plan(1024, n, 256, 2, 132).grid == (16, 8)
+    assert sorted_tiles(n, 256, 1) == n // 256 == 9383
+    assert sorted_tiles(n, 256, 2) == -(-n // 512) == 4692
+    with pytest.raises(ValueError):
+        sorted_dense_plan(1024, n, 256, 0, 132)
+
+
 def test_plans_follow_the_pipelined_tile(monkeypatch):
     """The new plans move with the pipelined scan's tile, not with
     scan_gemm.cuh's."""
@@ -206,6 +243,16 @@ def test_tile_constants_match_the_kernel_sources():
     body = sq[sq.index("static int sorted_impl("):]
     body = body[:body.index("\n}\n")]
     assert "launch_ip_seg_scan" in body and "gemm" not in body
+    # so does the sorted dense gleanvec_sq; scan_gemm.cuh keeps only the
+    # gathered (bucketed) scans
+    body = dense[dense.index("static int sorted_dense("):]
+    body = body[:body.index("\n}\n")]
+    assert "launch_ip_dense" in body and "gemm" not in body
+    for fn in ("gleanvec_sq_dense_sorted_f32", "gleanvec_sq_dense_sorted_u8"):
+        body = dense[dense.index(f'extern "C" int {fn}('):]
+        body = body[:body.index("\n}\n")]
+        assert "sorted_dense<" in body and "gemm" not in body, fn
+    assert "ROWS" not in (CSRC / "scan_gemm.cuh").read_text()
 
 
 def _smem(scan, chunk, views, k, dense=False):
@@ -238,6 +285,8 @@ def test_one_view_fits_at_every_pass_length():
     assert _smem(scan, u8, 2, K.PASS_K) <= limit
     assert _smem(scan, f32, 2, 104) <= limit < _smem(scan, f32, 2, 105)
     assert _smem(scan, u8, 1, 0, dense=True) <= limit
+    for chunk in (f32, u8):            # the sorted dense scan's two views
+        assert _smem(scan, chunk, 2, 0, dense=True) <= limit
     # the chunk strides the mirror assumes
     for xt, (qstr, xstr) in (("float", f32), ("uint8_t", u8)):
         spec = scan[scan.index(f"struct IpChunk<{xt}>"):]
@@ -416,6 +465,23 @@ def test_cuda_sq_dot_bit_for_bit_on_integer_data(cuda, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])
+@pytest.mark.parametrize("lb", [1, 64, 200, 256, 768, 4096])
+def test_cuda_sorted_dense_bit_for_bit_on_integer_data(cuda, lb, u8):
+    g = torch.Generator(device=cuda).manual_seed(lb * 2 + u8)
+    for m, nb, cut, c, d in ((1, 5, 0, 3, 20), (70, 7, 37, 5, 160),
+                             (130, 3, 1, 4, 33)):
+        if lb == 1:
+            nb, cut = 900, 0
+        n = nb * lb - cut
+        qs, qlo, btags, x, _ = _int_case(g, cuda, m, n, c, d, lb, u8)
+        got = K.gleanvec_sq(qs, qlo, btags, x, layout_block=lb)
+        want = K.gleanvec_sq_plain(qs, qlo, btags, x, layout_block=lb)
+        assert got.shape == (m, n)
+        assert torch.equal(got, want), (lb, u8, m, n)
+
+
+@pytest.mark.cuda
 def test_cuda_sorted_topk_and_sq_dot_are_deterministic(cuda):
     g = torch.Generator(device=cuda).manual_seed(11)
     for lb, u8 in ((256, False), (256, True), (4096, True), (200, False)):
@@ -474,3 +540,15 @@ def test_cuda_sorted_topk_and_sq_dot_never_take_the_plain_path(
     torch.cuda.synchronize()
     assert (K.gleanvec_sq_topk.launches, K.sq_dot.launches) == \
         (before[0] + calls, before[1] + 1)
+    monkeypatch.setattr(gsq, "gleanvec_sq_plain", refuse)
+    dense = K.gleanvec_sq.launches
+    for lb in (64, 256, 768):
+        n = 3 * lb + 5
+        K.gleanvec_sq(torch.randn(5, 3, 16, device=cuda),
+                      torch.zeros(5, 3, device=cuda),
+                      torch.zeros(-(-n // lb), dtype=torch.int32,
+                                  device=cuda),
+                      torch.zeros(n, 16, dtype=torch.uint8, device=cuda),
+                      layout_block=lb)
+    torch.cuda.synchronize()
+    assert K.gleanvec_sq.launches == dense + 3
