@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's search paths (flat index, IVF, streaming
-stores and the graph index) and its LM serving path on one NVIDIA GPU.
+stores and the graph index), its serving operations layer (the host
+rerank tier, the guarded lifecycle, the coalescing frontend) and its LM
+serving path on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -79,10 +81,39 @@ Phases (any failure raises and the script exits non-zero):
    (the checks' launches are logged apart). The fused candidates and hops
    equal those
    of the per-hop loop (``_beam_loop`` through ``graph_scan_beam_step``) on
-   the same batch. Then fused against gathered (one hop captured from the
+   the same batch. The fused gleanvec-int8-sorted graph once more with
+   its rerank store demoted to host memory (as phase 3f's host tier).
+   Then fused against gathered (one hop captured from the
    per-hop loop through kernel and plain version; whole traversals at
    expand 1 and 4), and churn on a streaming store: 10,000 removes, 2,000
    inserts linked by ``insert_ids``, ``refreshed``, swapped and served.
+3f. The serving operations layer on phase 3's data and fits, counters
+   zeroed just before and read just after (ip_topk, gleanvec_sq_topk,
+   ivf_scan_topk and kmeans_assign must launch). The host rerank tier
+   over flat gleanvec-int8-sorted, flat sphering-int8 and the aligned IVF
+   (each on its own copy of the rows): 5 batches with the store on the
+   card, ``demote_rerank_tier`` (device memory must fall by n * D * 4 B),
+   the same 5 batches through the pipelined submit (ids equal bit for bit,
+   ``host_bytes_ratio`` 1.00: the copies' bytes, added up copy by copy,
+   equal the candidate rows'; the scan's timing is left out of the
+   counts here and in 3d), with p50 / p99 / QPS of both tiers, the
+   prefetch split into host gather and H2D copy, and the 5 batches' wall
+   beside scan + prefetch. A guarded stream (capacity 2,000,000, 70 % to
+   start, gleanvec-int8-sorted, store in host memory, a one-batch canary,
+   min_overlap 0.3): 3 cycles of serve, insert 200,000 rows and
+   ``RefreshSupervisor.refresh_and_swap`` (recall@10 against its floor,
+   insert and refresh ms, every swap's ``memory_allocated`` delta, which
+   must be 0), every lifecycle drill of ``faults.FAULTS`` (the snapshot
+   drill on a store of the first 200,000 rows). The coalescing frontend
+   over that engine with a ``RefreshWorker`` on its own CUDA stream: 4
+   open-loop clients x 2,048 requests without a deadline (request p50 /
+   p99, buckets, no refusal) and with a deadline of 2 x batch p50
+   (``shed_rate``), dispatcher batches inside the worker's first and
+   second full-width refresh (at least 1 each; p50 inside and outside),
+   one batch of 8, 64 and 1024 through ``search_with`` alone and beside a
+   1024-query loop of it on a side stream, coalesced ids equal to
+   ``submit``'s in every bucket, and every drill of
+   ``faults.FRONTEND_FAULTS``.
 4. Each kernel at its path's shapes and inputs: its time beside its bound,
    its plain version's time, the time of the composed PyTorch calls that
    compute the same function (``library_ms``), and its agreement with the
@@ -118,6 +149,7 @@ device and the repository's ``src/repro_torch`` beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import importlib
@@ -185,6 +217,20 @@ STREAM_FLOORS = {
 }
 STREAM_IVF_FLOORS = {"gleanvec-sorted": (0.0, 0.773, 0.777),
                      "gleanvec-int8-sorted": (0.0, 0.771, 0.776)}
+
+# The serving operations layer (phase 3f) on phase 3's data and fits: the
+# host rerank tier serves HOST_BATCHES batches of the main path's shape;
+# the guarded stream uses the reference CLI's canary floor; the snapshot
+# drill runs on a store of the first SNAPSHOT_ROWS rows (cut from the full
+# store: two snapshots of it would write ~9 GB); the frontend takes
+# FRONTEND_CLIENTS open-loop clients of FRONTEND_REQUESTS / FRONTEND_CLIENTS
+# single-query requests each, and its drills the reference drills' traffic
+# at a batch of FRONTEND_DRILL_BATCH.
+HOST_BATCHES = 5
+OPS_MIN_OVERLAP = 0.3
+SNAPSHOT_ROWS = 200_000
+FRONTEND_REQUESTS, FRONTEND_CLIENTS = 8192, 4
+FRONTEND_DRILL_BATCH = 64
 
 KERNEL_FILES = {
     "ip_topk": ("src/repro_torch/csrc/ip_topk.cu",
@@ -1849,9 +1895,22 @@ def phase_graph(K, testing, ds, x, sph, glv):
             del seen
         arts[mode] = art
         del engine
+    # the fused graph with its rerank store in host memory
+    before = counts(K)
+
+    def host_graph():
+        art = msearch.build_artifacts("gleanvec-int8-sorted", xg.clone(),
+                                      glv, device=dev)
+        return art, graph.with_fused_scan(g, art.scorer)
+
+    timing = host_tier_run(K, "fused graph gleanvec-int8-sorted",
+                           host_graph, ds.queries_test, n)
+    for k, v in counts(K).items():
+        main[k] += v - before[k] - timing[k]
     checks = {k: v - main[k] for k, v in counts(K).items()}
     log(f"  graph-path launches, build + serving: {main}; the checks' "
-        f"(the per-hop loop, sync counts, profiles): {checks}")
+        f"(the per-hop loop, sync counts, profiles, the host tier's scan "
+        f"timing): {checks}")
 
     def recall_all(ids):
         return metrics.recall_at_k(ids, gt)
@@ -1925,6 +1984,484 @@ def phase_graph(K, testing, ds, x, sph, glv):
     del engine, art, index
     log(f"  graph-path main-path launches (build, serving, churn): {main}")
     return hops, main, per_batch, searches
+
+
+# ---------------------------------------------------------------------------
+# Phase 3f: the serving operations layer.
+# ---------------------------------------------------------------------------
+
+
+def host_tier_run(K, label, make, queries, n_rows):
+    """``make()`` -> (artifacts, index) with a rerank store no one else
+    holds. Serve HOST_BATCHES batches with the store on the card, demote
+    it, serve the same batches from pinned host memory. Raises unless the
+    demotion freed n_rows * D * 4 bytes of device memory, the ids are
+    equal bit for bit and the bytes the rerank's copies moved to the card
+    equal the candidate rows' (host_bytes_ratio 1.00). Returns the
+    launches of the scan's timing, which are not the path's."""
+    from repro_torch.core import search as msearch
+    from repro_torch.serve.engine import ServingEngine
+
+    q5 = np.concatenate([queries] * HOST_BATCHES)
+    art, index = make()
+    engine = ServingEngine(msearch.make_state(art, index=index), k=10,
+                           kappa=100, batch_size=1024, dim=512)
+    ids_dev = engine.submit(q5)
+    sd = engine.stats
+    dev_p50, dev_p99, dev_qps = (sd.percentile_ms(50), sd.percentile_ms(99),
+                                 sd.qps)
+    qd = torch.as_tensor(queries, device="cuda")
+    before = counts(K)
+    scan_ms, _ = timed(lambda: msearch.state_candidates(qd, engine.state,
+                                                        100), 3)
+    timing = {k: v - before[k] for k, v in counts(K).items()}
+    del engine, qd
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    art = msearch.demote_rerank_tier(art)
+    torch.cuda.synchronize()
+    t_demote = time.perf_counter() - t0
+    mem1 = torch.cuda.memory_allocated()
+    store = msearch.host_tier(art)
+    engine = ServingEngine(msearch.make_state(art, index=index), k=10,
+                           kappa=100, batch_size=1024, dim=512)
+    del art, index
+    t0 = time.perf_counter()
+    ids_host = engine.submit(q5)
+    wall = (time.perf_counter() - t0) * 1e3
+    s = engine.stats
+    same = np.array_equal(ids_dev, ids_host)
+    freed = mem0 - mem1
+    need = n_rows * 512 * 4
+    log(f"  host tier {label}: demote {t_demote:.2f} s (pinned "
+        f"{store.pinned}), device memory {mem0 / 1e9:.2f} -> "
+        f"{mem1 / 1e9:.2f} GB (freed {freed / 1e9:.3f} GB, n*D*4 = "
+        f"{need / 1e9:.3f} GB); ids of {HOST_BATCHES} batches "
+        f"{'equal' if same else 'DIFFERENT'} to the device tier's; "
+        f"host_bytes_ratio={s.host_bytes_ratio:.2f}")
+    log(f"    device tier: p50={dev_p50:.1f}ms p99={dev_p99:.1f}ms "
+        f"QPS={dev_qps:.0f}; host tier: p50={s.percentile_ms(50):.1f}ms "
+        f"p99={s.percentile_ms(99):.1f}ms QPS={s.qps:.0f}; prefetch p50="
+        f"{np.median(s.prefetch_ms):.2f}ms (host gather p50="
+        f"{np.median(s.gather_ms):.2f}ms, H2D copy p50="
+        f"{np.median(s.copy_ms):.2f}ms of {1024 * 100 * 512 * 4 / 1e6:.0f} "
+        f"MB); {HOST_BATCHES} batches' wall {wall:.1f}ms against scan "
+        f"{scan_ms:.2f}ms x {HOST_BATCHES} + prefetch sum "
+        f"{sum(s.prefetch_ms):.1f}ms = "
+        f"{scan_ms * HOST_BATCHES + sum(s.prefetch_ms):.1f}ms")
+    if freed < need:
+        raise AssertionError(f"host tier {label}: demotion freed "
+                             f"{freed} B < n*D*4 = {need} B")
+    if not same:
+        raise AssertionError(f"host tier {label}: ids differ from the "
+                             "device tier's")
+    if s.host_bytes_ratio != 1.0:
+        raise AssertionError(f"host tier {label}: host_bytes_ratio "
+                             f"{s.host_bytes_ratio}")
+    del engine
+    torch.cuda.synchronize()
+    return timing
+
+
+@contextlib.contextmanager
+def set_rows_spy():
+    """Yield a list that receives the milliseconds of every
+    ``HostStore.set_rows`` call made inside the block."""
+    from repro_torch.core import rerank_tier
+    inner = rerank_tier.HostStore.set_rows
+    times = []
+
+    def spy(self, ids, rows):
+        t0 = time.perf_counter()
+        out = inner(self, ids, rows)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    rerank_tier.HostStore.set_rows = spy
+    try:
+        yield times
+    finally:
+        rerank_tier.HostStore.set_rows = inner
+
+
+def swap_spy(engine, deltas):
+    """Record ``torch.cuda.memory_allocated`` around every swap of
+    ``engine`` into ``deltas``."""
+    inner = engine.swap
+
+    def swap(state):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        inner(state)
+        torch.cuda.synchronize()
+        deltas.append(torch.cuda.memory_allocated() - before)
+
+    engine.swap = swap
+
+
+def open_loop(fe, queries, n_clients, deadline_ms=None):
+    """Each of ``n_clients`` threads enqueues its share of ``queries`` (one
+    request a row) without waiting, then collects its futures. Returns
+    (served, refused) counts; every request is one or the other."""
+    import threading
+    from repro_torch.serve import frontend
+
+    served, refused = [0] * n_clients, [0] * n_clients
+
+    def client(c):
+        futs = []
+        for i in range(c, len(queries), n_clients):
+            try:
+                futs.append(fe.enqueue(queries[i], deadline_ms=deadline_ms))
+            except frontend.Rejected:
+                refused[c] += 1
+        for f in futs:
+            try:
+                f.result(120)
+                served[c] += 1
+            except frontend.Rejected:
+                refused[c] += 1
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+        if t.is_alive():
+            raise AssertionError("a frontend client did not finish")
+    return sum(served), sum(refused)
+
+
+def phase_ops(K, ds, x, sph, glv):
+    """The serving operations layer on phase 3's data and fits: the host
+    rerank tier (flat gleanvec-int8-sorted and sphering-int8, the aligned
+    IVF), the guarded lifecycle of a stream with the store in host memory
+    and every lifecycle drill, and the coalescing frontend with a
+    background refresh worker and every frontend drill. Returns the path's
+    launches."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.core import search as msearch
+    from repro_torch.core import streaming
+    from repro_torch.index import ivf
+    from repro_torch.launch import serve
+    from repro_torch.serve import faults, frontend, lifecycle
+    from repro_torch.serve.engine import ServingEngine
+
+    dev = torch.device("cuda")
+    queries = ds.queries_test
+    log(f"phase 3f: serving operations, n={N_ROWS} D=512 d=160 C=48 "
+        "batch=1024 k=10 kappa=100")
+    t_phase = time.perf_counter()
+    for fn in all_counters(K):
+        fn.launches = 0
+
+    def flat(mode, model):
+        return lambda: (msearch.build_artifacts(mode, x.clone(), model,
+                                                device=dev), None)
+
+    def aligned():
+        xc = x.clone()
+        art = msearch.build_artifacts("gleanvec-int8-sorted", xc, glv,
+                                      device=dev)
+        idx = ivf.with_reduced_centers(
+            ivf.build_aligned(glv, xc, nprobe=IVF_NPROBE, device=dev),
+            art.scorer, glv)
+        return art, idx
+
+    timings = [host_tier_run(K, "flat gleanvec-int8-sorted",
+                             flat("gleanvec-int8-sorted", glv), queries,
+                             N_ROWS),
+               host_tier_run(K, "flat sphering-int8",
+                             flat("sphering-int8", sph), queries, N_ROWS),
+               host_tier_run(K, "aligned IVF gleanvec-int8-sorted",
+                             aligned, queries, N_ROWS)]
+
+    # -- the guarded lifecycle of a stream, store in host memory ----------
+    mode, n0, cap = "gleanvec-int8-sorted", STREAM_N0, N_ROWS
+    obs = queries[:1024]
+    t0 = time.perf_counter()
+    slack = serve.stream_slack_blocks(glv, x[n0:])
+    state = serve.build_stream(mode, x, n0, cap, glv, slack_blocks=slack,
+                               host_rerank=True, device=dev)
+    engine = ServingEngine(state, k=10, kappa=100, batch_size=1024, dim=512)
+    guarded = lifecycle.GuardedEngine(engine, canary_queries=obs,
+                                      min_overlap=OPS_MIN_OVERLAP)
+    supervisor = lifecycle.RefreshSupervisor(guarded)
+    rng = np.random.default_rng(0)
+    q_init = ds.database[rng.integers(0, n0, 1024)] \
+        + 0.1 * rng.standard_normal((1024, 512)).astype(np.float32)
+    stream = streaming.init_from_artifacts(state.artifacts, q_init,
+                                           refresh_every=STREAM_INSERTS)
+    del state
+    torch.cuda.synchronize()
+    deltas = []
+    swap_spy(engine, deltas)
+    log(f"  guarded stream ({mode}, capacity {cap}, n0 {n0}, host tier, "
+        f"canary one batch, min_overlap {OPS_MIN_OVERLAP}): build "
+        f"{time.perf_counter() - t0:.1f} s")
+    for cycle in range(STREAM_CYCLES):
+        mask = streaming.live_mask(guarded.state.artifacts)
+        live = int(mask.sum())
+        if not bool(mask[:live].all()):     # live ids are 0 .. live - 1
+            raise AssertionError("guarded stream: live ids not contiguous")
+        served = guarded.submit(obs)
+        supervisor.note_queries(obs)
+        gt = vectors_exact(obs, x[:live])
+        rec = recall(served, gt)
+        stream = streaming.observe_queries(stream, obs)
+        rows = x[live:live + STREAM_INSERTS]
+        n_swaps = len(deltas)
+        t0 = time.perf_counter()
+        with set_rows_spy() as set_ms:
+            stream = serve.stream_insert(guarded, stream, rows)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stream, rep = supervisor.refresh_and_swap(stream)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        log(f"    cycle {cycle}: recall@10={rec:.4f} (floor "
+            f"{STREAM_FLOORS[mode][cycle]}) insert={(t1 - t0) * 1e3:.1f}ms "
+            f"(the host store's set_rows {sum(set_ms):.1f}ms, no new "
+            f"buffer) refresh={(t2 - t1) * 1e3:.1f}ms ({rep.outcome}/"
+            f"{rep.source}, cond {rep.condition:.3g}, attempts "
+            f"{rep.attempts}) version="
+            f"{guarded.version} swaps' device-memory deltas "
+            f"{deltas[n_swaps:]} B; canary overlap "
+            f"{guarded.health.last_overlap:.3f}"
+            + (f"; failed attempts: {rep.errors}" if rep.errors else ""))
+        if rep.outcome != "ok" or len(deltas) != n_swaps + 2:
+            raise AssertionError(f"guarded stream cycle {cycle}: a swap "
+                                 "was refused")
+        if rec < STREAM_FLOORS[mode][cycle]:
+            raise AssertionError(f"guarded stream cycle {cycle}: recall@10 "
+                                 f"{rec:.4f} below its floor")
+    if lifecycle.nonfinite_leaves(guarded.state):
+        raise AssertionError("guarded stream: non-finite served state")
+
+    # every lifecycle drill once, as the CLI's --inject-fault defines it
+    for kind in ("corrupt-scorer", "scramble-scorer", "poison-queries",
+                 "wrong-dim-queries"):
+        t0 = time.perf_counter()
+        serve._fault_drill(kind, guarded, supervisor, stream, obs, None)
+        log(f"    ({kind}: {time.perf_counter() - t0:.1f} s)")
+    for kind in ("refresh-exception", "nan-moments"):
+        t0 = time.perf_counter()
+        drilled, fn, check = serve._fault_drill(kind, guarded, supervisor,
+                                                stream, obs, None)
+        drilled, rep = supervisor.refresh_and_swap(drilled, refresh_fn=fn)
+        check(rep)
+        if kind == "refresh-exception":
+            stream = drilled
+        else:
+            recovered = supervisor.recover(drilled)
+            stream, rep = supervisor.refresh_and_swap(recovered)
+            if rep.outcome != "ok" or supervisor.n_recoveries < 1:
+                serve._drill_fail("post-recovery refresh did not swap")
+            log("  drill PASS: nan-moments -> degraded -> recovered -> "
+                "swapped")
+        log(f"    ({kind}: {time.perf_counter() - t0:.1f} s)")
+    if any(deltas):
+        raise AssertionError(f"a swap allocated device memory: {deltas}")
+    log(f"  {len(deltas)} swaps, device-memory deltas all 0 B")
+
+    # the snapshot drill on a store of the first SNAPSHOT_ROWS rows
+    t0 = time.perf_counter()
+    m, m0 = SNAPSHOT_ROWS, int(SNAPSHOT_ROWS * 0.7)
+    small = serve.build_stream(
+        mode, x[:m], m0, m, glv,
+        slack_blocks=serve.stream_slack_blocks(glv, x[m0:m]),
+        host_rerank=True, device=dev)
+    s_eng = ServingEngine(small, k=10, kappa=100, batch_size=1024, dim=512)
+    s_guard = lifecycle.GuardedEngine(s_eng, canary_queries=obs,
+                                      min_overlap=OPS_MIN_OVERLAP)
+    s_stream = streaming.init_from_artifacts(small.artifacts, q_init)
+    snap_dir = tempfile.mkdtemp(prefix="smoke-snap-")
+    try:
+        log(f"  truncated-snapshot drill on a store of the first {m} rows "
+            "(cut from the full store to bound disk and time)")
+        serve._fault_drill("truncated-snapshot", s_guard,
+                           lifecycle.RefreshSupervisor(s_guard), s_stream,
+                           obs, snap_dir)
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    log(f"    (truncated-snapshot: {time.perf_counter() - t0:.1f} s)")
+    del small, s_eng, s_guard, s_stream
+
+    # -- the coalescing frontend with a background refresh worker ---------
+    worker = frontend.RefreshWorker(supervisor, stream).start()
+    fe = frontend.ServingFrontend(guarded, capacity=FRONTEND_REQUESTS)
+    try:
+        log(f"  frontend: buckets {fe.buckets}, batch shapes run "
+            f"{engine.n_compiles}")
+        traffic = np.concatenate(
+            [queries] * (FRONTEND_REQUESTS // len(queries)))
+        st = engine.stats
+        base = (st.n_rejected, st.n_shed, len(st.request_ms))
+        t0 = time.perf_counter()
+        n_ok, n_ref = open_loop(fe, traffic, FRONTEND_CLIENTS)
+        wall = time.perf_counter() - t0
+        req = list(st.request_ms)[base[2]:]
+        rej, shed = st.n_rejected - base[0], st.n_shed - base[1]
+        log(f"    {FRONTEND_CLIENTS} clients x "
+            f"{FRONTEND_REQUESTS // FRONTEND_CLIENTS} requests, no deadline: "
+            f"served {n_ok} in {wall:.2f} s, request p50="
+            f"{np.percentile(req, 50):.1f}ms p99={np.percentile(req, 99):.1f}"
+            f"ms, buckets used {sorted(fe.dispatched_shapes)}, "
+            f"n_rejected={rej} n_shed={shed}")
+        if n_ok != FRONTEND_REQUESTS or rej or shed:
+            raise AssertionError("frontend: requests refused without a "
+                                 "deadline")
+        batch_p50 = float(np.percentile(list(st.latencies_ms)[-64:], 50))
+        deadline = 2 * batch_p50
+        before = (st.n_queries, st.n_rejected, st.n_shed)
+        n_ok, n_ref = open_loop(fe, traffic, FRONTEND_CLIENTS,
+                                deadline_ms=deadline)
+        off = n_ok + n_ref
+        log(f"    same traffic, deadline {deadline:.1f}ms (2 x batch p50 "
+            f"{batch_p50:.1f}ms): served {n_ok}, rejected "
+            f"{st.n_rejected - before[1]}, shed {st.n_shed - before[2]}, "
+            f"shed_rate {n_ref / off:.3f} (a reading)")
+
+        # serving overlaps a full-width refresh: the worker's first cycle
+        # (its stream's first allocations) and its second
+        for nth in ("first", "second"):
+            stop = threading.Event()
+            spans0 = len(fe.batch_spans)
+
+            def keep_serving():
+                while not stop.is_set():
+                    serve.frontend_traffic(fe, queries[:64], n_clients=4)
+
+            feeder = threading.Thread(target=keep_serving)
+            feeder.start()
+            try:
+                time.sleep(0.5)
+                n_cycles = worker.n_cycles
+                worker.observe(obs)
+                worker.request_refresh()
+                if not serve._await(lambda: worker.n_cycles > n_cycles, 60):
+                    raise AssertionError("frontend: the refresh never "
+                                         "finished")
+                time.sleep(0.5)
+            finally:
+                stop.set()
+                feeder.join(120)
+            c0, c1 = worker.cycle_spans[-1]
+            spans = list(fe.batch_spans)[spans0:]
+            inside = [(b1 - b0) * 1e3 for b0, b1 in spans
+                      if b0 >= c0 and b1 <= c1]
+            outside = [(b1 - b0) * 1e3 for b0, b1 in spans
+                       if b1 < c0 or b0 > c1]
+            p_in = np.percentile(inside, 50) if inside else float("nan")
+            p_out = np.percentile(outside, 50) if outside else float("nan")
+            log(f"    the worker's {nth} refresh, {(c1 - c0) * 1e3:.0f}ms on "
+                f"its stream ({worker.supervisor.reports[-1].outcome}): "
+                f"{len(inside)} dispatcher batches started and finished "
+                f"inside it, p50 {p_in:.2f}ms inside, {p_out:.2f}ms outside "
+                f"({len(outside)} batches)")
+            if not inside:
+                raise AssertionError("frontend: no batch completed inside "
+                                     "the refresh")
+            if worker.supervisor.reports[-1].outcome != "ok":
+                raise AssertionError("frontend: the background refresh "
+                                     "failed")
+
+        # one batch through search_with (the dispatcher's call), alone and
+        # beside a one-batch canary loop on a side stream
+        def one_batch_ms(b, reps):
+            out = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                engine.search_with(queries[:b], engine.state)
+                out.append((time.perf_counter() - t) * 1e3)
+            return float(np.median(out))
+
+        sizes = {8: 30, 64: 30, 1024: 10}
+        alone = {b: one_batch_ms(b, r) for b, r in sizes.items()}
+        stop = threading.Event()
+        canary_stream = torch.cuda.Stream()
+
+        def canary_loop():
+            with torch.cuda.stream(canary_stream):
+                while not stop.is_set():
+                    engine.search_with(obs, engine.state)
+
+        looper = threading.Thread(target=canary_loop)
+        looper.start()
+        try:
+            time.sleep(0.3)
+            beside = {b: one_batch_ms(b, r) for b, r in sizes.items()}
+        finally:
+            stop.set()
+            looper.join(60)
+        log("    search_with over the host tier, median ms by batch: alone "
+            + ", ".join(f"{b}: {v:.2f}" for b, v in alone.items())
+            + "; beside a 1024-query search_with loop on a side stream "
+            + ", ".join(f"{b}: {v:.2f}" for b, v in beside.items()))
+
+        # coalesced ids equal submit's, one bucket of each size
+        fe_b = frontend.ServingFrontend(guarded, capacity=1024, start=False,
+                                        warmup=False)
+        for b in fe.buckets:
+            futs = [fe_b.enqueue(q) for q in queries[:b]]
+            fe_b.drain_once()
+            got = np.stack([f.result(60) for f in futs])
+            if not np.array_equal(got, guarded.submit(queries[:b])):
+                raise AssertionError(f"frontend: bucket {b}'s ids differ "
+                                     "from submit's")
+        log(f"    coalesced ids equal submit's in every bucket "
+            f"{fe.buckets}")
+
+        # every frontend drill once
+        for kind in faults.FRONTEND_FAULTS:
+            t0 = time.perf_counter()
+            fn, release = serve.drill_refresh_fn(kind)
+            worker.refresh_fn = fn
+            try:
+                serve.frontend_drill(kind, FRONTEND_DRILL_BATCH, 512, fe,
+                                     guarded, worker, fn, release, queries)
+            finally:
+                if release is not None:
+                    release.set()
+                worker.refresh_fn = streaming.refresh
+            log(f"    ({kind}: {time.perf_counter() - t0:.1f} s)")
+        if lifecycle.nonfinite_leaves(guarded.state):
+            raise AssertionError("frontend: non-finite served state")
+    finally:
+        fe.close()
+        stopped = worker.stop(timeout=60)
+    if not stopped or worker.crashed is not None:
+        raise AssertionError(f"frontend: worker did not stop cleanly "
+                             f"(crashed={worker.crashed!r})")
+    timing = {k: sum(t[k] for t in timings) for k in timings[0]}
+    launches = {k: v - timing[k] for k, v in counts(K).items()}
+    log(f"  serving-operations launches: {launches}; the host tier's scan "
+        f"timings' (not counted): {timing} "
+        f"({time.perf_counter() - t_phase:.0f} s)")
+    for name in ("gleanvec_sq_topk", "ip_topk", "ivf_scan_topk",
+                 "kmeans_assign"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the serving "
+                                 "operations path")
+    del guarded, supervisor, engine, stream, worker, fe
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vectors_exact(queries, rows):
+    from repro_torch.data import vectors
+    return vectors.exact_topk(queries, rows, 10, device=torch.device("cuda"))
+
+
+def recall(ids, gt) -> float:
+    from repro_torch.core import metrics
+    return metrics.recall_at_k(ids, gt)
 
 
 # ---------------------------------------------------------------------------
@@ -3281,6 +3818,7 @@ def main(argv=None) -> int:
     finals, stream_totals, stream_runs = phase_stream(K, testing, ds, x)
     hops, graph_totals, per_batch, searches = phase_graph(K, testing, ds, x,
                                                           sph, glv)
+    phase_ops(K, ds, x, sph, glv)
     table = phase_timing(K, testing, x, glv, states, per_mode, totals,
                          ivf_inputs, ivf_launches, flat_p50)
     del states, ivf_inputs

@@ -1,12 +1,17 @@
-"""Multi-step vector search (paper Algorithm 1; port of the device-resident
-part of ``repro/core/search.py``).
+"""Multi-step vector search (paper Algorithm 1; port of
+``repro/core/search.py``).
 
 The main search runs in the compressed representation through an index
 (``FlatIndex``: the fused scan + top-kappa kernel of the scorer); the kappa
 candidates are then reranked with full-precision inner products. The
 rerank is a gather, a small batched product and a top-k in plain PyTorch;
-the reference has no kernel for it either. The host-resident rerank tier
-belongs to a later part of the port.
+the reference has no kernel for it either.
+
+The full-precision store ``x_full`` lives on the device, or in host memory
+after :func:`demote_rerank_tier` (:mod:`repro_torch.core.rerank_tier`):
+then only the kappa candidate rows of each query cross to the device, and
+:func:`rerank_candidates` reranks them there. The serving engine overlaps
+that gather and copy with the next batch's scan.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import rerank_tier
 from repro_torch.core import scorer as sc
 from repro_torch.device import resolve_device
 from repro_torch.index.topk import NEG_INF
@@ -21,17 +27,19 @@ from repro_torch.index.topk import NEG_INF
 __all__ = ["SearchArtifacts", "ServingState", "build_artifacts",
            "build_artifacts_sphering", "build_artifacts_gleanvec",
            "make_state", "state_search", "state_candidates",
-           "multi_step_search", "rerank"]
+           "multi_step_search", "rerank", "rerank_candidates", "host_tier",
+           "demote_rerank_tier", "promote_rerank_tier", "artifacts_device"]
 
 
 class SearchArtifacts(NamedTuple):
     """``scorer``: the main-search representation; ``x_full``: (n, D)
     full-precision rerank store (or the rotated x' of Section 3.1);
     ``rerank_a``: optional (D, D) query rotation for the rerank (Eq. 10);
-    ``model``: the DR model, kept for bookkeeping only."""
+    ``model``: the DR model, kept for bookkeeping only. ``x_full`` is a
+    device tensor or a host store (:func:`demote_rerank_tier`)."""
 
     scorer: Any
-    x_full: torch.Tensor
+    x_full: Any
     rerank_a: Optional[torch.Tensor] = None
     model: Any = None
 
@@ -98,6 +106,41 @@ def state_search(queries, state: ServingState, k: int, kappa: int):
     return multi_step_search(queries, state.artifacts, state.index, k, kappa)
 
 
+def host_tier(artifacts: SearchArtifacts):
+    """The artifacts' host rerank store, or None when ``x_full`` is a
+    device tensor."""
+    return rerank_tier.host_store(artifacts.x_full)
+
+
+def artifacts_device(artifacts: SearchArtifacts) -> torch.device:
+    """The device the artifacts serve on: ``x_full``'s, or with a host
+    tier the scorer's."""
+    if host_tier(artifacts) is None:
+        return artifacts.x_full.device
+    from repro_torch import tree
+    for leaf in tree.leaves(artifacts.scorer):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    raise ValueError("a scorer without tensors has no device")
+
+
+def demote_rerank_tier(artifacts: SearchArtifacts,
+                       shards: int = 0) -> SearchArtifacts:
+    """Move the (n, D) full-precision store to host memory (pinned when
+    it was on the card; in ``shards`` row shards when > 0); the reduced
+    codes stay on the device."""
+    return artifacts._replace(
+        x_full=rerank_tier.demote(artifacts.x_full, shards=shards))
+
+
+def promote_rerank_tier(artifacts: SearchArtifacts) -> SearchArtifacts:
+    """Undo :func:`demote_rerank_tier`: all n rows back on the device."""
+    if host_tier(artifacts) is None:
+        return artifacts
+    return artifacts._replace(x_full=rerank_tier.promote(
+        artifacts.x_full, artifacts_device(artifacts)))
+
+
 def _rerank_math(q_full, cand_vecs, candidates, k: int):
     """Exact top-k among the gathered candidate rows. -1 slots score
     NEG_INF and are ordered after every real candidate of equal score
@@ -112,6 +155,11 @@ def _rerank_math(q_full, cand_vecs, candidates, k: int):
     return torch.gather(cand, 1, o2[:, :k])
 
 
+# The second stage of the two-level pipeline: the top-k over the kappa
+# rows that came across from the host tier.
+rerank_candidates = _rerank_math
+
+
 def _rotate_queries(queries, artifacts: SearchArtifacts):
     return queries if artifacts.rerank_a is None \
         else queries @ artifacts.rerank_a.T
@@ -119,12 +167,22 @@ def _rotate_queries(queries, artifacts: SearchArtifacts):
 
 def rerank(queries, artifacts: SearchArtifacts, candidates, k: int):
     """Postprocessing (Alg. 1 line 3): exact top-k among ``candidates``
-    (m, kappa); -1 entries never win."""
-    safe = torch.where(candidates >= 0, candidates,
-                       torch.zeros_like(candidates)).long()
-    cand_vecs = artifacts.x_full[safe]                  # (m, kappa, D)
-    return _rerank_math(_rotate_queries(queries, artifacts), cand_vecs,
-                        candidates, k)
+    (m, kappa); -1 entries never win. Over a host tier the candidate ids
+    come to the host and :func:`rerank_tier.fetch` gathers their rows into
+    pinned memory and copies them to the queries' device in chunks (one
+    batch at a time; the engine's pipelined submit overlaps these steps
+    with the next batch's scan)."""
+    q_full = _rotate_queries(queries, artifacts)
+    store = host_tier(artifacts)
+    if store is None:
+        safe = torch.where(candidates >= 0, candidates,
+                           torch.zeros_like(candidates)).long()
+        cand_vecs = artifacts.x_full[safe]              # (m, kappa, D)
+    else:
+        rows = rerank_tier.fetch(store, candidates, queries.device,
+                                 chunks=rerank_tier.COPY_CHUNKS)[0]
+        cand_vecs = rows.view(*candidates.shape, -1)
+    return rerank_candidates(q_full, cand_vecs, candidates, k)
 
 
 def multi_step_search(queries, artifacts: SearchArtifacts, index, k: int,

@@ -33,7 +33,9 @@ shape and dtype and the classes, which is what
 
 Every operation returns a new state (new tensors; the state it was given
 is left as it was), so the engine serves the installed state until the
-swap.
+swap. A host rerank tier (``host_rerank=True``) is read through the
+store's gather and written through its ``set_rows``, which leaves the
+store it was called on reading its own rows.
 """
 from __future__ import annotations
 
@@ -42,11 +44,12 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from repro_torch.core import gleanvec as gv
-from repro_torch.core import linalg
+from repro_torch.core import linalg, rerank_tier
 from repro_torch.core import scorer as sc
 from repro_torch.core.gleanvec import GleanVecModel
 from repro_torch.core.leanvec_sphering import SpheringModel, fit_from_moments
-from repro_torch.core.search import SearchArtifacts, ServingState
+from repro_torch.core.search import (SearchArtifacts, ServingState,
+                                     artifacts_device)
 from repro_torch.device import resolve_device
 
 __all__ = ["StreamingState", "init", "init_gleanvec", "init_from_artifacts",
@@ -75,8 +78,8 @@ def _per_cluster(state: StreamingState) -> bool:
     return state.k_x.ndim == 3
 
 
-def _rows2d(x, like: torch.Tensor) -> torch.Tensor:
-    x = torch.as_tensor(x, dtype=torch.float32, device=like.device)
+def _rows2d(x, device) -> torch.Tensor:
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
     return x.reshape(1, -1) if x.ndim == 1 else x
 
 
@@ -108,9 +111,11 @@ def init_from_artifacts(artifacts: SearchArtifacts, queries,
     if model is None:
         raise ValueError("mode 'full' stores raw vectors; there is no DR "
                          "model to stream (refresh is the identity)")
-    x_full = artifacts.x_full
-    k_q = linalg.second_moment(_rows2d(queries, x_full))
-    rows = x_full[torch.nonzero(live_mask(artifacts)).squeeze(1)]
+    dev = artifacts_device(artifacts)
+    k_q = linalg.second_moment(_rows2d(queries, dev))
+    rows = rerank_tier.rows(artifacts.x_full,
+                            torch.nonzero(live_mask(artifacts)).squeeze(1),
+                            dev)
     if isinstance(model, GleanVecModel):
         tags = gv.assign_tags(model, rows)
         k_x = gv.per_cluster_moments(rows, tags, model.n_clusters)
@@ -130,14 +135,14 @@ def _moment_delta(state: StreamingState, x2d: torch.Tensor) -> torch.Tensor:
 def insert(state: StreamingState, x) -> StreamingState:
     """X_t = X_{t-1} u {x}: rank-1 update of K_X (Eq. 11). ``x`` is (D,)
     or (b, D); GleanVec states route each row to its cluster's moment."""
-    x2d = _rows2d(x, state.k_x)
+    x2d = _rows2d(x, state.k_x.device)
     return state._replace(k_x=state.k_x + _moment_delta(state, x2d),
                           updates_since=state.updates_since + x2d.shape[0])
 
 
 def remove(state: StreamingState, x) -> StreamingState:
     """X_t = X_{t-1} \\ {x}: rank-1 downdate of K_X (Eq. 11)."""
-    x2d = _rows2d(x, state.k_x)
+    x2d = _rows2d(x, state.k_x.device)
     return state._replace(k_x=state.k_x - _moment_delta(state, x2d),
                           updates_since=state.updates_since + x2d.shape[0])
 
@@ -145,7 +150,7 @@ def remove(state: StreamingState, x) -> StreamingState:
 def observe_queries(state: StreamingState, q) -> StreamingState:
     """Fold a batch of observed queries into K_Q."""
     return state._replace(k_q=state.k_q + linalg.second_moment(
-        _rows2d(q, state.k_q)))
+        _rows2d(q, state.k_q.device)))
 
 
 def needs_refresh(state: StreamingState) -> bool:
@@ -226,13 +231,9 @@ def build_streaming_artifacts(mode: str, database, model=None,
     copies of row 0, so scale fits and tags stay sane) masked dead by the
     scorer's ``live``; sorted modes build the layout over the given rows
     with ``slack_blocks`` free blocks per cluster and a capacity-sized
-    ``inv_perm``. The rerank store ``x_full`` is capacity-sized either way.
-    ``host_rerank`` (the reference's host-memory rerank tier) is not
-    ported yet and raises."""
-    if host_rerank:
-        raise ValueError("host_rerank: the host rerank tier is not ported "
-                         "yet (ROADMAP A5b); keep the rerank store on the "
-                         "device")
+    ``inv_perm``. The rerank store ``x_full`` is capacity-sized either way;
+    ``host_rerank`` demotes it to host memory
+    (:func:`repro_torch.core.search.demote_rerank_tier`)."""
     dev = resolve_device(device)
     x = torch.as_tensor(database, dtype=torch.float32, device=dev)
     n0 = x.shape[0]
@@ -254,7 +255,8 @@ def build_streaming_artifacts(mode: str, database, model=None,
         scorer = sc.build_scorer(mode, x_cap, model, block=sort_block,
                                  device=dev)
         scorer = scorer._replace(live=torch.arange(capacity, device=dev) < n0)
-    return SearchArtifacts(scorer=scorer, x_full=x_cap, model=model)
+    x_full = rerank_tier.demote(x_cap) if host_rerank else x_cap
+    return SearchArtifacts(scorer=scorer, x_full=x_full, model=model)
 
 
 def live_mask(artifacts: SearchArtifacts) -> torch.Tensor:
@@ -265,7 +267,7 @@ def live_mask(artifacts: SearchArtifacts) -> torch.Tensor:
     if getattr(s, "live", None) is not None:
         return s.live
     return torch.ones(s.n_rows, dtype=torch.bool,
-                      device=artifacts.x_full.device)
+                      device=artifacts_device(artifacts))
 
 
 def free_ids(artifacts: SearchArtifacts, count: int) -> torch.Tensor:
@@ -280,13 +282,17 @@ def free_ids(artifacts: SearchArtifacts, count: int) -> torch.Tensor:
 def insert_rows(artifacts: SearchArtifacts, rows, ids=None):
     """Insert full-D ``rows`` into free slots (the scorer and the rerank
     store together). Returns ``(artifacts', ids)``."""
-    rows = _rows2d(rows, artifacts.x_full)
+    dev = artifacts_device(artifacts)
+    rows = _rows2d(rows, dev)
     if ids is None:
         ids = free_ids(artifacts, rows.shape[0])
-    ids = torch.as_tensor(ids, dtype=torch.int32,
-                          device=artifacts.x_full.device)
+    ids = torch.as_tensor(ids, dtype=torch.int32, device=dev)
     scorer = artifacts.scorer.insert_rows(ids, rows, artifacts.model)
-    x_full = artifacts.x_full.index_put((ids.long(),), rows)
+    store = rerank_tier.host_store(artifacts.x_full)
+    if store is None:
+        x_full = artifacts.x_full.index_put((ids.long(),), rows)
+    else:
+        x_full = store.set_rows(ids.cpu(), rows.cpu())
     return artifacts._replace(scorer=scorer, x_full=x_full), ids
 
 
@@ -294,7 +300,7 @@ def remove_rows(artifacts: SearchArtifacts, ids) -> SearchArtifacts:
     """Tombstone external ``ids``: they stop serving, their slots become
     free again."""
     ids = torch.as_tensor(ids, dtype=torch.int32,
-                          device=artifacts.x_full.device)
+                          device=artifacts_device(artifacts))
     return artifacts._replace(scorer=artifacts.scorer.remove_rows(ids))
 
 
@@ -307,7 +313,8 @@ def refresh_artifacts(artifacts: SearchArtifacts,
     model. ``source="stored"`` maps the stored reduced vectors
     (dequantized first for int8) through the Eq. 12 transition and re-codes
     with scales fitted over the live rows; ``source="full"`` re-encodes
-    exactly from ``x_full``. ``pending`` restricts the reprojection to the
+    exactly from ``x_full`` (a host tier is copied to the device for the
+    re-encode and freed after it). ``pending`` restricts the reprojection to the
     marked external ids. ``state=None`` or a model-free store returns the
     artifacts unchanged."""
     if state is None or artifacts.model is None:
@@ -315,7 +322,9 @@ def refresh_artifacts(artifacts: SearchArtifacts,
     if source not in ("stored", "full"):
         raise ValueError(f"unknown refresh source {source!r}")
     transition = transition_matrix(state) if source == "stored" else None
-    x_full = artifacts.x_full if source == "full" else None
+    x_full = rerank_tier.promote(artifacts.x_full,
+                                 artifacts_device(artifacts)) \
+        if source == "full" else None
     scorer = artifacts.scorer.refresh(state.model, transition=transition,
                                       x_full=x_full, pending=pending)
     return artifacts._replace(scorer=scorer, model=state.model)

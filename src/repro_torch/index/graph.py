@@ -42,7 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import spherical_kmeans
+from repro_torch.core import rerank_tier, spherical_kmeans
 from repro_torch.core.scorer import GleanVecScorer, LinearScorer
 from repro_torch.device import resolve_device
 from repro_torch.index.topk import NEG_INF
@@ -164,7 +164,8 @@ def insert_ids(index: GraphIndex, rows, ids, scorer, x_full,
     1. OUT-edges: beam-search the current graph for each new row's
        ``kappa`` candidates through the serving ``scorer``, add the
        batch-mates, re-rank the pool by full-D L2 distance against
-       ``x_full`` (one copy of the candidate rows) and keep the R closest.
+       ``x_full`` (a device tensor or a host store: one gather of the
+       candidate rows) and keep the R closest.
     2. REVERSE-edge fill: each new vertex v joins each out-neighbor t's
        list in a free slot, or replaces t's farthest edge when closer; if
        no target took it, its nearest target cedes its last slot.
@@ -187,9 +188,9 @@ def insert_ids(index: GraphIndex, rows, ids, scorer, x_full,
     kappa = kappa or max(2 * r, 16)
 
     def _fetch(ext_ids: np.ndarray) -> np.ndarray:
-        idx = torch.as_tensor(np.asarray(ext_ids, np.int64),
-                              device=x_full.device)
-        return x_full[idx].to(torch.float32).cpu().numpy()
+        # through the store's own gather on either tier (host or device)
+        return rerank_tier.rows(x_full, np.asarray(ext_ids, np.int64),
+                                "cpu").to(torch.float32).numpy()
 
     # 1) candidate pool: reduced-space beam search + batch-mates
     _, cand = beam_search_scorer(torch.as_tensor(rows_np, device=dev),

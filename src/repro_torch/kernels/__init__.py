@@ -32,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -69,7 +70,7 @@ __all__ = ["ip_topk", "ip_topk_plain", "gleanvec_sq_topk",
            "graph_beam_search_plain", "scorer_topk", "scorer_topk_prepared",
            "scorer_scores", "scorer_scores_prepared", "scorer_scan_lists",
            "scorer_scan_neighbors", "scorer_beam_search", "flash_attention",
-           "flash_attention_plain", "build",
+           "flash_attention_plain", "build", "count_launch",
            "load_library", "library_path", "KERNEL_SOURCES", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -88,6 +89,10 @@ IP_TILE_M = 64          # queries per block of ip_topk's pipelined scan
 IP_TILE_N = 512         # rows per tile of it (ip_scan.cuh: IP_TM, IP_TN)
 
 _LIBS: dict = {}
+# One build-and-load at a time: a serving dispatcher and a refresh worker
+# may ask for the same library at once. Re-entrant for a binder that loads.
+_LOAD_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
@@ -160,21 +165,30 @@ def load_library(name: str, bind=None):
     """The loaded library of kernel source ``name``, built first if needed.
     ``bind(lib)`` declares the argument types of the functions its caller
     uses; each binder runs once per library (one source may serve several
-    wrappers, each with its own binder)."""
-    entry = _LIBS.get(name)
-    if entry is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        entry = _LIBS[name] = (lib, set())
-    lib, bound = entry
-    if bind is not None and bind not in bound:
-        bind(lib)
-        bound.add(bind)
-    return lib
+    wrappers, each with its own binder). Thread-safe: concurrent callers
+    build and load a library once."""
+    with _LOAD_LOCK:
+        entry = _LIBS.get(name)
+        if entry is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            entry = _LIBS[name] = (lib, set())
+        lib, bound = entry
+        if bind is not None and bind not in bound:
+            bind(lib)
+            bound.add(bind)
+        return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (under a lock: the serving threads
+    launch concurrently)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 # ---------------------------------------------------------------------------

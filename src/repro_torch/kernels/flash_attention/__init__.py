@@ -219,7 +219,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     _launch(K.load_library("flash_attention", _bind), _variant(q, k, v), q,
             k, v, out, causal, window)
-    flash_attention.launches += 1
+    K.count_launch(flash_attention)
     return out
 
 

@@ -74,7 +74,7 @@ def gleanvec_ip(q_views, tags, x_low):
                               buf.data_ptr(), mc, out.data_ptr(),
                               K.current_stream(dev))
     K.check_launch("gleanvec_ip", err, lib)
-    gleanvec_ip.launches += 1
+    K.count_launch(gleanvec_ip)
     return out
 
 

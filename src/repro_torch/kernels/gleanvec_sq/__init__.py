@@ -217,7 +217,7 @@ def bucket_rows_by_tag(tags, c: int):
     err = lib.gleanvec_sq_bucket_rows(tags.data_ptr(), n, c, ws.data_ptr(),
                                       K.current_stream(dev))
     K.check_launch("bucket_rows_by_tag", err, lib)
-    bucket_rows_by_tag.launches += 1
+    K.count_launch(bucket_rows_by_tag)
     t = bucket_tiles(n, c)
     tile_tags = ws[off[1]:off[1] + 4 * t].view(torch.int32)
     rows = ws[off[2]:off[2] + 4 * t * BUCKET_TILE].view(torch.int32)
@@ -324,7 +324,7 @@ def gleanvec_sq_topk(q_scaled, q_lo, tags, codes, k: int, row_ids=None,
             codes.data_ptr(), m, c, d, n, k, s, ws.data_ptr(), pv.data_ptr(),
             pi.data_ptr(), vals.data_ptr(), ids.data_ptr(), stream)
     K.check_launch("gleanvec_sq_topk", err, lib)
-    gleanvec_sq_topk.launches += 1
+    K.count_launch(gleanvec_sq_topk)
     return vals, ids
 
 
@@ -400,7 +400,7 @@ def gleanvec_sq(q_scaled, q_lo, tags, codes, layout_block: int = 0):
             codes.data_ptr(), m, c, d, n, s, ws.data_ptr(), buf.data_ptr(),
             mc, out.data_ptr(), stream)
     K.check_launch("gleanvec_sq", err, lib)
-    gleanvec_sq.launches += 1
+    K.count_launch(gleanvec_sq)
     return out
 
 

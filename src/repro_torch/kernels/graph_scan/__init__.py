@@ -271,7 +271,7 @@ def graph_scan_beam_step(q_scaled, q_lo, block_tags, row_ids, codes,
         beam_vals.data_ptr(), beam_ids.data_ptr(), m, c, d, n, layout_block,
         s, b, vals.data_ptr(), ids.data_ptr(), K.current_stream(dev))
     K.check_launch("graph_scan_beam_step", err, lib)
-    graph_scan_beam_step.launches += 1
+    K.count_launch(graph_scan_beam_step)
     return vals, ids
 
 
@@ -309,7 +309,7 @@ def graph_beam_search(q_scaled, q_lo, block_tags, row_ids, codes, nbr_tbl,
     out = _search_launch(q_scaled, q_lo, block_tags, row_ids, codes, nbr_tbl,
                          beam_vals, beam_ids, layout_block, max_hops, e)
     if max_hops > 0 and beam_vals.shape[0] > 0:
-        graph_beam_search.launches += 1
+        K.count_launch(graph_beam_search)
     return out[:3]
 
 

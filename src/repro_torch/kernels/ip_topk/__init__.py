@@ -121,7 +121,7 @@ def ip_topk(q: torch.Tensor, x: torch.Tensor, k: int):
              pv.data_ptr(), pi.data_ptr(), floors.data_ptr(), vals.data_ptr(),
              ids.data_ptr(), K.current_stream(q.device))
     K.check_launch("ip_topk", err, lib)
-    ip_topk.launches += 1
+    K.count_launch(ip_topk)
     return vals, ids
 
 

@@ -297,7 +297,7 @@ def ivf_scan_topk(q_scaled, q_lo, block_tags, row_ids, codes, sched, k: int,
         nb, layout_block, s, k, sms, ws.data_ptr(), vals.data_ptr(),
         ids.data_ptr(), K.current_stream(dev))
     K.check_launch("ivf_scan_topk", err, lib)
-    ivf_scan_topk.launches += 1
+    K.count_launch(ivf_scan_topk)
     return vals, ids
 
 

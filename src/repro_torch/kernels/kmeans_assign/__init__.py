@@ -61,7 +61,7 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor):
                                 tags.data_ptr(), sims.data_ptr(),
                                 K.current_stream(x.device))
     K.check_launch("kmeans_assign", err, lib)
-    kmeans_assign.launches += 1
+    K.count_launch(kmeans_assign)
     return tags, sims
 
 

@@ -97,7 +97,7 @@ def sq_dot_folded(q_scaled, q_lo, codes):
                         codes.data_ptr(), m, d, n, plan.splits,
                         out.data_ptr(), K.current_stream(dev))
     K.check_launch("sq_dot", err, lib)
-    sq_dot.launches += 1
+    K.count_launch(sq_dot)
     return out
 
 

@@ -1,0 +1,121 @@
+"""Atomic, manifest-driven checkpoints (port of ``repro/train/checkpoint.py``,
+same on-disk layout, so either package reads the other's):
+
+    <dir>/step_<N>/            (written to step_<N>.tmp, then renamed)
+        manifest.json          (step, leaf paths, shapes, dtypes, meta)
+        <i>.npy                (one file per leaf)
+    <dir>/LATEST               (the last durable step)
+
+Leaves are found and named by :mod:`repro_torch.tree` (the reference's
+``keystr`` paths). Tensors are written from wherever they live: a host
+tensor straight from host memory, a device tensor through one copy.
+``restore`` returns numpy leaves; the caller places them (the serving
+lifecycle puts them on its template's devices). ``restore_distributed``
+belongs to the sharded placement (ROADMAP A2) and is not ported.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+
+__all__ = ["save", "restore", "latest_step", "available_steps"]
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save(ckpt_dir: str, step: int, tree_: Any,
+         meta: Optional[Dict] = None) -> str:
+    """Write a checkpoint atomically; returns the final directory."""
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp, exist_ok=True)
+    paths, leaves, _ = tree.flatten_with_paths(tree_)
+    manifest = {"step": step, "leaves": [], "meta": meta or {}}
+    for i, (p, leaf) in enumerate(zip(paths, leaves)):
+        arr = _to_numpy(leaf)
+        np.save(os.path.join(tmp, f"{i}.npy"), arr)
+        manifest["leaves"].append(
+            {"path": p, "file": f"{i}.npy", "shape": list(arr.shape),
+             "dtype": str(arr.dtype)})
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    with open(os.path.join(ckpt_dir, "LATEST.tmp"), "w") as f:
+        f.write(str(step))
+    os.replace(os.path.join(ckpt_dir, "LATEST.tmp"),
+               os.path.join(ckpt_dir, "LATEST"))
+    return final
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    path = os.path.join(ckpt_dir, "LATEST")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return int(f.read().strip())
+
+
+def available_steps(ckpt_dir: str):
+    """Ascending durable step numbers (renamed ``step_<N>`` directories;
+    ``.tmp`` partial writes excluded): the chain a restore of a corrupted
+    snapshot walks backwards."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            try:
+                steps.append(int(name[len("step_"):]))
+            except ValueError:
+                continue
+    return sorted(steps)
+
+
+def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None,
+            strict_shapes: bool = True):
+    """Load into the structure of ``target_tree``; shapes must match unless
+    ``strict_shapes=False``, when the template gives the structure only and
+    the manifest the shapes. Returns ``(tree, step, meta)`` with numpy
+    leaves; template leaves that are python scalars come back as their own
+    type."""
+    step = latest_step(ckpt_dir) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    by_path = {leaf["path"]: leaf for leaf in manifest["leaves"]}
+    paths, leaves, treedef = tree.flatten_with_paths(target_tree)
+    missing = [p for p in paths if p not in by_path]
+    if missing:
+        raise ValueError(f"checkpoint is missing leaves {missing[:4]} "
+                         f"(of {len(missing)})")
+    out = []
+    for p, leaf in zip(paths, leaves):
+        arr = np.load(os.path.join(d, by_path[p]["file"]))
+        if strict_shapes:
+            expect = tuple(leaf.shape) if hasattr(leaf, "shape") \
+                else np.shape(leaf)
+            if tuple(arr.shape) != expect:
+                raise ValueError(f"checkpoint leaf {p} shape {arr.shape} != "
+                                 f"target {expect}")
+        if isinstance(leaf, (bool, int, float)):
+            out.append(type(leaf)(arr))
+        else:
+            out.append(arr)
+    return treedef.unflatten(out), manifest["step"], manifest["meta"]

@@ -296,9 +296,26 @@ def test_store_structure_matches_reference(world, mode):
 
 
 def test_host_rerank_is_refused():
+    """A host-rerank store serves, but is refused where it does not fit: a
+    swap between the two tiers changes the state's structure, and a store
+    that is not (n, D) is no rerank tier."""
+    x = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    model = streaming.init(torch.eye(8), torch.eye(8), 4).model
+    host = streaming.build_streaming_artifacts("sphering", x[:48], model,
+                                               capacity=64, host_rerank=True,
+                                               device="cpu")
+    dev = streaming.build_streaming_artifacts("sphering", x[:48], model,
+                                              capacity=64, device="cpu")
+    assert search.host_tier(host) is not None and search.host_tier(dev) is None
+    for have, offer in ((dev, host), (host, dev)):
+        engine = ServingEngine(search.make_state(have), k=4, kappa=8,
+                               batch_size=4, dim=8)
+        with pytest.raises(ValueError, match="structure"):
+            engine.swap(search.make_state(offer))
+        assert engine.version == 0
+    from repro_torch.core import rerank_tier
     with pytest.raises(ValueError, match="host rerank"):
-        streaming.build_streaming_artifacts("sphering", np.zeros((4, 8)),
-                                            host_rerank=True, device="cpu")
+        rerank_tier.HostStore(x[0])
 
 
 @pytest.mark.parametrize("mode", MODES)
