@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's search paths (flat index, IVF, streaming
 stores and the graph index), its serving operations layer (the host
-rerank tier, the guarded lifecycle, the coalescing frontend) and its LM
-serving path on one NVIDIA GPU.
+rerank tier, the guarded lifecycle, the coalescing frontend), its sharded
+placement and its LM serving path on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -114,6 +114,27 @@ Phases (any failure raises and the script exits non-zero):
    1024-query loop of it on a side stream, coalesced ids equal to
    ``submit``'s in every bucket, and every drill of
    ``faults.FRONTEND_FAULTS``.
+3g. The sharded placement (``distributed.build_sharded_index``) on phase
+   3's data and fits: S = 4 shards (the reference CLI's ``--shards 4``)
+   searched one after the other on the card, layout blocks 4096 as the
+   single-device scorers, each run beside the single-device run of the
+   same call (p50, p99, QPS, recall@10 against the path's floor, build s,
+   peak device memory, launches a batch by kernel, stored rows, device
+   time by kernel of one search): flat sphering-int8, gleanvec-int8-sorted
+   and gleanvec-sorted, then the aligned IVF (nprobe 12, reduced probe)
+   in both sorted modes, then the fused graph over the first 1,000,000
+   rows (a device build a shard; host syncs a batch and none inside
+   ``candidates``; fused against gathered per-shard graphs, overlap >=
+   0.99). Each search kernel launches 4 times a batch. gleanvec-sorted's
+   candidates equal the single-device ones (a row's encoding does not
+   depend on its shard); the int8 modes fit their scales per shard, so
+   theirs equal ``testing.sharded_as_one``'s scan, and the single-device
+   sphering-int8 scorer in 4 row shards merges to its own scan. The host
+   tier through ``build_sharded_artifacts(spill_host=True)`` (device
+   memory freed n * D * 4, ids equal the device tier's, the gather ms of
+   the per-shard buffers beside one ``HostStore``'s); ``refreshed`` +
+   ``engine.swap`` on the IVF and the graph (ids unchanged). Its main-path
+   launches are added to the kernel table's rows.
 4. Each kernel at its path's shapes and inputs: its time beside its bound,
    its plain version's time, the time of the composed PyTorch calls that
    compute the same function (``library_ms``), and its agreement with the
@@ -153,6 +174,7 @@ import contextlib
 import dataclasses
 import hashlib
 import importlib
+import inspect
 import json
 import subprocess
 import sys
@@ -255,6 +277,20 @@ KERNEL_FILES = {
                         "src/repro/kernels/flash_attention/"
                         "flash_attention.py:109"),
 }
+
+# The sharded placement (phase 3g): the reference CLI's --shards 4 example,
+# built as --shards builds it (build_sharded_index's default layout block,
+# 256; the single-device runs keep build_scorer's 4096, as the CLI without
+# --shards); each mode read beside its single-device run, SHARD_EXACT_MODES
+# also checked equal to it (their rows' encodings do not depend on the
+# shard; the int8 modes fit scales per shard and are checked against
+# testing.sharded_as_one, the aligned IVF against per-shard builds).
+SHARDS = 4
+SHARD_FLAT_MODES = ("sphering-int8", "gleanvec-int8-sorted",
+                    "gleanvec-sorted")
+SHARD_IVF_MODES = ("gleanvec-int8-sorted", "gleanvec-sorted")
+SHARD_EXACT_MODES = ("gleanvec-sorted",)
+SHARD_HOST_MODE = "gleanvec-int8-sorted"
 
 # The graph path (phase 3d): the first GRAPH_ROWS rows of phase 3's data
 # (PERF.md, "Cells": the device build's self-join is cut from 2M), the
@@ -1842,7 +1878,9 @@ def phase_graph(K, testing, ds, x, sph, glv):
         # the engine's warm-up batch (built at construction) is one more
         per_batch[mode] = {"hops": hops, "syncs": syncs_batch,
                            "search": delta["graph_beam_search"]
-                           / (served + 1)}
+                           / (served + 1), "p50": p50, "p99": p99,
+                           "qps": qps, "recall": rec, "syncs_cand": syncs_cand,
+                           "build_s": sum(steps.values())}
         log(f"  mode={mode} {'fused' if fused else 'gathered'}: batches="
             f"{served} QPS={qps:.0f} p50={p50:.1f}ms "
             f"p99={p99:.1f}ms recall@10={rec:.4f} (floor "
@@ -2462,6 +2500,436 @@ def vectors_exact(queries, rows):
 def recall(ids, gt) -> float:
     from repro_torch.core import metrics
     return metrics.recall_at_k(ids, gt)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3g: the sharded placement.
+# ---------------------------------------------------------------------------
+
+
+def serve_reading(engine, queries, batches: int = 5):
+    """Serve ``batches`` batches; (ids of the last, stats)."""
+    ids = None
+    for _ in range(batches):
+        ids = engine.submit(queries)
+    return ids, engine.stats
+
+
+def reading(label, st, rec, build_s, peak, launches) -> str:
+    return (f"{label}: build={build_s:.2f}s batches={st.n_batches} "
+            f"QPS={st.qps:.0f} p50={st.percentile_ms(50):.2f}ms "
+            f"p99={st.percentile_ms(99):.2f}ms recall@10={rec:.4f} "
+            f"peak={peak / 1e9:.2f}GB launches/batch={launches}")
+
+
+def per_batch_launches(delta, batches: int) -> dict:
+    """Launches a batch of each kernel a serving run launched (the
+    engine's warm-up batch is one more)."""
+    return {k: v / (batches + 1) for k, v in delta.items() if v}
+
+
+def sharded_run(K, label, make, queries, gt, floor):
+    """Build (``make() -> (artifacts, index)``, timed) and serve 5 batches
+    behind a ServingEngine, counters read just after; the peak device
+    memory over the build and the serving above what was held before.
+    Returns (engine, ids, launches of the build and serving, stats)."""
+    from repro_torch.core import metrics
+    from repro_torch.core import search as msearch
+    from repro_torch.serve.engine import ServingEngine
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = counts(K)
+    t0 = time.perf_counter()
+    art, index = make()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    built = {k: v - before[k] for k, v in counts(K).items()}
+    engine = ServingEngine(msearch.make_state(art, index=index), k=10,
+                           kappa=100, batch_size=1024, dim=512)
+    ids, st = serve_reading(engine, queries)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    delta = {k: v - before[k] for k, v in counts(K).items()}
+    rec = metrics.recall_at_k(ids, gt)
+    served = {k: v - built[k] for k, v in delta.items()}
+    line = reading(label, st, rec, build_s, peak,
+                   per_batch_launches(served, st.n_batches))
+    log(f"  {line} (floor {floor})")
+    if ids.shape != (1024, 10) or not np.all(ids >= -1):
+        raise AssertionError(f"{label}: malformed ids {ids.shape}")
+    if rec < floor:
+        raise AssertionError(f"{label}: recall@10 {rec:.4f} below its "
+                             f"floor {floor}")
+    return engine, ids, delta, st
+
+
+def table_rows(kind: str, mode: str, delta: dict) -> dict:
+    """The kernel table's row of each kernel a sharded run launched."""
+    rows = {"kmeans_assign": "kmeans_assign[C=48]"}
+    if kind == "flat":
+        rows["ip_topk"] = f"ip_topk[{mode}]"
+        rows["gleanvec_sq_topk"] = f"gleanvec_sq_topk[{mode}]"
+    elif kind == "ivf":
+        rows["ivf_scan_topk"] = f"ivf_scan_topk[{mode}]"
+    else:
+        rows["graph_beam_search"] = (f"graph_beam_search[{mode} expand="
+                                     f"{GRAPH_EXPAND} B={GRAPH_BEAM}]")
+        rows["ip_topk"] = "ip_topk[graph self-join d=513 k=49]"
+    out = {}
+    for k, v in delta.items():
+        if v:
+            if k not in rows:
+                raise AssertionError(f"sharded {kind} {mode}: {k} launched "
+                                     "outside its path's kernels")
+            out[rows[k]] = out.get(rows[k], 0) + v
+    return out
+
+
+def add_launches(table: list, extra: dict) -> None:
+    """Add phase 3g's launches to the kernel table's rows."""
+    names = {row["name"]: row for row in table}
+    for name, v in extra.items():
+        if name not in names:
+            raise AssertionError(f"no kernel-table row {name} for phase 3g's "
+                                 f"{v} launches")
+        names[name]["launches"] += v
+
+
+def merge_counts(acc: dict, more: dict) -> None:
+    for k, v in more.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def log_layout_and_split(index, stacked, single, q, single_call):
+    """The rows a sharded scorer stores (its sorted layouts pad each
+    cluster of each shard to whole blocks) beside the single-device
+    scorer's, and the device time by kernel of one candidates call of
+    each (``torch.profiler``)."""
+    rows = stacked.codes if hasattr(stacked, "codes") else stacked.x_low
+    one = single.codes if hasattr(single, "codes") else single.x_low
+    log(f"    stored rows: sharded {rows.shape[0]} x {rows.shape[1]} = "
+        f"{rows.shape[0] * rows.shape[1]} against {one.shape[0]}")
+    log("    device time by kernel, one search of the batch (torch.profiler)"
+        f": single-device: {device_breakdown(single_call)}")
+    split = device_breakdown(lambda: index.search(q, stacked, 100))
+    log(f"      sharded: {split}")
+
+
+def refresh_swap(label, engine, index, stacked, model, queries, ids):
+    """(e) ``ShardedIndex.refreshed`` under the same model and
+    ``engine.swap``: the swap check accepts the restacked index and the
+    ids of the next batch are ``ids``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new = index.refreshed(stacked, model)
+    engine.swap(engine.state._replace(index=new))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    same = np.array_equal(engine.submit(queries), ids)
+    log(f"  (e) {label}: ShardedIndex.refreshed + engine.swap under the "
+        f"same model accepted ({ms:.1f} ms), ids "
+        f"{'unchanged' if same else 'CHANGED'}")
+    if not same:
+        raise AssertionError(f"{label}: the refreshed swap changed the ids")
+
+
+def phase_sharded(K, testing, ds, x, glv, sph, single_graph):
+    """The sharded placement (``distributed.build_sharded_index``, S =
+    SHARDS, searched one shard after the other on the card) on phase 3's
+    data and fits, each run beside the single-device run of the same
+    call. Returns {kernel-table row: launches of the sharded main path}."""
+    from repro_torch.core import rerank_tier
+    from repro_torch.core import scorer as sc
+    from repro_torch.core import search as msearch
+    from repro_torch.data import vectors
+    from repro_torch.index import distributed, ivf
+    from repro_torch.index.protocol import FlatIndex
+    from repro_torch.serve.engine import ServingEngine
+
+    dev = torch.device("cuda")
+    block = inspect.signature(distributed.build_sharded_index) \
+        .parameters["sort_block"].default
+    log(f"phase 3g: sharded placement, S={SHARDS} shards searched one after "
+        f"the other, n={N_ROWS} D=512 d=160 C=48 batch=1024 k=10 kappa=100 "
+        f"(sharded layout block {block}, the default --shards serves; the "
+        f"single-device runs keep build_scorer's 4096)")
+    t_phase = time.perf_counter()
+    q = torch.as_tensor(ds.queries_test, device=dev)
+    gt = ds.gt[:, :10]
+    extra = {}
+
+    def tol_of(stacked):
+        tol = 0.0
+        for s in range(stacked[0].shape[0]):
+            one = distributed._take_shard(stacked, s)
+            qs, lo = one.prepare_queries(q), 0.0
+            if isinstance(qs, tuple):
+                qs, lo = qs.q_scaled, float(qs.q_lo.abs().max())
+            rows = one.x_low if hasattr(one, "x_low") else one.codes
+            tol = max(tol, testing.dot_tol(row_norm_max(qs),
+                                           row_norm_max(rows), rows.shape[1],
+                                           lo))
+        return tol
+
+    # -- (a) the flat path ------------------------------------------------
+    for mode in SHARD_FLAT_MODES:
+        model = sph if mode.startswith("sphering") else glv
+        floor = RECALL_FLOORS[mode]
+        single_scorer = {}
+
+        def make_single():
+            art = msearch.build_artifacts(mode, x, model, device=dev)
+            single_scorer["s"] = art.scorer
+            return art, None
+
+        for fn in all_counters(K):
+            fn.launches = 0
+        eng_1, ids_1, _, _ = sharded_run(
+            K, f"flat {mode} single", make_single, ds.queries_test, gt, floor)
+        del eng_1
+        for fn in all_counters(K):
+            fn.launches = 0
+        built = {}
+
+        def make_sharded():
+            sh, st = distributed.build_sharded_index(
+                "flat", mode, x, model, n_shards=SHARDS, device=dev)
+            built["index"], built["scorer"] = sh, st
+            return msearch.SearchArtifacts(scorer=st, x_full=x,
+                                           model=model), sh
+
+        eng_s, ids_s, delta, st_s = sharded_run(
+            K, f"flat {mode} S={SHARDS}", make_sharded, ds.queries_test, gt,
+            floor)
+        kernel = "ip_topk" if mode.startswith("sphering") \
+            else "gleanvec_sq_topk"
+        if delta[kernel] != SHARDS * (st_s.n_batches + 1):
+            raise AssertionError(f"sharded flat {mode}: {delta[kernel]} "
+                                 f"{kernel} launches, not {SHARDS} a batch")
+        merge_counts(extra, table_rows("flat", mode, delta))
+        sh, st = built["index"], built["scorer"]
+        single = single_scorer["s"]
+        got = sh.search(q, st, 100)
+        want = FlatIndex().search(q, single, 100)
+        same10 = float(np.mean(np.sort(ids_s, 1) == np.sort(ids_1, 1)))
+        log(f"    candidates (kappa 100) sharded vs single-device: "
+            f"overlap={overlap(got[1], want[1]):.4f}; final top-10 equal "
+            f"in {same10:.4f} of the slots (sorted per query)")
+        log_layout_and_split(sh, st, single, q, lambda: FlatIndex().search(
+            q, single, 100))
+        if mode in SHARD_EXACT_MODES:
+            check_topk(f"  flat {mode} sharded vs single-device candidates "
+                       "(a row's encoding does not depend on its shard)",
+                       got, want, tol_of(st), testing)
+        else:
+            one = testing.sharded_as_one(st)
+            tol = max(tol_of(st), tol_of(distributed.stack_shards([one])))
+            check_topk(f"  flat {mode} sharded vs one scan of the shards' "
+                       "own int8 encodings (testing.sharded_as_one; each "
+                       "shard fits its own scales)", got,
+                       FlatIndex().search(q, one, 100), tol, testing)
+            del one
+        if mode == "sphering-int8":
+            tol = tol_of(distributed.stack_shards([single]))
+            check_topk(f"  flat {mode} the single-device scorer in "
+                       f"{SHARDS} row shards (shard_rows, globalize_ids), "
+                       "merged, vs its scan", testing.row_shards_merged(
+                           q, single, SHARDS, 100), want, tol, testing)
+        del eng_s, got, want, single, single_scorer, built, sh, st
+
+    # -- (d) the host tier over (a): per-shard host buffers ---------------
+    mode = SHARD_HOST_MODE
+    q5 = np.concatenate([ds.queries_test] * HOST_BATCHES)
+    kw = dict(n_shards=SHARDS, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    before = counts(K)
+    sh, art = distributed.build_sharded_artifacts("flat", mode, x.clone(),
+                                                  glv, **kw)
+    torch.cuda.synchronize()
+    held_dev = torch.cuda.memory_allocated() - base
+    engine = ServingEngine(msearch.make_state(art, index=sh), k=10,
+                           kappa=100, batch_size=1024, dim=512)
+    ids_dev, sd = serve_reading(engine, q5, 1)
+    del engine, art, sh
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    xc = x.clone()
+    sh, art = distributed.build_sharded_artifacts("flat", mode, xc, glv,
+                                                  spill_host=True, **kw)
+    del xc
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    held_host = torch.cuda.memory_allocated() - base
+    store = msearch.host_tier(art)
+    engine = ServingEngine(msearch.make_state(art, index=sh), k=10,
+                           kappa=100, batch_size=1024, dim=512)
+    ids_host, s = serve_reading(engine, q5, 1)
+    merge_counts(extra, table_rows("flat", mode, {
+        k: v - before[k] for k, v in counts(K).items()}))
+    freed = held_dev - held_host
+    need = N_ROWS * 512 * 4
+    same = np.array_equal(ids_dev, ids_host)
+    single = art._replace(x_full=rerank_tier.demote(x))
+    eng_1 = ServingEngine(msearch.make_state(single, index=sh), k=10,
+                          kappa=100, batch_size=1024, dim=512)
+    ids_1, s1 = serve_reading(eng_1, q5, 1)
+    log(f"  (d) host tier, build_sharded_artifacts(spill_host=True) "
+        f"{t_build:.2f} s: {type(store).__name__} of {store.n_shards} "
+        f"shards (pinned {store.pinned}); device memory held "
+        f"{held_dev / 1e9:.3f} -> {held_host / 1e9:.3f} GB (freed "
+        f"{freed / 1e9:.3f} GB, "
+        f"n*D*4 = {need / 1e9:.3f} GB); ids of {HOST_BATCHES} batches "
+        f"{'equal' if same else 'DIFFERENT'} to the device tier's; "
+        f"host_bytes_ratio={s.host_bytes_ratio:.2f}")
+    log(f"    device tier p50={sd.percentile_ms(50):.2f}ms QPS={sd.qps:.0f}; "
+        f"ShardedHostStore p50={s.percentile_ms(50):.2f}ms "
+        f"p99={s.percentile_ms(99):.2f}ms QPS={s.qps:.0f} gather p50="
+        f"{np.median(s.gather_ms):.2f}ms copy p50={np.median(s.copy_ms):.2f}"
+        f"ms; one HostStore of the same rows behind the same index p50="
+        f"{s1.percentile_ms(50):.2f}ms QPS={s1.qps:.0f} gather p50="
+        f"{np.median(s1.gather_ms):.2f}ms (ids "
+        f"{'equal' if np.array_equal(ids_1, ids_host) else 'DIFFERENT'})")
+    if freed < need or not same or s.host_bytes_ratio != 1.0 \
+            or not np.array_equal(ids_1, ids_host):
+        raise AssertionError("sharded host tier: memory, ids or bytes wrong")
+    del engine, eng_1, art, single, sh, store
+
+    # -- (b) the aligned IVF ----------------------------------------------
+    for mode in SHARD_IVF_MODES:
+        floor = IVF_RECALL_FLOORS[mode]
+        single_parts = {}
+
+        def make_single():
+            scorer = sc.build_scorer(mode, x, glv, device=dev)
+            index = ivf.with_reduced_centers(
+                ivf.build_aligned(glv, x, nprobe=IVF_NPROBE, device=dev),
+                scorer, glv)
+            single_parts["p"] = (scorer, index)
+            return msearch.SearchArtifacts(scorer=scorer, x_full=x,
+                                           model=glv), index
+
+        for fn in all_counters(K):
+            fn.launches = 0
+        eng_1, ids_1, _, _ = sharded_run(
+            K, f"ivf {mode} single", make_single, ds.queries_test, gt, floor)
+        del eng_1
+        for fn in all_counters(K):
+            fn.launches = 0
+        built = {}
+
+        def make_sharded():
+            sh, st = distributed.build_sharded_index(
+                "ivf", mode, x, glv, n_shards=SHARDS, aligned=True,
+                reduced_probe=True, nprobe=IVF_NPROBE, device=dev)
+            built["p"] = (sh, st)
+            return msearch.SearchArtifacts(scorer=st, x_full=x,
+                                           model=glv), sh
+
+        eng_s, ids_s, delta, st_s = sharded_run(
+            K, f"ivf {mode} S={SHARDS}", make_sharded, ds.queries_test, gt,
+            floor)
+        if delta["ivf_scan_topk"] != SHARDS * (st_s.n_batches + 1):
+            raise AssertionError(f"sharded ivf {mode}: "
+                                 f"{delta['ivf_scan_topk']} ivf_scan_topk "
+                                 f"launches, not {SHARDS} a batch")
+        merge_counts(extra, table_rows("ivf", mode, delta))
+        sh, st = built["p"]
+        scorer, index = single_parts["p"]
+        got = sh.search(q, st, 100)
+        want = index.search(q, scorer, 100)
+        same10 = float(np.mean(np.sort(ids_s, 1) == np.sort(ids_1, 1)))
+        log(f"    candidates sharded vs single-device: overlap="
+            f"{overlap(got[1], want[1]):.4f}; final top-10 equal in "
+            f"{same10:.4f} of the slots")
+        log_layout_and_split(sh, st, scorer, q, lambda: index.search(
+            q, scorer, 100))
+        if mode in SHARD_EXACT_MODES:
+            check_topk(f"  ivf {mode} sharded vs single-device candidates "
+                       "(one quantizer serves every shard)", got, want,
+                       tol_of(st), testing)
+        else:
+            refresh_swap(f"ivf {mode}", eng_s, sh, st, glv, ds.queries_test,
+                         ids_s)
+        per, parts = x.shape[0] // SHARDS, []
+        for s in range(SHARDS):
+            rows = x[s * per:(s + 1) * per]
+            one = sc.build_scorer(mode, rows, glv, block=block, device=dev)
+            idx = ivf.with_reduced_centers(ivf.build_aligned(
+                glv, rows, nprobe=IVF_NPROBE, device=dev), one, glv)
+            vals, ids = idx.search(q, one, 100)
+            parts.append((vals, idx.globalize_ids(one, ids, s * per)))
+            del one, idx
+        check_topk(f"  ivf {mode} sharded vs each shard built on its own "
+                   "(build_aligned + with_reduced_centers over its rows, its "
+                   "own scorer), searched alone, lifted, merged by hand",
+                   got, testing.merged_shards(parts, 100), tol_of(st),
+                   testing)
+        del parts
+        del eng_s, got, want, built, single_parts, sh, st, scorer, index
+
+    # -- (c) the fused graph on the first GRAPH_ROWS rows -----------------
+    mode = "gleanvec-int8-sorted"
+    xg = x[:GRAPH_ROWS]
+    gt_g = vectors.exact_topk(ds.queries_test, xg, 10, device=dev)
+    for fn in all_counters(K):
+        fn.launches = 0
+    built = {}
+
+    def make_graph():
+        sh, st = distributed.build_sharded_index(
+            "graph", mode, xg, glv, n_shards=SHARDS, beam=GRAPH_BEAM,
+            max_hops=GRAPH_HOPS, expand=GRAPH_EXPAND, fused_graph=True,
+            graph_kwargs={"r": 24, "n_random": 4, "n_entries": 16,
+                          "seed": 0, "method": "device"}, device=dev)
+        built["p"] = (sh, st)
+        return msearch.SearchArtifacts(scorer=st, x_full=xg, model=glv), sh
+
+    floor = GRAPH_RECALL_FLOORS[mode]
+    eng_s, ids_s, delta, st_s = sharded_run(
+        K, f"graph {mode} fused S={SHARDS} (n={GRAPH_ROWS})", make_graph,
+        ds.queries_test, gt_g, floor)
+    merge_counts(extra, table_rows("graph", mode, delta))
+    sh, st = built["p"]
+    searches = delta["graph_beam_search"]
+    if searches != SHARDS * (st_s.n_batches + 1) \
+            or delta["graph_scan_beam_step"]:
+        raise AssertionError(f"sharded graph: {searches} graph_beam_search "
+                             f"launches, not {SHARDS} a batch")
+    qs = sh.prepare_queries(st, q)
+    syncs_cand = sync_count(lambda: sh.candidates(qs, st, 100))
+    syncs_batch = sync_count(lambda: eng_s.submit(ds.queries_test))
+    one = single_graph[mode]
+    log(f"    host syncs: {syncs_batch} a batch, {syncs_cand} in candidates "
+        f"(single-device, phase 3d: {one['syncs']} a batch, "
+        f"{one['syncs_cand']} in candidates); single-device: build="
+        f"{one['build_s']:.2f}s QPS={one['qps']:.0f} p50={one['p50']:.2f}ms "
+        f"p99={one['p99']:.2f}ms recall@10={one['recall']:.4f} "
+        f"graph_beam_search/batch={one['search']:.0f}, hops {one['hops']}")
+    if syncs_cand:
+        raise AssertionError(f"sharded graph: {syncs_cand} host syncs inside "
+                             "candidates")
+    gathered = dataclasses.replace(sh, sub_index=dataclasses.replace(
+        sh.sub_index, fused=False, nbr_rows=None))
+    cf = sh.candidates(qs, st, 100)
+    cg = gathered.candidates(qs, st, 100)
+    ov = overlap(cf[1], cg[1])
+    log(f"    fused vs gathered per-shard graphs (padding rows of the "
+        f"stacked layouts never reached): kappa-candidate overlap={ov:.4f} "
+        f"(min {GRAPH_MIN_OVERLAP})")
+    if ov < GRAPH_MIN_OVERLAP:
+        raise AssertionError("sharded graph: fused and gathered disagree")
+    refresh_swap(f"graph {mode}", eng_s, sh, st, glv, ds.queries_test,
+                 eng_s.submit(ds.queries_test))
+    del eng_s, sh, st, built, gathered, cf, cg
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  sharded main-path launches by kernel-table row: {extra} "
+        f"({time.perf_counter() - t_phase:.0f} s)")
+    return extra
 
 
 # ---------------------------------------------------------------------------
@@ -3819,6 +4287,7 @@ def main(argv=None) -> int:
     hops, graph_totals, per_batch, searches = phase_graph(K, testing, ds, x,
                                                           sph, glv)
     phase_ops(K, ds, x, sph, glv)
+    sharded_launches = phase_sharded(K, testing, ds, x, glv, sph, per_batch)
     table = phase_timing(K, testing, x, glv, states, per_mode, totals,
                          ivf_inputs, ivf_launches, flat_p50)
     del states, ivf_inputs
@@ -3835,6 +4304,7 @@ def main(argv=None) -> int:
     log("phase 4 (LM): flash_attention at the prefill's captured shape")
     table.append(lm_timing(K, testing, qkv, lm_launches))
     del qkv
+    add_launches(table, sharded_launches)
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.0f} s")
     print(card_line(), flush=True)

@@ -51,7 +51,15 @@ the installed state until the swap. ``refresh`` re-encodes cluster by
 cluster (``gleanvec.project_per_cluster``) where the reference gathers
 per-row (d, D) and (d, d) matrices.
 
-Sharding belongs to a later part of the port.
+Sharding: ``shard_rows(s, n_shards)`` is the torch counterpart of the
+reference's ``shard_specs``: a scorer of the same class whose row leaves
+are rows ``[s n / S, (s + 1) n / S)`` as views, the leaves ``shard_specs``
+replicates kept whole (``a``, ``lo`` / ``delta``, ``inv_perm``,
+``list_block_ranges``). ``globalize_ids(ids, shard_idx)`` lifts a row
+shard's ids to global ids: the row-aligned scorers offset them by
+``shard_idx * n_rows``; the sorted ones return them, since their ``perm``
+holds global ids (a sorted layout is built over the whole database, then
+row-sharded, and S must divide its block count).
 """
 from __future__ import annotations
 
@@ -139,6 +147,48 @@ def _gather_views(q: torch.Tensor, tag: torch.Tensor) -> torch.Tensor:
     """(m, p, d) views ``q[m, tag[m, p]]`` of (m, C, d) prepared queries."""
     m = q.shape[0]
     return q[torch.arange(m, device=q.device)[:, None], tag]
+
+
+def _globalize_row_aligned(ids: torch.Tensor, shard_idx,
+                           n_rows: int) -> torch.Tensor:
+    """Row-aligned ``globalize_ids``: offset local ids by the shard's row
+    count; -1 stays -1."""
+    return torch.where(ids >= 0, ids + shard_idx * n_rows,
+                       torch.full_like(ids, -1))
+
+
+def _row_range(n: int, s: int, n_shards: int):
+    if n_shards < 1 or not 0 <= s < n_shards:
+        raise ValueError(f"shard {s} of {n_shards} does not exist")
+    if n % n_shards:
+        raise ValueError(f"{n} rows do not split into {n_shards} equal "
+                         "shards")
+    per = n // n_shards
+    return s * per, (s + 1) * per
+
+
+def _shard_leaves(scorer, s: int, n_shards: int, row_fields):
+    """``scorer`` with each of ``row_fields`` (first dimension ``n_rows``)
+    cut to shard ``s``'s rows as a view; every other leaf is kept whole."""
+    lo, hi = _row_range(scorer.n_rows, s, n_shards)
+    return scorer._replace(**{
+        f: getattr(scorer, f)[lo:hi] for f in row_fields
+        if getattr(scorer, f) is not None})
+
+
+def _shard_sorted(scorer, s: int, n_shards: int, row_field: str):
+    """Row shard of a sorted layout: whole single-tag blocks only, so S
+    must divide the block count; ``perm`` keeps its global ids."""
+    nb = scorer.block_tags.shape[0]
+    if nb % n_shards:
+        raise ValueError(f"a sorted layout of {nb} blocks does not split "
+                         f"into {n_shards} shards of whole blocks")
+    b0, b1 = _row_range(nb, s, n_shards)
+    lb = scorer.layout_block
+    return scorer._replace(**{
+        row_field: getattr(scorer, row_field)[b0 * lb:b1 * lb],
+        "block_tags": scorer.block_tags[b0:b1],
+        "perm": scorer.perm[b0 * lb:b1 * lb]})
 
 
 def _sorted_rows(scorer, ids: torch.Tensor):
@@ -275,6 +325,12 @@ class LinearScorer(NamedTuple):
     def translate_ids(self, ids: torch.Tensor) -> torch.Tensor:
         return _translate_live(self.live, self.n_rows, ids)
 
+    def shard_rows(self, s: int, n_shards: int) -> "LinearScorer":
+        return _shard_leaves(self, s, n_shards, ("x_low", "live"))
+
+    def globalize_ids(self, ids: torch.Tensor, shard_idx) -> torch.Tensor:
+        return _globalize_row_aligned(ids, shard_idx, self.n_rows)
+
     # ---- streaming row-level ops (Section 3.2) ----
 
     def insert_rows(self, ids: torch.Tensor, rows: torch.Tensor,
@@ -355,6 +411,12 @@ class GleanVecScorer(NamedTuple):
     def translate_ids(self, ids: torch.Tensor) -> torch.Tensor:
         return _translate_live(self.live, self.n_rows, ids)
 
+    def shard_rows(self, s: int, n_shards: int) -> "GleanVecScorer":
+        return _shard_leaves(self, s, n_shards, ("x_low", "tags", "live"))
+
+    def globalize_ids(self, ids: torch.Tensor, shard_idx) -> torch.Tensor:
+        return _globalize_row_aligned(ids, shard_idx, self.n_rows)
+
     # ---- streaming row-level ops (Section 3.2) ----
 
     def insert_rows(self, ids: torch.Tensor, rows: torch.Tensor,
@@ -425,6 +487,12 @@ class QuantizedScorer(NamedTuple):
 
     def translate_ids(self, ids: torch.Tensor) -> torch.Tensor:
         return _translate_live(self.live, self.n_rows, ids)
+
+    def shard_rows(self, s: int, n_shards: int) -> "QuantizedScorer":
+        return _shard_leaves(self, s, n_shards, ("codes", "live"))
+
+    def globalize_ids(self, ids: torch.Tensor, shard_idx) -> torch.Tensor:
+        return _globalize_row_aligned(ids, shard_idx, self.n_rows)
 
     # ---- streaming row-level ops (Section 3.2) ----
 
@@ -513,6 +581,12 @@ class GleanVecQuantizedScorer(NamedTuple):
 
     def translate_ids(self, ids: torch.Tensor) -> torch.Tensor:
         return _translate_live(self.live, self.n_rows, ids)
+
+    def shard_rows(self, s: int, n_shards: int) -> "GleanVecQuantizedScorer":
+        return _shard_leaves(self, s, n_shards, ("codes", "tags", "live"))
+
+    def globalize_ids(self, ids: torch.Tensor, shard_idx) -> torch.Tensor:
+        return _globalize_row_aligned(ids, shard_idx, self.n_rows)
 
     # ---- streaming row-level ops (Section 3.2) ----
 
@@ -666,6 +740,12 @@ class SortedGleanVecScorer(NamedTuple):
         row-aligned GleanVec scorer, so its companion is one too."""
         return _center_views_scorer(centers, model)
 
+    def shard_rows(self, s: int, n_shards: int) -> "SortedGleanVecScorer":
+        return _shard_sorted(self, s, n_shards, "x_low")
+
+    def globalize_ids(self, ids: torch.Tensor, shard_idx) -> torch.Tensor:
+        return ids          # perm already holds global original ids
+
     # ---- streaming row-level ops (Section 3.2) ----
 
     def insert_rows(self, ids: torch.Tensor, rows: torch.Tensor,
@@ -746,6 +826,13 @@ class SortedGleanVecQuantizedScorer(NamedTuple):
                        model=None) -> "GleanVecQuantizedScorer":
         return _center_pseudo_scorer(centers, model, self.lo, self.delta,
                                      self.a)
+
+    def shard_rows(self, s: int, n_shards: int
+                   ) -> "SortedGleanVecQuantizedScorer":
+        return _shard_sorted(self, s, n_shards, "codes")
+
+    def globalize_ids(self, ids: torch.Tensor, shard_idx) -> torch.Tensor:
+        return ids          # perm already holds global original ids
 
     # ---- streaming row-level ops (Section 3.2) ----
 

@@ -232,10 +232,6 @@ __global__ void __launch_bounds__(BK_THREADS)
   }
 }
 
-static cudaError_t bucket_smem_attr(const void* fn, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 // Bucket tags (N,) into the workspace `ws` (bucket_carve's size); b gets
 // the carved arrays.
@@ -247,9 +243,9 @@ static cudaError_t launch_buckets(const int* tags, int N, int C, void* ws, Bucke
   if (err != cudaSuccess) return err;
   const size_t count_smem = (size_t)C * 4, plan_smem = (size_t)(2 * C + 1) * 4,
                scatter_smem = (size_t)(1 + BK_THREADS / 32) * C * 4;
-  if ((err = bucket_smem_attr((const void*)bucket_count_kernel, count_smem)) ||
-      (err = bucket_smem_attr((const void*)bucket_plan_kernel, plan_smem)) ||
-      (err = bucket_smem_attr((const void*)bucket_scatter_kernel, scatter_smem)))
+  if ((err = open_dynamic_smem((const void*)bucket_count_kernel)) ||
+      (err = open_dynamic_smem((const void*)bucket_plan_kernel)) ||
+      (err = open_dynamic_smem((const void*)bucket_scatter_kernel)))
     return err;
   if (chunks > 0) {
     bucket_count_kernel<<<chunks, BK_THREADS, count_smem, stream>>>(tags, N, C, b->counts);

@@ -1030,8 +1030,7 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
 template <typename Kernel>
 static cudaError_t launch(Kernel kernel, size_t smem, int threads, int q_tile, int B,
                           const AttnArgs& a, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = open_dynamic_smem((const void*)kernel);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + q_tile - 1) / q_tile, a.H, B);
   kernel<<<grid, threads, smem, stream>>>(a);
@@ -1147,8 +1146,7 @@ static int launch_wgmma(const AttnArgs& a, int B, unsigned long long* clocks,
   const int cl = (a.H / a.KV) % 2 == 0 ? 2 : 1;
   auto kernel = cl == 2 ? (clocks ? flash_wgmma_kernel<true, 2> : flash_wgmma_kernel<false, 2>)
                         : (clocks ? flash_wgmma_kernel<true, 1> : flash_wgmma_kernel<false, 1>);
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FW_BYTES);
+  cudaError_t e = open_dynamic_smem((const void*)kernel);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);

@@ -588,9 +588,7 @@ static int graph_scan_impl(const float* qs, const float* qlo,
   if (smem > GS_SMEM_CAP) return (int)cudaErrorInvalidValue;
   const int P = next_pow2(S > 0 ? S : 1);
   const int Q = next_pow2(B + S);
-  cudaError_t err = cudaFuncSetAttribute(
-      graph_scan_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = open_dynamic_smem((const void*)graph_scan_kernel<XT>);
   if (err != cudaSuccess) return (int)err;
   graph_scan_kernel<XT><<<M, GS_THREADS, smem, (cudaStream_t)stream>>>(
       qs, qlo, block_tags, row_ids, codes, nbr_rows, beam_vals, beam_ids, C, d,
@@ -615,8 +613,7 @@ static int graph_search_impl(const float* qs, const float* qlo, const int* block
   const int P = next_pow2(S > 0 ? (int)S : 1);
   const int Q = next_pow2(B + (int)S);
   auto kernel = graph_search_kernel<XT, PROF>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = open_dynamic_smem((const void*)kernel);
   if (err != cudaSuccess) return (int)err;
   kernel<<<M, GB_THREADS, smem, (cudaStream_t)stream>>>(
       qs, qlo, block_tags, row_ids, codes, nbr_tbl, n_tbl, R, beam_vals, beam_ids, C, d,

@@ -83,6 +83,7 @@
 #include <math_constants.h>
 
 #include "async_copy.cuh"
+#include "error.cuh"
 #include "topk_common.cuh"
 
 constexpr int IP_TM = 64;        // queries per block
@@ -887,8 +888,7 @@ static cudaError_t launch_ip_scan_pass(const IpArgs<V>& a, cudaStream_t stream) 
   const size_t smem = ip_scan_smem<XT, V>(a.k);
   auto kernel = floors ? ip_scan_kernel<XT, V, false, CEIL, true>
                        : ip_scan_kernel<XT, V, false, CEIL, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = open_dynamic_smem((const void*)kernel);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.M + IP_TM - 1) / IP_TM, a.S), IP_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
@@ -959,8 +959,7 @@ static cudaError_t launch_ip_dense_v(IpSegArgs a, cudaStream_t stream) {
   a.k = 0;
   const size_t smem = ip_scan_smem<XT, V, true>(0);
   auto kernel = ip_scan_kernel<XT, V, true, false, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = open_dynamic_smem((const void*)kernel);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.M + IP_TM - 1) / IP_TM, a.S), IP_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
@@ -1200,7 +1199,7 @@ static cudaError_t launch_ip_list_pass(const IpListArgs& a, int blocks, cudaStre
   }
   const size_t smem = ip_list_smem<XT>(a.k);
   auto kernel = floors ? ip_list_kernel<XT, CEIL, true> : ip_list_kernel<XT, CEIL, false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = open_dynamic_smem((const void*)kernel);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, IP_THREADS, smem, stream>>>(a);
   return cudaGetLastError();

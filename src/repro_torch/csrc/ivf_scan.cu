@@ -555,8 +555,7 @@ static int ivf_impl(const float* qs, const float* qlo, const int* block_tags,
     if (want < 2LL * kp) want = 2LL * kp;
     const int P = next_pow2((int)want);
     const size_t smem = (size_t)P * 12;
-    err = cudaFuncSetAttribute(ivf_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = open_dynamic_smem((const void*)ivf_merge_kernel);
     if (err != cudaSuccess) return (int)err;
     ivf_merge_kernel<<<M, 512, smem, st>>>(S, kp, P, k, w, out_v + k0, out_i + k0);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

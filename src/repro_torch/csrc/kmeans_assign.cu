@@ -203,8 +203,7 @@ static cudaError_t launch_kmeans(const float* x, const float* centers, int N, in
                                  int* tags, float* maxsim, cudaStream_t stream) {
   auto kernel = kmeans_assign_kernel<RPT, CPT>;
   const size_t smem = kmeans_smem<RPT, CPT>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = open_dynamic_smem((const void*)kernel);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);

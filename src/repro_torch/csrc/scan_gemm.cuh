@@ -252,8 +252,7 @@ static cudaError_t launch_gemm_scan_blocks(const GemmScanArgs& a, dim3 grid,
                                            cudaStream_t stream) {
   const size_t smem = gemm_scan_smem<CEIL>(a);
   auto kernel = gemm_scan_topk_kernel<XT, 2, false, CEIL>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = open_dynamic_smem((const void*)kernel);
   if (err != cudaSuccess) return err;
   kernel<<<grid, GT_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
@@ -293,8 +292,7 @@ template <typename XT>
 static cudaError_t launch_gemm_dense(const GemmScanArgs& a, cudaStream_t stream) {
   const size_t smem = GT_N * 4 + GT_M * 4 + GT_N * 4 + GT_STAGE * 4;
   auto kernel = gemm_scan_topk_kernel<XT, 3, true>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = open_dynamic_smem((const void*)kernel);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.M + GT_M - 1) / GT_M, a.S), GT_THREADS, smem, stream>>>(a);
   return cudaGetLastError();

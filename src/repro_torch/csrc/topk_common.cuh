@@ -23,6 +23,7 @@
 #pragma once
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include "error.cuh"
 
 #define NEG_INF_F (-3.4e38f)
 #define TOPK_PASS_K 128
@@ -168,8 +169,7 @@ static inline cudaError_t launch_topk_merge(const float* pv, const int* pi, int 
                                             int* out_i, cudaStream_t stream) {
   int P = next_pow2(S * k);
   size_t smem = (size_t)P * (sizeof(float) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = open_dynamic_smem((const void*)topk_merge_kernel);
   if (err != cudaSuccess) return err;
   topk_merge_kernel<<<M, 512, smem, stream>>>(pv, pi, S, k, P, ldo, out_v, out_i);
   return cudaGetLastError();

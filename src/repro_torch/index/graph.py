@@ -30,8 +30,9 @@ through ``scan_neighbors`` (:func:`fused_hop_step`, one
 
 Streamed growth: :func:`with_capacity` pads the edge table and
 :func:`insert_ids` links new rows (a sequential host loop, as the
-reference). Sharding (``shard_specs``, ``globalize_ids``) belongs to a
-later part of the port.
+reference). Sharded: each shard's graph is built over its own rows (local
+ids, -1-padded entries when stacked) and ``globalize_ids`` lifts its ids
+by the shard's row offset (:mod:`repro_torch.index.distributed`).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ import torch
 from repro_torch.core import rerank_tier, spherical_kmeans
 from repro_torch.core.scorer import GleanVecScorer, LinearScorer
 from repro_torch.device import resolve_device
+from repro_torch.index.protocol import _offset_ids
 from repro_torch.index.topk import NEG_INF
 
 __all__ = ["GraphIndex", "build", "build_device", "with_fused_scan",
@@ -101,6 +103,9 @@ class GraphIndex:
     def search(self, queries, scorer, k: int):
         return self.candidates(self.prepare_queries(scorer, queries),
                                scorer, k)
+
+    def globalize_ids(self, scorer, ids, row_start):
+        return _offset_ids(ids, row_start)
 
     def refreshed(self, scorer, model) -> "GraphIndex":
         """Streaming-refresh hook: the edges come from full-D geometry,

@@ -22,8 +22,13 @@ Streaming stores grow the posting lists in place of fixed width:
 :func:`with_list_slack` pre-allocates -1 slots, :func:`insert_ids` fills
 them (on the device, one stable sort), :func:`remove_ids` frees them, and
 ``IVFIndex.refreshed`` re-encodes the reduced-space center companion after
-a model refresh. The sharded build functions come with a later part of the
-port.
+a model refresh.
+
+Sharded builds (:func:`build_sharded`, :func:`build_aligned_sharded`): one
+coarse quantizer over the whole database, per-shard posting lists in LOCAL
+row ids, -1-padded to a common ``max_len`` so the shards stack under
+:class:`repro_torch.index.distributed.ShardedIndex`; ``globalize_ids``
+lifts a shard's ids by its row offset.
 """
 from __future__ import annotations
 
@@ -35,9 +40,11 @@ import torch
 
 from repro_torch.core import spherical_kmeans
 from repro_torch.device import resolve_device
+from repro_torch.index.protocol import _offset_ids
 from repro_torch.index.topk import NEG_INF
 
 __all__ = ["IVFIndex", "IVFQueryState", "build", "build_aligned",
+           "build_sharded", "build_aligned_sharded",
            "with_reduced_centers", "with_list_slack", "insert_ids",
            "remove_ids", "coarse_scores", "search_scorer",
            "GATHER_BUDGET_BYTES"]
@@ -93,6 +100,9 @@ class IVFIndex:
     def search(self, queries, scorer, k: int):
         return self.candidates(self.prepare_queries(scorer, queries),
                                scorer, k)
+
+    def globalize_ids(self, scorer, ids, row_start):
+        return _offset_ids(ids, row_start)
 
     def refreshed(self, scorer, model) -> "IVFIndex":
         """Streaming-refresh hook: the reduced-space center companion came
@@ -157,6 +167,61 @@ def build_aligned(model, database, nprobe: int = 8,
                     lists=_pack_lists(tags, model.n_clusters),
                     nprobe=min(nprobe, model.n_clusters),
                     aligned_layout=True)
+
+
+def _shard_lists(tags: torch.Tensor, n_lists: int, n_shards: int):
+    """Per-shard posting lists of equal contiguous row shards, in LOCAL
+    ids, -1-padded to the longest shard's ``max_len``."""
+    n = tags.shape[0]
+    if n % n_shards:
+        raise ValueError(f"n={n} not divisible by n_shards={n_shards}")
+    per = n // n_shards
+    packed = [_pack_lists(tags[s * per:(s + 1) * per], n_lists)
+              for s in range(n_shards)]
+    max_len = max(p.shape[1] for p in packed)
+    return [torch.nn.functional.pad(p, (0, max_len - p.shape[1]), value=-1)
+            for p in packed]
+
+
+def build_sharded(x, n_lists: int, n_shards: int, n_iters: int = 20,
+                  nprobe: int = 8, generator: Optional[torch.Generator] = None,
+                  init_centers=None, device=None):
+    """Row-sharded IVF: ONE coarse quantizer fit on the whole database (the
+    centers :func:`build` fits from the same generator or start), and
+    per-shard posting lists over each shard's rows in LOCAL ids.
+
+    Every shard holds the same centers, so each probes the globally best
+    ``nprobe`` lists, and the union of the shards' candidates is the
+    single-device candidate set. Returns a list of ``n_shards``
+    :class:`IVFIndex`."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    if x.shape[0] % n_shards:
+        raise ValueError(f"n={x.shape[0]} not divisible by "
+                         f"n_shards={n_shards}")
+    km = spherical_kmeans.fit(x, n_lists, n_iters, generator=generator,
+                              init_centers=init_centers, device=dev)
+    centers = km.centers.contiguous()
+    tags = spherical_kmeans.assign(spherical_kmeans.normalize_rows(x),
+                                   centers)
+    return [IVFIndex(centers=centers, lists=lists, nprobe=nprobe)
+            for lists in _shard_lists(tags, n_lists, n_shards)]
+
+
+def build_aligned_sharded(model, database, n_shards: int, nprobe: int = 8,
+                          device=None):
+    """Per-shard :func:`build_aligned`: one shared coarse quantizer (the
+    model's landmarks), per-shard posting lists in LOCAL ids, padded to a
+    common ``max_len``."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(database, dtype=torch.float32, device=dev)
+    centers = model.centers.to(dev, torch.float32).contiguous()
+    tags = spherical_kmeans.assign(spherical_kmeans.normalize_rows(x),
+                                   centers)
+    return [IVFIndex(centers=centers, lists=lists,
+                     nprobe=min(nprobe, model.n_clusters),
+                     aligned_layout=True)
+            for lists in _shard_lists(tags, model.n_clusters, n_shards)]
 
 
 def with_reduced_centers(index: IVFIndex, scorer, model=None) -> IVFIndex:

@@ -5,20 +5,37 @@ answers
     vals, ids = index.candidates(qstate, scorer, k)   # ids: original space
     vals, ids = index.search(queries, scorer, k)
 
-Members so far: ``FlatIndex`` here, ``IVFIndex`` in
-:mod:`repro_torch.index.ivf` (gathered fine step for every scorer, the
-gather-free ``ivf_scan_topk`` fine step for aligned sorted layouts), and
-``GraphIndex`` in :mod:`repro_torch.index.graph` (gathered hops for every
-scorer, the gather-free traversal, one ``graph_beam_search`` launch a
-batch, for a graph bound to a sorted layout). All have the streaming hook ``refreshed(scorer, model)``,
-which ``streaming.refresh_state`` calls. Sharded indexes come with a later
-part of the port.
+Members: ``FlatIndex`` here, ``IVFIndex`` in :mod:`repro_torch.index.ivf`
+(gathered fine step for every scorer, the gather-free ``ivf_scan_topk``
+fine step for aligned sorted layouts), ``GraphIndex`` in
+:mod:`repro_torch.index.graph` (gathered hops for every scorer, the
+gather-free traversal, one ``graph_beam_search`` launch a batch, for a
+graph bound to a sorted layout) and ``ShardedIndex`` in
+:mod:`repro_torch.index.distributed` (any of them, shard by shard). All
+have the streaming hook ``refreshed(scorer, model)``, which
+``streaming.refresh_state`` calls.
+
+Two id contracts meet in a sharded placement
+(:mod:`repro_torch.index.distributed`): a sub-index built over one shard's
+rows emits LOCAL ids, and the INDEX-level ``globalize_ids(scorer, ids,
+row_start)`` lifts them to global ids by the shard's row offset
+(:func:`_offset_ids`); a scorer row-sharded from a global build lifts its
+own ids with the SCORER-level ``scorer.globalize_ids(ids, shard_idx)``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 __all__ = ["FlatIndex"]
+
+
+def _offset_ids(ids: torch.Tensor, row_start) -> torch.Tensor:
+    """Local -> global id lift: ``ids + row_start`` where ``ids >= 0``; -1
+    (padding, unfilled slots) stays -1. ``row_start`` may be a device
+    scalar, so the lift needs no host sync."""
+    return torch.where(ids >= 0, ids + row_start, torch.full_like(ids, -1))
 
 
 @dataclass(frozen=True)
@@ -41,6 +58,9 @@ class FlatIndex:
     def search(self, queries, scorer, k: int):
         return self.candidates(self.prepare_queries(scorer, queries),
                                scorer, k)
+
+    def globalize_ids(self, scorer, ids, row_start):
+        return _offset_ids(ids, row_start)
 
     def refreshed(self, scorer, model):
         """Streaming-refresh hook: nothing here derives from the

@@ -46,10 +46,12 @@ def _row_tags(tags, start, size, layout_block):
 def tile_scores(q_scaled, q_lo, row_tags, rows):
     """(M, R) scores of ``rows (R, d)`` whose views are ``row_tags (R,)``:
     one matmul per cluster present, ``q_scaled[:, c] @ rows[of c].T +
-    q_lo[:, c]`` -- never the dense (M, R, d) view gather."""
+    q_lo[:, c]`` -- never the dense (M, R, d) view gather. A tag outside
+    [0, C) (a padding block of a stacked shard: -1) reads the nearest
+    view, as the kernels clamp it; such rows carry ``row_ids`` -1."""
     q_scaled = q_scaled.to(torch.float32)
     rows = rows.to(torch.float32)
-    t = row_tags.to(torch.int64)
+    t = row_tags.to(torch.int64).clamp(0, q_scaled.shape[1] - 1)
     out = torch.empty((q_scaled.shape[0], rows.shape[0]), dtype=torch.float32,
                       device=q_scaled.device)
     for c in torch.unique(t).tolist():

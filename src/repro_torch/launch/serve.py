@@ -51,8 +51,19 @@ mishandles it.
 queue of ``serve/frontend.py`` (``--queue-capacity``, ``--deadline-ms``,
 requests p50 / p99 against ``--slo-ms``), with the refresh on a supervised
 background worker (on the card, on its own CUDA stream); ``--inject-fault``
-then drills one of ``faults.FRONTEND_FAULTS``. ``--shards`` (the sharded
-placement) is not ported yet (ROADMAP A2) and is refused.
+then drills one of ``faults.FRONTEND_FAULTS``.
+
+``--shards N`` serves the sharded placement on the one device
+(``distributed.build_sharded_index``, as the reference CLI builds it): the
+rows in N equal shards, each with its own scorer and index (any
+``--index``), searched one after the other and merged; ``--host-rerank``
+then demotes the rerank store shard by shard. It serves the static
+collection: ``--stream`` and ``--frontend`` need a single-device index.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --shards 4 \
+        --mode gleanvec-int8-sorted --index ivf --aligned --reduced-probe \
+        --nprobe 12 --n 2000000 --dim 512 --d 160 --clusters 48 \
+        --batch 1024 --kappa 100
 
     PYTHONPATH=src python -m repro_torch.launch.serve --stream \
         --mode gleanvec-int8 --n 5000 --dim 64 --d 16 --clusters 8 \
@@ -77,7 +88,7 @@ from repro_torch.core import streaming
 from repro_torch.core.scorer import MODES
 from repro_torch.data import vectors
 from repro_torch.device import resolve_device
-from repro_torch.index import graph, ivf
+from repro_torch.index import distributed, graph, ivf
 from repro_torch.serve import faults, frontend, lifecycle
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.train import checkpoint
@@ -128,6 +139,31 @@ def build_index(args, x, scorer, model, device):
     if args.reduced_probe:
         idx = ivf.with_reduced_centers(idx, scorer, model)
     return idx
+
+
+def build_sharded(args, x, model, device):
+    """``--shards``: the stacked per-shard scorers are the serving scorer
+    (no global encode), behind the ``ShardedIndex`` the reference CLI
+    builds; with ``--host-rerank`` the rerank store is demoted in the same
+    row shards. Returns ``(artifacts, index)``."""
+    try:
+        index, stacked = distributed.build_sharded_index(
+            args.index, args.mode, x, model, n_shards=args.shards,
+            generator=torch.Generator(device=device).manual_seed(1),
+            n_lists=args.lists, nprobe=args.nprobe,
+            reduced_probe=args.reduced_probe, aligned=args.aligned,
+            beam=args.beam, max_hops=args.max_hops, expand=args.expand,
+            fused_graph=args.fused_graph,
+            graph_kwargs={"r": args.graph_degree, "n_iters": 4, "seed": 0,
+                          "method": args.graph_build},
+            device=device)
+    except ValueError as e:
+        raise SystemExit(f"--shards {args.shards}: {e}")
+    artifacts = msearch.SearchArtifacts(scorer=stacked, x_full=x,
+                                        model=model)
+    if args.host_rerank:
+        artifacts = msearch.demote_rerank_tier(artifacts, shards=args.shards)
+    return artifacts, index
 
 
 STREAM_SORT_BLOCK = 256     # the reference CLI's sorted stream layout
@@ -664,10 +700,7 @@ def run_frontend(args, dev):
 
 
 def _check_flags(args):
-    """The reference CLI's refusals, and the port's own for ``--shards``."""
-    if args.shards:
-        raise SystemExit("--shards: the sharded placement is not ported yet "
-                         "(ROADMAP A2)")
+    """The reference CLI's refusals."""
     if args.inject_fault in faults.FRONTEND_FAULTS and not args.frontend:
         raise SystemExit(f"--inject-fault {args.inject_fault} is a "
                          "concurrency drill: it needs --frontend")
@@ -680,14 +713,16 @@ def _check_flags(args):
         if args.stream:
             raise SystemExit("--frontend IS the async stream topology; "
                              "drop --stream")
-        if args.mode == "full":
-            raise SystemExit("--frontend needs a DR mode")
+        if args.mode == "full" or args.shards:
+            raise SystemExit("--frontend needs a DR mode and a "
+                             "single-device index")
         if args.index != "flat":
             raise SystemExit("--frontend serves the flat streaming store "
                              "(index slack/insert rides --stream)")
     elif args.stream:
-        if args.mode == "full":
-            raise SystemExit("--stream needs a DR mode")
+        if args.mode == "full" or args.shards:
+            raise SystemExit("--stream needs a DR mode and a "
+                             "single-device index")
         if args.index == "ivf" and not args.aligned:
             raise SystemExit("--stream --index ivf needs --aligned")
     elif args.snapshot_dir or args.restore:
@@ -739,7 +774,9 @@ def main(argv=None):
                          "pinned host memory: only the kappa candidate rows "
                          "of each query cross to the device")
     ap.add_argument("--shards", type=int, default=0,
-                    help="sharded placement (not ported yet: refused)")
+                    help="sharded placement: the rows in this many equal "
+                         "shards, each with its own scorer and index, "
+                         "searched one after the other on the device")
     ap.add_argument("--stream", action="store_true",
                     help="drive the Section 3.2 observe -> insert -> "
                          "refresh -> swap lifecycle under live traffic")
@@ -799,18 +836,23 @@ def main(argv=None):
     x = torch.as_tensor(ds.database, device=dev)
     model = fit_model(args.mode, ds.queries_learn, x, args.d, args.clusters,
                       dev)
-    artifacts = msearch.build_artifacts(args.mode, x, model, device=dev)
-    index = build_index(args, x, artifacts.scorer, model, dev)
-    if args.host_rerank:
-        artifacts = msearch.demote_rerank_tier(artifacts)
+    if args.shards:
+        artifacts, index = build_sharded(args, x, model, dev)
+    else:
+        artifacts = msearch.build_artifacts(args.mode, x, model, device=dev)
+        index = build_index(args, x, artifacts.scorer, model, dev)
+        if args.host_rerank:
+            artifacts = msearch.demote_rerank_tier(artifacts)
     kappa = 10 if args.mode == "full" else args.kappa
     engine = ServingEngine(msearch.make_state(artifacts, index=index), k=10,
                            kappa=kappa, batch_size=args.batch, dim=args.dim)
     ids = engine.submit(ds.queries_test)
     rec = metrics.recall_at_k(ids, ds.gt[:, :10])
     s = engine.stats
-    print(f"mode={args.mode} index={args.index} single n={args.n} "
-          f"D={args.dim} d={args.d} reduced_probe={args.reduced_probe} "
+    placement = f"shards={args.shards}" if args.shards else "single"
+    print(f"mode={args.mode} index={args.index} placement={placement} "
+          f"n={args.n} D={args.dim} d={args.d} "
+          f"reduced_probe={args.reduced_probe} "
           f"host_rerank={args.host_rerank} device={dev}")
     print(f"QPS={s.qps:.0f} p50={s.percentile_ms(50):.1f}ms "
           f"p99={s.percentile_ms(99):.1f}ms recall@10={rec:.3f}")

@@ -15,7 +15,12 @@ evaluations of one attention output; ``exact_sorted_topk`` is the exact
 top-k of the tag-sorted GleanVec layout on integer data, which an fp32
 kernel must match bit for bit; ``ivf_schedule_case`` makes the inputs of
 ``ivf_scan_topk`` for each kind of probe schedule the kernel must take,
-and ``exact_ivf_topk`` their exact top-k.
+and ``exact_ivf_topk`` their exact top-k. ``sharded_as_one`` folds the
+per-shard int8 scorers of a sharded placement into one row-aligned scorer
+whose single-device scan scores every row as its shard does;
+``merged_shards`` merges per-shard results by hand and
+``row_shards_merged`` runs a globally built scorer's row shards one by one,
+the checks of a sharded placement that do not go through its own merge.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import torch
 
 __all__ = ["dot_tol", "topk_agreement", "assert_topk_close",
            "attention_abs_mix", "attention_error", "exact_sorted_topk",
-           "IVF_SCHEDULES", "ivf_schedule_case", "exact_ivf_topk"]
+           "IVF_SCHEDULES", "ivf_schedule_case", "exact_ivf_topk",
+           "sharded_as_one", "merged_shards", "row_shards_merged"]
 
 EPS32 = 2.0 ** -24
 
@@ -288,3 +294,73 @@ def exact_ivf_topk(q_scaled, q_lo, block_tags, row_ids, codes, sched,
                                  codes[rows], row_ids[rows], k, 1)
         vals[q], ids[q] = v[0], i[0]
     return vals, ids
+
+
+def sharded_as_one(stacked):
+    """One :class:`~repro_torch.core.scorer.GleanVecQuantizedScorer` over
+    all rows of a stacked per-shard int8 scorer (``QuantizedScorer``,
+    ``GleanVecQuantizedScorer`` or ``SortedGleanVecQuantizedScorer``
+    stacks): shard s's cluster c becomes cluster ``s C + c`` with that
+    shard's view, ``lo`` and ``delta`` (a linear scorer's shard is one
+    cluster), rows in global order. Its single-device scan (the gathered
+    ``gleanvec_sq_topk``) scores every row as its own shard's scorer does,
+    so its top-k is the exact merge a sharded search must return -- an
+    independent check of a placement whose shards fit their own int8
+    scales, which a scan of one globally fitted scorer cannot be."""
+    from repro_torch.core import scorer as sc
+    from repro_torch.index.distributed import _take_shard
+    n_shards = stacked[0].shape[0]
+    codes, tags, lo, delta, a = [], [], [], [], []
+    offset = 0
+    for s in range(n_shards):
+        one = _take_shard(stacked, s)
+        if isinstance(one, sc.QuantizedScorer):
+            c_rows = one.codes
+            t_rows = torch.zeros(c_rows.shape[0], dtype=torch.int64,
+                                 device=c_rows.device)
+            one_lo, one_delta, one_a = one.lo[None], one.delta[None], \
+                one.a[None]
+        elif isinstance(one, sc.GleanVecQuantizedScorer):
+            c_rows, t_rows = one.codes, one.tags.to(torch.int64)
+            one_lo, one_delta, one_a = one.lo, one.delta, one.a
+        elif isinstance(one, sc.SortedGleanVecQuantizedScorer):
+            rows = one.inv_perm.to(torch.int64)    # local id -> sorted row
+            c_rows = one.codes[rows]
+            t_rows = one.block_tags[rows // one.layout_block].to(torch.int64)
+            one_lo, one_delta, one_a = one.lo, one.delta, one.a
+        else:
+            raise TypeError(f"no int8 fold for {type(one).__name__}")
+        codes.append(c_rows)
+        tags.append(t_rows + offset)
+        lo.append(one_lo)
+        delta.append(one_delta)
+        a.append(one_a)
+        offset += one_lo.shape[0]
+    return sc.GleanVecQuantizedScorer(
+        codes=torch.cat(codes), tags=torch.cat(tags).to(torch.int32),
+        lo=torch.cat(lo), delta=torch.cat(delta), a=torch.cat(a))
+
+
+def merged_shards(parts, k: int):
+    """The global top ``k`` of per-shard ``(vals, ids)`` results whose ids
+    are already global, merged by hand: shard after shard, one stable
+    descending sort (equal values to the earlier shard)."""
+    vals = torch.cat([v for v, _ in parts], dim=1)
+    ids = torch.cat([i for _, i in parts], dim=1)
+    order = torch.argsort(vals, dim=1, descending=True, stable=True)[:, :k]
+    return torch.gather(vals, 1, order), torch.gather(ids, 1, order)
+
+
+def row_shards_merged(queries, scorer, n_shards: int, k: int):
+    """A globally built scorer cut into ``n_shards`` row shards
+    (``scorer.shard_rows``), each scanned alone by the flat index, its ids
+    lifted by the scorer-level ``globalize_ids(ids, shard)``, then
+    :func:`merged_shards`: what a process group of ``n_shards`` ranks
+    returns, on one device."""
+    from repro_torch.index.protocol import FlatIndex
+    flat, parts = FlatIndex(), []
+    for s in range(n_shards):
+        rows = scorer.shard_rows(s, n_shards)
+        vals, ids = flat.search(queries, rows, k)
+        parts.append((vals, rows.globalize_ids(ids, s)))
+    return merged_shards(parts, k)

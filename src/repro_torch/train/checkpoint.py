@@ -11,7 +11,10 @@ Leaves are found and named by :mod:`repro_torch.tree` (the reference's
 tensor straight from host memory, a device tensor through one copy.
 ``restore`` returns numpy leaves; the caller places them (the serving
 lifecycle puts them on its template's devices). ``restore_distributed``
-belongs to the sharded placement (ROADMAP A2) and is not ported.
+places them itself: the counterpart of the reference's ``NamedSharding``
+is a device, or :class:`RowShard` -- this rank's row slice under a process
+group -- so a checkpoint written under one placement (or by the reference
+under one mesh) restores onto another.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import torch
 
 from repro_torch import tree
 
-__all__ = ["save", "restore", "latest_step", "available_steps"]
+__all__ = ["save", "restore", "latest_step", "available_steps",
+           "restore_distributed", "RowShard"]
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -119,3 +123,67 @@ def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None,
         else:
             out.append(arr)
     return treedef.unflatten(out), manifest["step"], manifest["meta"]
+
+
+class RowShard:
+    """Placement of a leaf as one rank's equal contiguous row slice:
+    rows ``[r n / S, (r + 1) n / S)`` of its first dimension, on
+    ``device``. ``r`` and ``S`` come from a ``torch.distributed`` process
+    ``group`` (its rank and size) or are given as ``rank`` and
+    ``n_shards``."""
+
+    __slots__ = ("device", "rank", "n_shards")
+
+    def __init__(self, device, group=None, rank: Optional[int] = None,
+                 n_shards: Optional[int] = None):
+        if group is not None:
+            import torch.distributed as dist
+            rank, n_shards = dist.get_rank(group), dist.get_world_size(group)
+        if rank is None or not n_shards or not 0 <= rank < n_shards:
+            raise ValueError("RowShard needs a group, or a rank below "
+                             "n_shards")
+        self.device = torch.device(device)
+        self.rank, self.n_shards = int(rank), int(n_shards)
+
+    def __repr__(self):
+        return (f"RowShard({self.device}, rank={self.rank}, "
+                f"n_shards={self.n_shards})")
+
+    def place(self, arr: np.ndarray) -> torch.Tensor:
+        n = arr.shape[0]
+        if n % self.n_shards:
+            raise ValueError(f"{n} rows do not split into {self.n_shards} "
+                             "equal shards")
+        per = n // self.n_shards
+        rows = np.ascontiguousarray(arr[self.rank * per:
+                                        (self.rank + 1) * per])
+        return torch.from_numpy(rows).to(self.device)
+
+
+def _place(leaf, placement):
+    if not isinstance(leaf, np.ndarray):
+        return leaf                     # a python scalar of the template
+    if isinstance(placement, RowShard):
+        return placement.place(leaf)
+    return torch.from_numpy(np.ascontiguousarray(leaf)).to(
+        torch.device(placement))
+
+
+def restore_distributed(ckpt_dir: str, target_tree: Any, placements: Any,
+                        step: Optional[int] = None):
+    """Elastic restore: :func:`restore`, then each leaf placed where
+    ``placements`` says -- one placement for every leaf, or a tree of the
+    target's structure with a placement at each leaf. A placement is a
+    device (``"cuda:0"``, ``torch.device``) or a :class:`RowShard`. The
+    placement that wrote the checkpoint does not matter. Returns
+    ``(tree, step, meta)``."""
+    restored, step, meta = restore(ckpt_dir, target_tree, step)
+    leaves, treedef = tree.flatten(restored)
+    if isinstance(placements, (str, torch.device, RowShard)):
+        places = [placements] * len(leaves)
+    else:
+        places, pdef = tree.flatten(placements)
+        if pdef != treedef:
+            raise ValueError("placements must have the target's structure")
+    return (treedef.unflatten([_place(x, p) for x, p in zip(leaves, places)]),
+            step, meta)

@@ -394,8 +394,8 @@ def test_cli_snapshot_and_restore(capsys, tmp_path):
     for bad in (["--restore"], ["--inject-fault", "stuck-worker"]):
         with pytest.raises(SystemExit):
             serve.main(CLI + bad)
-    with pytest.raises(SystemExit, match="A2"):
-        serve.main(CLI[1:] + ["--shards", "2"])
+    with pytest.raises(SystemExit, match="single-device index"):
+        serve.main(CLI + ["--shards", "2"])
     with pytest.raises(SystemExit, match="--stream"):
         serve.main(CLI[1:] + ["--snapshot-dir", d])
 

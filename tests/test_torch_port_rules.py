@@ -62,6 +62,7 @@ def test_port_imports_without_jax():
             "import repro_torch.tree, repro_torch.core.rerank_tier\n"
             "import repro_torch.serve.lifecycle, repro_torch.serve.faults\n"
             "import repro_torch.serve.frontend, repro_torch.train.checkpoint\n"
+            "import repro_torch.index.distributed\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'repro was imported'\n")
