@@ -135,6 +135,22 @@ Phases (any failure raises and the script exits non-zero):
    the per-shard buffers beside one ``HostStore``'s); ``refreshed`` +
    ``engine.swap`` on the IVF and the graph (ids unchanged). Its main-path
    launches are added to the kernel table's rows.
+3h. The contract audit (``repro_torch.analysis``), counters zeroed just
+   before and read just after (its launches are checks, not in the kernel
+   table). (a) ``run.run_audit(device="cuda")``: the source lint, the
+   protocol rules and the 35-cell serving matrix (7 modes x flat, IVF,
+   graph, sharded, host-rerank) at the reference's small shapes, with the
+   rule counts, every failure, and a line a topology with the most syncs,
+   device kernels and peak memory above the start of its cells. (b) The
+   trace rules at full width on the states of phases 3-3g: the flat path
+   in 7 modes (no (1024, n_rows) buffer, 8.2 GB at 2M rows, and a peak
+   below its bytes), the aligned IVF in both sorted modes (also no (1024,
+   nprobe * max_len)), the fused graph (exactly one graph_search_kernel),
+   the host tier (no (2M, 512) f32 buffer on the card), S = 4 shards (no
+   (1024, rows of a shard)), every cell without a host sync in
+   ``state_candidates``; ``SwapWithoutCopy`` on one stream cycle's swap.
+   A failure ``run.KNOWN_DEVIATIONS`` does not list, or a listed one that
+   passes, fails the phase.
 4. Each kernel at its path's shapes and inputs: its time beside its bound,
    its plain version's time, the time of the composed PyTorch calls that
    compute the same function (``library_ms``), and its agreement with the
@@ -1716,40 +1732,10 @@ def overlap(a, b) -> float:
     return float((hit.sum(dim=1) / size.clamp(min=1)).mean())
 
 
-def device_split(fn, kernel_key: str):
-    """One call of ``fn`` under ``torch.profiler``: (host-clock ms, device
-    busy ms, device ms of the kernels whose name holds ``kernel_key``,
-    device kernels launched, launches of those kernels); busy is 0 when the
-    profiler records no device time on this machine."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities):    # the tracer's first start-up
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    hit_us = all_us = 0.0
-    kernels = hits = 0
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0)
-        all_us += us
-        kernels += ev.count
-        if kernel_key in ev.key:
-            hit_us += us
-            hits += ev.count
-    return wall, all_us / 1e3, hit_us / 1e3, kernels, hits
-
-
 def kernel_share(fn) -> str:
     """Device time of the traversal kernel and of every kernel in one call
     of ``fn`` (``torch.profiler``), beside its host-clock time."""
+    from repro_torch.analysis.trace_rules import device_split
     wall, busy, hit, kernels, hits = device_split(fn, "graph_search_kernel")
     if busy <= 0:
         return (f"split not measured (no device time recorded; batch "
@@ -1757,22 +1743,6 @@ def kernel_share(fn) -> str:
     return (f"under the profiler: batch {wall:.1f} ms host clock, device "
             f"busy {busy:.2f} ms ({kernels} kernels), of it "
             f"graph_beam_search {hit:.3f} ms ({hits} launches)")
-
-
-def sync_count(fn) -> int:
-    """Host syncs ``fn`` makes: the warnings of
-    ``torch.cuda.set_sync_debug_mode("warn")`` ("called a synchronizing CUDA
-    operation"; the mode's own notice that it is a prototype is not one)."""
-    import warnings
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 def fused_vs_gathered(K, testing, label, art, index, q, expand, gt):
@@ -1813,6 +1783,7 @@ def phase_graph(K, testing, ds, x, sph, glv):
     host syncs and graph_beam_search launches a batch}, {fused mode: the
     traversal kernel's inputs on the batch, its work, the prepared queries,
     the scorer and the gathered graph})."""
+    from repro_torch.analysis.trace_rules import device_split, sync_count
     from repro_torch.core import metrics
     from repro_torch.core import search as msearch
     from repro_torch.core import streaming
@@ -2640,6 +2611,7 @@ def phase_sharded(K, testing, ds, x, glv, sph, single_graph):
     SHARDS, searched one shard after the other on the card) on phase 3's
     data and fits, each run beside the single-device run of the same
     call. Returns {kernel-table row: launches of the sharded main path}."""
+    from repro_torch.analysis.trace_rules import sync_count
     from repro_torch.core import rerank_tier
     from repro_torch.core import scorer as sc
     from repro_torch.core import search as msearch
@@ -2933,6 +2905,152 @@ def phase_sharded(K, testing, ds, x, glv, sph, single_graph):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3h: the contract audit.
+# ---------------------------------------------------------------------------
+
+
+def phase_contracts(K, ds, x, sph, glv, states, searches):
+    """The contract audit on the card: (a) ``run_audit`` over the serving
+    matrix (7 modes x 5 topologies, the reference's small shapes), then
+    (b) the trace rules at full width on the states of phases 3-3g (built
+    again where a phase freed them). Any failure ``KNOWN_DEVIATIONS`` does
+    not list, or a listed one that passes, fails the phase. Counters zeroed
+    just before and read just after (the audit's launches are checks: they
+    stay out of the kernel table)."""
+    from repro_torch.analysis import run, trace_rules as tr
+    from repro_torch.analysis.registry import run_rules
+    from repro_torch.core import search as msearch
+    from repro_torch.core import streaming
+    from repro_torch.index import distributed, graph, ivf
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServingEngine
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    for fn in all_counters(K):
+        fn.launches = 0
+    log("phase 3h: contract audit (repro_torch.analysis) -- (a) the "
+        f"matrix: {run.N} rows, D={run.D}, d={run.D_LOW}, C={run.C}, "
+        f"batch {run.M}, kappa {run.KAPPA}")
+    report = run.run_audit(out=None, device=dev,
+                           log=lambda m: log("  " + m))
+    for topo in run.TOPOLOGIES:
+        cells = [t for c, t in report.cells.items()
+                 if c.startswith(topo + "/")]
+        counted = [t.n_kernels for t in cells if t.n_kernels is not None]
+        log(f"  {topo}: most syncs {max(t.syncs for t in cells)}, most "
+            f"device kernels {max(counted, default='not counted')}, largest "
+            f"peak above start {max(t.peak_bytes for t in cells) / 1e6:.3f}"
+            " MB over its 7 cells")
+    if report.code:
+        raise AssertionError(
+            f"contract audit: {len(report.unlisted)} unlisted failures, "
+            f"stale listings {report.stale}")
+
+    log(f"  (b) full width: n={N_ROWS} D=512 d=160 C=48 batch=1024, "
+        "state_candidates of each cell traced (ops, syncs, peak memory "
+        "above the start, device kernels)")
+    q = torch.as_tensor(ds.queries_test, device=dev)
+    results = []
+
+    def cell(target, fn, args, rules):
+        t = tr.StepTrace.of(fn, *args, label=target)
+        res = run_rules(t, [tr.NoHostSyncInStep(), *rules], target=target)
+        results.extend(res)
+        bad = [r for r in res if not r.passed]
+        log(f"    {target}: {'FAIL' if bad else 'ok'} syncs={t.syncs} "
+            f"device kernels={t.n_kernels} peak above start="
+            f"{t.peak_bytes / 1e6:.1f} MB ops={len(t.ops)}"
+            + "".join(f"; {r.rule}: {r.evidence}" for r in bad))
+        return t
+
+    for mode in states:
+        scorer, _, kappa = states[mode]
+        art = msearch.SearchArtifacts(scorer=scorer, x_full=x)
+        budget = [tr.NoDenseScoreMatrix(1024, scorer.n_rows),
+                  tr.LaunchBudget(run.STEP_LAUNCHES)]
+        cell(f"flat/{mode}", msearch.state_candidates,
+             (q, msearch.make_state(art), kappa), budget)
+        if mode in IVF_RECALL_FLOORS:
+            index = ivf.with_reduced_centers(
+                ivf.build_aligned(glv, x, nprobe=IVF_NPROBE, device=dev),
+                scorer, glv)
+            cell(f"ivf/{mode}", msearch.state_candidates,
+                 (q, msearch.make_state(art, index=index), 100),
+                 [*budget, tr.NoDenseScoreMatrix(
+                     1024, index.nprobe * index.max_len)])
+            del index
+    # (1024, expand * degree) is not checked here: it is the shape of the
+    # entry beam's padding, (1024, beam - entries) = (1024, 112)
+    for mode in GRAPH_FUSED:
+        _, _, _, _, scorer, g = searches[mode]
+        index = graph.with_fused_scan(g, scorer)
+        art = msearch.SearchArtifacts(scorer=scorer, x_full=x[:GRAPH_ROWS])
+        cell(f"graph/{mode}", msearch.state_candidates,
+             (q, msearch.make_state(art, index=index), 100),
+             [tr.NoDenseScoreMatrix(1024, scorer.n_rows),
+              tr.LaunchBudget(run.STEP_LAUNCHES,
+                              exact={run.TRAVERSAL_KERNEL: 1})])
+        del index, art
+    mode = "gleanvec-int8-sorted"
+    host = msearch.demote_rerank_tier(msearch.SearchArtifacts(
+        scorer=states[mode][0], x_full=x, model=glv))
+    cell(f"host-rerank/{mode}", msearch.state_candidates,
+         (q, msearch.make_state(host), 100),
+         [tr.NoDenseScoreMatrix(N_ROWS, 512, dtypes=("f32",)),
+          tr.NoDenseScoreMatrix(1024, states[mode][0].n_rows)])
+    del host
+    for mode in ("sphering-int8", "gleanvec-int8-sorted"):
+        model = sph if mode.startswith("sphering") else glv
+        sh, stacked = distributed.build_sharded_index(
+            "flat", mode, x, model, n_shards=SHARDS, device=dev)
+        per = distributed._take_shard(stacked, 0).n_rows
+        cell(f"sharded/{mode}", sh.search_local, (q, stacked, 100),
+             [tr.NoDenseScoreMatrix(1024, per),
+              tr.NoDenseScoreMatrix(1024, states[mode][0].n_rows),
+              tr.LaunchBudget(SHARDS * run.STEP_LAUNCHES)])
+        del sh, stacked
+
+    # one stream cycle's swap: insert, refresh, then swap under the rule
+    state = serve.build_stream(mode, x, STREAM_N0, N_ROWS, glv,
+                               slack_blocks=serve.stream_slack_blocks(
+                                   glv, x[STREAM_N0:]), device=dev)
+    engine = ServingEngine(state, k=10, kappa=100, batch_size=1024, dim=512)
+    del state
+    stream = streaming.init_from_artifacts(engine.state.artifacts,
+                                           ds.queries_test)
+    stream = serve.stream_insert(engine, stream,
+                                 x[STREAM_N0:STREAM_N0 + STREAM_INSERTS])
+    new = streaming.refresh_state(engine.state, streaming.refresh(stream))
+    torch.cuda.synchronize()
+    res = run_rules(tr.SwapCase(engine, new, keep=glv),
+                    [tr.SwapWithoutCopy()], target=f"flat/{mode}:swap")
+    results.extend(res)
+    log(f"    flat/{mode}:swap (capacity {N_ROWS}, {STREAM_INSERTS} "
+        f"inserts, refresh): {'ok' if res[0].passed else 'FAIL'} "
+        f"{res[0].evidence}")
+    del engine, new, stream
+
+    unlisted, stale = run.verdict(results)
+    launched = counts(K)
+    log(f"  phase 3h launches (checks, not in the kernel table): "
+        f"{launched}; {len(results)} full-width results, "
+        f"{sum(not r.passed for r in results)} failed "
+        f"({time.perf_counter() - t_phase:.0f} s)")
+    if unlisted or stale:
+        raise AssertionError(
+            "full-width contracts: unlisted failures "
+            + "; ".join(f"{r.rule}[{r.target}]: {r.evidence}"
+                        for r in unlisted) + f"; stale listings {stale}")
+    for name in ("ip_topk", "gleanvec_sq_topk", "ivf_scan_topk",
+                 "graph_beam_search"):
+        if launched[name] <= 0:
+            raise AssertionError(f"phase 3h: {name} was not launched")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 3e: LM serving.
 # ---------------------------------------------------------------------------
 
@@ -2943,6 +3061,7 @@ def phase_lm(K, testing):
     steps. Counters zeroed just before and read just after. Returns the
     captured layer-0 (q, k, v) of the prefill (the kernel's (B, H, S, dh)
     views) and the kernel's launches on the path."""
+    from repro_torch.analysis.trace_rules import device_split
     from repro_torch.configs import lm_common, registry
     from repro_torch.models import attention
     from repro_torch.models import transformer as tfm
@@ -4288,6 +4407,7 @@ def main(argv=None) -> int:
                                                           sph, glv)
     phase_ops(K, ds, x, sph, glv)
     sharded_launches = phase_sharded(K, testing, ds, x, glv, sph, per_batch)
+    phase_contracts(K, ds, x, sph, glv, states, searches)
     table = phase_timing(K, testing, x, glv, states, per_mode, totals,
                          ivf_inputs, ivf_launches, flat_p50)
     del states, ivf_inputs

@@ -63,6 +63,8 @@ def test_port_imports_without_jax():
             "import repro_torch.serve.lifecycle, repro_torch.serve.faults\n"
             "import repro_torch.serve.frontend, repro_torch.train.checkpoint\n"
             "import repro_torch.index.distributed\n"
+            "import repro_torch.analysis, repro_torch.analysis.run\n"
+            "import repro_torch.analysis.trace_rules\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'repro was imported'\n")
