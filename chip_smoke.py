@@ -2,7 +2,9 @@
 """Drive the PyTorch port's search paths (flat index, IVF, streaming
 stores and the graph index), its serving operations layer (the host
 rerank tier, the guarded lifecycle, the coalescing frontend), its sharded
-placement and its LM serving path on one NVIDIA GPU.
+placement, the paper's baselines and its OI-13M configuration, the
+recommenders' serving and candidate retrieval, and its LM serving path on
+one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -162,6 +164,49 @@ Phases (any failure raises and the script exits non-zero):
    stream's layout block 256 (its final sorted stores, with a digest of the
    dense sorted scores); graph_beam_search on each fused mode's batch
    beside its plain version and the gathered torch traversal.
+3j. The paper's linear baselines and flexible d on phase 3's data (n =
+   2M, D 512; d 160, C 48 from ``gleanvec-paper``): SVD, LeanVec-FW,
+   LeanVec-ES, LeanVec-ES+FW (``core.baselines``, on the moments of the
+   learning queries and all rows), LeanVec-Sphering, GleanVec, and the
+   full-rotation model truncated to d in {64, 128, 160, 256}: each fit's
+   seconds, ``metrics.leanvec_loss`` on a sample (and the same loss pair
+   by pair), the objective each fit minimises (per learning pair, in
+   f64), recall@10 through
+   ``bruteforce.search`` (ip_topk) or ``search_gleanvec`` and the rerank
+   at kappa 100 against phase 3's floors for the linear and GleanVec
+   modes. The d = 160 truncation's candidates equal the direct d = 160
+   fit's up to score ties. The d = 160 scans' launches go to phase 3's
+   rows; the truncations to d = 64, 128 and 256 get ip_topk rows of their
+   own.
+3i. The paper's configuration at full width, after phases 3-4's tensors
+   are freed: ``gleanvec-paper``'s learn_oi13m (n = 13,000,000, D 512,
+   10,000 learning queries; rows drawn on the card in chunks,
+   ``data.vectors.make_dataset_device``, 26.6 GB, 3.1 x 2^31 elements):
+   the exact top-10 through ``bruteforce.search`` (ip_topk over the full
+   rows), GleanVec (C 48, d 160) and LeanVec-Sphering fits;
+   search_oi13m (gathered, ``bruteforce.search_gleanvec``) and
+   search_oi13m_sorted (``search_gleanvec_sorted``, ids through
+   ``sort_by_tag``'s permutation), each layout freed before the next,
+   batch 1024, k 10, kappa 100, the rerank over the full rows: p50, QPS,
+   recall@10 against its floor, peak memory; each kernel's top-kappa
+   against its plain version on 64 of the served queries; then the rows
+   of gleanvec_sq_topk (both layouts), kmeans_assign and ip_topk at 13M
+   for the kernel table (ip_topk's library yardstick is one (1024, 13M)
+   f32 product, 53.2 GB beside the 26.6 GB of rows, with everything else
+   freed first). search_rqa10m and search_t2i10m are not run.
+3k. The recommenders at full width with random weights drawn on the
+   card: MIND (4M items, D 64) user_embedding and ctr_loss at serve_p99
+   (512) and serve_bulk (262,144, the in-batch softmax in chunks of
+   users), then retrieval_cand: the first 1M items behind
+   ``serve.retrieval`` in all seven modes (d 16, C 16, fits on 10,000
+   users), ``retrieve`` at batch 1 and 512, k 10, kappa 100: p50 and
+   recall@10 against mode full (a parity reading: the weights are
+   random), mode full held against ``torch.topk``, each run's kernel row
+   for the table; BST (4M x 32) and FM (3.9M x 10) the same serving and
+   retrieval in mode full (BST also both sorted modes); DLRM's
+   user_embedding (the bottom MLP, no table) at full width and its CTR
+   forward at the smoke config (the full table, 96.1 GB in f32, fits no
+   card).
 3e. LM serving, after the search phases' tensors are freed: h2o-danube-
    3-4b at its published widths with random weights drawn on the card,
    ``generate`` at B = 4, s0 = 8192, n_new = 32 (greedy): prefill ms and
@@ -340,6 +385,25 @@ LM_FLASH_KERNEL = "flash_wgmma_kernel"
 # bf16 on the card: the reference's own bf16 tolerance for its LM
 # (|a - b| <= 0.2 + 0.02 |b|), from bf16 roundings in another order
 LM_LOGIT_RTOL, LM_LOGIT_ATOL = 2e-2, 2e-1
+
+# The paper's configuration (phase 3i): gleanvec-paper's learn_oi13m and
+# search_oi13m shapes as published (configs/gleanvec_paper.py), rows drawn
+# on the card from PAPER_SEED; PAPER_BATCHES batches a layout; each
+# kernel's top-kappa held against its plain version on CHECK_QUERIES of the
+# served queries. recall@10 floor, set before the first run at 13M: phase
+# 3's GleanVec floor (0.95 at 2M) less 0.05 for the 0.81 decade of n more.
+PAPER_SEED, PAPER_BATCHES, CHECK_QUERIES = 13, 5, 64
+PAPER_RECALL_FLOOR = 0.90
+# The linear baselines (phase 3j) on phase 3's data: the loss on the first
+# BASELINE_SAMPLE rows, the full-rotation model cut to each of
+# BASELINE_TRUNCATIONS.
+BASELINE_SAMPLE = 100_000
+BASELINE_TRUNCATIONS = (64, 128, 160, 256)
+# Recsys retrieval (phase 3k): d and C of the reduced modes, the batches
+# of retrieval_cand (batch 1) and serve_p99 (512), the users the models
+# learn from.
+RETRIEVAL_D, RETRIEVAL_C, RETRIEVAL_BATCHES = 16, 16, (1, 512)
+RECSYS_SEED, RECSYS_LEARN_USERS = 5, 10_000
 
 
 def log(msg: str) -> None:
@@ -2559,11 +2623,11 @@ def table_rows(kind: str, mode: str, delta: dict) -> dict:
 
 
 def add_launches(table: list, extra: dict) -> None:
-    """Add phase 3g's launches to the kernel table's rows."""
+    """Add a phase's launches (3g, 3j) to the kernel table's rows."""
     names = {row["name"]: row for row in table}
     for name, v in extra.items():
         if name not in names:
-            raise AssertionError(f"no kernel-table row {name} for phase 3g's "
+            raise AssertionError(f"no kernel-table row {name} for "
                                  f"{v} launches")
         names[name]["launches"] += v
 
@@ -3662,18 +3726,22 @@ def device_digest(t: torch.Tensor) -> str:
 
 def time_kernel(name, label, calls, launches, testing, reps: int = 3):
     """Time one kernel call (mean of ``reps``) beside its plain version and
-    library composition; returns its row of the kernel table."""
+    library composition (``None``: none that fits on the card, and
+    ``library_ms`` null); returns its row of the kernel table."""
     kern, plain, flops, nbytes, tol, library = calls
     ms, out_k = timed(kern, reps)
     plain_ms, out_p = timed_once(plain)
     rep = check_topk(f"{name}[{label}] vs plain", out_k, out_p, tol, testing)
     b, by = bound_ms(flops, nbytes)
-    lib_ms, out_l = timed(library, 2)
-    check_topk(f"{name}[{label}] library composition vs kernel", out_l,
-               out_k, tol, testing)
+    lib_ms = None
+    if library is not None:             # None: no one call fits the card
+        lib_ms, out_l = timed(library, 2)
+        check_topk(f"{name}[{label}] library composition vs kernel", out_l,
+                   out_k, tol, testing)
+        del out_l
+    lib = "null" if lib_ms is None else f"{lib_ms:.3f}"
     log(f"  {name}[{label}]: ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        f"bound_ms={b:.3f} ({by}) library_ms={lib_ms:.3f} "
-        f"launches={launches}")
+        f"bound_ms={b:.3f} ({by}) library_ms={lib} launches={launches}")
     src, repl = KERNEL_FILES[name]
     return {"name": f"{name}[{label}]", "route": "cuda", "source": src,
             "replaces": repl, "launches": launches,
@@ -4057,25 +4125,8 @@ def phase_timing(K, testing, x, glv, states, per_mode, totals, ivf_inputs,
     # ivf.build(n_lists=100) reach it); launches: the kernel's on the main
     # path, which runs C = 48
     for cent in (glv.centers.contiguous(), normalize_rows(x[:100])):
-        n, d = x_unit.shape
-        c = cent.shape[0]
-        ms, out_k = timed(lambda: K.kmeans_assign(x_unit, cent), 3)
-        plain_ms, out_p = timed_once(
-            lambda: K.kmeans_assign_plain(x_unit, cent))
-        err = check_kmeans(f"kmeans_assign[C={c}] vs plain", x_unit, cent,
-                           out_k, out_p, testing)
-        lib_ms, _ = timed(lambda: torch.max(x_unit @ cent.T, dim=1), 3)
-        b, by = bound_ms(2.0 * n * c * d, n * d * 4 + c * d * 4 + n * 8)
-        log(f"  kmeans_assign[C={c}]: ms={ms:.3f} plain_ms={plain_ms:.3f} "
-            f"bound_ms={b:.3f} ({by}) library_ms={lib_ms:.3f} "
-            f"launches={totals['kmeans_assign']}")
-        src, repl = KERNEL_FILES["kmeans_assign"]
-        table.append({"name": f"kmeans_assign[C={c}]", "route": "cuda",
-                      "source": src, "replaces": repl,
-                      "launches": totals["kmeans_assign"],
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b, "bound_by": by, "library_ms": lib_ms})
-        del out_k, out_p
+        table.append(kmeans_row(K, testing, f"C={cent.shape[0]}", x_unit,
+                                cent, totals["kmeans_assign"]))
     return table
 
 
@@ -4345,6 +4396,604 @@ def kernel_timing(K, gen, only=()):
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# Phases 3i-3k: the paper's configuration at full width, the linear
+# baselines and flexible d, recsys serving and candidate retrieval.
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def uncounted(K):
+    """Launches inside do not count (the kernel-against-plain checks and
+    the timings): every launch counter is restored on exit."""
+    saved = {fn: fn.launches for fn in all_counters(K)}
+    try:
+        yield
+    finally:
+        for fn, v in saved.items():
+            fn.launches = v
+
+
+def served_batches(fn, q, batches: int = PAPER_BATCHES):
+    """``fn(q) -> (cand_vals, cand_ids, ids)`` for a warm-up and
+    ``batches`` batches, each timed on the host clock to its ids on the
+    host. Returns (last result, p50 ms, QPS over the batches)."""
+    times, out = [], None
+    for i in range(batches + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(q)
+        out[2].cpu()
+        if i:
+            times.append(time.perf_counter() - t0)
+    return out, sorted(times)[len(times) // 2] * 1e3, \
+        q.shape[0] * batches / sum(times)
+
+
+def p50_ms(fn, reps: int = 5):
+    """p50 milliseconds of ``fn`` over ``reps`` runs after a warm-up (CUDA
+    events); returns (ms, last output)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2], out
+
+
+def kmeans_row(K, testing, label, x_unit, cent, launches):
+    """kmeans_assign's kernel-table row against ``cent`` at ``x_unit``'s
+    shape: time, plain time, bound and ``torch.max(x @ centers.T)``."""
+    n, d = x_unit.shape
+    c = cent.shape[0]
+    ms, out_k = timed(lambda: K.kmeans_assign(x_unit, cent), 3)
+    plain_ms, out_p = timed_once(lambda: K.kmeans_assign_plain(x_unit, cent))
+    err = check_kmeans(f"kmeans_assign[{label}] vs plain", x_unit, cent,
+                       out_k, out_p, testing)
+    lib_ms, _ = timed(lambda: torch.max(x_unit @ cent.T, dim=1), 3)
+    b, by = bound_ms(2.0 * n * c * d, n * d * 4 + c * d * 4 + n * 8)
+    log(f"  kmeans_assign[{label}]: ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={b:.3f} ({by}) library_ms={lib_ms:.3f} "
+        f"launches={launches}")
+    src, repl = KERNEL_FILES["kmeans_assign"]
+    return {"name": f"kmeans_assign[{label}]", "route": "cuda",
+            "source": src, "replaces": repl, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
+
+
+def phase_paper(K, testing):
+    """Phase 3i: ``gleanvec-paper``'s learn_oi13m, search_oi13m and
+    search_oi13m_sorted at their published shapes on rows drawn on the
+    card. Returns the kernel-table rows of its shapes (their launches are
+    this phase's)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import gleanvec as gv
+    from repro_torch.core import leanvec_sphering as lvs
+    from repro_torch.core import search as msearch
+    from repro_torch.core.scorer import (GleanVecScorer, LinearScorer,
+                                         SortedGleanVecScorer)
+    from repro_torch.core.spherical_kmeans import normalize_rows
+    from repro_torch.data import vectors
+    from repro_torch.index import bruteforce as bf
+
+    shapes = registry.get("gleanvec-paper").SHAPES
+    learn, srch = shapes["learn_oi13m"], shapes["search_oi13m"]
+    n, dim, d, c = learn["n"], learn["D"], learn["d"], learn["C"]
+    batch, k, kappa = srch["batch"], srch["k"], srch["kappa"]
+    dev = torch.device("cuda")
+    log(f"phase 3i: gleanvec-paper learn_oi13m (n={n} D={dim} d={d} C={c} "
+        f"m={learn['m_queries']}), search_oi13m gathered and sorted "
+        f"(batch={batch} k={k} kappa={kappa}); search_rqa10m and "
+        "search_t2i10m not run (ROADMAP)")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ds = vectors.make_dataset_device(
+        n, dim, learn["m_queries"], batch,
+        torch.Generator(device=dev).manual_seed(PAPER_SEED), ood=True)
+    torch.cuda.synchronize()
+    x, q = ds.database, ds.queries_test
+    log(f"  data on the card: {time.perf_counter() - t0:.1f} s, "
+        f"{x.numel()} elements ({x.numel() / (1 << 31):.2f} x 2^31), "
+        f"{x.numel() * 4 / 1e9:.1f} GB")
+    art = msearch.SearchArtifacts(scorer=None, x_full=x)
+    for fn in all_counters(K):
+        fn.launches = 0
+
+    # the exact top-k: bruteforce.search -> ip_topk over the full rows
+    t0 = time.perf_counter()
+    gt_vals, gt = bf.search(q, x, k, device=dev)
+    torch.cuda.synchronize()
+    log(f"  exact top-{k} (bruteforce.search -> ip_topk, {n} x {dim}): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    gt_np = gt.cpu().numpy()
+
+    t0 = time.perf_counter()
+    glv = gv.fit(ds.queries_learn, x, c=c, d=d, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    fit_glv = time.perf_counter() - t0
+    fit_launches = K.kmeans_assign.launches
+    t0 = time.perf_counter()
+    sph = lvs.fit(ds.queries_learn, x, d, device=dev)
+    torch.cuda.synchronize()
+    log(f"  learn: GleanVec fit {fit_glv:.1f} s ({fit_launches} "
+        f"kmeans_assign launches), LeanVec-Sphering fit "
+        f"{time.perf_counter() - t0:.2f} s; peak so far "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    if not (torch.isfinite(glv.a).all() and torch.isfinite(sph.a).all()):
+        raise AssertionError("phase 3i: a fit is not finite")
+    del sph
+
+    def gathered(qb):
+        views = gv.project_queries_eager(glv, qb)
+        cv, ci = bf.search_gleanvec(views, tags, x_low, kappa, device=dev)
+        return cv, ci, msearch.rerank(qb, art, ci, k)
+
+    def sorted_layout(qb):
+        views = gv.project_queries_eager(glv, qb)
+        cv, rows = bf.search_gleanvec_sorted(views, btags, xs, kappa,
+                                             device=dev)
+        ci = torch.where(rows >= 0, perm[rows.clamp(min=0).long()],
+                         torch.full_like(rows, -1))
+        return cv, ci, msearch.rerank(qb, art, ci, k)
+
+    views = gv.project_queries_eager(glv, q)
+    sub = slice(0, CHECK_QUERIES)
+    qlo = torch.zeros(views.shape[:2], device=dev)
+    readings, per_layout, rows = {}, {}, []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tags, x_low = gv.encode_database(glv, x)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    for layout in ("gathered", "sorted"):
+        if layout == "sorted":
+            t0 = time.perf_counter()
+            xs, btags, perm = gv.sort_by_tag(tags, x_low, block=4096)
+            del tags, x_low                   # free the gathered layout
+            torch.cuda.synchronize()
+            encode_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+        before = K.gleanvec_sq_topk.launches
+        fn = gathered if layout == "gathered" else sorted_layout
+        (cv, ci, ids), p50, qps = served_batches(fn, q)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        per_layout[layout] = K.gleanvec_sq_topk.launches - before
+        ids_np = ids.cpu().numpy()
+        rec = recall(ids_np, gt_np)
+        readings[layout] = (p50, qps, rec)
+        log(f"  search_oi13m{'_sorted' if layout == 'sorted' else ''} "
+            f"({layout}): {'sort_by_tag' if layout == 'sorted' else 'encode'}"
+            f"={encode_s:.2f}s batches={PAPER_BATCHES} p50={p50:.2f}ms "
+            f"QPS={qps:.0f} recall@{k}={rec:.4f} (floor "
+            f"{PAPER_RECALL_FLOOR}) peak={peak / 1e9:.1f}GB "
+            f"launches={per_layout[layout]}")
+        if ids_np.shape != (batch, k) or not np.all((ids_np >= -1)
+                                                    & (ids_np < n)):
+            raise AssertionError(f"phase 3i {layout}: malformed ids")
+        if rec < PAPER_RECALL_FLOOR:
+            raise AssertionError(f"phase 3i {layout}: recall@{k} {rec:.4f} "
+                                 f"below its floor {PAPER_RECALL_FLOOR}")
+        with uncounted(K):
+            if layout == "gathered":
+                scorer = GleanVecScorer(x_low=x_low, tags=tags)
+                mode = "gleanvec"
+            else:
+                ident = torch.arange(xs.shape[0], dtype=torch.int32,
+                                     device=dev)
+                scorer = SortedGleanVecScorer(x_low=xs, block_tags=btags,
+                                              perm=ident, inv_perm=ident)
+                mode = "gleanvec-sorted"
+            calls = mode_calls(K, mode, scorer, views, kappa)
+            if layout == "gathered":
+                plain = K.gleanvec_sq_topk_plain(views[sub], qlo[sub], tags,
+                                                 x_low, kappa)
+            else:
+                pv, pr = K.gleanvec_sq_topk_plain(views[sub], qlo[sub], btags,
+                                                  xs, kappa,
+                                                  layout_block=4096)
+                plain = (pv, torch.where(pr >= 0, perm[pr.clamp(min=0).long()],
+                                         torch.full_like(pr, -1)))
+            check_topk(f"gleanvec_sq_topk[oi13m {layout}] {CHECK_QUERIES} "
+                       "served queries vs plain", (cv[sub], ci[sub]), plain,
+                       calls[4], testing)
+            rows.append(time_kernel("gleanvec_sq_topk", f"oi13m {layout}",
+                                    calls, per_layout[layout], testing))
+            del calls, scorer, plain
+    del xs, btags, perm, cv, ci, ids
+    with uncounted(K):
+        x_unit = normalize_rows(x)
+        rows.append(kmeans_row(K, testing, f"oi13m C={c}", x_unit,
+                               glv.centers.contiguous(),
+                               K.kmeans_assign.launches))
+        del x_unit
+        check_topk(f"ip_topk[oi13m exact k={k}] {CHECK_QUERIES} served "
+                   "queries vs plain", (gt_vals[sub], gt[sub]),
+                   K.ip_topk_plain(q[sub], x, k),
+                   testing.dot_tol(row_norm_max(q), row_norm_max(x), dim),
+                   testing)
+        # the library yardstick, torch.topk(q @ x.T), holds a (1024, 13M)
+        # f32 product (53.2 GB) beside the 26.6 GB of rows: only x and q
+        # stay on the card
+        ip_launches = K.ip_topk.launches
+        del glv, views, art, ds
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        calls = mode_calls(K, "full", LinearScorer(x_low=x), q, k)
+        torch.cuda.reset_peak_memory_stats()
+        rows.append(time_kernel("ip_topk", f"oi13m exact k={k}", calls,
+                                ip_launches, testing))
+        log(f"  ip_topk[oi13m exact k={k}] library yardstick: peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}")
+        del calls
+    launches = counts(K)
+    log(f"  phase 3i launches: {launches}; p50 gathered / sorted "
+        f"{readings['gathered'][0]:.2f} / {readings['sorted'][0]:.2f} ms "
+        f"({time.perf_counter() - t_phase:.0f} s)")
+    for name in ("ip_topk", "gleanvec_sq_topk", "kmeans_assign"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 3i: {name} was not launched")
+    del x, q, gt, gt_vals
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pair_loss(approx: torch.Tensor, exact: torch.Tensor) -> float:
+    """Mean squared score error over (query, row) pairs: Problem (3)'s
+    loss per pair, which ``metrics.leanvec_loss`` computes through the
+    moments of a linear model."""
+    return float(torch.mean((approx.double() - exact.double()) ** 2))
+
+
+def phase_baselines(K, testing, ds, x):
+    """Phase 3j: the paper's linear baselines (SVD, LeanVec-FW, -ES,
+    -ES+FW) beside LeanVec-Sphering, GleanVec and the full-rotation
+    model's truncations on phase 3's data (n = 2M, D 512, d 160): fit
+    seconds, the loss on a sample, recall@10 through ``bruteforce``'s
+    scans and the rerank at kappa 100. Returns its launches at the d =
+    160 shapes (phase 3's rows) and the kernel-table rows of the
+    truncations' other widths (their launches are their own scans')."""
+    from repro_torch.configs import registry
+    from repro_torch.core import baselines
+    from repro_torch.core import gleanvec as gv
+    from repro_torch.core import leanvec_sphering as lvs
+    from repro_torch.core import linalg, metrics
+    from repro_torch.core import search as msearch
+    from repro_torch.core.scorer import LinearScorer
+    from repro_torch.index import bruteforce as bf
+
+    dev = torch.device("cuda")
+    shape = registry.get("gleanvec-paper").SHAPES["search_oi13m"]
+    d, c, k, kappa = shape["d"], shape["C"], shape["k"], shape["kappa"]
+    log(f"phase 3j: linear baselines and flexible d on phase 3's data "
+        f"(n={x.shape[0]} D={x.shape[1]} d={d}, moments of its "
+        f"{ds.queries_learn.shape[0]} learning queries and all rows; loss "
+        f"on {BASELINE_SAMPLE} rows x {ds.queries_test.shape[0]} queries; "
+        f"recall@{k} with the rerank at kappa={kappa})")
+    t_phase = time.perf_counter()
+    q_learn = torch.as_tensor(ds.queries_learn, device=dev)
+    q = torch.as_tensor(ds.queries_test, device=dev)
+    xs = x[:BASELINE_SAMPLE]
+    exact = q @ xs.T
+    art = msearch.SearchArtifacts(scorer=None, x_full=x)
+    for fn in all_counters(K):
+        fn.launches = 0
+    k_q, k_x = linalg.second_moment(q_learn), linalg.second_moment(x)
+    # the fits' objective per (learning query, row) pair, in f64: in f32
+    # the moment form loses its sign at this n (K_X's top eigenvalues are
+    # ~1e9, the loss lives in the rest)
+    k_q64 = q_learn.double().T @ q_learn.double()
+    k_x64 = sum(c.double().T @ c.double() for c in torch.split(x, 1 << 18))
+    pairs = q_learn.shape[0] * x.shape[0]
+
+    def fit(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    linear = {}
+    for name, fn in (
+            ("SVD", lambda: baselines.svd_fit(k_x, d)),
+            ("LeanVec-FW", lambda: baselines.leanvec_fw(k_q, k_x, d)),
+            ("LeanVec-ES", lambda: baselines.leanvec_es(k_q, k_x, d)),
+            ("LeanVec-ES+FW", lambda: baselines.leanvec_es_fw(k_q, k_x, d)),
+            ("LeanVec-Sphering", lambda: lvs.fit(q_learn, x, d,
+                                                 device=dev))):
+        linear[name] = fit(fn)
+    full, full_s = fit(lambda: lvs.full_rotation_model(q_learn, x,
+                                                       device=dev))
+    for dt in BASELINE_TRUNCATIONS:
+        linear[f"full rotation d={dt}"] = (full.truncate(dt), full_s)
+    del full
+    glv, glv_s = fit(lambda: gv.fit(q_learn, x, c=c, d=d,
+                                    generator=torch.Generator(
+                                        device=dev).manual_seed(0),
+                                    device=dev))
+    objective, cands, rows = {}, {}, []
+    for name, (model, secs) in linear.items():
+        a, b = model.a.contiguous(), model.b.contiguous()
+        loss = float(metrics.leanvec_loss(a, b, q, xs))
+        objective[name] = float(baselines.leanvec_loss_from_moments(
+            a.double(), b.double(), k_q64, k_x64)) / pairs
+        q_low, x_low = q @ a.T, x @ b.T
+        before = K.ip_topk.launches
+        cand = bf.search(q_low, x_low, kappa, device=dev)
+        if a.shape[0] != d:             # its own row of the kernel table
+            scan_launches = K.ip_topk.launches - before
+            K.ip_topk.launches = before
+            with uncounted(K):
+                rows.append(time_kernel(
+                    "ip_topk", f"full rotation d={a.shape[0]}",
+                    mode_calls(K, "sphering", LinearScorer(x_low=x_low),
+                               q_low, kappa), scan_launches, testing))
+        del q_low, x_low
+        ids = msearch.rerank(q, art, cand[1], k).cpu().numpy()
+        rec = recall(ids, ds.gt[:, :k])
+        cands[name] = cand
+        log(f"  {name}: d={a.shape[0]} fit={secs:.3f}s loss={loss:.6g} "
+            f"(pairwise on the sample: "
+            f"{pair_loss((q @ a.T) @ (xs @ b.T).T, exact):.6g}; the fit's "
+            f"objective per learning pair, f64: {objective[name]:.6g}) "
+            f"recall@{k}={rec:.4f} (floor {RECALL_FLOORS['sphering']})")
+        if not np.isfinite(loss) or not objective[name] >= 0.0 \
+                or ids.shape != (q.shape[0], k):
+            raise AssertionError(f"phase 3j {name}: loss {loss}, objective "
+                                 f"{objective[name]} or ids {ids.shape} "
+                                 "malformed")
+        if rec < RECALL_FLOORS["sphering"]:
+            raise AssertionError(f"phase 3j {name}: recall@{k} {rec:.4f} "
+                                 f"below the linear modes' floor")
+    tags, x_low = gv.encode_database(glv, x)
+    views = gv.project_queries_eager(glv, q)
+    cand = bf.search_gleanvec(views, tags, x_low, kappa, device=dev)
+    ids = msearch.rerank(q, art, cand[1], k).cpu().numpy()
+    t_s, low_s = gv.encode_database(glv, xs)
+    approx = K.gleanvec_sq_plain(views, torch.zeros(views.shape[:2],
+                                                    device=dev), t_s, low_s)
+    rec = recall(ids, ds.gt[:, :k])
+    log(f"  GleanVec: d={d} C={c} fit={glv_s:.3f}s "
+        f"loss={pair_loss(approx, exact):.6g} (pairwise on the sample; no "
+        f"moment form) recall@{k}={rec:.4f} (floor "
+        f"{RECALL_FLOORS['gleanvec']})")
+    if rec < RECALL_FLOORS["gleanvec"]:
+        raise AssertionError(f"phase 3j GleanVec: recall@{k} {rec:.4f} below "
+                             "its floor")
+    del tags, x_low, approx, t_s, low_s
+    tol = testing.dot_tol(row_norm_max(q @ linear["LeanVec-Sphering"][0].a.T),
+                          row_norm_max(xs @ linear["LeanVec-Sphering"][0].b.T),
+                          d)
+    check_topk(f"truncation d={d} vs the direct d={d} fit (candidates)",
+               cands[f"full rotation d={d}"], cands["LeanVec-Sphering"],
+               tol, testing)
+    launches = counts(K)
+    log(f"  phase 3j launches: {launches} "
+        f"({time.perf_counter() - t_phase:.0f} s)")
+    for name in ("ip_topk", "gleanvec_sq_topk", "kmeans_assign"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 3j: {name} was not launched")
+    return launches, rows
+
+
+def recsys_serve(label, ns, params, cfg, make_batch, note=""):
+    """``user_embedding`` and ``ctr_loss`` at serve_p99 and serve_bulk:
+    p50 ms (CUDA events), users/s and the peak device memory above the
+    start."""
+    from repro_torch.configs.recsys_common import RECSYS_SHAPES
+    for shape in ("serve_p99", "serve_bulk"):
+        b = RECSYS_SHAPES[shape]["batch"]
+        batch = make_batch(b)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reps = 5 if shape == "serve_p99" else 1
+        ue_ms, u = p50_ms(lambda: ns.user_embedding(params, batch, cfg),
+                          reps)
+        loss_ms, loss = p50_ms(lambda: ns.ctr_loss(params, batch, cfg), reps)
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"  {label} {shape} (batch {b}{note}): user_embedding "
+            f"p50={ue_ms:.3f}ms ({b / ue_ms * 1e3:.0f} users/s) "
+            f"ctr_loss p50={loss_ms:.3f}ms loss={float(loss):.5f} "
+            f"peak above the start={peak / 1e9:.2f}GB")
+        if u.shape[0] != b or not bool(torch.isfinite(u).all()) \
+                or not bool(torch.isfinite(loss)):
+            raise AssertionError(f"{label} {shape}: malformed outputs")
+        del batch, u, loss
+
+
+def retrieval_runs(K, testing, label, cands, learn_q, users, modes):
+    """``retrieval_cand``: ``cands`` behind ``build_retrieval_index`` in
+    ``modes`` (d = 16, C = 16 fits on ``learn_q``), ``retrieve`` at each
+    batch of ``users`` ({batch: (B, D)}): p50, recall@10 against mode
+    full (a parity reading: the weights are random), and each run's
+    kernel row. Returns the rows."""
+    from repro_torch.core import gleanvec as gv
+    from repro_torch.core import leanvec_sphering as lvs
+    from repro_torch.serve import retrieval
+
+    dev = torch.device("cuda")
+    k, kappa = 10, 100
+    kmeans_before = K.kmeans_assign.launches
+    models = {}
+    if any(m.startswith("sphering") for m in modes):
+        models["sphering"] = lvs.fit(learn_q, cands, RETRIEVAL_D, device=dev)
+    if any(m.startswith("gleanvec") for m in modes):
+        models["gleanvec"] = gv.fit(learn_q, cands, c=RETRIEVAL_C,
+                                    d=RETRIEVAL_D, generator=torch.Generator(
+                                        device=dev).manual_seed(0),
+                                    device=dev)
+    rows, full_ids = [], {}
+    for mode in modes:
+        model = None if mode == "full" else models[
+            "sphering" if mode.startswith("sphering") else "gleanvec"]
+        t0 = time.perf_counter()
+        idx = retrieval.build_retrieval_index(cands, mode, model,
+                                              device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        for b, u in users.items():
+            before = counts(K)
+            ms, ids = p50_ms(lambda: retrieval.retrieve(idx, u, k, kappa))
+            delta = {n: v - before[n] for n, v in counts(K).items() if
+                     v - before[n]}
+            ids_np = ids.cpu().numpy()
+            if mode == "full":          # exact: held against torch.topk
+                full_ids[b] = ids_np
+                scores = u @ cands.T
+                check_topk(f"{label} full M={b} vs torch.topk",
+                           (torch.gather(scores, 1, ids.long()), ids),
+                           torch.topk(scores, k, dim=1),
+                           testing.dot_tol(row_norm_max(u),
+                                           row_norm_max(cands),
+                                           cands.shape[1]), testing)
+                del scores
+            rec = recall(ids_np, full_ids[b])
+            per_call = {n: v / 6 for n, v in delta.items()}
+            log(f"  {label} retrieval_cand mode={mode} batch={b}: "
+                f"build={build_s:.2f}s p50={ms:.3f}ms recall@{k} vs full="
+                f"{rec:.4f} (random weights: a parity reading, not a "
+                f"quality figure) launches/call={per_call}")
+            n_cand = cands.shape[0]
+            if ids_np.shape != (b, k) or not np.all((ids_np >= 0)
+                                                    & (ids_np < n_cand)):
+                raise AssertionError(f"{label} {mode} M={b}: malformed ids")
+            name = "ip_topk" if mode in ("full", "sphering",
+                                         "sphering-int8") \
+                else "gleanvec_sq_topk"
+            if delta.get(name, 0) <= 0:
+                raise AssertionError(f"{label} {mode}: {name} not launched")
+            with uncounted(K):
+                qstate = idx.scorer.prepare_queries(u)
+                rows.append(time_kernel(
+                    name, f"{label} {mode} M={b}",
+                    mode_calls(K, mode, idx.scorer, qstate,
+                               k if mode == "full" else kappa),
+                    delta[name], testing))
+        del idx
+    if "gleanvec" in models:
+        from repro_torch.core.spherical_kmeans import normalize_rows
+        with uncounted(K):
+            rows.append(kmeans_row(
+                K, testing, f"{label} C={RETRIEVAL_C} D={cands.shape[1]}",
+                normalize_rows(cands), models["gleanvec"].centers.contiguous(),
+                K.kmeans_assign.launches - kmeans_before))
+    return rows
+
+
+def phase_recsys(K, testing):
+    """Phase 3k: the recommenders at full width with random weights
+    drawn on the card: MIND (serve_p99, serve_bulk, retrieval_cand in the
+    seven modes at batch 1 and 512), BST and FM (serving; retrieval in
+    mode full, BST also in the sorted modes), DLRM (user_embedding at full
+    width, the CTR forward at the smoke config). Returns the kernel-table
+    rows of its retrieval runs."""
+    from repro_torch.configs import registry
+    from repro_torch.core.scorer import MODES
+    from repro_torch.models import layers, recsys
+    from repro_torch.train import data
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    log("phase 3k: recsys serving and candidate retrieval (random weights "
+        "from seeds, on the card; retrieval_cand: the first 1,000,000 "
+        f"items, d={RETRIEVAL_D} C={RETRIEVAL_C} kappa=100 k=10)")
+    for fn in all_counters(K):
+        fn.launches = 0
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(RECSYS_SEED)
+    n_cand = registry.get("mind").SHAPES["retrieval_cand"]["n_candidates"]
+
+    cfg = registry.get("mind").make_config()
+    params = recsys.mind.init(gen, cfg, device=dev)
+    recsys_serve("mind", recsys.mind, params, cfg, lambda b: data.mind_batch(
+        RECSYS_SEED, 0, b, cfg.seq_len, cfg.n_items, device=dev))
+    users = {b: recsys.mind.user_embedding(params, data.mind_batch(
+        RECSYS_SEED, 2, b, cfg.seq_len, cfg.n_items, device=dev), cfg)
+        for b in RETRIEVAL_BATCHES}
+    learn = recsys.mind.user_embedding(params, data.mind_batch(
+        RECSYS_SEED, 1, RECSYS_LEARN_USERS, cfg.seq_len, cfg.n_items,
+        device=dev), cfg)
+    rows += retrieval_runs(K, testing, "mind",
+                           params["item_emb"][:n_cand].contiguous(), learn,
+                           users, MODES)
+    del params, users, learn
+
+    cfg = registry.get("bst").make_config()
+    params = recsys.bst.init(gen, cfg, device=dev)
+    recsys_serve("bst", recsys.bst, params, cfg, lambda b: data.bst_batch(
+        RECSYS_SEED, 0, b, cfg.seq_len, cfg.n_items, device=dev))
+    users = {b: recsys.bst.user_embedding(params, data.bst_batch(
+        RECSYS_SEED, 2, b, cfg.seq_len, cfg.n_items, device=dev), cfg)
+        for b in RETRIEVAL_BATCHES}
+    learn = recsys.bst.user_embedding(params, data.bst_batch(
+        RECSYS_SEED, 1, RECSYS_LEARN_USERS, cfg.seq_len, cfg.n_items,
+        device=dev), cfg)
+    rows += retrieval_runs(K, testing, "bst",
+                           params["item_emb"][:n_cand].contiguous(), learn,
+                           users, ("full", "gleanvec-sorted",
+                                   "gleanvec-int8-sorted"))
+    del params, users, learn
+
+    cfg = registry.get("fm").make_config()
+    params = recsys.fm.init(gen, cfg, device=dev)
+    vocab = (cfg.vocab_per_field,) * cfg.n_sparse
+
+    def fm_batch(b, step=0):
+        return data.criteo_batch(RECSYS_SEED, step, b, 0, vocab, device=dev)
+
+    recsys_serve("fm", recsys.fm, params, cfg, fm_batch)
+    users = {b: recsys.fm.user_embedding(params, fm_batch(b, 2), cfg)
+             for b in RETRIEVAL_BATCHES}
+    rows += retrieval_runs(K, testing, "fm",
+                           params["v"][:n_cand].contiguous(), None, users,
+                           ("full",))
+    del params, users
+
+    cfg = registry.get("dlrm-mlperf").make_config()
+    bot = {"bot": layers.mlp_init(gen, (cfg.n_dense,) + cfg.bot_mlp,
+                                  cfg.param_dtype, device=dev)}
+    for b in (512, 262144):
+        batch = data.criteo_batch(RECSYS_SEED, 0, b, cfg.n_dense,
+                                  cfg.vocab_sizes, device=dev)
+        ms, u = p50_ms(lambda: recsys.dlrm.user_embedding(bot, batch, cfg))
+        log(f"  dlrm-mlperf user_embedding (the bottom MLP at full width, "
+            f"bf16; no table) batch {b}: p50={ms:.3f}ms "
+            f"({b / ms * 1e3:.0f} users/s) out={tuple(u.shape)}")
+        if u.shape != (b, cfg.bot_mlp[-1]) or not bool(
+                torch.isfinite(u).all()):
+            raise AssertionError("dlrm user_embedding: malformed output")
+    smoke = registry.get("dlrm-mlperf").make_config(smoke=True)
+    sp = recsys.dlrm.init(gen, smoke, device=dev)
+    recsys_serve("dlrm-mlperf", recsys.dlrm, sp, smoke,
+                 lambda b: data.criteo_batch(RECSYS_SEED, 0, b, smoke.n_dense,
+                                             smoke.vocab_sizes, device=dev),
+                 note=f"; smoke config: the full table is "
+                 f"{cfg.padded_total_vocab} x {cfg.embed_dim} f32 = "
+                 f"{cfg.padded_total_vocab * cfg.embed_dim * 4 / 1e9:.1f} GB, "
+                 "more than one card holds")
+    launches = counts(K)
+    log(f"  phase 3k launches: {launches} "
+        f"({time.perf_counter() - t_phase:.0f} s)")
+    for name in ("ip_topk", "gleanvec_sq_topk", "kmeans_assign"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 3k: {name} was not launched")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4417,14 +5066,25 @@ def main(argv=None) -> int:
     del finals
     table += graph_timing(K, testing, x, hops, graph_totals, per_batch,
                           searches)
+    baseline_launches, baseline_rows = phase_baselines(K, testing, ds, x)
+    table += baseline_rows
     del ds, x, sph, glv, hops, stream_totals, graph_totals, searches
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    table += phase_paper(K, testing)
+    table += phase_recsys(K, testing)
     qkv, lm_launches = phase_lm(K, testing)
     log("phase 4 (LM): flash_attention at the prefill's captured shape")
     table.append(lm_timing(K, testing, qkv, lm_launches))
     del qkv
     add_launches(table, sharded_launches)
+    # phase 3j's d = 160 scans run the linear mode's shape and the
+    # gathered GleanVec one at 2M rows (d = 64, 128 and 256 have rows of
+    # their own)
+    add_launches(table, {
+        "ip_topk[sphering]": baseline_launches["ip_topk"],
+        "gleanvec_sq_topk[gleanvec]": baseline_launches["gleanvec_sq_topk"],
+        "kmeans_assign[C=48]": baseline_launches["kmeans_assign"]})
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.0f} s")
     print(card_line(), flush=True)

@@ -1,9 +1,12 @@
 """The architectures the port serves: --arch <id> -> config module. The
-dense LMs only; the MoE, recsys and GNN configs wait for their models
-(ROADMAP A12)."""
-from repro_torch.configs import h2o_danube3_4b, nemotron4_15b, qwen2_72b
+dense LMs, the four recommenders and the paper's own vector-search
+workload; the MoE and GNN configs wait for their models (ROADMAP A7)."""
+from repro_torch.configs import (bst, dlrm_mlperf, fm, gleanvec_paper,
+                                 h2o_danube3_4b, mind, nemotron4_15b,
+                                 qwen2_72b)
 
-ARCHS = {m.ARCH_ID: m for m in (h2o_danube3_4b, qwen2_72b, nemotron4_15b)}
+ARCHS = {m.ARCH_ID: m for m in (h2o_danube3_4b, qwen2_72b, nemotron4_15b,
+                                bst, mind, dlrm_mlperf, fm, gleanvec_paper)}
 
 
 def get(arch_id: str):

@@ -11,7 +11,9 @@ its arrays, its center companion by class, and its static ``nprobe`` and
 arrays and five static fields); ``streaming_state`` a reference
 ``StreamingState`` (moments, model, ``prev_bw`` and counters).
 ``transformer_params`` carries an LM's parameter tree across (numpy
-leaves, bf16 ones exactly; a blocked layer layout flattened to (L, ...)).
+leaves, bf16 ones exactly; a blocked layer layout flattened to (L, ...)),
+``recsys_params`` a recommender's (nested dicts and lists, one tensor a
+leaf), and ``linear_dr`` a linear baseline (``{a, b}``).
 """
 from __future__ import annotations
 
@@ -19,13 +21,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import scorer as sc
+from repro_torch.core.baselines import LinearDR
 from repro_torch.core.gleanvec import GleanVecModel
 from repro_torch.core.leanvec_sphering import SpheringModel
 from repro_torch.device import resolve_device
 
-__all__ = ["arrays_of", "sphering_model", "gleanvec_model", "scorer",
-           "ivf_index", "graph_index", "streaming_state",
-           "transformer_params", "SCORERS"]
+__all__ = ["arrays_of", "sphering_model", "gleanvec_model", "linear_dr",
+           "scorer", "ivf_index", "graph_index", "streaming_state",
+           "transformer_params", "recsys_params", "SCORERS"]
 
 SCORERS = {cls.__name__: cls for cls in (
     sc.LinearScorer, sc.GleanVecScorer, sc.QuantizedScorer,
@@ -73,6 +76,11 @@ def sphering_model(arrays: dict, device=None) -> SpheringModel:
 def gleanvec_model(arrays: dict, device=None) -> GleanVecModel:
     """A GleanVec model from ``{centers, a, b, w, w_pinv}``."""
     return _build(GleanVecModel, arrays, device)
+
+
+def linear_dr(arrays: dict, device=None) -> LinearDR:
+    """A linear baseline (``core.baselines.LinearDR``) from ``{a, b}``."""
+    return _build(LinearDR, arrays, device)
 
 
 def scorer(kind: str, arrays: dict, device=None):
@@ -167,3 +175,21 @@ def transformer_params(params, cfg, device=None):
         return t
 
     return {k: convert(v, k == "layers") for k, v in params.items()}
+
+
+def recsys_params(params, cfg, device=None):
+    """A recommender's parameter tree from the reference (``dlrm``, ``fm``,
+    ``bst`` or ``mind`` of ``repro.models.recsys``: nested dicts, lists of
+    MLP layers and of BST blocks, leaves convertible to numpy) -> the same
+    tree of tensors in ``cfg.param_dtype`` on ``device``, for
+    ``repro_torch.models.recsys``."""
+    dev = resolve_device(device)
+
+    def convert(tree):
+        if isinstance(tree, dict):
+            return {k: convert(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [convert(v) for v in tree]
+        return _leaf(tree, dev).to(cfg.param_dtype)
+
+    return convert(params)

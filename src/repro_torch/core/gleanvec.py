@@ -3,13 +3,14 @@
 Learning: spherical k-means on the normalized database, partition by
 Eq. (19), then LeanVec-Sphering per cluster sharing one sphering matrix W.
 Encoding: x_i -> (c_i, B_{c_i} x_i) (Eq. 14-15). Queries: eager views
-A_c q for every cluster (Alg. 4).
+A_c q for every cluster (Alg. 4), or the lazy per-row A_{c_i} q (Alg. 3).
 
-Two reference computations do not scale to millions of rows as written and
+Three reference computations do not scale to millions of rows as written and
 are restructured with the same arithmetic: the per-cluster moments are C
 matmuls ``X_c^T X_c`` (not a three-operand einsum with an (n, C, D)
-intermediate), and the encoding is ``X_c @ B_c^T`` per cluster (not a
-gather of an (n, d, D) tensor of projections).
+intermediate), and the encoding and the lazy inner products (Alg. 3) run
+cluster by cluster (not over a gather of an (n, d, D) tensor of
+projections).
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ from repro_torch.device import resolve_device
 
 __all__ = ["GleanVecModel", "fit", "fit_from_moments", "per_cluster_moments",
            "assign_tags", "encode_database", "project_per_cluster",
-           "sort_by_tag",
-           "inverse_permutation", "project_queries_eager"]
+           "sort_by_tag", "inverse_permutation", "project_queries_eager",
+           "inner_products_lazy", "inner_products_eager"]
 
 
 class GleanVecModel(NamedTuple):
@@ -43,6 +44,12 @@ class GleanVecModel(NamedTuple):
     @property
     def dim(self) -> int:
         return self.a.shape[1]
+
+    def truncate(self, d: int) -> "GleanVecModel":
+        """Runtime target-d selection, per cluster (Section 3.1 carries
+        over): the first ``d`` rows of every ``a_c`` and ``b_c``."""
+        return GleanVecModel(self.centers, self.a[:, :d], self.b[:, :d],
+                             self.w, self.w_pinv)
 
 
 def _cluster_rows(tags: torch.Tensor, c: int):
@@ -141,8 +148,31 @@ def project_queries_eager(model: GleanVecModel, queries: torch.Tensor):
     return (q @ model.a.reshape(c * d, dim).T).reshape(q.shape[0], c, d)
 
 
-def sort_by_tag(tags: torch.Tensor, x_low: torch.Tensor, block: int = 4096,
-                slack_blocks: int = 0):
+def inner_products_lazy(model: GleanVecModel, query: torch.Tensor,
+                        tags: torch.Tensor, x_low: torch.Tensor
+                        ) -> torch.Tensor:
+    """Alg. 3: scores ``<A_{c_i} q, x_low_i>`` of one ``query (D,)``
+    against every row, (n,). Each cluster's view A_c q is made once and
+    scores that cluster's rows (the reference gathers an (n, d, D) tensor
+    of per-row projections)."""
+    q = query.to(torch.float32)
+    out = torch.zeros(tags.shape[0], dtype=torch.float32,
+                      device=x_low.device)
+    for ci, rows in enumerate(_cluster_rows(tags, model.n_clusters)):
+        if rows.numel():
+            out[rows] = x_low[rows].to(torch.float32) @ (model.a[ci] @ q)
+    return out
+
+
+def inner_products_eager(q_views: torch.Tensor, tags: torch.Tensor,
+                         x_low: torch.Tensor) -> torch.Tensor:
+    """Alg. 4: select the precomputed view ``q_views[tags_i]`` of one
+    query (``q_views (C, d)``) for every row: (n,) scores."""
+    return torch.sum(q_views[tags.long()] * x_low, dim=-1)
+
+
+def sort_by_tag(tags: torch.Tensor, x_low: torch.Tensor, x_full=None,
+                block: int = 4096, slack_blocks: int = 0):
     """Cluster-contiguous layout for the sorted scorers: rows sorted by tag
     (stable), each cluster padded with zero rows to a ``block`` multiple,
     so every block of the result carries one tag. ``slack_blocks`` appends
@@ -150,8 +180,10 @@ def sort_by_tag(tags: torch.Tensor, x_low: torch.Tensor, block: int = 4096,
     streaming inserts).
 
     Returns ``(x_sorted, block_tags (nb,) int32, perm (ns,) int32)`` with
-    ``perm[sorted_row] = original id`` and -1 on padding rows. Clusters
-    are laid out for tags 0 .. max(tags), as in the reference."""
+    ``perm[sorted_row] = original id`` and -1 on padding rows; with
+    ``x_full`` ((n, D), any dtype) a fourth entry, its rows in the same
+    sorted order with zero padding rows. Clusters are laid out for tags
+    0 .. max(tags), as in the reference."""
     dev = x_low.device
     t = tags.to(torch.int64)
     n = t.shape[0]
@@ -170,7 +202,12 @@ def sort_by_tag(tags: torch.Tensor, x_low: torch.Tensor, block: int = 4096,
     perm[dest] = order.to(torch.int32)
     block_tags = torch.repeat_interleave(
         torch.arange(c, device=dev, dtype=torch.int32), padded // block)
-    return x_sorted, block_tags, perm
+    if x_full is None:
+        return x_sorted, block_tags, perm
+    full_sorted = torch.zeros((ns, x_full.shape[1]), dtype=x_full.dtype,
+                              device=dev)
+    full_sorted[dest] = x_full[order]
+    return x_sorted, block_tags, perm, full_sorted
 
 
 def inverse_permutation(perm: torch.Tensor, n: int) -> torch.Tensor:

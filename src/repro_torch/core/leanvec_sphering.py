@@ -21,7 +21,11 @@ __all__ = ["SpheringModel", "fit", "fit_from_moments", "full_rotation_model"]
 
 class SpheringModel(NamedTuple):
     """``a``: (d, D) query projection; ``b``: (d, D) database projection;
-    ``p``: (d, D) Stiefel factor; ``w`` / ``w_pinv``: (D, D) sphering."""
+    ``p``: (d, D) Stiefel factor; ``w`` / ``w_pinv``: (D, D) sphering.
+
+    With ``d == D`` (:func:`full_rotation_model`) every row prefix
+    ``a[:d'], b[:d']`` is a valid reduced model (Section 3.1):
+    :meth:`truncate` picks d at run time."""
 
     a: torch.Tensor
     b: torch.Tensor
@@ -32,6 +36,12 @@ class SpheringModel(NamedTuple):
     @property
     def dim(self) -> int:
         return self.a.shape[0]
+
+    def truncate(self, d: int) -> "SpheringModel":
+        """Runtime selection of the target dimensionality (Section 3.1):
+        the first ``d`` rows of ``a``, ``b`` and ``p``."""
+        return SpheringModel(self.a[:d], self.b[:d], self.p[:d], self.w,
+                             self.w_pinv)
 
 
 def fit_from_moments(k_q: torch.Tensor, k_x: torch.Tensor, d: int,

@@ -10,14 +10,22 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["second_moment", "safe_inv_sqrt_spectrum",
-           "sphering_from_moment", "topk_eigvecs"]
+__all__ = ["second_moment", "cross_moment", "safe_inv_sqrt_spectrum",
+           "sphering_from_moment", "topk_eigvecs", "orthonormalize_rows",
+           "polar"]
 
 
 def second_moment(x: torch.Tensor) -> torch.Tensor:
     """K = sum_i x_i x_i^T for row-major ``x: (n, D)`` -> ``(D, D)``."""
     x = x.to(torch.float32)
     return x.T @ x
+
+
+def cross_moment(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted moment ``sum_i w_i x_i x_i^T`` with per-row weights
+    ``w: (n,)``."""
+    x = x.to(torch.float32)
+    return (x * w.to(torch.float32)[:, None]).T @ x
 
 
 def safe_inv_sqrt_spectrum(s: torch.Tensor, rel_eps: float = 1e-4
@@ -47,3 +55,17 @@ def topk_eigvecs(m: torch.Tensor, d: int) -> torch.Tensor:
     evals, vecs = torch.linalg.eigh(m.to(torch.float32))   # ascending
     order = torch.argsort(-evals)
     return vecs[:, order[:d]].T.contiguous()
+
+
+def polar(a: torch.Tensor) -> torch.Tensor:
+    """Polar factor ``U V^T`` of ``a (d, D)`` from its thin SVD: the LMO
+    direction over the unit spectral-norm ball (the convex hull of the
+    Stiefel manifold), and the nearest row-orthonormal matrix to ``a``."""
+    u, _, vt = torch.linalg.svd(a, full_matrices=False)
+    return u @ vt
+
+
+def orthonormalize_rows(a: torch.Tensor) -> torch.Tensor:
+    """Project ``a: (d, D)`` onto St(D, d) (row-orthonormal):
+    argmin_{U in St} ||U - a||_F, the polar factor."""
+    return polar(a)

@@ -13,7 +13,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["SQDatabase", "ClusteredSQDatabase", "quantize",
-           "quantize_per_cluster", "dequantize"]
+           "quantize_per_cluster", "dequantize", "quantized_inner_products"]
 
 
 class SQDatabase(NamedTuple):
@@ -87,3 +87,11 @@ def quantize_per_cluster(x: torch.Tensor, tags: torch.Tensor,
 def dequantize(db: SQDatabase) -> torch.Tensor:
     """(n, d) f32 reconstruction ``codes * delta + lo``."""
     return db.codes.to(torch.float32) * db.delta[None, :] + db.lo[None, :]
+
+
+def quantized_inner_products(query: torch.Tensor,
+                             db: SQDatabase) -> torch.Tensor:
+    """<q, dequant(x)> for every row, without the dequantized matrix:
+    ``query (d,)`` -> scores ``(n,)``."""
+    q = query.to(torch.float32)
+    return db.codes.to(torch.float32) @ (q * db.delta) + q @ db.lo

@@ -25,9 +25,21 @@ class KMeansState(NamedTuple):
     inertia: float         # mean max-cosine objective (Eq. 22)
 
 
+# rows a chunk of normalize_rows' squared norms
+NORM_CHUNK = 1 << 20
+
+
 def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    return x * torch.rsqrt(torch.clamp(torch.sum(x * x, dim=-1, keepdim=True),
-                                       min=eps))
+    """``x / ||x||`` row by row. The squared norms of a 2-D ``x`` are
+    summed ``NORM_CHUNK`` rows at a time, so the only (n, D) tensor made is
+    the result (at 13M x 512 rows a whole ``x * x`` would take 26.6 GB
+    more)."""
+    if x.dim() == 2:
+        n2 = torch.cat([torch.sum(c * c, dim=-1, keepdim=True)
+                        for c in torch.split(x, NORM_CHUNK)])
+    else:
+        n2 = torch.sum(x * x, dim=-1, keepdim=True)
+    return x * torch.rsqrt(torch.clamp(n2, min=eps))
 
 
 def assign(x_unit: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,10 @@ database and query arrays for the same arguments.
 * OOD queries: a rotated covariance plus a mean shift, loosely anchored to
   database rows (the Figure 1 mechanism).
 
+``make_dataset_device`` follows the same recipe with ``torch`` draws on a
+device, chunk by chunk (other numbers than numpy's), for sizes whose host
+copy would not fit: OI-13M's 13M x 512 f32 rows are 26.6 GB.
+
 Ground truth is exact max-inner-product top-k. ``exact_topk`` computes it
 in numpy, blocked over the database, as the reference does; with a torch
 ``device`` it computes the same blocked scan in torch on that device (much
@@ -23,7 +27,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-__all__ = ["VectorDataset", "make_dataset", "make_mixture", "exact_topk"]
+__all__ = ["VectorDataset", "DeviceDataset", "make_dataset", "make_mixture",
+           "make_dataset_device", "exact_topk"]
 
 
 class VectorDataset(NamedTuple):
@@ -135,3 +140,71 @@ def make_dataset(name: str, n: int, d: int, n_queries: int = 512,
     gt = exact_topk(q_test, database, k_gt, device=gt_device)
     return VectorDataset(name=name, database=database, queries_learn=q_learn,
                          queries_test=q_test, gt=gt, ood=ood)
+
+
+class DeviceDataset(NamedTuple):
+    """:func:`make_dataset_device`'s tensors, on the generator's device."""
+    database: "torch.Tensor"        # (n, D) float32
+    queries_learn: "torch.Tensor"   # (m_learn, D)
+    queries_test: "torch.Tensor"    # (m_test, D)
+
+
+def _component_basis_device(gen, d_full, d_intr, decay=0.85):
+    import torch
+    g = torch.randn((d_full, d_full), generator=gen, device=gen.device,
+                    dtype=torch.float64)
+    basis = torch.linalg.qr(g)[0][:, :d_intr]
+    return basis * (decay ** torch.arange(d_intr, device=gen.device,
+                                          dtype=torch.float64))[None, :]
+
+
+# rows a chunk of make_dataset_device's database
+DEVICE_CHUNK = 1 << 20
+
+
+def make_dataset_device(n: int, d: int, n_learn: int, n_test: int,
+                        generator, ood: bool = True, n_components: int = 8
+                        ) -> DeviceDataset:
+    """:func:`make_dataset`'s database and queries (no ground truth),
+    drawn from ``generator`` on its device: a mixture of ``n_components``
+    anisotropic Gaussians of intrinsic dimension max(8, D / 6) around
+    means of scale 4 (``make_mixture``'s spread), made ``DEVICE_CHUNK``
+    rows at a time (the only (n, D) tensor is the result); OOD queries
+    from a rotated basis of intrinsic dimension max(8, D / 8) plus a mean
+    shift, anchored 0.4 to random database rows (ID queries: rows plus
+    0.05 noise). Bases and means are drawn in float64, the rows written
+    in float32."""
+    import torch
+    gen, dev = generator, generator.device
+    f64 = torch.float64
+    d_intr = max(8, d // 6)
+    assign = torch.randint(0, n_components, (n,), generator=gen, device=dev)
+    means = torch.randn((n_components, d), generator=gen, device=dev,
+                        dtype=f64) * 4.0
+    bases = [_component_basis_device(gen, d, d_intr)
+             for _ in range(n_components)]
+    x = torch.empty((n, d), dtype=torch.float32, device=dev)
+    for s in range(0, n, DEVICE_CHUNK):
+        a = assign[s:s + DEVICE_CHUNK]
+        z = torch.randn((a.numel(), d_intr), generator=gen, device=dev,
+                        dtype=f64)
+        for c in range(n_components):
+            rows = torch.nonzero(a == c).squeeze(1)
+            x[s + rows] = (means[c][None, :] + z[rows] @ bases[c].T).to(
+                torch.float32)
+    m = n_learn + n_test
+    if not ood:
+        idx = torch.randint(0, n, (m,), generator=gen, device=dev)
+        q = x[idx] + 0.05 * torch.randn((m, d), generator=gen, device=dev)
+    else:
+        rot = torch.linalg.qr(torch.randn((d, d), generator=gen, device=dev,
+                                          dtype=f64))[0]
+        qd = max(8, d // 8)
+        q_basis = _component_basis_device(gen, d, qd, decay=0.8)
+        z = torch.randn((m, qd), generator=gen, device=dev, dtype=f64)
+        shift = torch.randn(d, generator=gen, device=dev, dtype=f64) * 2.0
+        q = ((z @ q_basis.T) @ rot + shift[None, :]).to(torch.float32)
+        anchor = x[torch.randint(0, n, (m,), generator=gen, device=dev)]
+        q = 0.6 * q + 0.4 * anchor
+    return DeviceDataset(database=x, queries_learn=q[:n_learn].contiguous(),
+                         queries_test=q[n_learn:].contiguous())

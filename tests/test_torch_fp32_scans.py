@@ -29,7 +29,16 @@ on a machine without it):
   513, 7000} on integer data: tags are the first maximum and maxsim the
   exact maximum; on random data it agrees with its plain version within
   ``testing.dot_tol``; a tie across two center tiles goes to the first
-  center.
+  center;
+* the recommenders' retrieval widths (D = 10, 32, 64: FM, BST, MIND;
+  d = 16, C = 16) at batch 1 and 512: ``ip_topk`` over the D-wide rows
+  (FM's 40-byte rows are off 16-byte alignment), ``kmeans_assign`` at C
+  16, and ``gleanvec_sq_topk`` gathered and sorted, f32 and u8, all bit
+  for bit on integer data against the exact top-k and the plain versions;
+* one scan past 2^31 elements (4.2M x 512 rows, the 64-bit row offsets
+  of OI-13M): ``ip_topk``, ``kmeans_assign`` and the gathered
+  ``gleanvec_sq_topk`` over u8 codes, equal to their plain versions on
+  integer data, with winners planted past row 2^31 / 512.
 """
 import re
 from pathlib import Path
@@ -303,3 +312,79 @@ def test_cuda_kmeans_assign_tie_across_center_tiles(cuda):
     x = cent[3].expand(777, 64).contiguous() + 0.0
     tags, sims = K.kmeans_assign(x, cent)
     assert bool((tags == 3).all()) and bool((sims == sims[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [10, 32, 64])
+def test_cuda_scans_at_retrieval_widths_and_batch_one(cuda, dim):
+    g = torch.Generator(device=cuda).manual_seed(dim)
+    n, c, d, lb = 10_001, 16, 16, 64
+    x = torch.randint(-3, 4, (n, dim), generator=g, device=cuda).float()
+    cent = torch.randint(-2, 3, (c, dim), generator=g, device=cuda).float()
+    tags, sims = K.kmeans_assign(x, cent)
+    want_tags, want_sims = _first_max(x, cent)
+    assert torch.equal(tags, want_tags) and torch.equal(sims, want_sims)
+    low = torch.randint(-3, 4, (n, d), generator=g, device=cuda).float()
+    codes = torch.randint(0, 8, (n, d), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    nb = -(-n // lb)
+    block_tags = torch.randint(0, c, (nb,), generator=g, device=cuda,
+                               dtype=torch.int32)
+    pad = nb * lb - n
+    for m in (1, 512):
+        q = torch.randint(-3, 4, (m, dim), generator=g, device=cuda).float()
+        for k in (10, 100):
+            got = K.ip_topk(q, x, k)
+            want = _exact_topk(q, x, k)
+            label = f"ip_topk D={dim} M={m} k={k}"
+            assert torch.equal(got[0], want[0]), label
+            assert torch.equal(got[1], want[1]), label
+        qs = torch.randint(-3, 4, (m, c, d), generator=g,
+                           device=cuda).float()
+        qlo = torch.randint(-8, 9, (m, c), generator=g, device=cuda).float()
+        for rows in (low, codes):
+            label = f"gleanvec_sq_topk {rows.dtype} M={m}"
+            assert_topk_close(K.gleanvec_sq_topk(qs, qlo, tags, rows, 100),
+                              K.gleanvec_sq_topk_plain(qs, qlo, tags, rows,
+                                                       100), 0.0,
+                              label + " gathered")
+            srt = torch.cat([rows, rows[:pad]]) if pad else rows
+            rid = torch.arange(srt.shape[0], dtype=torch.int32, device=cuda)
+            rid[n:] = -1
+            assert_topk_close(
+                K.gleanvec_sq_topk(qs, qlo, block_tags, srt, 100,
+                                   row_ids=rid, layout_block=lb),
+                K.gleanvec_sq_topk_plain(qs, qlo, block_tags, srt, 100,
+                                         row_ids=rid, layout_block=lb),
+                0.0, label + " sorted")
+
+
+@pytest.mark.cuda
+def test_cuda_scans_past_two_to_the_31_elements(cuda):
+    """4.2M x 512 rows hold 2.15e9 elements: every row offset past row
+    2^31 / 512 = 4,194,304 needs 64 bits. Integer data, so the plain
+    versions are exact; the best rows are planted past that row."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    n, dim, edge = 4_200_000, 512, (1 << 31) // 512
+    x = torch.randint(-1, 2, (n, dim), generator=g, device=cuda,
+                      dtype=torch.int8).float()
+    q = torch.randint(1, 3, (8, dim), generator=g, device=cuda).float()
+    x[edge + 1000:edge + 1010] = 3.0            # the winners
+    got = K.ip_topk(q, x, 10)
+    assert_topk_close(got, K.ip_topk_plain(q, x, 10), 0.0, "ip_topk")
+    assert bool((got[1] >= edge).all())
+    cent = torch.randint(-2, 3, (7, dim), generator=g, device=cuda).float()
+    cent[5] = 3.0
+    tags, sims = K.kmeans_assign(x, cent)
+    want_tags, want_sims = K.kmeans_assign_plain(x, cent)
+    assert torch.equal(tags, want_tags) and torch.equal(sims, want_sims)
+    assert bool((tags[edge + 1000:edge + 1010] == 5).all())
+    codes = (x + 1).to(torch.uint8)
+    del x
+    qs = torch.randint(0, 3, (8, 7, dim), generator=g, device=cuda).float()
+    qlo = torch.zeros(8, 7, device=cuda)
+    got = K.gleanvec_sq_topk(qs, qlo, tags, codes, 10)
+    assert_topk_close(got, K.gleanvec_sq_topk_plain(qs, qlo, tags, codes,
+                                                    10), 0.0,
+                      "gleanvec_sq_topk u8 gathered")
+    assert bool((got[1] >= edge).any())

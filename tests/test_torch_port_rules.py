@@ -65,6 +65,10 @@ def test_port_imports_without_jax():
             "import repro_torch.index.distributed\n"
             "import repro_torch.analysis, repro_torch.analysis.run\n"
             "import repro_torch.analysis.trace_rules\n"
+            "import repro_torch.core.baselines, repro_torch.index.bruteforce\n"
+            "import repro_torch.models.recsys, repro_torch.models.embedding\n"
+            "import repro_torch.serve.retrieval, repro_torch.train.data\n"
+            "import repro_torch.configs.gleanvec_paper\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'repro was imported'\n")
@@ -94,9 +98,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                              w_pinv=torch.eye(8))
     from repro_torch.core import streaming
     from repro_torch import convert
+    from repro_torch.index import bruteforce
+    from repro_torch.serve import retrieval
+    from repro_torch.train import data
     from repro_torch.configs import registry
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import decode
+    from repro_torch.models import layers, recsys
+    mind_cfg = registry.get("mind").make_config(smoke=True)
+    dlrm_cfg = registry.get("dlrm-mlperf").make_config(smoke=True)
     lm_cfg = registry.get("h2o-danube-3-4b").make_config(smoke=True)
     lm_params = tfm.init(lm_cfg, device="cpu")
 
@@ -129,11 +139,42 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
              lambda: search.build_artifacts("full", x),
              lambda: lvs.fit(x, x, 4),
              lambda: gv.fit(x, x, c=2, d=4),
+             lambda: retrieval.build_retrieval_index(x, "full"),
+             lambda: retrieval.build_retrieval_index(x, "gleanvec", model),
+             lambda: bruteforce.search(x[:2], x, 3),
+             lambda: bruteforce.search_gleanvec(
+                 np.zeros((2, 2, 4), np.float32), np.zeros(64, np.int32),
+                 x[:, :4], 3),
+             lambda: bruteforce.search_gleanvec_sorted(
+                 np.zeros((2, 2, 4), np.float32), np.zeros(1, np.int32),
+                 x[:, :4], 3),
+             lambda: bruteforce.search_quantized(
+                 x[:2, :4], np.zeros((64, 4), np.uint8), np.zeros(4),
+                 np.ones(4), 3),
+             lambda: data.criteo_batch(0, 0, 4, 13, (5, 7)),
+             lambda: data.bst_batch(0, 0, 4, 20, 100),
+             lambda: data.mind_batch(0, 0, 4, 50, 100),
+             lambda: recsys.mind.init(torch.Generator(), mind_cfg),
+             lambda: recsys.dlrm.init(torch.Generator(), dlrm_cfg),
+             lambda: layers.mlp_init(torch.Generator(), (4, 8, 1)),
+             lambda: layers.embed_init(torch.Generator(), 8, 4),
              lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_recsys_init_refuses_a_generator_on_another_device():
+    from repro_torch.configs import registry
+    from repro_torch.models import layers, recsys
+    cfg = registry.get("fm").make_config(smoke=True)
+    with pytest.raises(ValueError, match="generator"):
+        recsys.fm.init(torch.Generator(), cfg, device="meta")
+    with pytest.raises(ValueError, match="generator"):
+        layers.dense_init(torch.Generator(), 4, 2, device="meta")
+    p = recsys.fm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert p["v"].device == torch.device("cpu")
 
 
 def test_wrappers_refuse_mixed_devices():
