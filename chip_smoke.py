@@ -3,8 +3,8 @@
 stores and the graph index), its serving operations layer (the host
 rerank tier, the guarded lifecycle, the coalescing frontend), its sharded
 placement, the paper's baselines and its OI-13M configuration, the
-recommenders' serving and candidate retrieval, and its LM serving path on
-one NVIDIA GPU.
+recommenders' serving and candidate retrieval, and its LM serving paths
+(dense and mixture-of-experts) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -42,9 +42,10 @@ Phases (any failure raises and the script exits non-zero):
    at layout blocks 1, 64, 200, 256, 768 and 4096 with ragged last blocks);
    flash_attention (S in {1, 77,
    100, 127, 128, 129, 130, 300, 4097}, dh in {8, 16, 20, 64, 72, 80, 96,
-   120, 128}, GQA groups 1, 4 and 8, window None / 1 / 48 / 127 / 128 / 129
-   / 4096, causal and not, bf16 and f32, transposed views; each case names
-   the kernel it took and a digest of its output).
+   120, 128}, GQA groups 1, 4, 5, 6 and 8 (5 and 6: the MoE prefills'
+   heads at dh 128), window None / 1 / 48 / 127 / 128 / 129 / 4096, causal
+   and not, bf16 and f32, transposed views; each case names the kernel it
+   took and a digest of its output).
 3. The flat main path: synthetic OOD data (D = 512), LeanVec-Sphering
    (d = 160) and GleanVec (C = 48, d = 160) fits, then for each of the 7
    scorer modes an encoded scorer behind a ServingEngine (batch 1024,
@@ -175,7 +176,9 @@ Phases (any failure raises and the script exits non-zero):
    ``bruteforce.search`` (ip_topk) or ``search_gleanvec`` and the rerank
    at kappa 100 against phase 3's floors for the linear and GleanVec
    modes. The d = 160 truncation's candidates equal the direct d = 160
-   fit's up to score ties. The d = 160 scans' launches go to phase 3's
+   fit's up to score ties; the two models' moments recomputed twice, the
+   eigensolver run twice and their Stiefel factors by principal angles
+   (ROADMAP C 5). The d = 160 scans' launches go to phase 3's
    rows; the truncations to d = 64, 128 and 256 get ip_topk rows of their
    own.
 3i. The paper's configuration at full width, after phases 3-4's tensors
@@ -221,6 +224,25 @@ Phases (any failure raises and the script exits non-zero):
    ``scaled_dot_product_attention`` (a dense causal + window mask) as its
    library yardstick, and the same inputs without the window beside SDPA's
    flash backend at ``is_causal=True``.
+3l. MoE serving, after phase 3e's weights are freed: grok-1-314b (8
+   experts top-2, groups of 256) at its published widths cut to 4 of 64
+   layers, then, once its weights are freed, llama4-maverick-400b-a17b
+   (128 experts top-1, groups of 1024) cut to 1 of 48, random bf16
+   weights drawn on the card; ``generate`` at B = 4, s0 = 4096, n_new = 16
+   (cut from prefill_32k): prefill ms and tokens/s, decode ms per token,
+   peak memory, each prefill layer's dropped token choices and expert
+   load; flash_attention once per layer of the prefill, every launch
+   ``flash_wgmma_kernel`` (GQA groups 6 and 5), never the plain version;
+   the prompt kept and every logit finite; the last of the prompt's
+   trailing tokens decoded one by one after a prefill over the rest
+   against the prefill over all s0 (a prefill over s0 + 1 tokens does
+   not cut into whole groups), asserted where no token choice was
+   dropped; the prefill's time by part (flash_attention from
+   ``torch.profiler``, expert products and routing / dispatch / combine
+   from CUDA events) and a decode step's kernels; ``moe_apply`` on layer
+   0's first group in bf16 against f32 compute, the f32 call against the
+   CPU's, and at decode_32k's 128 tokens; flash_attention's kernel-table
+   row at each prefill's shape beside SDPA's flash backend.
 
 Then the card's name and power limit, one JSON line with the kernel table,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -386,6 +408,29 @@ LM_FLASH_KERNEL = "flash_wgmma_kernel"
 # (|a - b| <= 0.2 + 0.02 |b|), from bf16 roundings in another order
 LM_LOGIT_RTOL, LM_LOGIT_ATOL = 2e-2, 2e-1
 
+# MoE serving (phase 3l): grok-1-314b and llama4-maverick-400b-a17b at
+# their published widths, random bf16 weights drawn on the card from
+# MOE_SEED, the depth cut to fit one H100 80GB (experts a layer: grok-1
+# 8 x 3 x 6144 x 32768 x 2 B = 9.66 GB, 4 layers ~42.5 GB with attention,
+# embedding and head; maverick 128 x 3 x 5120 x 8192 x 2 B = 32.2 GB, 1
+# layer ~36.5 GB, 2 would be 68.8 GB before activations); the prompt cut
+# from prefill_32k as phase 3e's; one moe_apply at decode_32k's batch.
+MOE_ARCHS = (("grok-1-314b", 4, "grok-1"),
+             ("llama4-maverick-400b-a17b", 1, "maverick"))
+MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_SEED = 4, 4096, 16, 26
+MOE_DECODE_TOKENS = 128
+# moe_apply in bf16 against f32 compute on the same inputs and weights
+# (the router is f32 in both: the same choices). bf16 rounds the up and
+# gate products, their product and the output, each to 2^-9 relative:
+# about 2^-8 rms relative on a hidden unit, and the down product's sum of
+# 8192-32768 such independent errors keeps that share of the output's rms
+# (~0.4 %); the worst of ~1.5M outputs sits near 5.5 sigma, ~2 % of the
+# rms. 5 % of the rms (12 sigma) plus the reference's bf16 rtol for the
+# output's own rounding.
+MOE_BF16_RTOL, MOE_BF16_ATOL_RMS = 2e-2, 5e-2
+# the f32 call on the card against the CPU's: f32 sums of widths up to
+# 32,768 in another order, ~1e-5 of the rms; ten times that
+MOE_F32_RTOL, MOE_F32_ATOL_RMS = 1e-4, 1e-4
 # The paper's configuration (phase 3i): gleanvec-paper's learn_oi13m and
 # search_oi13m shapes as published (configs/gleanvec_paper.py), rows drawn
 # on the card from PAPER_SEED; PAPER_BATCHES batches a layout; each
@@ -856,9 +901,13 @@ def phase_wide_kernels(K, testing, gen):
 # the smoke configs', 20 takes the mma.sync kernel's unaligned loads, 120
 # danube's, 128 the others'), group 1, 4 and 8, window None / 48 / 4096,
 # causal and not, bf16 and f32, (B, S, H, dh) tensors passed transposed.
-# bf16 with dh 72-128 takes the wgmma kernel: the last rows put S and the
-# window on its 128-query and 128-key tiles' edges (1, 127, 128, 129, 300,
-# 4097; 1, 127, 128, 129, 4096) at dh 72, 80, 96, 120 and 128.
+# bf16 with dh 72-128 takes the wgmma kernel: the rows after those put S
+# and the window on its 128-query and 128-key tiles' edges (1, 127, 128,
+# 129, 300, 4097; 1, 127, 128, 129, 4096) at dh 72, 80, 96, 120 and 128.
+# The last six are the MoE prefills' heads (phase 3l): dh 128, causal, no
+# window, GQA group 6 (grok-1's 48 / 8, an even group: the kernel's
+# cluster of two heads) and 5 (maverick's 40 / 8, odd), S 129, 300 and
+# 4097 off the tiles, half of them transposed.
 FLASH_CASES = [
     (1, 4, 4, 1, 16, None, True, torch.float32, False),
     (2, 8, 2, 77, 64, None, True, torch.bfloat16, False),
@@ -881,6 +930,12 @@ FLASH_CASES = [
     (1, 16, 2, 300, 80, None, False, torch.bfloat16, True),
     (2, 8, 2, 4097, 128, 129, True, torch.bfloat16, False),
     (2, 32, 8, 4097, 120, 4096, True, torch.bfloat16, True),
+    (1, 48, 8, 129, 128, None, True, torch.bfloat16, False),
+    (2, 48, 8, 300, 128, None, True, torch.bfloat16, True),
+    (1, 48, 8, 4097, 128, None, True, torch.bfloat16, False),
+    (1, 40, 8, 129, 128, None, True, torch.bfloat16, True),
+    (2, 40, 8, 300, 128, None, True, torch.bfloat16, False),
+    (1, 40, 8, 4097, 128, None, True, torch.bfloat16, True),
 ]
 
 
@@ -3461,6 +3516,417 @@ def lm_timing(K, testing, qkv, launches):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3l: MoE serving.
+# ---------------------------------------------------------------------------
+
+
+def moe_tail(cfg, batch: int, s0: int) -> int:
+    """The fewest trailing prompt tokens to decode one by one after a
+    prefill over the rest, such that that prefill and the one over all
+    ``s0`` tokens both cut into whole MoE groups: ``moe_apply`` refuses a
+    token count off its group, as the reference asserts, so at these
+    shapes no prefill over s0 + 1 tokens exists."""
+    def whole(s):
+        return (batch * s) % min(cfg.moe.group_size, batch * s) == 0
+
+    if not whole(s0):
+        raise AssertionError(f"{cfg.name}: B={batch} x s0={s0} tokens do "
+                             "not cut into whole groups")
+    return next(t for t in range(1, s0) if whole(s0 - t))
+
+
+def routing_reading(r, n_experts: int):
+    """One ``moe.route`` result: (dropped choices, their share, expert load
+    min and max -- kept choices over all groups --, the largest demand of
+    one group on one expert)."""
+    g = r.idx.shape[0]
+    idx = r.idx.reshape(g, -1)
+    demand = torch.zeros(g, n_experts, device=idx.device).scatter_add_(
+        1, idx, torch.ones_like(idx, dtype=torch.float32))
+    load = torch.zeros(g, n_experts, device=idx.device).scatter_add_(
+        1, idx, r.keep.reshape(g, -1).to(torch.float32)).sum(0)
+    dropped = int((~r.keep).sum())
+    return (dropped, dropped / r.keep.numel(), int(load.min()),
+            int(load.max()), int(demand.max()))
+
+
+def moe_error(got: torch.Tensor, want: torch.Tensor, rtol: float,
+              atol_rms: float):
+    """(max |got - want|, the worst element's share of its tolerance
+    ``rtol |want| + atol_rms rms(want)``) in f32."""
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    rms = float(want.square().mean().sqrt())
+    gap = (got - want).abs()
+    used = float((gap / (rtol * want.abs() + atol_rms * rms)).max())
+    return float(gap.max()), used
+
+
+def moe_layer_checks(cfg, p0, x_first, tg):
+    """``moe_apply`` on layer 0's parameters at published width, on its
+    first group of the prefill's MoE input: bf16 against f32 compute on
+    the card, and the f32 call on the card against the same call on the
+    CPU; then decode_32k's B = 128 tokens (one group) timed in bf16 beside
+    f32. Fails the phase on a gap past its tolerance."""
+    from repro_torch.models import moe
+    mc = cfg.moe
+    # the f32 calls take x upcast (exactly), so that their output is not
+    # rounded to x's bf16 on the way out
+    x1 = x_first[:tg]
+    y16, a16 = moe.moe_apply(p0, x1, mc, cfg.act, cfg.glu, torch.bfloat16)
+    y32, a32 = moe.moe_apply(p0, x1.float(), mc, cfg.act, cfg.glu,
+                             torch.float32)
+    err, used = moe_error(y16, y32, MOE_BF16_RTOL, MOE_BF16_ATOL_RMS)
+    log(f"  moe_apply layer 0, one group of {tg} tokens: bf16 vs f32 "
+        f"compute max_abs_err={err:.3e} (worst element at {used:.3f} of "
+        f"{MOE_BF16_RTOL} |y| + {MOE_BF16_ATOL_RMS} rms(y); rms(y) "
+        f"{float(y32.square().mean().sqrt()):.4f}), aux {float(a16):.6f} / "
+        f"{float(a32):.6f}")
+    if used > 1 or float(a16) != float(a32):
+        raise AssertionError(f"{cfg.name}: moe_apply in bf16 disagrees with "
+                             "f32 compute")
+    r_dev = moe.route(p0["router"], x1[None], mc)
+    p_cpu = {k: v.cpu() for k, v in p0.items()}
+    t0 = time.perf_counter()
+    r_cpu = moe.route(p_cpu["router"], x1.cpu()[None], mc)
+    y_cpu, a_cpu = moe.moe_apply(p_cpu, x1.float().cpu(), mc, cfg.act,
+                                 cfg.glu, torch.float32)
+    cpu_s = time.perf_counter() - t0
+    del p_cpu
+    same_route = (torch.equal(r_dev.idx.cpu(), r_cpu.idx)
+                  and torch.equal(r_dev.pos.cpu(), r_cpu.pos))
+    srt = r_cpu.probs.sort(dim=-1, descending=True).values
+    k = mc.top_k
+    margin = float((srt[..., :k] - srt[..., 1:k + 1]).min())
+    err, used = moe_error(y32.cpu(), y_cpu, MOE_F32_RTOL, MOE_F32_ATOL_RMS)
+    log(f"  moe_apply layer 0 f32, card vs CPU ({cpu_s:.1f} s on the CPU): "
+        f"routing {'identical' if same_route else 'DIFFERS'} (smallest "
+        f"margin of a choice {margin:.2e}), max_abs_err={err:.3e} (worst "
+        f"element at {used:.3f} of {MOE_F32_RTOL} |y| + {MOE_F32_ATOL_RMS} "
+        f"rms(y)), aux gap {abs(float(a32) - float(a_cpu)):.2e}")
+    if not same_route or used > 1 or abs(float(a32) - float(a_cpu)) > 1e-6:
+        raise AssertionError(f"{cfg.name}: moe_apply f32 on the card "
+                             "disagrees with the CPU's")
+    del y16, y32, y_cpu
+    x128 = x_first[:MOE_DECODE_TOKENS]
+    ms, (y16, _) = timed(lambda: moe.moe_apply(p0, x128, mc, cfg.act,
+                                               cfg.glu, torch.bfloat16), 5)
+    y32, _ = moe.moe_apply(p0, x128.float(), mc, cfg.act, cfg.glu,
+                           torch.float32)
+    err, used = moe_error(y16, y32, MOE_BF16_RTOL, MOE_BF16_ATOL_RMS)
+    cap = moe._capacity(MOE_DECODE_TOKENS, mc)
+    nbytes = sum(v.numel() * v.element_size() for v in p0.values())
+    bnd, by = bound_ms(2.0 * (3 if cfg.glu else 2) * mc.n_experts * cap
+                       * cfg.d_model * cfg.d_ff, nbytes, PEAK_BF16_FLOPS)
+    log(f"  moe_apply at decode_32k's B={MOE_DECODE_TOKENS} tokens (one "
+        f"group, capacity {cap}): {ms:.3f} ms bf16, bound {bnd:.3f} ms "
+        f"({by}: {nbytes / 1e9:.2f} GB of router and experts at 3.35 TB/s); "
+        f"vs f32 max_abs_err={err:.3e} (worst element at {used:.3f} of its "
+        "tolerance)")
+    if used > 1:
+        raise AssertionError(f"{cfg.name}: moe_apply at B=128 in bf16 "
+                             "disagrees with f32 compute")
+
+
+def moe_flash_row(K, testing, label, qkv, launches):
+    """``flash_attention`` at an MoE prefill's captured layer-0 shape
+    (causal, no window): the kernel-table row, its library yardstick
+    SDPA's flash backend at ``is_causal=True``."""
+    q, k, v = qkv
+    b, h, s, dh = q.shape
+    flops, nbytes = flash_work(q, k, v, None)
+    ms, out_k = timed(lambda: K.flash_attention(q, k, v, True, None), 5)
+    plain_ms, out_p = timed_once(
+        lambda: K.flash_attention_plain(q, k, v, True, None))
+    err, used = testing.attention_error(
+        out_k, out_p, testing.attention_abs_mix(q, k, v, True, None))
+    if used > 1:
+        raise AssertionError(f"flash_attention vs plain at {label}")
+    del out_p
+    lib_ms, _, how = sdpa_flash_causal(q, k, v, 3)
+    bnd, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f"  flash_attention[{label} B={b} H={h} KV={k.shape[1]} (group "
+        f"{h // k.shape[1]}) S={s} dh={dh} causal bf16, "
+        f"{flash_kernel_name(q, k, v)}]: ms={ms:.3f} ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s) plain_ms={plain_ms:.3f} bound_ms={bnd:.3f} ({by}) "
+        f"share_of_bound={bnd / ms:.1%} library_ms={lib_ms:.3f} (SDPA flash "
+        f"backend, is_causal=True, {how}) max_abs_err={err:.3e} (worst "
+        f"element at {used:.3f} of its tolerance) launches={launches}")
+    src, repl = KERNEL_FILES["flash_attention"]
+    return {"name": f"flash_attention[{label} prefill B={b} S={s}]",
+            "route": "cuda", "source": src, "replaces": repl,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def moe_run(K, testing, cfg, published: int, label: str):
+    """``generate`` for one MoE config at published widths and cut depth;
+    returns its ``flash_attention`` kernel-table row."""
+    from repro_torch.analysis.trace_rules import device_split
+    from repro_torch.configs import lm_common
+    from repro_torch.models import attention, moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import decode
+
+    dev = torch.device("cuda")
+    mc = cfg.moe
+    b, s0, n_new, n_layers = MOE_BATCH, MOE_PROMPT, MOE_NEW, cfg.n_layers
+    tg = min(mc.group_size, b * s0)
+    cap = moe._capacity(tg, mc)
+    ffn = 3 if cfg.glu else 2
+    expert_bytes = ffn * mc.n_experts * cfg.d_model * cfg.d_ff * 2
+    ref_shape = lm_common.LM_SHAPES["prefill_32k"]
+    log(f"phase 3l: MoE serving, {cfg.name} at published widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV: GQA "
+        f"group {cfg.n_heads // cfg.n_kv_heads}, d_head {cfg.d_head}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {mc.n_experts} experts top-"
+        f"{mc.top_k}, capacity factor {mc.capacity_factor}, group "
+        f"{mc.group_size}, bf16), depth cut from {published} to {n_layers} "
+        f"layers ({expert_bytes / 1e9:.2f} GB of experts a layer); generate "
+        f"at B={b} s0={s0} n_new={n_new} (cut from prefill_32k: B="
+        f"{ref_shape['batch']}, S={ref_shape['seq']}): {b * s0} prompt "
+        f"tokens in {b * s0 // tg} groups of {tg}, capacity {cap} an expert "
+        f"a group; card {card_line()}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init(cfg, seed=MOE_SEED, device=dev)
+    torch.cuda.synchronize()
+    n_par = tfm.param_count(params)
+    log(f"  init on the card: {n_par / 1e9:.3f} B parameters, "
+        f"{n_par * 2 / 1e9:.2f} GB bf16, "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED + 1)
+    prompt = torch.randint(0, cfg.vocab, (b, s0), generator=gen, device=dev)
+    decode.generate(params, prompt, 2, cfg, device=dev)     # warm-up
+    torch.cuda.synchronize()
+
+    events, seen = {"prefill": [], "decode": []}, {"routes": [],
+                                                   "kernels": [], "steps": []}
+    orig_pre, orig_dec = tfm.prefill_step, tfm.decode_step
+    orig_fa, orig_route = attention.flash_attention, moe.route
+    orig_apply, orig_experts = moe.moe_apply, moe._experts
+
+    def timed_call(kind, fn, *a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a)
+        end.record()
+        events[kind].append((start, end))
+        return out
+
+    def spy_pre(*a):
+        out = timed_call("prefill", orig_pre, *a)
+        seen["prefill"] = out[0].clone()
+        return out
+
+    def spy_dec(*a):
+        out = timed_call("decode", orig_dec, *a)
+        seen["steps"].append(out[0])
+        return out
+
+    def spy_fa(q, k, v, causal=True, window=None):
+        if "qkv" not in seen:
+            seen["qkv"] = (q.clone(), k.clone(), v.clone())
+        seen["kernels"].append(flash_kernel_name(q, k, v))
+        return orig_fa(q, k, v, causal=causal, window=window)
+
+    def spy_route(*a):
+        seen["routes"].append(orig_route(*a))
+        return seen["routes"][-1]
+
+    def spy_apply(p, x, *a):
+        if "moe_x" not in seen:
+            seen["moe_x"] = x.reshape(-1, x.shape[-1])[
+                :max(tg, MOE_DECODE_TOKENS)].clone()
+        return orig_apply(p, x, *a)
+
+    tfm.prefill_step, tfm.decode_step = spy_pre, spy_dec
+    attention.flash_attention = spy_fa
+    moe.route, moe.moe_apply = spy_route, spy_apply
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    def refuse(*a, **k):
+        raise AssertionError("flash_attention_plain ran on the main path")
+
+    fa_mod.flash_attention_plain = refuse
+    for fn in all_counters(K):
+        fn.launches = 0
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tokens = decode.generate(params, prompt, n_new, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tfm.prefill_step, tfm.decode_step = orig_pre, orig_dec
+        attention.flash_attention = orig_fa
+        moe.route, moe.moe_apply = orig_route, orig_apply
+        fa_mod.flash_attention_plain = K.flash_attention_plain
+    launches = K.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pre_ms = sum(a.elapsed_time(e) for a, e in events["prefill"])
+    dec_ms = [a.elapsed_time(e) for a, e in events["decode"]]
+    others = {fn.__name__: fn.launches for fn in all_counters(K)
+              if fn is not K.flash_attention and fn.launches}
+    log(f"  generate: {wall * 1e3:.1f} ms host clock; prefill {pre_ms:.1f} "
+        f"ms ({b * s0 / pre_ms * 1e3:.0f} tokens/s); decode "
+        f"{np.mean(dec_ms):.2f} ms per token (median {np.median(dec_ms):.2f}"
+        f", {len(dec_ms)} steps, B={b}); peak device memory {peak:.2f} GB")
+    picked = sorted(set(seen["kernels"]))
+    log(f"  flash_attention launches: {launches} (one per layer of the "
+        f"prefill: {n_layers}), kernel picked: {', '.join(picked)}; other "
+        f"kernels launched: {others or 0}")
+    if launches != n_layers or others:
+        raise AssertionError("the prefill did not run each layer's "
+                             "attention through the kernel exactly once")
+    if picked != [LM_FLASH_KERNEL]:
+        raise AssertionError(f"the prefill's attention took {picked}, not "
+                             f"{LM_FLASH_KERNEL}")
+    drops = 0
+    for i, r in enumerate(seen["routes"][:n_layers]):
+        n_drop, share, lo, hi, demand = routing_reading(r, mc.n_experts)
+        drops += n_drop
+        log(f"  prefill layer {i}: {n_drop} of {r.keep.numel()} token "
+            f"choices dropped ({share:.2%}); expert load (kept choices, all "
+            f"groups) min {lo} max {hi} (mean {b * s0 * mc.top_k // mc.n_experts}"
+            f"); largest demand of a group on an expert {demand} (capacity "
+            f"{cap})")
+    dec_drops = sum(routing_reading(r, mc.n_experts)[0]
+                    for r in seen["routes"][n_layers:])
+    log(f"  decode: {len(seen['routes']) - n_layers} MoE calls of one group "
+        f"of {b} tokens (capacity {moe._capacity(b, mc)}), {dec_drops} "
+        "choices dropped")
+
+    # outputs: the prompt kept, tokens in range, every logit finite
+    if tokens.shape != (b, s0 + n_new) or not torch.equal(tokens[:, :s0],
+                                                          prompt):
+        raise AssertionError(f"generate returned {tuple(tokens.shape)}")
+    new = tokens[:, s0:]
+    if int(new.min()) < 0 or int(new.max()) >= cfg.vocab:
+        raise AssertionError("generated tokens out of the vocabulary")
+    if not all(bool(torch.isfinite(lg).all())
+               for lg in [seen["prefill"]] + seen["steps"]):
+        raise AssertionError("generate gave logits that are not finite")
+
+    # decode against prefill: the prompt's last `tail` tokens decoded one by
+    # one after a prefill over the rest, the last step against generate's
+    # prefill over all s0 tokens
+    tail = moe_tail(cfg, b, s0)
+    chain = []
+    moe.route = lambda *a: chain.append(orig_route(*a)) or chain[-1]
+    try:
+        _, cache = tfm.prefill_step(params, prompt[:, :s0 - tail], cfg)
+        full = tfm.init_cache(cfg, b, s0, device=dev)
+        for kk in ("k", "v"):
+            full[kk][:, :, :s0 - tail] = cache[kk]
+        del cache
+        for pos in range(s0 - tail, s0):
+            step, full = tfm.decode_step(params, full, prompt[:, pos], pos,
+                                         cfg)
+    finally:
+        moe.route = orig_route
+    del full
+    drops += sum(routing_reading(r, mc.n_experts)[0] for r in chain)
+    ref = seen["prefill"]
+    gap = (step - ref).abs()
+    excess = float((gap - LM_LOGIT_ATOL - LM_LOGIT_RTOL * ref.abs()).max())
+    same = float((step.argmax(-1) == ref.argmax(-1)).float().mean())
+    log(f"  decode vs prefill: a prefill over {s0 - tail} tokens, then "
+        f"{tail} decode steps (the fewest that leave both prefills whole "
+        f"groups), the last step against the prefill over {s0}: max |gap| "
+        f"{float(gap.max()):.4f} (|logit| <= {float(ref.abs().max()):.2f}; "
+        f"tol {LM_LOGIT_ATOL} + {LM_LOGIT_RTOL} |logit|), same argmax in "
+        f"{same:.2f} of the batch; {drops} token choices dropped in the two "
+        "prefills and the steps: "
+        + ("asserted" if drops == 0 else "not asserted (a dropped choice "
+           "changes its token's output)")
+        + f"; greedy tokens of row 0: {new[0, :8].tolist()}")
+    if not bool(torch.isfinite(step).all()) or (drops == 0 and excess > 0):
+        raise AssertionError("the decode step disagrees with the prefill")
+    del ref, step
+
+    # prefill time by part: flash_attention from torch.profiler, the MoE
+    # layer and its expert products from CUDA events on one more prefill
+    _, busy, fa_ms, _, fa_n = device_split(
+        lambda: tfm.prefill_step(params, prompt, cfg), LM_FLASH_KERNEL)
+    parts = {"moe": [], "experts": []}
+
+    def evented(kind, fn):
+        def run(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a)
+            end.record()
+            parts[kind].append((start, end))
+            return out
+        return run
+
+    moe.moe_apply = evented("moe", orig_apply)
+    moe._experts = evented("experts", orig_experts)
+    try:
+        total_ms, _ = timed_once(lambda: tfm.prefill_step(params, prompt, cfg))
+    finally:
+        moe.moe_apply, moe._experts = orig_apply, orig_experts
+    moe_ms, exp_ms = (sum(a.elapsed_time(e) for a, e in parts[k])
+                      for k in ("moe", "experts"))
+    exp_flops = (2.0 * ffn * mc.n_experts * (b * s0 // tg) * cap
+                 * cfg.d_model * cfg.d_ff * n_layers)
+    log(f"  prefill by part ({total_ms:.1f} ms, CUDA events): expert "
+        f"products {exp_ms:.1f} ms ({exp_ms / total_ms:.1%}; {exp_flops:.3e}"
+        f" flops over {mc.n_experts * (b * s0 // tg) * cap} slots a layer, "
+        f"{exp_flops / exp_ms / 1e9:.0f} TFLOP/s), routing + dispatch + "
+        f"combine {moe_ms - exp_ms:.1f} ms ({(moe_ms - exp_ms) / total_ms:.1%})"
+        + (f"; flash_attention under torch.profiler {fa_ms:.1f} ms of "
+           f"{busy:.1f} busy ({fa_ms / busy:.1%}, {fa_n} launches)"
+           if busy > 0 else "; flash_attention: not measured (the profiler "
+           "recorded no device time)")
+        + f"; the rest (projections, norms, head) "
+        f"{total_ms - moe_ms - (fa_ms if busy > 0 else 0.0):.1f} ms")
+    if busy > 0 and fa_n != n_layers:
+        raise AssertionError(f"the profiled prefill ran {LM_FLASH_KERNEL} "
+                             f"{fa_n} times, not {n_layers}")
+
+    cache = tfm.init_cache(cfg, b, s0 + n_new, device=dev)
+    wall, busy, _, n_kern, _ = device_split(
+        lambda: tfm.decode_step(params, cache, new[:, 0], s0, cfg),
+        LM_FLASH_KERNEL)
+    step_ms = float(np.mean(dec_ms))
+    log(f"  one decode step under torch.profiler: {wall:.1f} ms host clock, "
+        + (f"device busy {busy:.1f} ms in {n_kern} kernels ("
+           f"{1 - busy / step_ms:.0%} of the unprofiled {step_ms:.2f} ms "
+           f"step idle); expert weights read a step "
+           f"{expert_bytes * n_layers / 1e9:.1f} GB, "
+           f"{expert_bytes * n_layers / 3.35e9:.1f} ms at 3.35 TB/s"
+           if busy > 0 else "device split not measured"))
+    del cache
+
+    p0 = tfm._layer(params["layers"], 0)["moe"]
+    moe_layer_checks(cfg, p0, seen["moe_x"], tg)
+    row = moe_flash_row(K, testing, label, seen["qkv"], launches)
+    del params, p0, seen, tokens, prompt, new
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_moe(K, testing):
+    """Phase 3l: grok-1-314b, then llama4-maverick-400b-a17b, each freed
+    before the next is drawn. Returns flash_attention's kernel-table rows
+    at their prefill shapes."""
+    from repro_torch.configs import registry
+    t_phase = time.perf_counter()
+    rows = []
+    for arch, depth, label in MOE_ARCHS:
+        cfg = registry.get(arch).make_config()
+        rows.append(moe_run(K, testing, dataclasses.replace(
+            cfg, n_layers=depth), cfg.n_layers, label))
+    log(f"  phase 3l: {time.perf_counter() - t_phase:.0f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: each kernel at the main path's shapes.
 # ---------------------------------------------------------------------------
 
@@ -4656,6 +5122,65 @@ def pair_loss(approx: torch.Tensor, exact: torch.Tensor) -> float:
     return float(torch.mean((approx.double() - exact.double()) ** 2))
 
 
+def truncation_reading(q_learn, x, d, direct, cut, q, xs):
+    """Why the full rotation cut to d and the direct d fit read different
+    losses though the code makes them equal row for row (ROADMAP C 5):
+    both fits' moments recomputed twice and compared element by element,
+    the eigensolver run twice on one matrix, the eigenvalue gap at d, the
+    two models' Stiefel factors by principal angles, and the cut's A and B
+    recomputed from its P with the direct fit's product shapes ((d, D) @
+    (D, D), where the cut's came out of (D, D) @ (D, D)), with the loss of
+    each on the test queries ``q`` and the rows ``xs``."""
+    from repro_torch.core import leanvec_sphering as lvs
+    from repro_torch.core import linalg, metrics
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    kq = [linalg.second_moment(q_learn) for _ in range(2)]
+    kx = [linalg.second_moment(x) for _ in range(2)]
+    log(f"  C 5: K_Q twice: {'bit for bit' if torch.equal(*kq) else 'differ'}"
+        f" (max rel gap {rel(*kq):.2e}); K_X twice: "
+        f"{'bit for bit' if torch.equal(*kx) else 'differ'} (max rel gap "
+        f"{rel(*kx):.2e})")
+    w, _ = linalg.sphering_from_moment(kq[0])
+    m = w @ kx[0] @ w
+    m = 0.5 * (m + m.T)
+    runs = [torch.linalg.eigh(m) for _ in range(2)]
+    evals = runs[0][0].flip(0)
+    log(f"  C 5: eigh twice on one matrix: "
+        f"{'bit for bit' if torch.equal(runs[0][1], runs[1][1]) else 'differ'}"
+        f"; eigenvalues {d - 2}..{d + 1} (descending, 0-based): "
+        f"{[float(v) for v in evals[d - 2:d + 2]]} (gap at d: "
+        f"{float((evals[d - 1] - evals[d]) / evals[d - 1]):.2e} relative)")
+    again = [lvs.fit_from_moments(kq[0], kx[0], dd).p for dd in (d, x.shape[1])]
+    refit = lvs.fit(q_learn, x, d, device=x.device).p
+    cos = torch.linalg.svdvals(direct.p.double() @ cut.p.double().T)
+    log(f"  C 5: from one pair of moments the d fit's P "
+        f"{'equals' if torch.equal(again[0], again[1][:d]) else 'differs from'}"
+        f" the full fit's first {d} rows (and the phase's direct fit's: "
+        f"{torch.equal(again[0], direct.p)}); the direct fit run again now: "
+        f"P bit for bit {torch.equal(refit, direct.p)}; the phase's two fits:"
+        f" P bit for bit {torch.equal(direct.p, cut.p)}, principal angles cos min "
+        f"{float(cos.min()):.6f} ({int((cos < 1 - 1e-3).sum())} of {d} "
+        f"below 0.999), max |A gap| {float((direct.a - cut.a).abs().max()):.3e}"
+        f", max |B gap| {float((direct.b - cut.b).abs().max()):.3e}")
+    p_cut = cut.p.contiguous()
+    a2, b2 = p_cut @ cut.w_pinv, p_cut @ cut.w
+    s = torch.linalg.svdvals(cut.w_pinv)
+    s = s[s > 1e-6 * s.max()]       # the cut directions read ~1e-9 x max
+    losses = [float(metrics.leanvec_loss(a.contiguous(), b.contiguous(), q,
+                                         xs))
+              for a, b in ((direct.a, direct.b), (cut.a, cut.b), (a2, b2))]
+    log(f"  C 5: the cut's A and B from its P in the direct fit's shapes: "
+        f"bit for bit the direct fit's {torch.equal(a2, direct.a)} / "
+        f"{torch.equal(b2, direct.b)}; loss direct / cut / recomputed "
+        f"{losses[0]:.6g} / {losses[1]:.6g} / {losses[2]:.6g}; max |A| "
+        f"{float(direct.a.abs().max()):.3e}, W+ condition over the kept "
+        "directions "
+        f"{float(s.max() / s.min()):.3e}")
+
+
 def phase_baselines(K, testing, ds, x):
     """Phase 3j: the paper's linear baselines (SVD, LeanVec-FW, -ES,
     -ES+FW) beside LeanVec-Sphering, GleanVec and the full-rotation
@@ -4778,6 +5303,8 @@ def phase_baselines(K, testing, ds, x):
     check_topk(f"truncation d={d} vs the direct d={d} fit (candidates)",
                cands[f"full rotation d={d}"], cands["LeanVec-Sphering"],
                tol, testing)
+    truncation_reading(q_learn, x, d, linear["LeanVec-Sphering"][0],
+                       linear[f"full rotation d={d}"][0], q, xs)
     launches = counts(K)
     log(f"  phase 3j launches: {launches} "
         f"({time.perf_counter() - t_phase:.0f} s)")
@@ -5077,6 +5604,7 @@ def main(argv=None) -> int:
     log("phase 4 (LM): flash_attention at the prefill's captured shape")
     table.append(lm_timing(K, testing, qkv, lm_launches))
     del qkv
+    table += phase_moe(K, testing)
     add_launches(table, sharded_launches)
     # phase 3j's d = 160 scans run the linear mode's shape and the
     # gathered GleanVec one at 2M rows (d = 64, 128 and 256 have rows of

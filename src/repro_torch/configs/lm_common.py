@@ -10,3 +10,12 @@ LM_SHAPES = {
     "decode_32k": {"kind": "decode", "seq": 32768, "batch": 128},
     "long_500k": {"kind": "decode", "seq": 524288, "batch": 1},
 }
+
+# Pure full-attention archs skip long_500k (sub-quadratic attention needed):
+# only h2o-danube3 (SWA) runs it.
+FULL_ATTN_LONG_SKIP = {
+    "long_500k": ("pure full attention: 500k-context decode exceeds the "
+                  "per-chip KV-cache HBM budget and 500k prefill is "
+                  "quadratic; run only for the SWA arch (h2o-danube3), "
+                  "per assignment note"),
+}

@@ -155,9 +155,11 @@ def _leaf(value, device) -> torch.Tensor:
 def transformer_params(params, cfg, device=None):
     """The reference's transformer parameter tree (nested dicts, leaves
     convertible to numpy) -> the port's dict of tensors on ``device``, for
-    ``repro_torch.models.transformer``. Stacked layer leaves in the blocked
-    layout (n_blocks, block, ...) are flattened to (L, ...), as the
-    reference does for serving."""
+    ``repro_torch.models.transformer``, nested subtrees included (an MoE
+    layer's ``"moe"``: router and experts). Stacked layer leaves in the
+    blocked layout (n_blocks, block, ...) are flattened to (L, ...), as the
+    reference does for serving: an expert leaf (n_blocks, block, E, D, F)
+    arrives as (L, E, D, F)."""
     dev = resolve_device(device)
     # wq is (L, D, dq) flat and (n_blocks, block, D, dq) blocked
     blocked = np.ndim(params["layers"]["wq"]) == 4

@@ -1,0 +1,176 @@
+"""Mixture-of-Experts feed-forward layer (GShard-style grouped dispatch),
+from the reference's ``repro/models/moe.py``.
+
+Serves the two MoE architectures of ``configs/``: grok-1-314b (8 experts,
+top-2) and llama4-maverick-400b-a17b (128 experts, top-1).
+
+Tokens are processed in fixed-size groups (GShard): per group of T_g
+tokens, each expert has capacity C = int(T_g * top_k * capacity_factor /
+E) + 1 rounded up to a multiple of 4 (at least 4). The K choices of a
+token claim slots in priority order: every token's first choice before
+any token's second, each by a running count over the group's tokens; a
+choice whose slot is at or past C is dropped, and its token keeps only its
+other choices (the residual stream carries a token with none). The router
+runs in f32; the expert products in ``compute_dtype``. The auxiliary loss
+is the Switch / GShard load-balance loss E * sum_e f_e * p_e over the
+first choices.
+
+Where the reference builds (G, T_g, E, C) one-hot ``dispatch`` and
+``combine`` tensors and contracts them with einsums, this port scatters
+each kept choice's token row into an (E, G, C, D) buffer by its slot index
+and gathers each choice's expert output back from it: the same slots, the
+same drops, the same sums (the combine is each token's K gate-weighted
+rows added in f32 and rounded to ``compute_dtype`` once, as the einsum
+does). The expert products are batched matrix products over E, which the
+reference also leaves to its einsums: no Pallas kernel is reached.
+
+``MoEConfig.sharding`` ("ep" | "tp") is kept as data: on one device it has
+no effect (the reference's ``MeshRules`` and ``constrain`` have no
+counterpart here).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+
+__all__ = ["MoEConfig", "Routing", "moe_init", "route", "moe_apply"]
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    group_size: int = 256
+    sharding: str = "ep"          # "ep" | "tp": no effect on one device
+    aux_loss_weight: float = 0.01
+
+
+def moe_init(d_model: int, d_ff: int, cfg: MoEConfig, glu: bool, dtype,
+             generator: torch.Generator, device=None,
+             n_stack: Optional[int] = None):
+    """Random expert parameters at the reference's scales: ``router`` (D,
+    E) and ``w_up`` / ``w_gate`` (E, D, F) times D^-1/2, ``w_down`` (E, F,
+    D) times F^-1/2, in ``dtype``, drawn on ``device`` (the GPU unless
+    ``device="cpu"``) from ``generator``, which must live on that device.
+    With ``n_stack`` every leaf gets a leading axis of that many layers, as
+    the transformer stacks them."""
+    dev = layers.generator_device(generator, device)
+    lead = () if n_stack is None else (n_stack,)
+    e = cfg.n_experts
+
+    def normal(shape, scale):
+        return torch.randn(lead + shape, generator=generator, device=dev,
+                           dtype=dtype).mul_(scale)
+
+    p = {"router": normal((d_model, e), d_model ** -0.5),
+         "w_up": normal((e, d_model, d_ff), d_model ** -0.5),
+         "w_down": normal((e, d_ff, d_model), d_ff ** -0.5)}
+    if glu:
+        p["w_gate"] = normal((e, d_model, d_ff), d_model ** -0.5)
+    return p
+
+
+def _capacity(tg: int, cfg: MoEConfig) -> int:
+    c = int(tg * cfg.top_k * cfg.capacity_factor / cfg.n_experts) + 1
+    return max(4, -(-c // 4) * 4)
+
+
+class Routing(NamedTuple):
+    """The router's decisions for tokens in groups (G, T_g): ``probs`` (G,
+    T_g, E) f32; per choice (G, T_g, K): the expert ``idx``, the
+    renormalised ``gates`` f32, the slot ``pos`` in that expert's buffer of
+    ``capacity`` and ``keep`` (pos < capacity)."""
+
+    probs: torch.Tensor
+    idx: torch.Tensor
+    gates: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+
+
+def route(router: torch.Tensor, xg: torch.Tensor, cfg: MoEConfig) -> Routing:
+    """Softmax router in f32 and slot assignment in priority order for
+    tokens ``xg (G, T_g, D)``."""
+    e, k = cfg.n_experts, cfg.top_k
+    logits = xg.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                     # (G, Tg, E)
+    gates, idx = torch.topk(probs, k, dim=-1)                 # (G, Tg, K)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    cap = _capacity(xg.shape[1], cfg)
+    counts = torch.zeros(xg.shape[0], 1, e, dtype=torch.int64,
+                         device=xg.device)
+    pos = []
+    for slot in range(k):
+        onehot = F.one_hot(idx[..., slot], e)                 # (G, Tg, E)
+        p = (torch.cumsum(onehot, dim=1) - 1 + counts).gather(
+            -1, idx[..., slot:slot + 1])                      # (G, Tg, 1)
+        pos.append(p)
+        counts = counts + (onehot * (p < cap)).sum(1, keepdim=True)
+    pos = torch.cat(pos, dim=-1)
+    return Routing(probs, idx, gates, pos, pos < cap, cap)
+
+
+def _experts(params, x_e: torch.Tensor, act: str, glu: bool,
+             cd) -> torch.Tensor:
+    """The expert FFNs on their slot rows ``x_e (E, N, D)``: batched
+    products over E in ``cd``. Each weight's cast is a temporary, so a
+    compute type other than the weights' holds one cast weight at a
+    time."""
+    h = torch.bmm(x_e, params["w_up"].to(cd))                 # (E, N, F)
+    if glu:
+        h = layers.activation(act, torch.bmm(
+            x_e, params["w_gate"].to(cd))) * h
+    else:
+        h = layers.activation(act, h)
+    return torch.bmm(h, params["w_down"].to(cd))
+
+
+def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, act: str, glu: bool,
+              compute_dtype=torch.bfloat16):
+    """``x (..., D)`` -> (y in x's shape and type, aux loss f32 scalar).
+    The leading dims are flattened to tokens in row-major order and cut
+    into groups of ``min(group_size, tokens)``; a token count that is not a
+    multiple of the group raises ``ValueError``, where the reference
+    asserts."""
+    cd = compute_dtype
+    shape, d = x.shape, x.shape[-1]
+    xt = x.reshape(-1, d)
+    t = xt.shape[0]
+    tg = min(cfg.group_size, t)
+    if t % tg:
+        raise ValueError(f"token count {t} not divisible by group {tg}")
+    g, e, k = t // tg, cfg.n_experts, cfg.top_k
+    xg = xt.reshape(g, tg, d)
+    r = route(params["router"], xg, cfg)
+    cap = r.capacity
+
+    # dispatch: each kept choice's token row into its expert's slot of an
+    # (E, G, C, D) buffer; dropped choices go to one spare row past its end
+    # (no host sync for a mask)
+    n_slots = e * g * cap
+    group = torch.arange(g, device=x.device)[:, None, None]
+    rows = torch.where(r.keep, (r.idx * g + group) * cap + r.pos, n_slots)
+    src = xg.to(cd)[:, :, None, :].expand(g, tg, k, d).reshape(-1, d)
+    buf = torch.zeros(n_slots + 1, d, dtype=cd, device=x.device)
+    buf.index_copy_(0, rows.reshape(-1), src)
+    x_e = buf[:n_slots].view(e, g * cap, d)
+
+    y_e = _experts(params, x_e, act, glu, cd).view(n_slots, d)
+
+    # combine: each token's K expert rows weighted by its gates (cast to
+    # compute_dtype, 0 for a dropped choice), summed in f32, rounded once
+    w = torch.where(r.keep, r.gates, 0.0).to(cd)
+    picked = y_e[torch.where(r.keep, rows, 0).reshape(-1)].view(g * tg, k, d)
+    y = torch.bmm(w.view(g * tg, 1, k), picked).view(t, d)
+
+    frac = F.one_hot(r.idx[..., 0], e).to(torch.float32).mean(dim=(0, 1))
+    aux = cfg.aux_loss_weight * e * torch.sum(
+        frac * r.probs.mean(dim=(0, 1)))
+    return y.reshape(shape).to(x.dtype), aux

@@ -1,30 +1,32 @@
 """Config-driven decoder-only LM for serving: prefill and decode steps, from
 the reference's ``repro/models/transformer.py``.
 
-Covers the dense architectures (configs/): GQA and sliding-window
-attention (h2o-danube-3-4b), QKV bias (qwen2-72b), squared-ReLU without a
-GLU (nemotron-4-15b). Parameters are a dict of stacked (L, ...) tensors
-mirroring the reference's tree, so ``repro_torch.convert`` carries them
-across one to one; the reference's ``scan`` over layers is a Python loop.
-Dtypes follow the reference at every step: the residual stream in
-``compute_dtype``, ``rmsnorm`` and ``rope`` in f32, the LM head a bf16 x
-bf16 product cast to f32 whatever the compute dtype. The prompt's
-attention goes through the hand-written ``flash_attention`` kernel
-(``models.attention.prefill_attention``).
+Covers every LM of ``configs/``: GQA and sliding-window attention
+(h2o-danube-3-4b), QKV bias (qwen2-72b), squared-ReLU without a GLU
+(nemotron-4-15b), and mixture-of-experts FFNs (grok-1-314b,
+llama4-maverick-400b-a17b; ``models/moe.py``). Parameters are a dict of
+stacked (L, ...) tensors mirroring the reference's tree, so
+``repro_torch.convert`` carries them across one to one; the reference's
+``scan`` over layers is a Python loop. Dtypes follow the reference at
+every step: the residual stream in ``compute_dtype``, ``rmsnorm`` and
+``rope`` in f32, the LM head a bf16 x bf16 product cast to f32 whatever
+the compute dtype. The prompt's attention goes through the hand-written
+``flash_attention`` kernel (``models.attention.prefill_attention``).
 
-Not ported: MoE layers (``models/moe.py``), sharding (``MeshRules``,
-``constrain``, ``param_specs``), training (``train_loss``,
-``_chunked_xent``, remat and the blocked layer layout) -- ROADMAP A12.
+Not ported: sharding (``MeshRules``, ``constrain``, ``param_specs``;
+ROADMAP A4) and training (``train_loss``, ``_chunked_xent``, remat and the
+blocked layer layout; ROADMAP A2).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
+from repro_torch.models.moe import MoEConfig
 
 __all__ = ["TransformerConfig", "init", "cache_len", "init_cache",
            "prefill_step", "decode_step", "param_count"]
@@ -44,7 +46,7 @@ class TransformerConfig:
     glu: bool = True
     qkv_bias: bool = False
     swa_window: Optional[int] = None
-    moe: Optional[Any] = None        # MoE configs are not served yet (A12)
+    moe: Optional[MoEConfig] = None  # an MoE FFN in every layer if set
     rope_theta: float = 1e4
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -52,12 +54,6 @@ class TransformerConfig:
     @property
     def qkv_dims(self) -> Tuple[int, int]:
         return self.n_heads * self.d_head, self.n_kv_heads * self.d_head
-
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A12)")
 
 
 # ---------------------------------------------------------------------------
@@ -68,8 +64,9 @@ def _dense_only(cfg: TransformerConfig) -> None:
 def init(cfg: TransformerConfig, seed: int = 0, device=None):
     """Random parameters at the reference's scales (``_layer_init``), drawn
     on ``device`` from a seeded ``torch.Generator`` (the reference's
-    ``jax.random`` draws other numbers from the same seed)."""
-    _dense_only(cfg)
+    ``jax.random`` draws other numbers from the same seed). An MoE config
+    gets the reference's ``"moe"`` subtree (stacked (L, ...)) in place of
+    the layer-level ``w_up`` / ``w_down`` / ``w_gate``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt, n = cfg.param_dtype, cfg.n_layers
@@ -90,15 +87,19 @@ def init(cfg: TransformerConfig, seed: int = 0, device=None):
         "wv": normal((n, cfg.d_model, dkv), s),
         "wo": normal((n, dq, cfg.d_model), dq ** -0.5),
         "ln2": {"scale": ones(n, cfg.d_model)},
-        "w_up": normal((n, cfg.d_model, cfg.d_ff), s),
-        "w_down": normal((n, cfg.d_ff, cfg.d_model), cfg.d_ff ** -0.5),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe.moe_init(cfg.d_model, cfg.d_ff, cfg.moe, cfg.glu, dt,
+                                gen, dev, n_stack=n)
+    else:
+        p["w_up"] = normal((n, cfg.d_model, cfg.d_ff), s)
+        p["w_down"] = normal((n, cfg.d_ff, cfg.d_model), cfg.d_ff ** -0.5)
+        if cfg.glu:
+            p["w_gate"] = normal((n, cfg.d_model, cfg.d_ff), s)
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((n, dq), dtype=dt, device=dev)
         p["bk"] = torch.zeros((n, dkv), dtype=dt, device=dev)
         p["bv"] = torch.zeros((n, dkv), dtype=dt, device=dev)
-    if cfg.glu:
-        p["w_gate"] = normal((n, cfg.d_model, cfg.d_ff), s)
     return {
         "embed": normal((cfg.vocab, cfg.d_model), 0.02),
         "layers": p,
@@ -142,7 +143,13 @@ def _qkv(p, cfg: TransformerConfig, h: torch.Tensor):
 
 
 def _mlp(p, cfg: TransformerConfig, h: torch.Tensor) -> torch.Tensor:
+    """The FFN on ``h (..., D)``: dense, or the MoE layer on the flattened
+    tokens (prefill's (B, S) in (batch, position) order; a decode step's B
+    tokens one group), its auxiliary loss dropped as the reference's
+    prefill and decode drop it."""
     cd = cfg.compute_dtype
+    if cfg.moe is not None:
+        return moe.moe_apply(p["moe"], h, cfg.moe, cfg.act, cfg.glu, cd)[0]
     up = h @ p["w_up"].to(cd)
     if cfg.glu:
         act = layers.activation(cfg.act, h @ p["w_gate"].to(cd)) * up
@@ -184,7 +191,6 @@ def prefill_step(params, tokens: torch.Tensor, cfg: TransformerConfig):
     logits (B, V) f32 and the KV cache ``{"k", "v"}`` (L, B, keep, KV, dh)
     of the trailing ``keep = cache_len(cfg, S)`` positions (the window for
     SWA archs), in position order."""
-    _dense_only(cfg)
     b, s = tokens.shape
     cd = cfg.compute_dtype
     nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -220,7 +226,6 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: int,
     Writes the new keys and values into ``cache`` in place (slot ``pos %
     cache_len`` for SWA archs: a ring; ``pos`` otherwise) and returns
     (logits (B, V) f32, cache)."""
-    _dense_only(cfg)
     b = tokens.shape[0]
     cd = cfg.compute_dtype
     nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head

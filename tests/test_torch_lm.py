@@ -303,13 +303,6 @@ def test_prefill_and_decode_match_reference(arch, f32):
         _close(got_c[kk], want_c[kk], f32, cache=True)
 
 
-def test_moe_configs_raise():
-    cfg = dataclasses.replace(registry.get("h2o-danube-3-4b").make_config(
-        smoke=True), moe=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        tfm.init(cfg, device="cpu")
-
-
 def test_full_configs_match_reference():
     """The port's copies hold the reference's numbers, in torch dtypes."""
     for arch in ARCHS:
@@ -323,8 +316,8 @@ def test_full_configs_match_reference():
                 else:
                     assert got == want, (arch, smoke, f.name)
     assert lm_common.LM_SHAPES == ref_lm_common.LM_SHAPES
-    with pytest.raises(KeyError):
-        registry.get("grok-1-314b")
+    with pytest.raises(KeyError):           # the GNN waits for its model
+        registry.get("gcn-cora")
 
 
 def test_init_scales_follow_the_reference():

@@ -69,6 +69,8 @@ def test_port_imports_without_jax():
             "import repro_torch.models.recsys, repro_torch.models.embedding\n"
             "import repro_torch.serve.retrieval, repro_torch.train.data\n"
             "import repro_torch.configs.gleanvec_paper\n"
+            "import repro_torch.models.moe, repro_torch.configs.grok1_314b\n"
+            "import repro_torch.configs.llama4_maverick\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'repro was imported'\n")
@@ -109,6 +111,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     dlrm_cfg = registry.get("dlrm-mlperf").make_config(smoke=True)
     lm_cfg = registry.get("h2o-danube-3-4b").make_config(smoke=True)
     lm_params = tfm.init(lm_cfg, device="cpu")
+    from repro_torch.models import moe
+    moe_cfg = registry.get("grok-1-314b").make_config(smoke=True)
 
     def numpy_tree(t):
         if isinstance(t, dict):
@@ -119,6 +123,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     calls = [lambda: resolve_device(),
              lambda: tfm.init(lm_cfg),
              lambda: tfm.init_cache(lm_cfg, 1, 8),
+             lambda: tfm.init(moe_cfg),
+             lambda: moe.moe_init(64, 128, moe_cfg.moe, True,
+                                  torch.float32, torch.Generator()),
              lambda: convert.transformer_params(lm_tree, lm_cfg),
              lambda: decode.generate(lm_params, np.zeros((1, 4), np.int64),
                                      2, lm_cfg),
@@ -425,6 +432,51 @@ def test_cuda_lm_prefill_launches_kernel_not_plain(cuda, monkeypatch):
     want = plain(q, k, k, window=cfg.swa_window)
     assert attention_error(got, want, attention_abs_mix(
         q, k, k, window=cfg.swa_window))[1] <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [12, 10], ids=["group6", "group5"])
+def test_cuda_moe_prefill_launches_wgmma_kernel_not_plain(cuda, monkeypatch,
+                                                         heads):
+    """An MoE model's prefill on the card (grok-1's smoke config widened to
+    dh 128 and GQA groups 6 and 5 over 2 KV heads, bf16, as grok-1 and
+    maverick run) takes ``flash_wgmma_kernel`` in every layer, never the
+    plain version, and ``generate`` serves from the same path."""
+    import dataclasses
+    import importlib
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import decode
+    fam = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    def refuse(*a, **k):
+        raise AssertionError("plain path taken for a CUDA tensor")
+
+    cfg = dataclasses.replace(
+        registry.get("grok-1-314b").make_config(smoke=True), n_heads=heads,
+        n_kv_heads=2, d_head=128, param_dtype=torch.bfloat16)
+    params = tfm.init(cfg, seed=0, device=cuda)
+    prompt = torch.randint(0, cfg.vocab, (2, 48), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    picked = []
+    orig = attention.flash_attention
+
+    def spy(q, k, v, causal=True, window=None):
+        picked.append(fam.VARIANTS[fam._variant(q, k, v)])
+        return orig(q, k, v, causal=causal, window=window)
+
+    monkeypatch.setattr(fam, "flash_attention_plain", refuse)
+    monkeypatch.setattr(attention, "flash_attention", spy)
+    before = K.flash_attention.launches
+    logits, _ = tfm.prefill_step(params, prompt, cfg)
+    tokens = decode.generate(params, prompt, 3, cfg, device=cuda)
+    torch.cuda.synchronize()
+    assert K.flash_attention.launches == before + 2 * cfg.n_layers
+    assert picked == ["flash_wgmma_kernel"] * (2 * cfg.n_layers)
+    assert bool(torch.isfinite(logits).all()) and tokens.shape == (2, 51)
 
 
 def _plain_tol(q, x, lo=None):
