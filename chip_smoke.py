@@ -4,7 +4,8 @@ stores and the graph index), its serving operations layer (the host
 rerank tier, the guarded lifecycle, the coalescing frontend), its sharded
 placement, the paper's baselines and its OI-13M configuration, the
 recommenders' serving and candidate retrieval, and its LM serving paths
-(dense and mixture-of-experts) on one NVIDIA GPU.
+(dense and mixture-of-experts), and its training (the LMs at published
+widths, MIND train-then-retrieve, the driver's drill) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -243,6 +244,30 @@ Phases (any failure raises and the script exits non-zero):
    0's first group in bf16 against f32 compute, the f32 call against the
    CPU's, and at decode_32k's 128 tokens; flash_attention's kernel-table
    row at each prefill's shape beside SDPA's flash backend.
+3m. Training, after phase 3l's weights are freed (random weights drawn on
+   the card; every reading beside the card's name and power limit).
+   (a) h2o-danube-3-4b at its published widths, all 24 layers: train_4k's
+   seq 4096 with the batch cut from 256 to 4 (TRAIN_ACCUM 4: a microbatch
+   of 1), AdamW, remat "nothing", 4 steps through ``make_train_step`` and
+   ``train_loss``: ms, tokens/s, loss, grad norm, lr, peak memory and model
+   TFLOP/s (6 x active x tokens + the attention term) a step, finite
+   metrics and 0 host syncs in step 1 asserted; one microbatch's device
+   time by kernel (``torch.profiler``); ``chunked_attention`` on layer 0's
+   q, k, v against ``flash_attention`` at phase 2's attention tolerance;
+   one full-width layer's loss and gradients at seq 256 against the CPU
+   path. (b) qwen2-72b at its published widths cut from 80 to 2 layers,
+   its own setup (Adafactor, TRAIN_ACCUM 8, loss_chunks 16), seq 4096,
+   batch 8, 3 steps, the same readings and asserts. (c) MIND train-then-
+   retrieve (``examples/train_recsys_retrieval.py`` at published widths):
+   the train_batch bundle (65,536 users, AdamW lr 1e-3) for 5 steps, then
+   GleanVec (d 16, C 16) fitted on the first 1,000,000 rows of the learned
+   item table and ``serve.retrieval`` from the trained user tower at batch
+   1 and 512 in modes full and gleanvec-sorted (p50, recall@10
+   against full, kernel-table rows; ip_topk, gleanvec_sq_topk and
+   kmeans_assign must launch). (d) ``python -m repro_torch.launch.train``
+   on the card (danube smoke, 8 steps, checkpoints every 2): a run with
+   REPRO_FAIL_AT_STEP=5 exits 42, its ``--resume`` ends where an
+   uninterrupted run ends (final loss and step-8 state within DRILL_*).
 
 Then the card's name and power limit, one JSON line with the kernel table,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -449,6 +474,35 @@ BASELINE_TRUNCATIONS = (64, 128, 160, 256)
 # learn from.
 RETRIEVAL_D, RETRIEVAL_C, RETRIEVAL_BATCHES = 16, 16, (1, 512)
 RECSYS_SEED, RECSYS_LEARN_USERS = 5, 10_000
+# Training (phase 3m), random weights drawn on the card from TRAIN_SEED.
+# (a) h2o-danube-3-4b at its published widths, all 24 layers: train_4k's
+# seq 4096, its batch cut from 256 to 4 (its TRAIN_ACCUM 4 keeps a
+# microbatch of 1), AdamW, remat "nothing", 4 steps. (b) qwen2-72b at its
+# published widths cut from 80 to 2 layers (4.25 B parameters: the head
+# and embedding hold 2.49 B of them), its own setup (Adafactor lr 1e-2,
+# TRAIN_ACCUM 8, f32 accumulation, loss_chunks 16), seq 4096, batch 8, 3
+# steps. (c) MIND's train_batch bundle for MIND_TRAIN_STEPS steps, then
+# retrieval_cand over the learned items in MIND_TRAIN_MODES (phase 3k's d
+# and C).
+TRAIN_ARCH, TRAIN_DEPTH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = (
+    "h2o-danube-3-4b", 24, 4, 4096, 4)
+QWEN_ARCH, QWEN_DEPTH, QWEN_BATCH, QWEN_STEPS = "qwen2-72b", 2, 8, 3
+TRAIN_SEED = 27
+MIND_TRAIN_STEPS = 5
+MIND_TRAIN_MODES = ("full", "gleanvec-sorted")
+# One full-width danube layer at seq TRAIN_CHECK_SEQ, batch 1, card
+# against CPU in bf16 compute: the CPU parity tests' bf16 tolerance (the
+# loss within 2e-3 relative, each gradient leaf within 4e-2 of its norm;
+# bf16 roundings in another order: 1.6e-2 measured at the smoke widths).
+TRAIN_CHECK_SEQ = 256
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 2e-3, 4e-2
+# The driver's drill (phase 3m (d), the smoke config, f32): a resumed run
+# against an uninterrupted one. On the card the embedding's backward may
+# add in another order, and Adam moves an element by about lr a step
+# whatever its gradient's size, so an element may move otherwise by up to
+# ~2 lr a step: lr <= 3e-4 * 8 / 100 (warm-up) over the 4 resumed steps,
+# 2e-4; the loss within 1e-3 relative.
+DRILL_ATOL, DRILL_LOSS_RTOL = 2e-4, 1e-3
 
 
 def log(msg: str) -> None:
@@ -3927,6 +3981,400 @@ def phase_moe(K, testing):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3m: training.
+# ---------------------------------------------------------------------------
+
+
+def train_setup(arch: str, cfg):
+    """The training step of ``arch``'s config module (its optimizer,
+    accumulation and accumulation dtype, as ``launch.steps`` builds the
+    bundle) for ``cfg`` (the module's config, depth possibly cut):
+    returns (step, opt_init, optimizer config, accumulation)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.trainstep import make_train_step
+    module = registry.get(arch)
+    abstract = tfm.blocked_view(steps._abstract(
+        lambda: tfm.init(cfg, device="cpu")), cfg)
+    _, opt_init, opt_cfg, accum_dtype = steps._opt_setup(module, abstract,
+                                                         smoke=False)
+    accum = getattr(module, "TRAIN_ACCUM", 1)
+    step = make_train_step(lambda p, b: tfm.train_loss(p, b, cfg), opt_cfg,
+                           accum_steps=accum, accum_dtype=accum_dtype)
+    return step, opt_init, opt_cfg, accum, accum_dtype
+
+
+def train_run(label, step, params, opt, batch_of, n_steps, tokens, flops):
+    """``n_steps`` steps on ``batch_of(i)``, each timed with CUDA events
+    (the step waits for nothing; its metrics are read after the timing),
+    with the peak device memory of the step. Step 1 runs under
+    ``set_sync_debug_mode`` and must make no host sync. Every loss and
+    grad norm must be finite. ``tokens``: the tokens (or users) a step;
+    ``flops``: its model flops (None: no TFLOP/s reading). Returns (params,
+    opt, the step readings)."""
+    from repro_torch.analysis.trace_rules import sync_count
+    readings = []
+    for i in range(n_steps):
+        batch = batch_of(i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        out = {}
+
+        def one():
+            start.record()
+            out["r"] = step(params, opt, batch)
+            end.record()
+
+        syncs = None
+        if i == 1:
+            syncs = sync_count(one)
+        else:
+            one()
+        end.synchronize()
+        params, opt, metrics = out["r"]
+        ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        m = {k: float(v) for k, v in metrics.items()}
+        rate = "" if flops is None else (
+            f" model {flops / ms / 1e9:.1f} TFLOP/s "
+            f"({flops / ms / 1e9 / (PEAK_BF16_FLOPS / 1e12):.1%} of "
+            f"{PEAK_BF16_FLOPS / 1e12:.0f} bf16)")
+        log(f"  {label} step {i}: {ms:.1f} ms, {tokens / ms * 1e3:.0f} "
+            f"{'tokens' if flops is not None else 'users'}/s, loss "
+            f"{m['loss']:.5f} grad_norm {m['grad_norm']:.5f} lr "
+            f"{m['lr']:.3e}, peak {peak:.2f} GB{rate}"
+            + (f"; host syncs in the step: {syncs}" if syncs is not None
+               else ""))
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{label} step {i}: non-finite metrics {m}")
+        if syncs:
+            raise AssertionError(f"{label} step {i}: {syncs} host syncs")
+        readings.append((ms, peak, m))
+        del batch
+    return params, opt, readings
+
+
+def train_profile(label, fn, micro_ms):
+    """Device time by kernel of ``fn`` (one microbatch's forward and
+    backward) under ``torch.profiler``: busy ms against the unprofiled
+    microbatch's ``micro_ms``, the share of the matrix products (cuBLAS /
+    CUTLASS kernels by name) and the largest kernels."""
+    from repro_torch.analysis.trace_rules import profile_kernels
+    _, rows, _ = profile_kernels(fn)
+    busy = sum(us for _, _, us in rows) / 1e3
+    if busy <= 0:
+        log(f"  {label} microbatch by kernel: not measured (no device time "
+            "recorded)")
+        return
+    gemm = sum(us for name, _, us in rows if any(
+        k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass")))
+    top = sorted(rows, key=lambda r: -r[2])[:8]
+    log(f"  {label} one microbatch under torch.profiler: device busy "
+        f"{busy:.1f} ms ({sum(c for _, c, _ in rows)} kernels) against "
+        f"{micro_ms:.1f} ms unprofiled ({1 - busy / micro_ms:.1%} idle); "
+        f"matrix products {gemm / 1e3:.1f} ms ({gemm / 1e3 / busy:.1%}); "
+        "largest: " + "; ".join(
+            f"{name[:70]} x{c} {us / 1e3:.1f} ms" for name, c, us in top))
+
+
+def train_layer_check(cfg, params, seed):
+    """``train_loss`` and its gradients of one full-width layer (layer 0
+    of ``params`` with the embedding, final norm and head) at seq
+    TRAIN_CHECK_SEQ, batch 1, on the card against the port's CPU path on
+    the same bf16 weights and tokens."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import data
+    from repro_torch.train.trainstep import value_and_grad
+    one = dataclasses.replace(cfg, n_layers=1)
+
+    def first(stacked):
+        if isinstance(stacked, dict):
+            return {k: first(v) for k, v in stacked.items()}
+        return stacked[:1]
+
+    p1 = {**params, "layers": first(params["layers"])}
+    batch = data.lm_batch(seed, 0, 1, TRAIN_CHECK_SEQ, cfg.vocab,
+                          device="cuda")
+    t0 = time.perf_counter()
+    loss_g, grads_g = value_and_grad(
+        lambda p, b: tfm.train_loss(p, b, one), p1, batch)
+    cpu = tree.structure(p1).unflatten([t.cpu() for t in tree.leaves(p1)])
+    loss_c, grads_c = value_and_grad(
+        lambda p, b: tfm.train_loss(p, b, one), cpu,
+        {k: v.cpu() for k, v in batch.items()})
+    worst, where = 0.0, ""
+    paths, leaves, _ = tree.flatten_with_paths(grads_g)
+    for path, g, c in zip(paths, leaves, tree.leaves(grads_c)):
+        g, c = g.float().cpu(), c.float()
+        err = float(torch.linalg.vector_norm(g - c)
+                    / torch.linalg.vector_norm(c).clamp(min=1e-30))
+        if err > worst:
+            worst, where = err, path
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    log(f"  one full-width layer at seq {TRAIN_CHECK_SEQ}, batch 1, card vs "
+        f"CPU ({time.perf_counter() - t0:.1f} s): loss {float(loss_g):.6f} "
+        f"vs {float(loss_c):.6f} (rel {rel:.2e}, tol {TRAIN_LOSS_RTOL}); "
+        f"worst gradient leaf {where} at {worst:.2e} of its norm (tol "
+        f"{TRAIN_GRAD_RTOL})")
+    if rel > TRAIN_LOSS_RTOL or worst > TRAIN_GRAD_RTOL:
+        raise AssertionError("the card's train_loss or gradients disagree "
+                             "with the CPU path")
+
+
+def train_attention_check(K, testing, cfg, params, batch):
+    """Layer 0's q, k, v of a forward of ``train_loss`` (one microbatch):
+    ``chunked_attention`` (the training path) against ``flash_attention``
+    (the serving kernel) at phase 2's attention tolerance."""
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+    seen = []
+    orig = attention.chunked_attention
+
+    def spy(q, k, v, causal=True, window=None, q_chunk=512):
+        if not seen:
+            seen.append((q.clone(), k.clone(), v.clone(), window, q_chunk))
+        return orig(q, k, v, causal, window, q_chunk)
+
+    attention.chunked_attention = spy
+    try:
+        with torch.no_grad():
+            tfm.train_loss(params, batch, cfg)
+    finally:
+        attention.chunked_attention = orig
+    q, k, v, window, q_chunk = seen[0]
+    with torch.no_grad():
+        got = orig(q, k, v, True, window, q_chunk).transpose(1, 2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    with uncounted(K):
+        want = K.flash_attention(qt, kt, vt, causal=True, window=window)
+    torch.cuda.synchronize()
+    err, used = testing.attention_error(
+        got, want, testing.attention_abs_mix(qt, kt, vt, True, window))
+    log(f"  chunked_attention vs flash_attention ({flash_kernel_name(qt, kt, vt)}) "
+        f"on layer 0's q, k, v (B={q.shape[0]} S={q.shape[1]} H="
+        f"{q.shape[2]} KV={k.shape[2]} dh={q.shape[3]} window={window}, "
+        f"bf16): max_abs_err={err:.3e}, worst element at {used:.3f} of "
+        "phase 2's attention tolerance")
+    if used > 1:
+        raise AssertionError("chunked_attention disagrees with "
+                             "flash_attention")
+
+
+def lm_train(K, testing, arch, depth, batch, seq, n_steps, label,
+             checks: bool):
+    """An LM's training at published widths (depth cut to ``depth``) on
+    random bf16 weights drawn on the card; returns the step readings."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import data
+    from repro_torch.train.trainstep import value_and_grad
+    dev = torch.device("cuda")
+    full = registry.get(arch).make_config()
+    cfg = dataclasses.replace(full, n_layers=depth)
+    step, opt_init, opt_cfg, accum, accum_dtype = train_setup(arch, cfg)
+    t0 = time.perf_counter()
+    params = tfm.init(cfg, seed=TRAIN_SEED, device=dev)
+    opt = opt_init(params)
+    torch.cuda.synchronize()
+    n_par = tfm.param_count(params)
+    active, _ = steps._lm_active_params(cfg)
+    flops = 6.0 * active * batch * seq + steps._lm_attn_flops_train(
+        cfg, batch, seq)
+    log(f"phase 3m ({label}): {cfg.name} training at published widths, "
+        f"{depth} of {full.n_layers} layers, {n_par / 1e9:.3f} B "
+        f"parameters ({n_par * 2 / 1e9:.2f} GB bf16), "
+        f"{type(opt_cfg).__name__}{tuple(opt_cfg)}, accumulation {accum} "
+        f"in {str(accum_dtype)[6:]}, remat {cfg.remat_policy!r}, "
+        f"loss_chunks {cfg.loss_chunks}, q_chunk {cfg.q_chunk}, seq {seq}, "
+        f"batch {batch} (train_4k: {full.name} batch 256), model flops a "
+        f"step {flops:.3e}; init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB with the optimizer "
+        "state")
+
+    def batch_of(i):
+        return data.lm_batch(TRAIN_SEED, i, batch, seq, cfg.vocab,
+                             device=dev)
+
+    if checks:
+        train_attention_check(K, testing, cfg, params, {
+            k: v[:batch // accum] for k, v in batch_of(0).items()})
+    params, opt, readings = train_run(label, step, params, opt, batch_of,
+                                      n_steps, batch * seq, flops)
+    ms = [r[0] for r in readings[1:]]
+    micro = {k: v[:batch // accum] for k, v in batch_of(0).items()}
+    train_profile(label, lambda: value_and_grad(
+        lambda p, b: tfm.train_loss(p, b, cfg), params, micro),
+        float(np.median(ms)) / accum)
+    log(f"  {label}: median step {np.median(ms):.1f} ms over steps 1-"
+        f"{n_steps - 1}, {batch * seq / np.median(ms) * 1e3:.0f} tokens/s, "
+        f"model {flops / np.median(ms) / 1e9:.1f} TFLOP/s, peak "
+        f"{max(r[1] for r in readings):.2f} GB")
+    if checks:
+        del opt
+        torch.cuda.empty_cache()
+        train_layer_check(cfg, params, TRAIN_SEED)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return readings
+
+
+def mind_train(K, testing):
+    """examples/train_recsys_retrieval.py at published widths: MIND's
+    train_batch bundle for MIND_TRAIN_STEPS steps, then GleanVec fitted on
+    the first n_candidates rows of the learned item table and served from
+    the trained user tower. Returns the kernel-table rows of the
+    retrieval (launches: this phase's main path)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+    from repro_torch.train import data
+    dev = torch.device("cuda")
+    bundle = steps.build_bundle("mind", "train_batch", device=dev)
+    cfg, b = bundle.config, bundle.args[2]["seq"].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    params = recsys.mind.init(gen, cfg, device=dev)
+    opt = bundle.opt_init(params)
+    log(f"phase 3m (c): MIND train-then-retrieve at published widths "
+        f"({cfg.n_items} items, seq {cfg.seq_len}, d {cfg.embed_dim}, "
+        f"{cfg.n_interests} interests, {cfg.capsule_iters} capsule "
+        f"iterations), train_batch {b}, AdamW lr 1e-3, "
+        f"{MIND_TRAIN_STEPS} steps; model flops a step "
+        f"{bundle.model_flops:.3e}")
+
+    def batch_of(i):
+        return data.mind_batch(TRAIN_SEED, i, b, cfg.seq_len, cfg.n_items,
+                               device=dev)
+
+    params, opt, readings = train_run("mind", bundle.fn, params, opt,
+                                      batch_of, MIND_TRAIN_STEPS, b, None)
+    losses = [r[2]["loss"] for r in readings]
+    log(f"  mind: losses {[round(x, 5) for x in losses]}, median step "
+        f"{np.median([r[0] for r in readings[1:]]):.1f} ms")
+    del opt
+    n_cand = registry.get("mind").SHAPES["retrieval_cand"]["n_candidates"]
+    for fn in all_counters(K):
+        fn.launches = 0
+    with torch.no_grad():
+        users = {m: recsys.mind.user_embedding(params, data.mind_batch(
+            TRAIN_SEED, 1000 + m, m, cfg.seq_len, cfg.n_items, device=dev),
+            cfg) for m in RETRIEVAL_BATCHES}
+        learn = recsys.mind.user_embedding(params, data.mind_batch(
+            TRAIN_SEED, 999, RECSYS_LEARN_USERS, cfg.seq_len, cfg.n_items,
+            device=dev), cfg)
+        rows = retrieval_runs(K, testing, "mind-trained",
+                              params["item_emb"][:n_cand].contiguous(),
+                              learn, users, MIND_TRAIN_MODES)
+    launches = counts(K)
+    log(f"  phase 3m (c) retrieval launches: {launches}")
+    for name in ("ip_topk", "gleanvec_sq_topk", "kmeans_assign"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 3m (c): {name} was not launched")
+    del params, users, learn
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def checkpoint_leaves(ckpt_dir) -> dict:
+    """{leaf path: array} of the newest checkpoint under ``ckpt_dir``."""
+    from repro_torch.train import checkpoint
+    step = checkpoint.latest_step(str(ckpt_dir))
+    d = Path(ckpt_dir) / f"step_{step:08d}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    return step, {leaf["path"]: np.load(d / leaf["file"])
+                  for leaf in manifest["leaves"]}
+
+
+def train_drill():
+    """The driver on the card (no --device): a run that exits 42 at
+    REPRO_FAIL_AT_STEP=5 and an uninterrupted run side by side, then the
+    first resumed; the resumed run's step-8 checkpoint and final loss
+    against the uninterrupted run's within DRILL_ATOL / DRILL_LOSS_RTOL."""
+    import os
+    import tempfile
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            TRAIN_ARCH, "--shape", "train_4k", "--smoke", "--steps", "8",
+            "--ckpt-every", "2"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_FAIL_AT_STEP", None)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        drill, whole = Path(tmp) / "drill", Path(tmp) / "whole"
+
+        def start(args, fail=None):
+            e = dict(env) if fail is None else dict(
+                env, REPRO_FAIL_AT_STEP=str(fail))
+            return subprocess.Popen(base + args, env=e, cwd=ROOT,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+
+        def finish(proc):
+            out, err = proc.communicate(timeout=300)
+            return proc.returncode, out, err
+
+        runs = [start(["--ckpt-dir", str(drill)], fail=5),
+                start(["--ckpt-dir", str(whole)])]
+        (rc_f, out_f, err_f), (rc_w, out_w, err_w) = map(finish, runs)
+        rc_r, out_r, err_r = finish(start(["--ckpt-dir", str(drill),
+                                           "--resume"]))
+        for name, rc, want, err in (("drill", rc_f, 42, err_f),
+                                    ("uninterrupted", rc_w, 0, err_w),
+                                    ("resume", rc_r, 0, err_r)):
+            if rc != want:
+                raise AssertionError(f"driver {name} run exited {rc} (want "
+                                     f"{want}): {err[-2000:]}")
+        if "[resume] restored step 4" not in out_r:
+            raise AssertionError(f"the resume did not restore step 4: "
+                                 f"{out_r[-1000:]}")
+        final = [float(ln.split()[2]) for out in (out_r, out_w)
+                 for ln in out.splitlines() if ln.startswith("final loss")]
+        (sa, a), (sb, b) = checkpoint_leaves(drill), checkpoint_leaves(whole)
+        if sa != 8 or sb != 8 or sorted(a) != sorted(b):
+            raise AssertionError("the two runs' last checkpoints differ in "
+                                 "step or leaves")
+        gap = max(float(np.abs(a[k].astype(np.float64)
+                               - b[k].astype(np.float64)).max()) for k in a)
+        loss_rel = abs(final[0] - final[1]) / abs(final[1])
+        log(f"phase 3m (d): the driver on the card ({TRAIN_ARCH} smoke, 8 "
+            f"steps, checkpoints every 2): the drill exited 42 at step 5, "
+            f"--resume restored step 4; final loss {final[0]!r} vs "
+            f"uninterrupted {final[1]!r} (rel {loss_rel:.2e}, tol "
+            f"{DRILL_LOSS_RTOL}); step-8 state: {len(a)} leaves, largest "
+            f"|gap| {gap:.3e} (tol {DRILL_ATOL}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if loss_rel > DRILL_LOSS_RTOL or gap > DRILL_ATOL:
+            raise AssertionError("the resumed run does not end where the "
+                                 "uninterrupted one ends")
+
+
+def phase_train(K, testing):
+    """Phase 3m: (a) h2o-danube-3-4b and (b) qwen2-72b training at
+    published widths, (c) MIND train-then-retrieve, (d) the driver's
+    drill. Returns the kernel-table rows of (c)'s retrieval."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 3m: training on {card_line()}; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated at the "
+        "start")
+    lm_train(K, testing, TRAIN_ARCH, TRAIN_DEPTH, TRAIN_BATCH, TRAIN_SEQ,
+             TRAIN_STEPS, "(a) danube", checks=True)
+    lm_train(K, testing, QWEN_ARCH, QWEN_DEPTH, QWEN_BATCH, TRAIN_SEQ,
+             QWEN_STEPS, "(b) qwen2", checks=False)
+    rows = mind_train(K, testing)
+    train_drill()
+    log(f"  phase 3m: {time.perf_counter() - t_phase:.0f} s on "
+        f"{card_line()}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: each kernel at the main path's shapes.
 # ---------------------------------------------------------------------------
 
@@ -5605,6 +6053,7 @@ def main(argv=None) -> int:
     table.append(lm_timing(K, testing, qkv, lm_launches))
     del qkv
     table += phase_moe(K, testing)
+    table += phase_train(K, testing)
     add_launches(table, sharded_launches)
     # phase 3j's d = 160 scans run the linear mode's shape and the
     # gathered GleanVec one at 2M rows (d = 64, 128 and 256 have rows of

@@ -13,7 +13,10 @@ arrays and five static fields); ``streaming_state`` a reference
 ``transformer_params`` carries an LM's parameter tree across (numpy
 leaves, bf16 ones exactly; a blocked layer layout flattened to (L, ...)),
 ``recsys_params`` a recommender's (nested dicts and lists, one tensor a
-leaf), and ``linear_dr`` a linear baseline (``{a, b}``).
+leaf), and ``linear_dr`` a linear baseline (``{a, b}``). ``adamw_state``
+and ``adafactor_state`` carry an optimizer state across (its step and its
+moment trees, every leaf in its own type and shape), so a run can start
+in the port from the reference's state mid-run.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from repro_torch.device import resolve_device
 
 __all__ = ["arrays_of", "sphering_model", "gleanvec_model", "linear_dr",
            "scorer", "ivf_index", "graph_index", "streaming_state",
-           "transformer_params", "recsys_params", "SCORERS"]
+           "transformer_params", "recsys_params", "adamw_state",
+           "adafactor_state", "SCORERS"]
 
 SCORERS = {cls.__name__: cls for cls in (
     sc.LinearScorer, sc.GleanVecScorer, sc.QuantizedScorer,
@@ -195,3 +199,39 @@ def recsys_params(params, cfg, device=None):
         return _leaf(tree, dev).to(cfg.param_dtype)
 
     return convert(params)
+
+
+def _state_tree(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _state_tree(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_state_tree(v, dev) for v in tree]
+    return _leaf(tree, dev)
+
+
+def _step(step, dev) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev)
+
+
+def adamw_state(state, device=None):
+    """The reference's ``AdamWState`` (``step``, ``mu``, ``nu``; leaves
+    convertible to numpy) -> the port's on ``device``, each moment leaf in
+    the reference's shape: pair it with parameters in the same layout
+    (``transformer.blocked_view`` for a blocked config)."""
+    from repro_torch.train.optimizer import AdamWState
+    dev = resolve_device(device)
+    return AdamWState(step=_step(state.step, dev),
+                      mu=_state_tree(state.mu, dev),
+                      nu=_state_tree(state.nu, dev))
+
+
+def adafactor_state(state, device=None):
+    """The reference's ``AdafactorState`` (``step``, ``vr``, ``vc``,
+    ``mu``) -> the port's on ``device`` (the momentum in its own type,
+    bf16 bits kept), shapes as the reference's."""
+    from repro_torch.train.optimizer import AdafactorState
+    dev = resolve_device(device)
+    return AdafactorState(step=_step(state.step, dev),
+                          vr=_state_tree(state.vr, dev),
+                          vc=_state_tree(state.vc, dev),
+                          mu=_state_tree(state.mu, dev))

@@ -1,11 +1,15 @@
 """Attention of the LM, from the reference's ``repro/models/attention.py``.
 
+* ``chunked_attention`` -- the differentiable form that training runs
+  (the reference's own), in plain torch under autograd on the CPU and on
+  the card alike: the scores are made ``q_chunk`` queries at a time, one
+  (B, H, qc, S) f32 tile each (autograd keeps each tile's probabilities
+  for the backward, as the reference's scan keeps its residuals). The reference's ``flash_attention`` is forward
+  only and has no backward, so neither has a kernel here.
 * ``prefill_attention`` -- the prompt's causal (and sliding-window)
   attention, lowered to the hand-written kernel
   :func:`repro_torch.kernels.flash_attention`, which the reference names
-  its serving/forward path. Its plain version is the CPU path; the
-  reference's ``chunked_attention`` (the differentiable form) comes with
-  training.
+  its serving/forward path. Its plain version is the CPU path.
 * ``decode_attention`` -- one new token against a KV cache (plain torch;
   the reference has no kernel for it).
 """
@@ -17,7 +21,45 @@ import torch
 
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 
-__all__ = ["prefill_attention", "decode_attention"]
+__all__ = ["chunked_attention", "prefill_attention", "decode_attention"]
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_chunk: int = 512) -> torch.Tensor:
+    """``q (B, S, H, dh)``, ``k/v (B, S, KV, dh)`` -> (B, S, H, dh), as the
+    reference computes it: GQA by repeating K and V up to H heads; per
+    chunk of ``q_chunk`` queries the scores in f32 on ``q * scale``, the
+    causal and window mask at ``NEG_INF``, the softmax in f32, then the
+    probabilities cast to q's type for the product with V (in q's type).
+    The reference pads the last chunk with zero queries and drops their
+    rows; here the last chunk is shorter, with the same output."""
+    b, s, h, dh = q.shape
+    group = h // k.shape[2]
+    scale = 1.0 / float(dh) ** 0.5
+    q_chunk = min(q_chunk, s)
+    if group > 1:
+        k = k.repeat_interleave(group, dim=2)             # (B, S, H, dh)
+        v = v.repeat_interleave(group, dim=2)
+    kf = k.to(torch.float32)
+    vq = v.to(q.dtype)
+    k_pos = torch.arange(s, device=q.device)
+    outs = []
+    for c0 in range(0, s, q_chunk):
+        q_c = q[:, c0:c0 + q_chunk]                       # (B, qc, H, dh)
+        scores = torch.einsum("bqhd,bshd->bhqs",
+                              q_c.to(torch.float32) * scale, kf)
+        q_pos = torch.arange(c0, c0 + q_c.shape[1], device=q.device)
+        mask = torch.ones((q_c.shape[1], s), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        scores = scores.masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        outs.append(torch.einsum("bhqs,bshd->bqhd", probs, vq))
+    return torch.cat(outs, dim=1)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

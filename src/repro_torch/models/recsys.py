@@ -14,7 +14,7 @@
 Each namespace has ``init(gen, cfg, device=None)`` (random weights at the
 reference's shapes and scales, drawn from ``gen`` on ``device``: the GPU
 by default, and ``gen`` must live there), ``ctr_loss(params,
-batch, cfg)`` (a forward loss; nothing here trains) and
+batch, cfg)`` (the training loss, differentiable under autograd) and
 ``user_embedding(params, batch, cfg)``, the query tower of candidate
 retrieval (:mod:`repro_torch.serve.retrieval`). Params are dicts of
 tensors, batches dicts of tensors (:mod:`repro_torch.train.data`).
@@ -33,6 +33,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import embedding as emb_mod
 from repro_torch.models import layers
@@ -368,25 +369,37 @@ class mind:
         return torch.sum(user * target_emb, dim=-1)
 
     @staticmethod
+    def _chunk_loss(cu: torch.Tensor, t_emb: torch.Tensor, s: int,
+                    pow_p: float) -> torch.Tensor:
+        """The summed in-batch log-softmax of users ``s ..`` (capsules
+        ``cu``) at their own targets."""
+        n, k, d = cu.shape
+        bsz = t_emb.shape[0]
+        sims = (cu.reshape(-1, d) @ t_emb.T).reshape(n, k, bsz)
+        w = torch.softmax(pow_p * sims, dim=1)
+        scores = torch.sum(w * sims, dim=1)                      # (u, B)
+        rows = torch.arange(n, device=cu.device)
+        diag = scores[rows, s + rows]
+        return torch.sum(diag - torch.logsumexp(scores, dim=1))
+
+    @staticmethod
     def ctr_loss(params, batch, cfg: MINDConfig) -> torch.Tensor:
         """In-batch sampled softmax over the targets: every user against
         every in-batch target. The (B, B) score matrix is made
-        ``MIND_LOSS_CHUNK`` users at a time (each row's log-softmax needs only its own row),
-        so a batch of 262,144 needs no 275 GB matrix; the arithmetic per
-        row is the reference's."""
+        ``MIND_LOSS_CHUNK`` users at a time (each row's log-softmax needs
+        only its own row), so a batch of 262,144 needs no 275 GB matrix;
+        each chunk runs under a checkpoint, so the backward makes its (u,
+        K, B) similarities again rather than keeping every chunk's (~0.8
+        GB a chunk at train_batch's 65,536 users). The arithmetic per row
+        is the reference's."""
         caps = mind.interests(params, batch["seq"], cfg)          # (B, K, d)
         t_emb = params["item_emb"][batch["target"].long()].to(torch.float32)
-        bsz, k, d = caps.shape
         total = torch.zeros((), dtype=torch.float32, device=caps.device)
-        for s in range(0, bsz, MIND_LOSS_CHUNK):
-            cu = caps[s:s + MIND_LOSS_CHUNK]                     # (u, K, d)
-            sims = (cu.reshape(-1, d) @ t_emb.T).reshape(cu.shape[0], k, bsz)
-            w = torch.softmax(cfg.pow_p * sims, dim=1)
-            scores = torch.sum(w * sims, dim=1)                  # (u, B)
-            rows = torch.arange(cu.shape[0], device=caps.device)
-            diag = scores[rows, s + rows]
-            total = total + torch.sum(diag - torch.logsumexp(scores, dim=1))
-        return -total / bsz
+        for s in range(0, caps.shape[0], MIND_LOSS_CHUNK):
+            total = total + checkpoint(
+                mind._chunk_loss, caps[s:s + MIND_LOSS_CHUNK], t_emb, s,
+                cfg.pow_p, use_reentrant=False, preserve_rng_state=False)
+        return -total / caps.shape[0]
 
     @staticmethod
     def user_embedding(params, batch, cfg: MINDConfig) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Config-driven decoder-only LM for serving: prefill and decode steps, from
-the reference's ``repro/models/transformer.py``.
+"""Config-driven decoder-only LM: the training loss, prefill and decode
+steps, from the reference's ``repro/models/transformer.py``.
 
 Covers every LM of ``configs/``: GQA and sliding-window attention
 (h2o-danube-3-4b), QKV bias (qwen2-72b), squared-ReLU without a GLU
@@ -13,23 +13,38 @@ every step: the residual stream in ``compute_dtype``, ``rmsnorm`` and
 the compute dtype. The prompt's attention goes through the hand-written
 ``flash_attention`` kernel (``models.attention.prefill_attention``).
 
+Training (``train_loss``) runs the reference's differentiable path under
+autograd: ``attention.chunked_attention`` in every layer (the kernel has
+no backward, in the reference either), each layer under the config's
+remat policy (``torch.utils.checkpoint``), groups of ``remat_block``
+layers under one more checkpoint (the reference's hierarchical remat),
+and a cross entropy over ``loss_chunks`` chunks of the sequence, each
+recomputed in the backward, so no (T, V) logits outlive their chunk.
+The stacked layer tensors are split with ``unbind`` (one ``stack`` in the
+backward, not a full-size zero tensor a layer). ``train_loss`` takes the
+port's flat (L, ...) stacks or the reference's blocked (n_blocks, block,
+...) ones, which ``blocked_view`` makes from the flat ones without a copy.
+
 Not ported: sharding (``MeshRules``, ``constrain``, ``param_specs``;
-ROADMAP A4) and training (``train_loss``, ``_chunked_xent``, remat and the
-blocked layer layout; ROADMAP A2).
+ROADMAP A4).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, moe
 from repro_torch.models.moe import MoEConfig
 
 __all__ = ["TransformerConfig", "init", "cache_len", "init_cache",
-           "prefill_step", "decode_step", "param_count"]
+           "prefill_step", "decode_step", "param_count", "train_loss",
+           "blocked_layout", "blocked_view"]
 
 
 @dataclass(frozen=True)
@@ -50,6 +65,11 @@ class TransformerConfig:
     rope_theta: float = 1e4
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    q_chunk: int = 512
+    loss_chunks: int = 8
+    remat_policy: str = "nothing"    # "nothing" | "dots" | "none"
+    remat_block: int = 0             # >0: hierarchical remat over groups
+                                     # of this many layers
 
     @property
     def qkv_dims(self) -> Tuple[int, int]:
@@ -142,20 +162,20 @@ def _qkv(p, cfg: TransformerConfig, h: torch.Tensor):
     return q, k, v
 
 
-def _mlp(p, cfg: TransformerConfig, h: torch.Tensor) -> torch.Tensor:
+def _mlp(p, cfg: TransformerConfig, h: torch.Tensor):
     """The FFN on ``h (..., D)``: dense, or the MoE layer on the flattened
     tokens (prefill's (B, S) in (batch, position) order; a decode step's B
-    tokens one group), its auxiliary loss dropped as the reference's
-    prefill and decode drop it."""
+    tokens one group). Returns (output, the MoE auxiliary loss or None):
+    training adds it, prefill and decode drop it as the reference's do."""
     cd = cfg.compute_dtype
     if cfg.moe is not None:
-        return moe.moe_apply(p["moe"], h, cfg.moe, cfg.act, cfg.glu, cd)[0]
+        return moe.moe_apply(p["moe"], h, cfg.moe, cfg.act, cfg.glu, cd)
     up = h @ p["w_up"].to(cd)
     if cfg.glu:
         act = layers.activation(cfg.act, h @ p["w_gate"].to(cd)) * up
     else:
         act = layers.activation(cfg.act, up)
-    return act @ p["w_down"].to(cd)
+    return act @ p["w_down"].to(cd), None
 
 
 def _head(params, h: torch.Tensor) -> torch.Tensor:
@@ -163,6 +183,165 @@ def _head(params, h: torch.Tensor) -> torch.Tensor:
     h = layers.rmsnorm(params["final_norm"], h)
     return (h.to(torch.bfloat16)
             @ params["lm_head"].to(torch.bfloat16)).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+
+def blocked_layout(cfg: TransformerConfig) -> bool:
+    """The reference keeps a config's stacked layers as (n_blocks, block,
+    ...) when hierarchical remat is on; here it decides the remat's
+    grouping (and ``blocked_view``'s shapes)."""
+    return (cfg.remat_block > 0 and cfg.n_layers % cfg.remat_block == 0
+            and cfg.n_layers > cfg.remat_block)
+
+
+def blocked_view(params, cfg: TransformerConfig):
+    """``params`` with every stacked layer tensor viewed as the reference's
+    blocked (n_blocks, block, ...) layout (no copy; the flat tree itself
+    when the config is not blocked). Optimizer state made on this view has
+    the reference's shapes, so its factored moments are the reference's."""
+    if not blocked_layout(cfg):
+        return params
+    nb = cfg.n_layers // cfg.remat_block
+
+    def view(tree):
+        if isinstance(tree, dict):
+            return {k: view(v) for k, v in tree.items()}
+        return tree.view((nb, cfg.remat_block) + tuple(tree.shape[1:]))
+
+    return {**params, "layers": view(params["layers"])}
+
+
+def _unstack(stacked, n_layers: int, blocked: bool):
+    """The ``n_layers`` per-layer parameter dicts of a stacked tree, views
+    made by ``unbind`` (its backward is one ``stack`` a tensor)."""
+    if isinstance(stacked, dict):
+        kids = {k: _unstack(v, n_layers, blocked) for k, v in stacked.items()}
+        return [{k: kids[k][i] for k in kids} for i in range(n_layers)]
+    return (stacked.flatten(0, 1) if blocked else stacked).unbind(0)
+
+
+def _layer_fwd(p, cfg: TransformerConfig, h: torch.Tensor, rot,
+               aux: torch.Tensor):
+    """One decoder layer, training form, on ``h (B, S, D)``: returns (h,
+    aux plus the layer's MoE auxiliary loss)."""
+    b, s, _ = h.shape
+    cd = cfg.compute_dtype
+    nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q, k, v = _qkv(p, cfg, layers.rmsnorm(p["ln1"], h))
+    q = layers.apply_rope(q.view(b, s, nh, dh), rot)
+    k = layers.apply_rope(k.view(b, s, nkv, dh), rot)
+    attn = attention.chunked_attention(q, k, v.view(b, s, nkv, dh),
+                                       causal=True, window=cfg.swa_window,
+                                       q_chunk=cfg.q_chunk)
+    h = h + attn.reshape(b, s, nh * dh) @ p["wo"].to(cd)
+    out, layer_aux = _mlp(p, cfg, layers.rmsnorm(p["ln2"], h))
+    return h + out, aux if layer_aux is None else aux + layer_aux
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of products without batch
+    dimensions (``mm``: the projections, FFN and router) and recompute the
+    rest, batched products (attention, experts) included -- the
+    reference's ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(fn, *args, **kwargs):
+    """``torch.utils.checkpoint`` as every remat here runs it: the
+    non-reentrant form, keeping no RNG state (the model draws no random
+    numbers, and the CPU generator's state would be a host tensor a
+    step)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kwargs)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the config's activation remat: "nothing" saves only
+    its inputs and recomputes the rest in the backward; "dots" also saves
+    ``_save_matmuls``' outputs; "none" saves everything (no checkpoint)."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _save_matmuls)
+        return functools.partial(_checkpoint, fn, context_fn=context)
+    if policy != "nothing":
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return functools.partial(_checkpoint, fn)
+
+
+def _xent_chunk(h_c: torch.Tensor, w_head: torch.Tensor,
+                l_c: torch.Tensor) -> torch.Tensor:
+    """The summed cross entropy of one chunk: bf16 x bf16 logits cast to
+    f32, ``logsumexp`` less the label's logit (a gather: the same f32 value
+    as the reference's one-hot product)."""
+    logits = (h_c.to(torch.bfloat16)
+              @ w_head.to(torch.bfloat16)).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    label = logits.gather(-1, l_c.long()[..., None])[..., 0]
+    return torch.sum(lse - label)
+
+
+def _chunked_xent(h: torch.Tensor, w_head: torch.Tensor,
+                  labels: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """Mean cross entropy over ``n_chunks`` chunks of the sequence, each
+    under a checkpoint: its (B, S / n_chunks, V) logits are made again in
+    the backward and never outlive the chunk."""
+    b, s, _ = h.shape
+    n_chunks = min(n_chunks, s)
+    if s % n_chunks:
+        raise ValueError(f"sequence {s} does not cut into {n_chunks} chunks")
+    sc = s // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, s, sc):
+        total = total + _checkpoint(_xent_chunk, h[:, c:c + sc], w_head,
+                                    labels[:, c:c + sc])
+    return total / (b * s)
+
+
+def train_loss(params, batch: Dict[str, torch.Tensor],
+               cfg: TransformerConfig) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch`` (``tokens`` and
+    ``labels``, (B, S)) plus the layers' MoE auxiliary loss over
+    ``n_layers``, differentiable in ``params`` (flat (L, ...) layer stacks
+    or ``blocked_view``'s)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    h = _embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    rot = layers.rope_tables(
+        torch.arange(s, device=h.device)[None, :].expand(b, s), cfg.d_head,
+        cfg.rope_theta)
+    stacked = params["layers"]
+    per_layer = _unstack(stacked, cfg.n_layers, stacked["wq"].ndim == 4)
+
+    def body(p, h, aux):
+        return _layer_fwd(p, cfg, h, rot, aux)
+
+    layer = _remat(body, cfg.remat_policy)
+
+    def run(group, h, aux):
+        for p in group:
+            h, aux = layer(p, h, aux)
+        return h, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if blocked_layout(cfg):
+        # hierarchical remat: only each block's input is kept; a block's
+        # layers (under their own policy) are run again in the backward
+        for g in range(0, cfg.n_layers, cfg.remat_block):
+            h, aux = _checkpoint(run, per_layer[g:g + cfg.remat_block],
+                                 h, aux)
+    else:
+        h, aux = run(per_layer, h, aux)
+    h = layers.rmsnorm(params["final_norm"], h)
+    loss = _chunked_xent(h, params["lm_head"], labels, cfg.loss_chunks)
+    return loss + aux / cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +388,7 @@ def prefill_step(params, tokens: torch.Tensor, cfg: TransformerConfig):
         v = v.view(b, s, nkv, dh)
         attn = attention.prefill_attention(q, k, v, cfg.swa_window)
         h = h + attn.reshape(b, s, nh * dh) @ p["wo"].to(cd)
-        h = h + _mlp(p, cfg, layers.rmsnorm(p["ln2"], h))
+        h = h + _mlp(p, cfg, layers.rmsnorm(p["ln2"], h))[0]
         cache["k"][i] = k[:, s - keep:]
         cache["v"][i] = v[:, s - keep:]
     return _head(params, h[:, -1]), cache
@@ -245,5 +424,5 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: int,
         v_c[:, slot] = v.view(b, nkv, dh).to(v_c.dtype)
         attn = attention.decode_attention(q, k_c, v_c, length)
         h = h + attn.reshape(b, nh * dh) @ p["wo"].to(cd)
-        h = h + _mlp(p, cfg, layers.rmsnorm(p["ln2"], h))
+        h = h + _mlp(p, cfg, layers.rmsnorm(p["ln2"], h))[0]
     return _head(params, h), cache

@@ -10,7 +10,9 @@ Leaves are found and named by :mod:`repro_torch.tree` (the reference's
 ``keystr`` paths). Tensors are written from wherever they live: a host
 tensor straight from host memory, a device tensor through one copy.
 ``restore`` returns numpy leaves; the caller places them (the serving
-lifecycle puts them on its template's devices). ``restore_distributed``
+lifecycle puts them on its template's devices). numpy has no bfloat16:
+a bf16 tensor is written as its int16 bits (the manifest says
+``bfloat16``) and comes back as a bf16 CPU tensor. ``restore_distributed``
 places them itself: the counterpart of the reference's ``NamedSharding``
 is a device, or :class:`RowShard` -- this rank's row slice under a process
 group -- so a checkpoint written under one placement (or by the reference
@@ -34,7 +36,10 @@ __all__ = ["save", "restore", "latest_step", "available_steps",
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy()
     return np.asarray(leaf)
 
 
@@ -51,9 +56,10 @@ def save(ckpt_dir: str, step: int, tree_: Any,
     for i, (p, leaf) in enumerate(zip(paths, leaves)):
         arr = _to_numpy(leaf)
         np.save(os.path.join(tmp, f"{i}.npy"), arr)
+        bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
         manifest["leaves"].append(
             {"path": p, "file": f"{i}.npy", "shape": list(arr.shape),
-             "dtype": str(arr.dtype)})
+             "dtype": "bfloat16" if bf16 else str(arr.dtype)})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -120,6 +126,8 @@ def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None,
                                  f"target {expect}")
         if isinstance(leaf, (bool, int, float)):
             out.append(type(leaf)(arr))
+        elif by_path[p]["dtype"] == "bfloat16" and arr.dtype == np.int16:
+            out.append(torch.from_numpy(arr).view(torch.bfloat16))
         else:
             out.append(arr)
     return treedef.unflatten(out), manifest["step"], manifest["meta"]
@@ -155,16 +163,19 @@ class RowShard:
             raise ValueError(f"{n} rows do not split into {self.n_shards} "
                              "equal shards")
         per = n // self.n_shards
-        rows = np.ascontiguousarray(arr[self.rank * per:
-                                        (self.rank + 1) * per])
-        return torch.from_numpy(rows).to(self.device)
+        rows = arr[self.rank * per:(self.rank + 1) * per]
+        if isinstance(rows, torch.Tensor):          # a bf16 leaf
+            return rows.contiguous().to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
 
 
 def _place(leaf, placement):
-    if not isinstance(leaf, np.ndarray):
+    if not isinstance(leaf, (np.ndarray, torch.Tensor)):
         return leaf                     # a python scalar of the template
     if isinstance(placement, RowShard):
         return placement.place(leaf)
+    if isinstance(leaf, torch.Tensor):  # a bf16 leaf
+        return leaf.to(torch.device(placement))
     return torch.from_numpy(np.ascontiguousarray(leaf)).to(
         torch.device(placement))
 

@@ -1,11 +1,11 @@
-"""Deterministic synthetic recsys batches (the serving half of the
-reference's ``repro/train/data.py``).
+"""Deterministic synthetic batches (port of ``repro/train/data.py``).
 
 Every batch is a pure function of (seed, step): a ``torch.Generator`` on
 the batch's device seeded from (seed, salt, step), with the reference's
-salts, shapes, value ranges and label rate. The numbers are not
-``jax.random``'s. ``lm_batch`` and ``graph_minibatch_seeds`` wait with
-training.
+salts, shapes, value ranges and label rate, so a restart replays the exact
+stream with no pipeline state to checkpoint. The numbers are not
+``jax.random``'s. ``graph_minibatch_seeds`` waits for the GNN (ROADMAP
+A3).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["criteo_batch", "bst_batch", "mind_batch"]
+__all__ = ["lm_batch", "criteo_batch", "bst_batch", "mind_batch"]
 
 
 def _gen(seed: int, step: int, salt: int, dev) -> torch.Generator:
@@ -29,6 +29,17 @@ def _gen(seed: int, step: int, salt: int, dev) -> torch.Generator:
 def _labels(gen, batch: int, dev) -> torch.Tensor:
     return (torch.rand(batch, generator=gen, device=dev) < 0.3).to(
         torch.int32)
+
+
+def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
+             device=None) -> Dict[str, torch.Tensor]:
+    """``tokens`` and ``labels`` (B, seq) int32: one draw of seq + 1 ids
+    below ``vocab`` a row, the labels shifted by one."""
+    dev = resolve_device(device)
+    g = _gen(seed, step, 1, dev)
+    tokens = torch.randint(0, vocab, (batch, seq + 1), generator=g,
+                           device=dev, dtype=torch.int32)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
 
 def criteo_batch(seed: int, step: int, batch: int, n_dense: int,

@@ -71,6 +71,9 @@ def test_port_imports_without_jax():
             "import repro_torch.configs.gleanvec_paper\n"
             "import repro_torch.models.moe, repro_torch.configs.grok1_314b\n"
             "import repro_torch.configs.llama4_maverick\n"
+            "import repro_torch.train, repro_torch.train.optimizer\n"
+            "import repro_torch.train.trainstep, repro_torch.train.grad_compress\n"
+            "import repro_torch.launch.steps, repro_torch.launch.train\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'repro was imported'\n")
@@ -113,6 +116,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     lm_params = tfm.init(lm_cfg, device="cpu")
     from repro_torch.models import moe
     moe_cfg = registry.get("grok-1-314b").make_config(smoke=True)
+    from repro_torch.launch import steps, train
 
     def numpy_tree(t):
         if isinstance(t, dict):
@@ -165,6 +169,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
              lambda: recsys.dlrm.init(torch.Generator(), dlrm_cfg),
              lambda: layers.mlp_init(torch.Generator(), (4, 8, 1)),
              lambda: layers.embed_init(torch.Generator(), 8, 4),
+             lambda: data.lm_batch(0, 0, 2, 8, 100),
+             lambda: steps.build_bundle("h2o-danube-3-4b", "train_4k",
+                                        smoke=True),
+             lambda: train.main(["--arch", "h2o-danube-3-4b", "--smoke",
+                                 "--steps", "1"]),
+             lambda: train.main(["--arch", "mind", "--shape", "train_batch",
+                                 "--smoke", "--steps", "1"]),
              lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -391,6 +402,53 @@ def test_cuda_graph_hop_launches_kernel_not_plain(cuda, monkeypatch):
                                              layout_block=s.layout_block),
                       plain, tol, "graph_scan_beam_step vs plain")
     assert counters() == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_runs_on_the_card(cuda):
+    """A training step built by ``build_bundle`` (danube's and MIND's smoke
+    configs) runs every op on the card: a dispatch mode records the device
+    of every tensor an op takes or makes, and none that holds data is on
+    the CPU; the metrics stay device scalars (no host sync in the step)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch import tree
+    from repro_torch.analysis.trace_rules import sync_count
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps, train
+
+    class _Devices(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.cpu = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree.leaves([args, kwargs or {}, out]):
+                # a 0-dim CPU tensor is a wrapped Python number, an empty one
+                # the checkpoint's placeholder: neither holds data
+                if isinstance(t, torch.Tensor) and t.device.type == "cpu" \
+                        and t.ndim > 0 and t.numel() > 0:
+                    self.cpu.append(f"{func} {tuple(t.shape)} {t.dtype}")
+            return out
+
+    for arch, shape in (("h2o-danube-3-4b", "train_4k"),
+                        ("mind", "train_batch")):
+        bundle = steps.build_bundle(arch, shape, smoke=True)
+        assert bundle.device.type == "cuda"
+        params = train.materialize(bundle.args[0], bundle.device)
+        opt = bundle.opt_init(params)
+        batch = train.make_batch(registry.get(arch), bundle, 0)
+        params, opt, _ = bundle.fn(params, opt, batch)   # warm-up
+        mode = _Devices()
+        with mode:
+            params, opt, metrics = bundle.fn(params, opt, batch)
+        assert not mode.cpu, (arch, sorted(set(mode.cpu))[:8])
+        assert all(t.device.type == "cuda" for t in tree.leaves(
+            [params, opt, metrics]))
+        n_sync = sync_count(lambda: bundle.fn(params, opt, batch))
+        assert n_sync == 0, (arch, n_sync)
+        assert bool(torch.isfinite(metrics["loss"]))
 
 
 @pytest.mark.cuda
