@@ -5,7 +5,8 @@ rerank tier, the guarded lifecycle, the coalescing frontend), its sharded
 placement, the paper's baselines and its OI-13M configuration, the
 recommenders' serving and candidate retrieval, and its LM serving paths
 (dense and mixture-of-experts), and its training (the LMs at published
-widths, MIND train-then-retrieve, the driver's drill) on one NVIDIA GPU.
+widths, MIND train-then-retrieve, the training CLI's drill, the GCN at
+its four published graph shapes) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -268,6 +269,23 @@ Phases (any failure raises and the script exits non-zero):
    on the card (danube smoke, 8 steps, checkpoints every 2): a run with
    REPRO_FAIL_AT_STEP=5 exits 42, its ``--resume`` ends where an
    uninterrupted run ends (final loss and step-8 state within DRILL_*).
+3n. GNN training, after phase 3m's tensors are freed: gcn-cora at its
+   published widths (2 layers, d_hidden 16) on each of its four published
+   shapes with no cut -- full_graph_sm (Cora: 2,708 nodes, 10,556 edges,
+   F 1433), ogb_products (2,449,029 nodes, 61,859,140 edges), minibatch_lg
+   (232,965 nodes, 114,615,892 edges in CSR, 1,024 seeds, fanouts 15 /
+   10) and molecule (128 graphs of 30 nodes and 64 edges) -- through
+   ``build_bundle`` and its ``make_train_step`` on random weights and the
+   training CLI's graphs drawn on the card (the graph maker timed apart): ms a
+   step (median and max after the first), edges / seeds / graphs a second,
+   peak GB, finite losses and grad norms, every step after the first under
+   ``set_sync_debug_mode("error")``. Cora and minibatch_lg: the loss and
+   every gradient on the card against the CPU path (the same draws);
+   ogb_products: step 0's f32 loss against the same code in f64 on the
+   card, the step's bandwidth bound (``gcn_step_bytes``) and its device
+   time by kind of kernel. Then ``python -m repro_torch.launch.train
+   --arch gcn-cora --shape minibatch_lg --steps 4`` on the card must exit
+   0 and print its steps. The GNN reaches no kernel of the table.
 
 Then the card's name and power limit, one JSON line with the kernel table,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -503,6 +521,20 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 2e-3, 4e-2
 # ~2 lr a step: lr <= 3e-4 * 8 / 100 (warm-up) over the 4 resumed steps,
 # 2e-4; the loss within 1e-3 relative.
 DRILL_ATOL, DRILL_LOSS_RTOL = 2e-4, 1e-3
+# GNN training (phase 3n): gcn-cora at its published widths (2 layers,
+# d_hidden 16) on each of its four published shapes, no cut, through
+# build_bundle and its make_train_step; random weights and graphs drawn on
+# the card from GNN_SEED; GNN_STEPS steps a shape.
+GNN_SEED = 28
+GNN_STEPS = {"full_graph_sm": 10, "ogb_products": 5, "minibatch_lg": 10,
+             "molecule": 10}
+# Card against CPU on the same weights and graph (Cora; minibatch_lg with
+# the same draws): the CPU parity tests' f32 tolerances (f32 sums in
+# another order: index_add's atomics, cuBLAS against the CPU's products).
+GNN_LOSS_RTOL, GNN_GRAD_RTOL = 1e-5, 1e-4
+# ogb_products' step-0 loss in f32 against the same code in f64 on the
+# card: f32 sums of ~25 messages a node and widths <= 100, ~1e-6 relative.
+GNN_F64_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -4080,6 +4112,22 @@ def train_profile(label, fn, micro_ms):
             f"{name[:70]} x{c} {us / 1e3:.1f} ms" for name, c, us in top))
 
 
+def worst_leaf_gap(grads_g, grads_c):
+    """(gap, path) of the gradient leaf of ``grads_g`` (on the card) whose
+    distance from ``grads_c``'s (on the CPU) is largest relative to the
+    CPU leaf's norm."""
+    from repro_torch import tree
+    worst, where = 0.0, ""
+    paths, leaves, _ = tree.flatten_with_paths(grads_g)
+    for path, g, c in zip(paths, leaves, tree.leaves(grads_c)):
+        g, c = g.float().cpu(), c.float()
+        err = float(torch.linalg.vector_norm(g - c)
+                    / torch.linalg.vector_norm(c).clamp(min=1e-30))
+        if err > worst:
+            worst, where = err, path
+    return worst, where
+
+
 def train_layer_check(cfg, params, seed):
     """``train_loss`` and its gradients of one full-width layer (layer 0
     of ``params`` with the embedding, final norm and head) at seq
@@ -4106,14 +4154,7 @@ def train_layer_check(cfg, params, seed):
     loss_c, grads_c = value_and_grad(
         lambda p, b: tfm.train_loss(p, b, one), cpu,
         {k: v.cpu() for k, v in batch.items()})
-    worst, where = 0.0, ""
-    paths, leaves, _ = tree.flatten_with_paths(grads_g)
-    for path, g, c in zip(paths, leaves, tree.leaves(grads_c)):
-        g, c = g.float().cpu(), c.float()
-        err = float(torch.linalg.vector_norm(g - c)
-                    / torch.linalg.vector_norm(c).clamp(min=1e-30))
-        if err > worst:
-            worst, where = err, path
+    worst, where = worst_leaf_gap(grads_g, grads_c)
     rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
     log(f"  one full-width layer at seq {TRAIN_CHECK_SEQ}, batch 1, card vs "
         f"CPU ({time.perf_counter() - t0:.1f} s): loss {float(loss_g):.6f} "
@@ -4372,6 +4413,259 @@ def phase_train(K, testing):
     log(f"  phase 3m: {time.perf_counter() - t_phase:.0f} s on "
         f"{card_line()}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 3n: GNN training.
+# ---------------------------------------------------------------------------
+
+
+def gcn_step_bytes(n: int, e: int, f: int, widths) -> dict:
+    """The bytes a full-graph GCN training step moves in its message
+    passing, counted from ``models/gnn.py`` (each op's inputs read once and
+    outputs written once): the edge coefficients (in-degree ``index_add``,
+    two ``index_select`` of ``rsqrt(deg)``, their product); per layer of
+    output width H forward the gather ``h[src]`` (E int32 ids, E x H rows
+    read and written), its scale by ``coef`` in place and the ``index_add``
+    into dst, and backward the same three (the gradient's gather at dst,
+    the scale, the ``index_add`` at src); the features read by layer 1's
+    forward and its weight gradient. Node-sized elementwise traffic (the
+    self-loop term, bias, relu, the loss) is left out: a lower bound."""
+    coef = 4 * e + 2 * 12 * e + 12 * e
+    per_layer = {h: 2 * (20 * e * h + 12 * e) for h in widths}
+    feats = 2 * 4 * n * f
+    return {"coef": coef, "layers": per_layer, "feats": feats,
+            "total": coef + sum(per_layer.values()) + feats}
+
+
+def gnn_grads_check(label, loss_fn, params, batch):
+    """``value_and_grad`` of ``loss_fn`` on the card against the CPU path
+    on copies of the same weights and batch: the loss within GNN_LOSS_RTOL,
+    each gradient leaf within GNN_GRAD_RTOL of its norm."""
+    from repro_torch import tree
+    from repro_torch.train.trainstep import value_and_grad
+    t0 = time.perf_counter()
+    loss_g, grads_g = value_and_grad(loss_fn, params, batch)
+    cpu = tree.structure(params).unflatten(
+        [t.cpu() for t in tree.leaves(params)])
+    loss_c, grads_c = value_and_grad(loss_fn, cpu,
+                                     {k: v.cpu() for k, v in batch.items()})
+    worst, where = worst_leaf_gap(grads_g, grads_c)
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    log(f"  {label} card vs CPU ({time.perf_counter() - t0:.1f} s): loss "
+        f"{float(loss_g):.7f} vs {float(loss_c):.7f} (rel {rel:.2e}, tol "
+        f"{GNN_LOSS_RTOL}); worst gradient leaf {where} at {worst:.2e} of "
+        f"its norm (tol {GNN_GRAD_RTOL})")
+    if rel > GNN_LOSS_RTOL or worst > GNN_GRAD_RTOL:
+        raise AssertionError(f"{label}: the card's loss or gradients "
+                             "disagree with the CPU path")
+
+
+def gnn_f64_loss(params, batch, cfg) -> float:
+    """The full-graph loss of ``params`` on ``batch`` with weights,
+    features and compute in f64 (no gradient), on the card."""
+    from repro_torch.models import gnn
+    with torch.no_grad():
+        p64 = {"w": [{k: v.double() for k, v in w.items()}
+                     for w in params["w"]]}
+        b64 = dict(batch, feats=batch["feats"].double())
+        loss = gnn.full_graph_loss(p64, b64, dataclasses.replace(
+            cfg, param_dtype=torch.float64, compute_dtype=torch.float64))
+        return float(loss)
+
+
+def gnn_profile(label, fn, step_ms):
+    """One step's device time by kind of kernel under ``torch.profiler``:
+    gathers (``index_select``: ``vectorized_gather_kernel`` for rows of 16
+    f32, ``_scatter_gather_elementwise_kernel`` otherwise, on torch 2.11),
+    ``index_add`` (``indexFuncLargeIndex``), products, elementwise,
+    reductions and the rest, and the largest kernels."""
+    from repro_torch.analysis.trace_rules import profile_kernels
+    _, rows, _ = profile_kernels(fn)
+    busy = sum(us for _, _, us in rows) / 1e3
+    if busy <= 0:
+        log(f"  {label} step by kernel: not measured (no device time "
+            "recorded)")
+        return
+    kinds = (("gathers", ("gather", "indexselect", "index_select")),
+             ("index_add", ("indexfunc", "index_add")),
+             ("products", ("gemm", "nvjet", "xmma", "cutlass")),
+             ("elementwise", ("elementwise", "vectorized")),
+             ("reductions", ("reduce",)))
+    split = {k: 0.0 for k, _ in kinds}
+    split["other"] = 0.0
+    for name, _, us in rows:
+        low = name.lower()
+        kind = next((k for k, keys in kinds if any(x in low for x in keys)),
+                    "other")
+        split[kind] += us / 1e3
+    top = sorted(rows, key=lambda r: -r[2])[:6]
+    log(f"  {label} one step under torch.profiler: device busy {busy:.1f} "
+        f"ms ({sum(c for _, c, _ in rows)} kernels) against {step_ms:.1f} "
+        "ms unprofiled; " + ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})"
+                                      for k, v in split.items())
+        + "; largest: " + "; ".join(f"{name[:60]} x{c} {us / 1e3:.1f} ms"
+                                    for name, c, us in top))
+
+
+def no_host_sync(fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``: a host sync raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def gnn_shape(shape_name: str, n_steps: int):
+    """``gcn-cora`` at ``shape_name``: the bundle's step on random weights
+    drawn on the card and the training CLI's graph (drawn on the card, timed
+    apart), ``n_steps`` steps timed with CUDA events, every step after the
+    first under ``no_host_sync``; the shape's check; the rate and peak."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps, train
+    from repro_torch.models import gnn
+    dev = torch.device("cuda")
+    module = registry.get("gcn-cora")
+    shape = module.SHAPES[shape_name]
+    bundle = steps.build_bundle("gcn-cora", shape_name, device=dev)
+    cfg = bundle.config
+    params = gnn.init(cfg, generator=torch.Generator(device=dev).manual_seed(
+        GNN_SEED), device=dev)
+    opt = bundle.opt_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    maker_ms, graph = timed_once(
+        lambda: train.make_graph(module, bundle, GNN_SEED))
+    batch_ms, first = timed_once(
+        lambda: train.make_batch(module, bundle, 0, GNN_SEED, graph))
+    maker_peak = torch.cuda.max_memory_allocated() / 1e9
+    kind = shape["kind"]
+    loss_fn = {"gnn_full": gnn.full_graph_loss,
+               "gnn_minibatch": gnn.minibatch_loss,
+               "gnn_batched": gnn.batched_graphs_loss}[kind]
+    if kind == "gnn_full":
+        n, e = shape["n_nodes"], shape["n_edges"]
+        per_step, unit = e * cfg.n_layers, "edges"
+        what = (f"n {n:,}, E {e:,}, F {shape['d_feat']}, C "
+                f"{shape['n_classes']}")
+    elif kind == "gnn_minibatch":
+        per_step, unit = shape["batch_nodes"], "seeds"
+        what = (f"n {shape['n_nodes']:,}, E {shape['n_edges']:,} in CSR, F "
+                f"{shape['d_feat']}, C {shape['n_classes']}, "
+                f"{shape['batch_nodes']} seeds, fanouts {cfg.fanouts}")
+    else:
+        per_step, unit = shape["batch"], "graphs"
+        what = (f"{shape['batch']} graphs of {shape['n_nodes']} nodes and "
+                f"{shape['n_edges']} edges, F {shape['d_feat']}, C "
+                f"{shape['n_classes']}")
+    log(f"phase 3n ({shape_name}): {what}; graph maker on the card "
+        f"{maker_ms:.1f} ms (+ step 0's batch {batch_ms:.1f} ms), peak "
+        f"{maker_peak:.2f} GB; model flops a step {bundle.model_flops:.3e}")
+
+    def step_loss(p, b):
+        return loss_fn(p, b, cfg)
+
+    f64 = None
+    if shape_name == "ogb_products":
+        f64 = gnn_f64_loss(params, first, cfg)
+        torch.cuda.empty_cache()
+    elif kind != "gnn_batched":
+        gnn_grads_check(shape_name, step_loss, params, first)
+    readings = []
+    for i in range(n_steps):
+        batch = first if i == 0 else train.make_batch(module, bundle, i,
+                                                      GNN_SEED, graph)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = bundle.fn(params, opt, batch) if i == 0 else \
+            no_host_sync(lambda: bundle.fn(params, opt, batch))
+        end.record()
+        end.synchronize()
+        params, opt, metrics = out
+        ms = start.elapsed_time(end)
+        m = {k: float(v) for k, v in metrics.items()}
+        readings.append((ms, torch.cuda.max_memory_allocated() / 1e9, m))
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{shape_name} step {i}: non-finite "
+                                 f"metrics {m}")
+    ms = [r[0] for r in readings[1:]]
+    med = float(np.median(ms))
+    log(f"  {shape_name}: {n_steps} steps, ms a step "
+        f"{[round(r[0], 2) for r in readings]}; median {med:.2f}, max "
+        f"{max(ms):.2f} over steps 1-{n_steps - 1}; "
+        f"{per_step / med * 1e3:,.0f} {unit}/s; peak {max(r[1] for r in readings):.2f} GB; losses "
+        f"{[round(r[2]['loss'], 5) for r in readings]}; grad norms "
+        f"{[round(r[2]['grad_norm'], 5) for r in readings]}; host syncs in "
+        f"steps 1-{n_steps - 1}: 0 (set_sync_debug_mode error)")
+    if f64 is not None:
+        rel = abs(readings[0][2]["loss"] - f64) / abs(f64)
+        log(f"  {shape_name} step 0's loss f32 {readings[0][2]['loss']!r} vs "
+            f"f64 {f64!r} on the card (rel {rel:.2e}, tol {GNN_F64_RTOL})")
+        if rel > GNN_F64_RTOL:
+            raise AssertionError("ogb_products: the f32 loss disagrees with "
+                                 "f64")
+        need = gcn_step_bytes(shape["n_nodes"], shape["n_edges"],
+                              shape["d_feat"],
+                              [cfg.d_hidden] * (cfg.n_layers - 1)
+                              + [cfg.n_classes])
+        bound = need["total"] / PEAK_BYTES_PER_S * 1e3
+        log(f"  {shape_name} step's bandwidth bound: "
+            f"{need['total'] / 1e9:.1f} GB the message passing moves "
+            f"(coefficients {need['coef'] / 1e9:.2f}, layers "
+            + ", ".join(f"H {h} {b / 1e9:.1f}"
+                        for h, b in need["layers"].items())
+            + f", features {need['feats'] / 1e9:.2f}) / "
+            f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s = {bound:.1f} ms; the median "
+            f"step {med:.1f} ms is {bound / med:.1%} of it "
+            f"({need['total'] / med / 1e6:.0f} GB/s)")
+        gnn_profile(shape_name, lambda: bundle.fn(params, opt, first), med)
+    del params, opt, graph, first, batch, out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def gnn_cli():
+    """``python -m repro_torch.launch.train --arch gcn-cora --shape
+    minibatch_lg --steps 4`` on the card (no --smoke, no --device): it must
+    exit 0 and print steps 0 and 3 and its final loss."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "gcn-cora", "--shape", "minibatch_lg", "--steps", "4"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_FAIL_AT_STEP", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    lines = proc.stdout.splitlines()
+    shown = [ln for ln in lines if ln.startswith(("step", "final", "done"))]
+    log(f"phase 3n (launch.train): {' '.join(cmd[1:])} exited "
+        f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: " + " | ".join(shown))
+    steps_seen = {int(ln.split()[1]) for ln in lines
+                  if ln.startswith("step ")}
+    if proc.returncode != 0 or not {0, 3} <= steps_seen or not any(
+            ln.startswith("final loss") for ln in lines):
+        raise AssertionError(f"the GNN training CLI run failed: "
+                             f"{proc.stderr[-2000:]}")
+
+
+def phase_gnn():
+    """Phase 3n: gcn-cora trained at its four published shapes, then the
+    training CLI on minibatch_lg."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 3n: GNN training on {card_line()}; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated at the "
+        "start")
+    for shape_name, n_steps in GNN_STEPS.items():
+        gnn_shape(shape_name, n_steps)
+    gnn_cli()
+    log(f"  phase 3n: {time.perf_counter() - t_phase:.0f} s on "
+        f"{card_line()}")
 
 
 # ---------------------------------------------------------------------------
@@ -6054,6 +6348,7 @@ def main(argv=None) -> int:
     del qkv
     table += phase_moe(K, testing)
     table += phase_train(K, testing)
+    phase_gnn()
     add_launches(table, sharded_launches)
     # phase 3j's d = 160 scans run the linear mode's shape and the
     # gathered GleanVec one at 2M rows (d = 64, 128 and 256 have rows of

@@ -13,7 +13,8 @@ arrays and five static fields); ``streaming_state`` a reference
 ``transformer_params`` carries an LM's parameter tree across (numpy
 leaves, bf16 ones exactly; a blocked layer layout flattened to (L, ...)),
 ``recsys_params`` a recommender's (nested dicts and lists, one tensor a
-leaf), and ``linear_dr`` a linear baseline (``{a, b}``). ``adamw_state``
+leaf), ``gnn_params`` a GCN's (``{"w": [{"w", "b"}, ...]}``) and
+``linear_dr`` a linear baseline (``{a, b}``). ``adamw_state``
 and ``adafactor_state`` carry an optimizer state across (its step and its
 moment trees, every leaf in its own type and shape), so a run can start
 in the port from the reference's state mid-run.
@@ -31,8 +32,8 @@ from repro_torch.device import resolve_device
 
 __all__ = ["arrays_of", "sphering_model", "gleanvec_model", "linear_dr",
            "scorer", "ivf_index", "graph_index", "streaming_state",
-           "transformer_params", "recsys_params", "adamw_state",
-           "adafactor_state", "SCORERS"]
+           "transformer_params", "recsys_params", "gnn_params",
+           "adamw_state", "adafactor_state", "SCORERS"]
 
 SCORERS = {cls.__name__: cls for cls in (
     sc.LinearScorer, sc.GleanVecScorer, sc.QuantizedScorer,
@@ -199,6 +200,13 @@ def recsys_params(params, cfg, device=None):
         return _leaf(tree, dev).to(cfg.param_dtype)
 
     return convert(params)
+
+
+def gnn_params(params, device=None):
+    """A GCN's parameter tree from the reference (``repro.models.gnn``'s
+    ``{"w": [{"w", "b"}, ...]}``, leaves convertible to numpy) -> the same
+    tree of tensors, each leaf in its own type, on ``device``."""
+    return _state_tree(params, resolve_device(device))
 
 
 def _state_tree(tree, dev):

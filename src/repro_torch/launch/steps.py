@@ -6,10 +6,11 @@ reference's ``repro/launch/steps.py``).
 :class:`StepBundle`: the step function, abstract arguments (trees of
 ``meta`` tensors: shapes and dtypes, no memory), the optimizer's
 ``init``, per-loop trip counts and the analytic MODEL_FLOPS of the step.
-It covers the kinds ``train`` (the LMs) and ``recsys_train``; the
-reference's other kinds (prefill, decode, GNN, serving and retrieval
-bundles) and its meshes, partition specs and shardings wait for the launch
-tooling and model sharding (ROADMAP A4, A5).
+It covers the kinds ``train`` (the LMs), ``recsys_train`` and the GNN's
+three (``gnn_full``, ``gnn_minibatch``, ``gnn_batched``); the reference's
+other kinds (prefill, decode, serving and retrieval bundles) and its
+meshes, partition specs and shardings wait for the launch tooling and
+model sharding (ROADMAP A4, A5).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch import tree
 from repro_torch.configs import registry
 from repro_torch.device import resolve_device
-from repro_torch.models import recsys
+from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.train.optimizer import (AdafactorConfig, AdamWConfig,
                                          adafactor_init, adamw_init)
@@ -146,6 +147,61 @@ def _lm_bundle(module, shape_name: str, smoke: bool, dev) -> StepBundle:
 
 
 # ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+
+def _gnn_bundle(module, shape_name: str, smoke: bool, dev) -> StepBundle:
+    """The reference's GNN bundle, its smoke caps (n_nodes and n_edges <=
+    512, batch_nodes <= 64, batch <= 8, d_feat <= 32), AdamW lr 1e-2 and
+    model flops. One batch leaf differs: the reference's ``rng`` key
+    becomes the sampling draws ``rand1 (B, f1)`` and ``rand2 (B, f1, f2)``
+    (``models/gnn.py``). The reference pads the edges to a multiple of the
+    data axes; on one device that is no padding, and it is left out."""
+    shape = dict(module.SHAPES[shape_name])
+    if smoke:
+        for k_ in ("n_nodes", "n_edges"):
+            if k_ in shape:
+                shape[k_] = min(shape[k_], 512)
+        shape["batch_nodes"] = min(shape.get("batch_nodes", 64), 64)
+        shape["batch"] = min(shape.get("batch", 8), 8)
+        shape["d_feat"] = min(shape["d_feat"], 32)
+    f, c = shape["d_feat"], shape["n_classes"]
+    cfg = module.make_config(smoke=False, d_feat=f, n_classes=c)
+    kind = shape["kind"]
+    p_abstract = _abstract(lambda: gnn.init(cfg, device="cpu"))
+    h = cfg.d_hidden
+    if kind == "gnn_full":
+        n, e = shape["n_nodes"], shape["n_edges"]
+        batch = {"feats": _meta((n, f), torch.float32),
+                 "edges": _meta((2, e)), "labels": _meta((n,)),
+                 "mask": _meta((n,), torch.float32)}
+        loss_fn = gnn.full_graph_loss
+        flops = 3.0 * (2 * n * f * h + 2 * n * h * c + 2 * e * (h + c))
+    elif kind == "gnn_minibatch":
+        n, e, bn = shape["n_nodes"], shape["n_edges"], shape["batch_nodes"]
+        f1, f2 = cfg.fanouts
+        batch = {"feats": _meta((n, f), torch.float32),
+                 "indptr": _meta((n + 1,)), "indices": _meta((e,)),
+                 "seeds": _meta((bn,)), "labels": _meta((bn,)),
+                 "rand1": _meta((bn, f1)), "rand2": _meta((bn, f1, f2))}
+        loss_fn = gnn.minibatch_loss
+        flops = 3.0 * 2 * bn * (f1 * f2 + 2 * f1 + 2) * f * h
+    else:  # gnn_batched (molecule)
+        g_, nn_, ee = shape["batch"], shape["n_nodes"], shape["n_edges"]
+        batch = {"feats": _meta((g_, nn_, f), torch.float32),
+                 "edges": _meta((g_, ee, 2)), "labels": _meta((g_,))}
+        loss_fn = gnn.batched_graphs_loss
+        flops = 3.0 * 2 * g_ * (nn_ * f * h + nn_ * h * c + ee * h)
+    step = make_train_step(lambda p, bt: loss_fn(p, bt, cfg),
+                           AdamWConfig(lr=1e-2))
+    return StepBundle(
+        name=f"{module.ARCH_ID}:{shape_name}", fn=step,
+        args=(p_abstract, adamw_init(p_abstract), batch),
+        opt_init=adamw_init, config=cfg, device=dev, model_flops=flops)
+
+
+# ---------------------------------------------------------------------------
 # RecSys family
 # ---------------------------------------------------------------------------
 
@@ -220,14 +276,17 @@ def _recsys_bundle(module, shape_name: str, smoke: bool,
 def build_bundle(arch_id: str, shape_name: str, smoke: bool = False,
                  device=None) -> StepBundle:
     """The training step of ``arch_id`` at ``shape_name`` (``smoke``: the
-    reduced config, seq <= 64 and batch <= 4, recsys batch <= 32), to run
-    on ``device`` (the GPU unless ``device="cpu"``)."""
+    reduced config, seq <= 64 and batch <= 4, recsys batch <= 32, the
+    GNN's caps of :func:`_gnn_bundle`), to run on ``device`` (the GPU
+    unless ``device="cpu"``)."""
     dev = resolve_device(device)
     module = registry.get(arch_id)
     if module.FAMILY == "lm":
         return _lm_bundle(module, shape_name, smoke, dev)
     if module.FAMILY == "recsys":
         return _recsys_bundle(module, shape_name, smoke, dev)
+    if module.FAMILY == "gnn":
+        return _gnn_bundle(module, shape_name, smoke, dev)
     raise NotImplementedError(
         f"{arch_id} ({module.FAMILY}) has no step bundle in the port yet: "
         "the launch tooling's other bundles are ROADMAP A5")

@@ -19,9 +19,17 @@ generator seeded by ``zlib.crc32`` of the leaf's path -- never Python's
 ``hash()``, which is salted per process: the reference seeds its generic
 recsys batches and its leaves with it, so a run and its ``--resume`` draw
 other numbers (ROADMAP C6). Batches: ``data.lm_batch`` for the LMs,
-``criteo_batch`` / ``bst_batch`` / ``mind_batch`` for the recommenders.
+``criteo_batch`` / ``bst_batch`` / ``mind_batch`` for the recommenders,
+and for ``gcn-cora`` valid graphs drawn from the seed (``data.gnn_graph``,
+``gnn_csr``; drawn once a run) with each step's ``gnn_minibatch`` or
+``molecule_batch`` -- the reference fills its GNN batches with generic
+random numbers, ids past the graph among them (ROADMAP C7).
 On the CPU a restart is bit for bit the uninterrupted run; on the card
-within rounding (the embedding's backward adds with atomics).
+within rounding (the embedding's and the GCN's backward add with
+atomics).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
+        --shape minibatch_lg --smoke --steps 4 --device cpu
 """
 from __future__ import annotations
 
@@ -44,10 +52,45 @@ from repro_torch.train import data as data_mod
 FAIL_EXIT = 42
 
 
-def make_batch(module, bundle, step: int, seed: int = 0):
+def make_graph(module, bundle, seed: int = 0):
+    """The graph a full-graph or minibatch GNN bundle trains on, on its
+    device (a function of ``seed`` alone; the minibatch's in CSR, with its
+    nodes' labels); None for every other bundle."""
+    shapes, cfg = bundle.args[2], bundle.config
+    if module.FAMILY != "gnn" or shapes["feats"].ndim != 2:
+        return None
+    n, f = shapes["feats"].shape
+    e = shapes["edges"].shape[1] if "edges" in shapes else \
+        shapes["indices"].shape[0]
+    graph = data_mod.gnn_graph(seed, n, e, f, cfg.n_classes,
+                               device=bundle.device)
+    if "edges" in shapes:
+        return graph
+    return {"feats": graph["feats"], "labels": graph["labels"],
+            **data_mod.gnn_csr(graph["edges"], n)}
+
+
+def _gnn_batch(bundle, step: int, seed: int, graph):
+    shapes, cfg = bundle.args[2], bundle.config
+    if "edges" in shapes and shapes["edges"].ndim == 3:     # molecules
+        g, n, f = shapes["feats"].shape
+        return data_mod.molecule_batch(seed, step, g, n,
+                                       shapes["edges"].shape[1], f,
+                                       cfg.n_classes, device=bundle.device)
+    if "edges" in shapes:                                   # full graph
+        return graph
+    return data_mod.gnn_minibatch(graph, seed, step,
+                                  shapes["seeds"].shape[0], cfg.fanouts)
+
+
+def make_batch(module, bundle, step: int, seed: int = 0, graph=None):
     """The deterministic batch of ``step`` at the bundle's shapes, on its
-    device."""
+    device. A GNN's graph is ``graph`` (``make_graph``'s) or drawn anew."""
     shapes, cfg, dev = bundle.args[2], bundle.config, bundle.device
+    if module.FAMILY == "gnn":
+        if graph is None:
+            graph = make_graph(module, bundle, seed)
+        return _gnn_batch(bundle, step, seed, graph)
     if module.FAMILY == "lm":
         b, s = shapes["tokens"].shape
         return data_mod.lm_batch(seed, step, b, s, cfg.vocab, device=dev)
@@ -127,6 +170,7 @@ def main(argv=None) -> int:
         params, opt = state["params"], state["opt"]
         print(f"[resume] restored step {start_step} from {args.ckpt_dir}")
 
+    graph = make_graph(module, bundle, args.seed)
     durations = []
     stragglers = 0
     metrics = None
@@ -135,7 +179,7 @@ def main(argv=None) -> int:
             print(f"[drill] injected failure at step {i}; restart with "
                   "--resume", flush=True)
             return FAIL_EXIT
-        batch = make_batch(module, bundle, i, args.seed)
+        batch = make_batch(module, bundle, i, args.seed, graph)
         t0 = time.perf_counter()
         params, opt, metrics = bundle.fn(params, opt, batch)
         if dev.type == "cuda":

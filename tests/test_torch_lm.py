@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import gcn_cora as ref_gcn_cora
 from repro.configs import h2o_danube3_4b as ref_danube
 from repro.configs import lm_common as ref_lm_common
 from repro.configs import nemotron4_15b as ref_nemotron
@@ -316,8 +317,20 @@ def test_full_configs_match_reference():
                 else:
                     assert got == want, (arch, smoke, f.name)
     assert lm_common.LM_SHAPES == ref_lm_common.LM_SHAPES
-    with pytest.raises(KeyError):           # the GNN waits for its model
-        registry.get("gcn-cora")
+    gcn = registry.get("gcn-cora")          # the GNN's config, its model
+    for name in ("ARCH_ID", "FAMILY", "SHAPES", "SKIPS"):  # models/gnn.py
+        assert getattr(gcn, name) == getattr(ref_gcn_cora, name), name
+    for shape in gcn.SHAPES.values():
+        for smoke in (True, False):
+            kw = {"d_feat": shape["d_feat"], "n_classes": shape["n_classes"]}
+            rc = ref_gcn_cora.make_config(smoke=smoke, **kw)
+            pc = gcn.make_config(smoke=smoke, **kw)
+            for f in dataclasses.fields(pc):
+                want, got = getattr(rc, f.name), getattr(pc, f.name)
+                if f.name.endswith("_dtype"):
+                    assert str(got).split(".")[-1] == jnp.dtype(want).name
+                else:
+                    assert got == want, (shape, smoke, f.name)
 
 
 def test_init_scales_follow_the_reference():

@@ -117,6 +117,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.models import moe
     moe_cfg = registry.get("grok-1-314b").make_config(smoke=True)
     from repro_torch.launch import steps, train
+    from repro_torch.models import gnn
+    gcn_cfg = registry.get("gcn-cora").make_config(smoke=True)
 
     def numpy_tree(t):
         if isinstance(t, dict):
@@ -176,6 +178,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                  "--steps", "1"]),
              lambda: train.main(["--arch", "mind", "--shape", "train_batch",
                                  "--smoke", "--steps", "1"]),
+             lambda: gnn.init(gcn_cfg),
+             lambda: data.gnn_graph(0, 10, 8, 4, 3),
+             lambda: data.molecule_batch(0, 0, 2, 5, 4, 3, 1),
+             lambda: data.graph_minibatch_seeds(0, 0, 4, 10),
+             lambda: steps.build_bundle("gcn-cora", "molecule", smoke=True),
+             lambda: train.main(["--arch", "gcn-cora", "--shape",
+                                 "minibatch_lg", "--smoke", "--steps", "1"]),
              lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -449,6 +458,42 @@ def test_cuda_train_step_runs_on_the_card(cuda):
         n_sync = sync_count(lambda: bundle.fn(params, opt, batch))
         assert n_sync == 0, (arch, n_sync)
         assert bool(torch.isfinite(metrics["loss"]))
+
+
+@pytest.mark.cuda
+def test_cuda_gnn_steps_run_on_the_card(cuda):
+    """One ``ogb_products``-shaped and one ``minibatch_lg``-shaped GCN step
+    at smoke size (graphs drawn on the card) after a warm-up: no host sync,
+    every leaf and metric on the card, finite loss; the minibatch's
+    sampled ids are those of the CPU path on the same draws."""
+    from repro_torch import tree
+    from repro_torch.analysis.trace_rules import sync_count
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps, train
+    from repro_torch.models import gnn
+    module = registry.get("gcn-cora")
+    for shape in ("ogb_products", "minibatch_lg"):
+        bundle = steps.build_bundle("gcn-cora", shape, smoke=True)
+        params = train.materialize(bundle.args[0], bundle.device)
+        opt = bundle.opt_init(params)
+        graph = train.make_graph(module, bundle, 0)
+        batch = train.make_batch(module, bundle, 0, 0, graph)
+        params, opt, _ = bundle.fn(params, opt, batch)     # warm-up
+        batch = train.make_batch(module, bundle, 1, 0, graph)
+        out = {}
+        n_sync = sync_count(lambda: out.update(r=bundle.fn(params, opt,
+                                                           batch)))
+        params, opt, metrics = out["r"]
+        assert n_sync == 0, (shape, n_sync)
+        assert all(t.device.type == "cuda" for t in tree.leaves(
+            [params, opt, metrics]))
+        assert bool(torch.isfinite(metrics["loss"]))
+    cpu = {k: v.cpu() for k, v in batch.items()}
+    got = gnn.sample_neighbors(batch["indptr"], batch["indices"],
+                               batch["seeds"], batch["rand1"])
+    want = gnn.sample_neighbors(cpu["indptr"], cpu["indices"], cpu["seeds"],
+                                cpu["rand1"])
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

@@ -249,8 +249,14 @@ def test_configs_and_registry_match_reference():
     full = registry.get("dlrm-mlperf").make_config()
     assert full.total_vocab == 187_767_399
     assert full.padded_total_vocab == 187_767_808      # 96.1 GB in f32
-    with pytest.raises(KeyError):
-        registry.get("gcn-cora")
+    gcn, ref_gcn = registry.get("gcn-cora"), ref_registry.get("gcn-cora")
+    assert gcn.SHAPES == ref_gcn.SHAPES and gcn.FAMILY == "gnn"
+    for smoke in (True, False):
+        rc, pc = ref_gcn.make_config(smoke), gcn.make_config(smoke)
+        assert (pc.name, pc.n_layers, pc.d_hidden, pc.d_feat, pc.n_classes,
+                pc.aggregator, pc.norm, pc.fanouts) == \
+            (rc.name, rc.n_layers, rc.d_hidden, rc.d_feat, rc.n_classes,
+             rc.aggregator, rc.norm, rc.fanouts)
 
 
 def test_synthetic_batches_are_pure_functions_of_seed_and_step():

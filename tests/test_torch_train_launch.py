@@ -11,8 +11,10 @@ driver's drill and the int8 all-reduce over a process group.
 * ``launch/train.py`` in subprocesses, each with its own
   ``PYTHONHASHSEED``: a run that exits 42 at ``REPRO_FAIL_AT_STEP``, then
   ``--resume``, ends bit for bit where an uninterrupted run ends (CPU), for
-  danube's and MIND's smoke configs. A dependence on ``hash()`` (the
-  reference's seeding, ROADMAP C6) would show here.
+  danube's, MIND's and the GCN minibatch's smoke configs (the GCN's graph
+  drawn from the seed, its seeds and sampling draws from each step). A
+  dependence on ``hash()`` (the reference's seeding, ROADMAP C6) would
+  show here.
 * ``compressed_psum_mean`` on 2 gloo ranks against the reference's on 2
   fake CPU devices (the same int8 grid, exact int32 sums: equal to 1e-6).
 """
@@ -157,15 +159,35 @@ def test_mind_loss_chunks_are_recomputed_in_the_backward(monkeypatch):
 # Step bundles
 # ---------------------------------------------------------------------------
 
+def _gnn_sampling_draws(got_batch, want_batch, cfg):
+    """The one batch leaf of a GNN minibatch bundle that differs: the
+    reference's ``rng`` key is the port's ``rand1 (B, f1)`` and ``rand2
+    (B, f1, f2)`` int32 draws (``models/gnn.py``). Checks them and returns
+    both batches without them."""
+    if "rng" not in want_batch:
+        return got_batch, want_batch
+    b = want_batch["seeds"].shape[0]
+    f1, f2 = cfg.fanouts
+    got = dict(got_batch)
+    draws = [got.pop(k) for k in ("rand1", "rand2")]
+    assert [(tuple(x.shape), x.dtype) for x in draws] == \
+        [((b, f1), torch.int32), ((b, f1, f2), torch.int32)]
+    assert want_batch["rng"].shape == (2,)
+    return got, {k: v for k, v in want_batch.items() if k != "rng"}
+
+
 @pytest.mark.parametrize("arch,shape", [
     ("h2o-danube-3-4b", "train_4k"), ("qwen2-72b", "train_4k"),
     ("grok-1-314b", "train_4k"), ("mind", "train_batch"),
-    ("dlrm-mlperf", "train_batch")])
+    ("dlrm-mlperf", "train_batch"), ("gcn-cora", "full_graph_sm"),
+    ("gcn-cora", "minibatch_lg"), ("gcn-cora", "ogb_products"),
+    ("gcn-cora", "molecule")])
 def test_bundles_match_reference(arch, shape):
     """Smoke and full: the step's model flops, trip counts, abstract
     parameters (the reference's blocked layout for qwen2 and grok-1),
     optimizer state (AdamW or Adafactor, as the config module says) and
-    batch shapes. Nothing is allocated."""
+    batch shapes, bar the GNN minibatch's sampling draws
+    (:func:`_gnn_sampling_draws`). Nothing is allocated."""
     mesh = make_host_mesh()
     for smoke in (True, False):
         want = ref_steps.build_bundle(arch, shape, mesh, smoke=smoke)
@@ -173,7 +195,9 @@ def test_bundles_match_reference(arch, shape):
         assert got.name == want.name
         assert got.model_flops == want.model_flops
         assert got.trip_counts == want.trip_counts
-        for g, w in zip(got.args, want.args):
+        batches = _gnn_sampling_draws(got.args[2], want.args[2], got.config)
+        for g, w in zip(got.args[:2] + batches[:1],
+                        want.args[:2] + batches[1:]):
             gl = [(tuple(x.shape), str(x.dtype).split(".")[-1])
                   for x in tree.leaves(g)]
             wl = [(tuple(x.shape), jnp.dtype(x.dtype).name)
@@ -204,7 +228,8 @@ def test_lm_batch_is_a_pure_function_of_seed_and_step():
 # The driver
 # ---------------------------------------------------------------------------
 
-DRILL_ARCHS = {"h2o-danube-3-4b": "train_4k", "mind": "train_batch"}
+DRILL_ARCHS = {"h2o-danube-3-4b": "train_4k", "mind": "train_batch",
+               "gcn-cora": "minibatch_lg"}
 
 
 def _cli(args, hash_seed, fail_at=None):
