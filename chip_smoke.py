@@ -6,7 +6,8 @@ placement, the paper's baselines and its OI-13M configuration, the
 recommenders' serving and candidate retrieval, and its LM serving paths
 (dense and mixture-of-experts), and its training (the LMs at published
 widths, MIND train-then-retrieve, the training CLI's drill, the GCN at
-its four published graph shapes) on one NVIDIA GPU.
+its four published graph shapes), and the step bundles of every serving
+and search kind, on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -198,7 +199,7 @@ Phases (any failure raises and the script exits non-zero):
    of gleanvec_sq_topk (both layouts), kmeans_assign and ip_topk at 13M
    for the kernel table (ip_topk's library yardstick is one (1024, 13M)
    f32 product, 53.2 GB beside the 26.6 GB of rows, with everything else
-   freed first). search_rqa10m and search_t2i10m are not run.
+   freed first). search_rqa10m and search_t2i10m run in phase 3o.
 3k. The recommenders at full width with random weights drawn on the
    card: MIND (4M items, D 64) user_embedding and ctr_loss at serve_p99
    (512) and serve_bulk (262,144, the in-batch softmax in chunks of
@@ -286,6 +287,39 @@ Phases (any failure raises and the script exits non-zero):
    time by kind of kernel. Then ``python -m repro_torch.launch.train
    --arch gcn-cora --shape minibatch_lg --steps 4`` on the card must exit
    0 and print its steps. The GNN reaches no kernel of the table.
+3o. The step bundles of every serving and search kind, after phase 3n's
+   tensors are freed, each cell through ``build_bundle`` (the GPU, the
+   host mesh) on data drawn on the card from BUNDLE_SEED, each step's ms
+   (median and max of 5 after a warm-up), rate, peak above its data and
+   host syncs, each cell's data freed before the next. (a)
+   ``gleanvec-paper``'s search_oi13m, search_oi13m_sorted, search_rqa10m
+   (D 768) and search_t2i10m (d 192) at their published n (13,000,704 /
+   10,002,432 rows, padded to 4096-row blocks), batch 1024, kappa 100, k
+   10, the full rows their cluster's view plus N(0, 0.05^2) noise (so the
+   rerank reorders the candidates): no host sync
+   (``set_sync_debug_mode("error")``), one B1 launch a step (the counter
+   and ``torch.profiler``, a session that records nothing taken again,
+   up to PROFILE_SESSIONS),
+   ids valid without repeats, each value its id's full-precision score,
+   recall@10 against ``ip_topk`` over the full rows above the reduced
+   scan's own top 10's, the step on the first 999,424 rows
+   against the same step on the kernel's plain version; kernel-table rows
+   at the RQA-10M and T2I-10M shapes. (b) learn_oi13m's data pass (n
+   1,000,448, m 10,000, C 48, d 160): ms, the work done beside the
+   reference's model flops, the centers and every cluster's A^T B against
+   the same pass in f64; a kmeans_assign row. (c) h2o-danube-3-4b at its
+   published widths, all 24 layers: prefill_32k with the batch cut from
+   32 to 4 (tokens/s, model TFLOP/s, 24 ``flash_wgmma_kernel`` launches a
+   step and their share of it), flash_attention's row at S 32768;
+   decode_32k at batch 128 (48.3 GB of cache) and long_500k (pos 524,287,
+   the ring's last slot) with a 0-d tensor ``pos``: no host sync, logits
+   equal to the int pos's, the bandwidth bound. (d) BST, MIND, FM and DLRM
+   (its table cut to DLRM_ROWS_CAP rows a field) serve_p99, serve_bulk
+   and retrieval_cand (1,000,000 candidates); DLRM's
+   ``make_sharded_lookup`` on a one-rank NCCL group over a (1, 1) mesh
+   equal to ``embedding_lookup`` exactly, in its serve step too. Last, how
+   many of 40 short ``torch.profiler`` sessions record no device event at
+   that point of the process (a reading, not a check).
 
 Then the card's name and power limit, one JSON line with the kernel table,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -535,6 +569,35 @@ GNN_LOSS_RTOL, GNN_GRAD_RTOL = 1e-5, 1e-4
 # ogb_products' step-0 loss in f32 against the same code in f64 on the
 # card: f32 sums of ~25 messages a node and widths <= 100, ~1e-6 relative.
 GNN_F64_RTOL = 1e-5
+# The step bundles of every serving and search kind (phase 3o): each cell
+# through build_bundle on data drawn on the card from BUNDLE_SEED, its step
+# timed BUNDLE_REPS times after a warm-up (median and max); the search
+# steps also on a BUNDLE_CHECK_ROWS prefix against the kernel's plain
+# version. gleanvec_sq_topk gets kernel-table rows at the RQA-10M and
+# T2I-10M shapes (OI-13M's are phase 3i's rows). The prefill's batch is cut
+# from 32 to PREFILL_BATCH (one MLP activation at 32 x 32768 x 10240 bf16
+# is 21 GB); DLRM's table to DLRM_ROWS_CAP rows a field (14.9 GB of f32,
+# 96.1 GB uncut). The data pass against f64 on the step's tags: the
+# centers within LEARN_CENTER_TOL, each cluster's A^T B within
+# LEARN_ATB_TOL of its norm (f32 moments of ~21,000 rows a cluster).
+BUNDLE_SEED = 29
+BUNDLE_REPS = 5
+BUNDLE_CHECK_ROWS = 1_000_000
+VS_ROW_CELLS = {"search_rqa10m": "rqa10m gathered D=768",
+                "search_t2i10m": "t2i10m gathered d=192"}
+PREFILL_BATCH = 4
+DLRM_ROWS_CAP = 5_000_000
+LEARN_CENTER_TOL, LEARN_ATB_TOL = 1e-5, 1e-3
+# the search cells' full rows: their cluster's view of the reduced rows plus
+# VS_NOISE N(0, 1) in every coordinate, so the rerank reorders the reduced
+# scan's candidates. A profiled step whose events the profiler lost
+# (``trace_rules.profile_kernels``: its pads not recorded on both sides) is
+# profiled again in a new session, PROFILE_PAUSE_S later, up to
+# PROFILE_SESSIONS sessions.
+VS_NOISE = 0.05
+PROFILE_SESSIONS = 15
+PROFILE_PAUSE_S = 2.0
+T_IMPORT = time.perf_counter()
 
 
 def log(msg: str) -> None:
@@ -3391,18 +3454,12 @@ def phase_lm(K, testing):
         raise AssertionError("the decode step disagrees with the prefill")
     del ref
 
-    _, busy, fa, _, fa_n = device_split(
-        lambda: tfm.prefill_step(params, prompt, cfg), LM_FLASH_KERNEL)
-    if busy > 0:
-        log(f"  prefill under torch.profiler: device busy {busy:.1f} ms, of "
-            f"it flash_attention ({LM_FLASH_KERNEL}, {fa_n} launches) "
-            f"{fa:.1f} ms ({fa / busy:.1%})")
-        if fa_n != cfg.n_layers:
-            raise AssertionError(f"the profiled prefill ran {LM_FLASH_KERNEL}"
-                                 f" {fa_n} times, not {cfg.n_layers}")
-    else:
-        log("  prefill device split: not measured (no device time "
-            "recorded)")
+    busy, fa, _, fa_n, _ = profiled_step(
+        lambda: tfm.prefill_step(params, prompt, cfg), LM_FLASH_KERNEL,
+        "phase 3e prefill", want=cfg.n_layers)
+    log(f"  prefill under torch.profiler: device busy {busy:.1f} ms, of "
+        f"it flash_attention ({LM_FLASH_KERNEL}, {fa_n} launches) "
+        f"{fa:.1f} ms ({fa / busy:.1%})")
 
     cache = tfm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW, device=dev)
     wall, busy, _, n_kern, _ = device_split(
@@ -3934,8 +3991,9 @@ def moe_run(K, testing, cfg, published: int, label: str):
 
     # prefill time by part: flash_attention from torch.profiler, the MoE
     # layer and its expert products from CUDA events on one more prefill
-    _, busy, fa_ms, _, fa_n = device_split(
-        lambda: tfm.prefill_step(params, prompt, cfg), LM_FLASH_KERNEL)
+    busy, fa_ms, _, fa_n, _ = profiled_step(
+        lambda: tfm.prefill_step(params, prompt, cfg), LM_FLASH_KERNEL,
+        f"phase 3l {label} prefill", want=n_layers)
     parts = {"moe": [], "experts": []}
 
     def evented(kind, fn):
@@ -3964,15 +4022,9 @@ def moe_run(K, testing, cfg, published: int, label: str):
         f" flops over {mc.n_experts * (b * s0 // tg) * cap} slots a layer, "
         f"{exp_flops / exp_ms / 1e9:.0f} TFLOP/s), routing + dispatch + "
         f"combine {moe_ms - exp_ms:.1f} ms ({(moe_ms - exp_ms) / total_ms:.1%})"
-        + (f"; flash_attention under torch.profiler {fa_ms:.1f} ms of "
-           f"{busy:.1f} busy ({fa_ms / busy:.1%}, {fa_n} launches)"
-           if busy > 0 else "; flash_attention: not measured (the profiler "
-           "recorded no device time)")
-        + f"; the rest (projections, norms, head) "
-        f"{total_ms - moe_ms - (fa_ms if busy > 0 else 0.0):.1f} ms")
-    if busy > 0 and fa_n != n_layers:
-        raise AssertionError(f"the profiled prefill ran {LM_FLASH_KERNEL} "
-                             f"{fa_n} times, not {n_layers}")
+        + f"; flash_attention under torch.profiler {fa_ms:.1f} ms of "
+        f"{busy:.1f} busy ({fa_ms / busy:.1%}, {fa_n} launches); the rest "
+        f"(projections, norms, head) {total_ms - moe_ms - fa_ms:.1f} ms")
 
     cache = tfm.init_cache(cfg, b, s0 + n_new, device=dev)
     wall, busy, _, n_kern, _ = device_split(
@@ -4666,6 +4718,582 @@ def phase_gnn():
     gnn_cli()
     log(f"  phase 3n: {time.perf_counter() - t_phase:.0f} s on "
         f"{card_line()}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3o: the step bundles of every serving and search kind at published
+# widths.
+# ---------------------------------------------------------------------------
+
+
+def bundle_ms(fn):
+    """(median ms, max ms, last output) of ``fn`` over BUNDLE_REPS runs
+    after a warm-up."""
+    times, out = event_ms(fn, BUNDLE_REPS)
+    return times[BUNDLE_REPS // 2], times[-1], out
+
+
+def zero_counters(K) -> None:
+    for fn in all_counters(K):
+        fn.launches = 0
+
+
+def peak_gb(base: int) -> float:
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def profiled_step(fn, key, label, want=None):
+    """One call of ``fn`` under ``torch.profiler``
+    (``trace_rules.profile_kernels``, pads on both sides): (device busy
+    ms, ms of the kernels whose name holds ``key``, kernels, their
+    launches, sessions taken). A session that records no device activity
+    of the call, or not its pads on both sides (events lost), is taken
+    again in a new session after PROFILE_PAUSE_S, up to PROFILE_SESSIONS;
+    raises if none records the whole call, or if ``want`` is given and the
+    launches differ."""
+    from repro_torch.analysis.trace_rules import profile_kernels
+    for n in range(1, PROFILE_SESSIONS + 1):
+        _, rows, intact = profile_kernels(fn)
+        if intact and rows:
+            break
+        log(f"  {label}: profiler session {n} lost the step's device "
+            "events")
+        time.sleep(PROFILE_PAUSE_S)
+    else:
+        raise AssertionError(f"{label}: torch.profiler lost the step's "
+                             f"device events in {n} sessions")
+    busy = sum(us for _, _, us in rows) / 1e3
+    hit_ms = sum(us for name, _, us in rows if key in name) / 1e3
+    hits = sum(c for name, c, _ in rows if key in name)
+    kernels = sum(c for _, c, _ in rows)
+    if want is not None and hits != want:
+        raise AssertionError(f"{label}: {hits} {key} launches in a step "
+                             f"under the profiler, {want} expected")
+    return busy, hit_ms, kernels, hits, n
+
+
+def profiler_empty_sessions(n: int = 40) -> str:
+    """How many of ``n`` short ``torch.profiler`` sessions (four 4096^3
+    f32 products each, back to back, no pads) record no device event, at
+    this point of the process."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(4096, 4096, device="cuda")
+    empty = 0
+    for _ in range(n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                x @ x
+            torch.cuda.synchronize()
+        empty += not any(getattr(e, "device_type", None) == DeviceType.CUDA
+                         for e in prof.events())
+    return (f"torch.profiler {time.perf_counter() - T_IMPORT:.0f} s into the "
+            f"process: {empty} of {n} short sessions (four 4096^3 products, "
+            "no pads) recorded no device event")
+
+
+def vs_bundle_inputs(bundle, gen, n_rows=None):
+    """A search bundle's arguments on the card: queries, tags, reduced rows
+    (N(0, 1)) and per-cluster views A_c with orthonormal rows, the full
+    rows their cluster's view plus noise (x_full = A_t^T x_low + VS_NOISE
+    z): the rerank reorders the reduced scan's top kappa, and the top k
+    is close to the exact one."""
+    q, tags, x_low, x_full, a = bundle.args
+    c, d, dim = a.shape
+    n = x_low.shape[0]
+    dev = torch.device("cuda")
+    a = torch.linalg.qr(torch.randn(c, dim, d, device=dev, generator=gen)
+                        )[0].transpose(1, 2).contiguous()
+    tags = torch.randint(0, c, tags.shape, device=dev, generator=gen,
+                         dtype=torch.int32)
+    rows = tags.long().repeat_interleave(n // tags.shape[0])
+    x_low = torch.randn((n, d), device=dev, generator=gen)
+    x_full = torch.empty((n, dim), device=dev)
+    for t in range(c):
+        idx = torch.nonzero(rows == t)[:, 0]
+        x_full.index_copy_(0, idx, x_low.index_select(0, idx) @ a[t])
+    del rows
+    for part in x_full.split(1 << 20):          # no full-size temporary
+        part.add_(torch.randn(part.shape, device=dev, generator=gen),
+                  alpha=VS_NOISE)
+    return [torch.randn(q.shape, device=dev, generator=gen), tags, x_low,
+            x_full, a]
+
+
+def vs_plain_step(K, steps_mod, args, kappa, k, layout_block):
+    """The search step on the kernel's plain version: views, the plain
+    top kappa, the same rerank and merge."""
+    from repro_torch.index.distributed import _merge_topk
+    q, tags, x_low, x_full, a = args
+    views = torch.einsum("cdk,mk->mcd", a, q)
+    qlo = torch.zeros(views.shape[:2], device=q.device)
+    _, ids = K.gleanvec_sq_topk_plain(views, qlo, tags, x_low, kappa,
+                                      layout_block=layout_block)
+    return _merge_topk(steps_mod.vs_rerank(q, ids, x_full), ids, k)
+
+
+def vs_search_cell(K, testing, shape_name, gen):
+    """One ``vs_search*`` cell through ``build_bundle`` at its published
+    n: the step's ms (median, max), QPS, peak, host syncs (none, under
+    ``set_sync_debug_mode("error")``), B1 launches (the counter and the
+    profiler: one a batch); ids valid without repeats, each value the
+    full-precision score of its id, recall@k against the exact top k
+    (ip_topk over the full rows) above the reduced scan's own top k's (the
+    rerank and kappa > k show), and on the first ~1M rows the step equal
+    to the same step on the kernel's plain version. Returns (its launches
+    of gleanvec_sq_topk, its kernel-table row or None)."""
+    from repro_torch.configs import registry
+    from repro_torch.core.scorer import GleanVecScorer
+    from repro_torch.launch import steps as steps_mod
+    shape = registry.get("gleanvec-paper").SHAPES[shape_name]
+    sorted_layout = shape["kind"] == "vs_search_sorted"
+    bundle = steps_mod.build_bundle("gleanvec-paper", shape_name)
+    kappa, k = shape["kappa"], shape["k"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    args = vs_bundle_inputs(bundle, gen)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    q, tags, x_low, x_full, a = args
+    n, d = x_low.shape
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(K)
+    med, mx, (vals, ids) = bundle_ms(lambda: bundle.fn(*args))
+    launches = K.gleanvec_sq_topk.launches
+    peak = peak_gb(base)
+    with uncounted(K):
+        no_host_sync(lambda: bundle.fn(*args))
+        key = "ip_scan_kernel" if sorted_layout else "gemm_scan_topk_kernel"
+        busy, b1_ms, kernels, hits, sessions = profiled_step(
+            lambda: bundle.fn(*args), key, f"phase 3o {shape_name}", want=1)
+        if launches != 1 + BUNDLE_REPS:
+            raise AssertionError(f"phase 3o {shape_name}: {launches} "
+                                 "gleanvec_sq_topk launches counted")
+        ids_l = ids.long()
+        if ids.shape != (q.shape[0], k) or bool((ids_l < 0).any()) \
+                or bool((ids_l >= n).any()):
+            raise AssertionError(f"phase 3o {shape_name}: malformed ids")
+        srt = torch.sort(ids_l, dim=1).values
+        if bool((srt[:, 1:] == srt[:, :-1]).any()):
+            raise AssertionError(f"phase 3o {shape_name}: a repeated id")
+        tol = testing.dot_tol(row_norm_max(q), row_norm_max(x_full),
+                              x_full.shape[1])
+        full = torch.bmm(x_full[ids_l], q[:, :, None])[..., 0]
+        err = float((full - vals).abs().max())
+        if err > tol:
+            raise AssertionError(f"phase 3o {shape_name}: a value is not "
+                                 f"its id's score ({err:.3e} > {tol:.3e})")
+        exact = K.ip_topk(q, x_full, k)[1].long()
+        _, reduced = steps_mod.vs_candidates(
+            torch.einsum("cdk,mk->mcd", a, q), tags, x_low, k,
+            sorted_layout)
+        recall, recall_reduced = (
+            float((r.long()[:, :, None] == exact[:, None, :]).any(-1)
+                  .float().mean()) for r in (ids, reduced))
+        if not recall > recall_reduced:
+            raise AssertionError(f"phase 3o {shape_name}: recall@{k} "
+                                 f"{recall:.4f}, the reduced scan's own "
+                                 f"{recall_reduced:.4f}")
+        n0 = BUNDLE_CHECK_ROWS - BUNDLE_CHECK_ROWS % steps_mod.VS_BLOCK
+        pre = [q, tags[:n0 // steps_mod.VS_BLOCK] if sorted_layout
+               else tags[:n0], x_low[:n0], x_full[:n0], a]
+        got = bundle.fn(*pre)
+        want = vs_plain_step(K, steps_mod, pre, kappa, k,
+                             steps_mod.VS_BLOCK if sorted_layout else 0)
+        rep = testing.assert_topk_close(got, want, tol, f"phase 3o "
+                                        f"{shape_name} {n0} rows vs plain")
+        del pre, got, want, full, exact, reduced
+        row = None
+        if shape_name in VS_ROW_CELLS:
+            views = torch.einsum("cdk,mk->mcd", a, q)
+            calls = mode_calls(K, "gleanvec", GleanVecScorer(x_low=x_low,
+                                                             tags=tags),
+                               views, kappa)
+            row = time_kernel("gleanvec_sq_topk", VS_ROW_CELLS[shape_name],
+                              calls, launches, testing)
+            del calls, views
+    b1_bound, _ = bound_ms(2.0 * q.shape[0] * n * d, 0)
+    profile = (f"{key} {hits} a step, {b1_ms:.2f} of {busy:.2f} ms busy "
+               f"({kernels} kernels, profiler session {sessions})")
+    log(f"  {shape_name} ({'sorted' if sorted_layout else 'gathered'}, n={n}"
+        f" D={x_full.shape[1]} d={d} C={a.shape[0]} batch={q.shape[0]} "
+        f"kappa={kappa} k={k}): data drawn {draw_s:.1f} s "
+        f"({(x_full.numel() + x_low.numel()) * 4 / 1e9:.1f} GB); step "
+        f"median={med:.2f} ms max={mx:.2f} ms QPS={q.shape[0] / med * 1e3:.0f}"
+        f" model TFLOP/s={bundle.model_flops / med / 1e9:.1f} peak above the "
+        f"data={peak:.2f} GB host syncs=0; profile: {profile}; B1 bound "
+        f"{b1_bound:.1f} ms; recall@{k} {recall:.4f} against the exact top "
+        f"{k} (the reduced scan's own top {k}: {recall_reduced:.4f}); {n0}-"
+        f"row prefix vs plain "
+        f"max_abs_err={rep['max_abs_err']:.2e}; gleanvec_sq_topk "
+        f"launches={launches}")
+    del args, q, tags, x_low, x_full, a, vals, ids
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def learn_f64(x, q, tags, centers_in, c, d):
+    """The data pass in f64 on the card, on the f32 step's tags (a row
+    within rounding of two centers could take either): (new centers, A^T
+    B of every cluster)."""
+    x, q = x.double(), q.double()
+    x_unit = x / x.norm(dim=1, keepdim=True)
+    tags = tags.long()
+    sums = torch.zeros((c, x.shape[1]), dtype=torch.float64,
+                       device=x.device).index_add_(0, tags, x_unit)
+    new = sums / sums.norm(dim=1, keepdim=True)
+    evals, u = torch.linalg.eigh(q.T @ q)
+    s = torch.sqrt(torch.clamp(evals, min=0.0))
+    w = (u * s) @ u.T
+    w_pinv = (u * torch.where(s > 1e-4 * s.max(), 1 / s, 0 * s)) @ u.T
+    atb = []
+    for t in range(c):
+        xc = x[tags == t]
+        m = w @ (xc.T @ xc) @ w
+        ev, vecs = torch.linalg.eigh(0.5 * (m + m.T))
+        p = vecs[:, torch.argsort(-ev)[:d]].T
+        atb.append((p @ w_pinv).T @ (p @ w))
+    return new, torch.stack(atb)
+
+
+def vs_learn_cell(K, testing, gen):
+    """``learn_oi13m``'s data pass (n 1,000,448, m 10,000, C 48, d 160) on
+    rows and queries N(0, 1) on their first d coordinates and N(0, 0.01)
+    on the rest (every fit's top-d eigenspace stands clear of the rest, so
+    A^T B is fixed to the f32 moments' rounding): ms, peak, the work done
+    beside the reference's model flops; the centers and every cluster's
+    A^T B against the same pass in f64 on the step's tags. Returns the
+    kmeans_assign row."""
+    from repro_torch.configs import registry
+    from repro_torch.core import spherical_kmeans as skm
+    from repro_torch.launch import steps as steps_mod
+    shape = registry.get("gleanvec-paper").SHAPES["learn_oi13m"]
+    c, d = shape["C"], shape["d"]
+    bundle = steps_mod.build_bundle("gleanvec-paper", "learn_oi13m")
+    (n, dim), (m, _) = bundle.args[0].shape, bundle.args[1].shape
+    dev = torch.device("cuda")
+    scale = torch.where(torch.arange(dim, device=dev) < d, 1.0, 0.1)
+    x = torch.randn((n, dim), device=dev, generator=gen) * scale
+    q = torch.randn((m, dim), device=dev, generator=gen) * scale
+    centers = skm.normalize_rows(torch.randn((c, dim), device=dev,
+                                             generator=gen))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(K)
+    med, mx, (cent, a, b) = bundle_ms(lambda: bundle.fn(x, q, centers))
+    launches = K.kmeans_assign.launches
+    peak = peak_gb(base)
+    with uncounted(K):
+        x_unit = skm.normalize_rows(x)
+        want_c, want_atb = learn_f64(x, q, skm.assign(x_unit, centers),
+                                     centers, c, d)
+        c_err = float((cent.double() - want_c).abs().max())
+        atb = torch.einsum("cdk,cdj->ckj", a.double(), b.double())
+        rel = float(((atb - want_atb).flatten(1).norm(dim=1)
+                     / want_atb.flatten(1).norm(dim=1)).max())
+        if c_err > LEARN_CENTER_TOL or rel > LEARN_ATB_TOL \
+                or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"phase 3o learn_oi13m vs f64: centers "
+                                 f"{c_err:.2e}, A^T B {rel:.2e}")
+        row = kmeans_row(K, testing, f"learn_oi13m n={n} C={c}", x_unit,
+                         centers, launches)
+    done = 2.0 * n * c * dim + 2.0 * m * dim * dim + 2.0 * n * dim * dim \
+        + 2.0 * n * dim
+    log(f"  learn_oi13m (n={n} m={m} D={dim} C={c} d={d}): step "
+        f"median={med:.1f} ms max={mx:.1f} ms peak above the data="
+        f"{peak:.2f} GB; work done {done / 1e12:.3f} TFLOP (the moments "
+        f"by cluster: 1/C of the reference's masked products) beside the "
+        f"reference's model flops {bundle.model_flops / 1e12:.3f} TFLOP; "
+        f"vs f64: centers max_abs_err={c_err:.2e} (tol {LEARN_CENTER_TOL}),"
+        f" A^T B worst relative {rel:.2e} (tol {LEARN_ATB_TOL}); "
+        f"kmeans_assign launches={launches}")
+    del x, x_unit, q, cent, a, b, atb, want_atb
+    torch.cuda.empty_cache()
+    return row
+
+
+def prefill_flash_row(K, testing, b, s, window, launches):
+    """flash_attention at the prefill bundle's shape (B, H 32, KV 8, S, dh
+    120, the window; q, k, v as the prefill passes them: (B, S, heads, dh)
+    views) on random data: the kernel-table row, its library yardstick SDPA
+    with a dense causal + window mask."""
+    from repro_torch.configs import registry
+    cfg = registry.get(LM_ARCH).make_config()
+    g = torch.Generator(device="cuda").manual_seed(BUNDLE_SEED)
+
+    def heads(n):
+        return torch.randn((b, s, n, cfg.d_head), device="cuda", generator=g,
+                           dtype=torch.bfloat16).transpose(1, 2)
+    q, k, v = heads(cfg.n_heads), heads(cfg.n_kv_heads), \
+        heads(cfg.n_kv_heads)
+    flops, nbytes = flash_work(q, k, v, window)
+    ms, out_k = timed(lambda: K.flash_attention(q, k, v, True, window), 3)
+    plain_ms, out_p = timed_once(
+        lambda: K.flash_attention_plain(q, k, v, True, window))
+    err, used = testing.attention_error(
+        out_k, out_p, testing.attention_abs_mix(q, k, v, True, window))
+    if used > 1:
+        raise AssertionError(f"flash_attention vs plain at S={s}")
+    del out_p
+    lib_ms, _, how = sdpa_library(q, k, v, window, 2)
+    bnd, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f"  flash_attention[danube prefill B={b} S={s} W={window}, "
+        f"{flash_kernel_name(q, k, v)}]: ms={ms:.3f} ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s) plain_ms={plain_ms:.3f} bound_ms={bnd:.3f} ({by}) "
+        f"library_ms={lib_ms:.3f} (SDPA, {how}, a dense (S, S) mask) "
+        f"max_abs_err={err:.3e} (worst element at {used:.3f} of its "
+        f"tolerance) launches={launches}")
+    src, repl = KERNEL_FILES["flash_attention"]
+    return {"name": f"flash_attention[danube prefill B={b} S={s}]",
+            "route": "cuda", "source": src, "replaces": repl,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def lm_bundle_cells(K, testing):
+    """h2o-danube-3-4b's prefill_32k (batch cut), decode_32k and long_500k
+    bundles at published widths on one set of random weights. Returns the
+    flash_attention row."""
+    from repro_torch.analysis.trace_rules import profile_kernels
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    shapes = registry.get(LM_ARCH).SHAPES
+    gen = torch.Generator(device=dev).manual_seed(BUNDLE_SEED)
+    pre = steps_mod.build_bundle(LM_ARCH, "prefill_32k")
+    cfg = pre.config
+    params = tfm.init(cfg, seed=BUNDLE_SEED, device=dev)
+    w_gb = tfm.param_count(params) * 2 / 1e9
+    b, s = PREFILL_BATCH, shapes["prefill_32k"]["seq"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen,
+                           dtype=torch.int32)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(K)
+    med, mx, (logits, cache) = bundle_ms(lambda: pre.fn(params, tokens))
+    launches = K.flash_attention.launches
+    peak = peak_gb(base)
+    with uncounted(K):
+        busy, fa_ms, kernels, hits, sessions = profiled_step(
+            lambda: pre.fn(params, tokens), LM_FLASH_KERNEL,
+            "phase 3o prefill_32k", want=cfg.n_layers)
+    keep = tfm.cache_len(cfg, s)
+    if launches != (1 + BUNDLE_REPS) * cfg.n_layers \
+            or logits.shape != (b, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()) \
+            or cache["k"].shape != (cfg.n_layers, b, keep, cfg.n_kv_heads,
+                                    cfg.d_head):
+        raise AssertionError(f"phase 3o prefill_32k: {launches} launches, "
+                             f"{hits} {LM_FLASH_KERNEL} a step, or "
+                             "malformed outputs")
+    flops = pre.model_flops * b / pre.args[1].shape[0]
+    log(f"  prefill_32k (B {pre.args[1].shape[0]} cut to {b}, S={s}, all "
+        f"{cfg.n_layers} layers, {w_gb:.1f} GB weights): median={med:.1f} ms"
+        f" max={mx:.1f} ms tokens/s={b * s / med * 1e3:.0f} model TFLOP/s="
+        f"{flops / med / 1e9:.1f} peak above the weights={peak:.2f} GB; "
+        f"profile: {hits} {LM_FLASH_KERNEL} a step ({fa_ms:.1f} of "
+        f"{busy:.1f} ms busy, {fa_ms / max(busy, 1e-9):.1%}; {kernels} "
+        f"kernels, profiler session {sessions}); flash_attention "
+        f"launches={launches}")
+    del logits, cache, tokens
+    torch.cuda.empty_cache()
+    with uncounted(K):
+        row = prefill_flash_row(K, testing, b, s, cfg.swa_window, launches)
+    torch.cuda.empty_cache()
+    for shape_name in ("decode_32k", "long_500k"):
+        bun = steps_mod.build_bundle(LM_ARCH, shape_name)
+        cache_abs, tok_abs = bun.args[1], bun.args[2]
+        nb, seq = tok_abs.shape[0], shapes[shape_name]["seq"]
+        cache = {k_: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                 for k_, v in cache_abs.items()}
+        for t in cache.values():
+            for layer in t:
+                layer.normal_(generator=gen)
+        tok = torch.randint(0, cfg.vocab, (nb,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        pos = torch.tensor(seq - 1, dtype=torch.int32, device=dev)
+        slot = (seq - 1) % cache["k"].shape[2]
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        med, mx, (logits, _) = bundle_ms(lambda: bun.fn(params, cache, tok,
+                                                        pos))
+        peak = peak_gb(base)
+        no_host_sync(lambda: bun.fn(params, cache, tok, pos))
+        with uncounted(K):
+            _, rows, intact = profile_kernels(
+                lambda: bun.fn(params, cache, tok, pos))
+        again, _ = bun.fn(params, cache, tok, seq - 1)
+        if not torch.equal(again, logits) or logits.shape != (nb, cfg.vocab)\
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"phase 3o {shape_name}: the tensor pos "
+                                 "and the int pos disagree, or bad logits")
+        c_bytes = sum(t.numel() for t in cache.values()) * 2
+        bnd = (c_bytes + w_gb * 1e9) / PEAK_BYTES_PER_S * 1e3
+        log(f"  {shape_name} (batch {nb}, pos {seq - 1} -> ring slot {slot} "
+            f"of {cache['k'].shape[2]}, cache {c_bytes / 1e9:.1f} GB): "
+            f"median={med:.2f} ms max={mx:.2f} ms tokens/s="
+            f"{nb / med * 1e3:.0f} bound={bnd:.2f} ms (cache + weights read "
+            f"once at 3.35 TB/s) peak above the cache={peak:.2f} GB; host "
+            "syncs=0 (tensor pos); " + (
+                f"{sum(c for _, c, _ in rows)} kernels, "
+                f"{sum(us for _, _, us in rows) / 1e3:.2f} ms busy (idle "
+                f"{1 - sum(us for _, _, us in rows) / 1e3 / med:.1%})"
+                if intact else "device time not measured (the profiler "
+                "lost the step's events)") + "; int pos logits equal")
+        del cache, logits, again
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def recsys_cell(label, fn, args, b, kind):
+    """One serve or retrieval call: ms (median, max), rows or users a
+    second, peak and host syncs; finite scores, ids valid and distinct."""
+    from repro_torch.analysis.trace_rules import sync_count
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    med, mx, out = bundle_ms(lambda: fn(*args))
+    peak = peak_gb(base)
+    syncs = sync_count(lambda: fn(*args))
+    if kind == "recsys_serve":
+        ok = out.shape == (b,) and bool(torch.isfinite(out.float()).all())
+    else:
+        srt = torch.sort(out.long(), dim=1).values
+        ok = out.shape == (b, 10) and bool((out >= 0).all()) \
+            and bool((out < args[2].shape[0]).all()) \
+            and not bool((srt[:, 1:] == srt[:, :-1]).any())
+    if not ok:
+        raise AssertionError(f"phase 3o {label}: malformed outputs")
+    log(f"  {label} (batch {b}): median={med:.3f} ms max={mx:.3f} ms "
+        f"{b / med * 1e3:.0f} users/s peak above the start={peak:.3f} GB "
+        f"host syncs={syncs}")
+
+
+def recsys_bundle_cells():
+    """The recommenders' serve_p99, serve_bulk and retrieval_cand bundles
+    at published widths (DLRM with its table cut); then DLRM's
+    ``make_sharded_lookup`` on a one-rank NCCL group, (1, 1) mesh."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train
+    from repro_torch.models import recsys
+    dev = torch.device("cuda")
+    for arch in ("bst", "mind", "fm", "dlrm-mlperf"):
+        module = registry.get(arch)
+        model = module.MODEL
+        cfg = module.make_config()
+        note = ""
+        if model == "dlrm":
+            full_rows = cfg.padded_total_vocab
+            cfg = dataclasses.replace(cfg, vocab_sizes=tuple(
+                min(v, DLRM_ROWS_CAP) for v in cfg.vocab_sizes))
+            note = (f"; table cut from {full_rows:,} to "
+                    f"{cfg.padded_total_vocab:,} rows (each field <= "
+                    f"{DLRM_ROWS_CAP:,})")
+        gen = torch.Generator(device=dev).manual_seed(BUNDLE_SEED)
+        params = getattr(recsys, model).init(gen, cfg, device=dev)
+        log(f"  {arch}: {sum(t.numel() for t in tree.leaves(params)) * 4 / 1e9:.2f}"
+            f" GB of f32 parameters{note}")
+        for shape_name, shape in module.SHAPES.items():
+            if shape["kind"] == "recsys_train":
+                continue
+            bun = steps_mod.build_bundle(arch, shape_name)
+            batch = train.recsys_batch(model, cfg, shape["batch"],
+                                       BUNDLE_SEED, 0, dev)
+            if shape["kind"] == "recsys_serve":
+                fn = steps_mod.recsys_serve_fn(model, cfg)
+                args = (params, batch)
+            else:
+                fn = steps_mod.retrieval_fn(model, cfg)
+                cands = torch.randn(bun.args[2].shape, device=dev,
+                                    generator=gen)
+                args = (params, batch, cands)
+            recsys_cell(f"{arch}:{shape_name}", fn, args, shape["batch"],
+                        shape["kind"])
+            del batch, args
+        if model == "dlrm":
+            dlrm_sharded_lookup(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+
+
+def dlrm_sharded_lookup(params, cfg):
+    """``make_sharded_lookup`` on a one-rank NCCL group ((1, 1) mesh) over
+    the cut table: equal to ``embedding_lookup`` exactly, inside the serve
+    step too; p50 ms of both lookups at serve_bulk's batch."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train
+    from repro_torch.models import embedding, recsys
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        dm = mesh_mod.device_mesh(mesh_mod.Mesh(("data", "model"), (1, 1)))
+        lookup = embedding.make_sharded_lookup(dm, cfg.padded_total_vocab,
+                                               cfg.embed_dim)
+        batch = train.recsys_batch("dlrm", cfg, 262_144, BUNDLE_SEED, 1,
+                                   dev)
+        offs = torch.as_tensor(recsys.dlrm.offsets(cfg), device=dev)
+        idx = batch["sparse"] + offs[None, :]
+        sh_ms, got = p50_ms(lambda: lookup(params["table"], idx))
+        pl_ms, want = p50_ms(lambda: embedding.embedding_lookup(
+            params["table"], idx))
+        serve_sh = steps_mod.recsys_serve_fn("dlrm", cfg, lookup)(params,
+                                                                  batch)
+        serve = steps_mod.recsys_serve_fn("dlrm", cfg)(params, batch)
+        if not (torch.equal(got, want) and torch.equal(serve_sh, serve)):
+            raise AssertionError("phase 3o: make_sharded_lookup is not the "
+                                 "plain lookup")
+        log(f"  dlrm make_sharded_lookup (one-rank NCCL group, (1, 1) "
+            f"mesh, batch 262,144 x 26 ids): equal to embedding_lookup and "
+            f"its serve step to the plain one; p50 {sh_ms:.3f} ms vs plain "
+            f"{pl_ms:.3f} ms")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_bundles(K, testing):
+    """Phase 3o: every serving and search kind of ``build_bundle`` on the
+    card. Returns (kernel-table rows, launches to add to phase 3i's
+    rows)."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 3o: step bundles on {card_line()}; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated at the "
+        "start")
+    gen = torch.Generator(device="cuda").manual_seed(BUNDLE_SEED)
+    rows, extra = [], {}
+    for shape_name in ("search_oi13m", "search_oi13m_sorted",
+                       "search_rqa10m", "search_t2i10m"):
+        launches, row = vs_search_cell(K, testing, shape_name, gen)
+        if row is None:
+            layout = "sorted" if shape_name.endswith("sorted") else "gathered"
+            extra[f"gleanvec_sq_topk[oi13m {layout}]"] = launches
+        else:
+            rows.append(row)
+    rows.append(vs_learn_cell(K, testing, gen))
+    rows.append(lm_bundle_cells(K, testing))
+    recsys_bundle_cells()
+    log("  " + profiler_empty_sessions())
+    log(f"  phase 3o: {time.perf_counter() - t_phase:.0f} s on "
+        f"{card_line()}")
+    return rows, extra
 
 
 # ---------------------------------------------------------------------------
@@ -5638,9 +6266,9 @@ def served_batches(fn, q, batches: int = PAPER_BATCHES):
         q.shape[0] * batches / sum(times)
 
 
-def p50_ms(fn, reps: int = 5):
-    """p50 milliseconds of ``fn`` over ``reps`` runs after a warm-up (CUDA
-    events); returns (ms, last output)."""
+def event_ms(fn, reps: int = 5):
+    """Milliseconds of ``reps`` runs of ``fn`` after a warm-up, each timed
+    by CUDA events, sorted; returns (times, last output)."""
     out = fn()
     times = []
     for _ in range(reps):
@@ -5651,7 +6279,14 @@ def p50_ms(fn, reps: int = 5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return sorted(times)[reps // 2], out
+    return sorted(times), out
+
+
+def p50_ms(fn, reps: int = 5):
+    """p50 milliseconds of ``fn`` over ``reps`` runs after a warm-up (CUDA
+    events); returns (ms, last output)."""
+    times, out = event_ms(fn, reps)
+    return times[reps // 2], out
 
 
 def kmeans_row(K, testing, label, x_unit, cent, launches):
@@ -5698,7 +6333,7 @@ def phase_paper(K, testing):
     log(f"phase 3i: gleanvec-paper learn_oi13m (n={n} D={dim} d={d} C={c} "
         f"m={learn['m_queries']}), search_oi13m gathered and sorted "
         f"(batch={batch} k={k} kappa={kappa}); search_rqa10m and "
-        "search_t2i10m not run (ROADMAP)")
+        "search_t2i10m in phase 3o")
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -6349,6 +6984,9 @@ def main(argv=None) -> int:
     table += phase_moe(K, testing)
     table += phase_train(K, testing)
     phase_gnn()
+    bundle_rows, bundle_launches = phase_bundles(K, testing)
+    table += bundle_rows
+    add_launches(table, bundle_launches)
     add_launches(table, sharded_launches)
     # phase 3j's d = 160 scans run the linear mode's shape and the
     # gathered GleanVec one at 2M rows (d = 64, 128 and 256 have rows of

@@ -178,19 +178,26 @@ def sync_count(fn) -> int:
     return sw.count
 
 
-# Kernels launched before and after a profiled call: the profiler can lose
-# the device events at a session's edges (every kernel of a short step, on
-# an H100 after earlier sessions in the process); the pads, ~0.2 ms of
-# spinning on each side, take that loss and are left out of the counts.
+# Kernels launched before and after a profiled call: on an H100 the
+# profiler loses device events at a session's edges, from a few to
+# hundreds, and more as a process ages (a session of a few kernels then
+# often records none). On each side PAD_LAUNCHES spins of ~10 us and
+# BURST_PAD_LAUNCHES of ~0.05 us take the loss in the call's place; pads
+# recorded on both sides show the call's events came through. Pads are
+# left out of the counts.
 PAD_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
 PAD_LAUNCHES = 16
 PAD_CYCLES = 20_000
+BURST_PAD_LAUNCHES = 2048
+BURST_PAD_CYCLES = 100
 PROFILE_TRIES = 3
 
 
 def _pads():
     for _ in range(PAD_LAUNCHES):
         torch.cuda._sleep(PAD_CYCLES)
+    for _ in range(BURST_PAD_LAUNCHES):
+        torch.cuda._sleep(BURST_PAD_CYCLES)
     torch.cuda.synchronize()
 
 
@@ -201,7 +208,8 @@ def _device_us(ev) -> float:
 
 def profile_kernels(fn):
     """One call of ``fn`` under ``torch.profiler`` (after one empty start-up
-    of the tracer), between ``PAD_LAUNCHES`` pad kernels on each side:
+    of the tracer), between ``PAD_LAUNCHES + BURST_PAD_LAUNCHES`` pad
+    kernels on each side:
     (host-clock ms of the session, [(name, launches, device us)] of every
     device activity of ``fn``: kernels, copies and sets, intact). ``intact``
     says pads were recorded before and after ``fn``'s events, so none of
@@ -226,7 +234,7 @@ def profile_kernels(fn):
         pad = [PAD_KERNEL in e.name for e in evs]
         real = [i for i, p in enumerate(pad) if not p]
         intact = (any(pad[:real[0]]) and any(pad[real[-1] + 1:])) if real \
-            else sum(pad) == 2 * PAD_LAUNCHES
+            else sum(pad) > PAD_LAUNCHES + BURST_PAD_LAUNCHES
         rows: Dict[str, list] = {}
         for i in real:
             row = rows.setdefault(evs[i].name, [0, 0.0])

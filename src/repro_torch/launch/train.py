@@ -94,20 +94,26 @@ def make_batch(module, bundle, step: int, seed: int = 0, graph=None):
     if module.FAMILY == "lm":
         b, s = shapes["tokens"].shape
         return data_mod.lm_batch(seed, step, b, s, cfg.vocab, device=dev)
-    model = module.MODEL
-    b = next(iter(shapes.values())).shape[0]
+    return recsys_batch(module.MODEL, cfg,
+                        next(iter(shapes.values())).shape[0], seed, step,
+                        dev)
+
+
+def recsys_batch(model: str, cfg, b: int, seed: int, step: int, device):
+    """A recommender's batch of ``b`` rows (its training form; the serve
+    steps read the same) at ``step``, drawn from ``seed`` on ``device``."""
     if model == "mind":
         return data_mod.mind_batch(seed, step, b, cfg.seq_len, cfg.n_items,
-                                   device=dev)
+                                   device=device)
     if model == "bst":
         return data_mod.bst_batch(seed, step, b, cfg.seq_len, cfg.n_items,
-                                  device=dev)
+                                  device=device)
     if model == "dlrm":
         return data_mod.criteo_batch(seed, step, b, cfg.n_dense,
-                                     cfg.vocab_sizes, device=dev)
+                                     cfg.vocab_sizes, device=device)
     batch = data_mod.criteo_batch(seed, step, b, 0,
                                   (cfg.vocab_per_field,) * cfg.n_sparse,
-                                  device=dev)
+                                  device=device)
     return {"sparse": batch["sparse"], "label": batch["label"]}
 
 
@@ -156,6 +162,10 @@ def main(argv=None) -> int:
     module = registry.get(args.arch)
     bundle = build_bundle(args.arch, args.shape, smoke=args.smoke,
                           device=args.device)
+    if bundle.opt_init is None:
+        ap.error(f"{args.arch}:{args.shape} is a "
+                 f"{module.SHAPES[args.shape]['kind']} step; this command "
+                 "trains only")
     dev = bundle.device
     fail_at = int(os.environ.get("REPRO_FAIL_AT_STEP", -1))
 

@@ -21,9 +21,11 @@ step)), and :func:`sample_neighbors` applies the reference's formula to
 them, so the reference's own draws give its sampled ids exactly.
 
 The reference's ``rules: MeshRules`` argument and its ``constrain`` calls
-are left out: on one device they are identities. Sharding the edges over
-a data group waits for model sharding (ROADMAP A4). No Pallas kernel is
-reached here, in the reference either.
+are left out: they are layout hints that change no value
+(``models/sharding.constrain``). The edges' spec over the data axes (and
+their padding to the data-parallel size) is the step bundle's
+(``launch/steps._gnn_bundle``). No Pallas kernel is reached here, in the
+reference either.
 """
 from __future__ import annotations
 

@@ -24,9 +24,9 @@ rows added in f32 and rounded to ``compute_dtype`` once, as the einsum
 does). The expert products are batched matrix products over E, which the
 reference also leaves to its einsums: no Pallas kernel is reached.
 
-``MoEConfig.sharding`` ("ep" | "tp") is kept as data: on one device it has
-no effect (the reference's ``MeshRules`` and ``constrain`` have no
-counterpart here).
+``MoEConfig.sharding`` ("ep" | "tp") picks the experts' partition specs
+(``transformer.param_logical_axes``); the computation is the same under
+either, and the reference's ``constrain`` hints change no value.
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ class MoEConfig:
     top_k: int
     capacity_factor: float = 1.25
     group_size: int = 256
-    sharding: str = "ep"          # "ep" | "tp": no effect on one device
+    sharding: str = "ep"          # "ep" | "tp": the experts' specs
     aux_loss_weight: float = 0.01
 
 

@@ -20,13 +20,15 @@ retrieval (:mod:`repro_torch.serve.retrieval`). Params are dicts of
 tensors, batches dicts of tensors (:mod:`repro_torch.train.data`).
 
 The reference's ``rules: MeshRules`` argument and its ``constrain`` calls
-are left out: they place activations on a mesh, and on one device they
-are identities (``models/sharding.py`` is not ported yet). BST's attention
-is the reference's plain einsum-softmax, not the ``flash_attention``
-kernel, as in the reference.
+are left out: they are layout hints that change no value
+(``models/sharding.constrain``). ``dlrm.logits`` / ``ctr_loss`` take the
+reference's ``lookup_fn`` hook (``embedding.make_sharded_lookup`` on a
+mesh). BST's attention is the reference's plain einsum-softmax, not the
+``flash_attention`` kernel, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -130,13 +132,21 @@ class dlrm:
                                 compute_dtype=cd)[:, 0]
 
     @staticmethod
-    def ctr_loss(params, batch: Dict[str, torch.Tensor],
-                 cfg: DLRMConfig) -> torch.Tensor:
-        offs = torch.as_tensor(dlrm.offsets(cfg),
-                               device=batch["sparse"].device)
-        emb = emb_mod.embedding_lookup(params["table"], batch["sparse"], offs)
-        logit = dlrm.forward(params, batch["dense"], emb, cfg)
-        return _bce(logit, batch["label"])
+    def logits(params, batch: Dict[str, torch.Tensor], cfg: DLRMConfig,
+               lookup_fn=None) -> torch.Tensor:
+        """(B,) logits of a batch: its packed ids looked up with
+        ``lookup_fn(table, idx)`` where given (``make_sharded_lookup``'s on
+        a mesh), else with a plain take."""
+        idx = batch["sparse"] + _dlrm_offsets(cfg, batch["sparse"].device)
+        emb = (emb_mod.embedding_lookup(params["table"], idx)
+               if lookup_fn is None else lookup_fn(params["table"], idx))
+        return dlrm.forward(params, batch["dense"], emb, cfg)
+
+    @staticmethod
+    def ctr_loss(params, batch: Dict[str, torch.Tensor], cfg: DLRMConfig,
+                 lookup_fn=None) -> torch.Tensor:
+        return _bce(dlrm.logits(params, batch, cfg, lookup_fn),
+                    batch["label"])
 
     @staticmethod
     def user_embedding(params, batch, cfg: DLRMConfig) -> torch.Tensor:
@@ -146,6 +156,13 @@ class dlrm:
         return layers.mlp_apply(params["bot"], batch["dense"].to(cd),
                                 act="relu", final_act="relu",
                                 compute_dtype=cd).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _dlrm_offsets(cfg: DLRMConfig, device: torch.device) -> torch.Tensor:
+    """(1, 26) row offsets of the packed tables, copied to ``device`` once
+    (a copy a step would be a host sync)."""
+    return torch.as_tensor(dlrm.offsets(cfg), device=device)[None, :]
 
 
 # ---------------------------------------------------------------------------

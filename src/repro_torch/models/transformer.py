@@ -25,8 +25,13 @@ backward, not a full-size zero tensor a layer). ``train_loss`` takes the
 port's flat (L, ...) stacks or the reference's blocked (n_blocks, block,
 ...) ones, which ``blocked_view`` makes from the flat ones without a copy.
 
-Not ported: sharding (``MeshRules``, ``constrain``, ``param_specs``;
-ROADMAP A4).
+Sharding: ``param_logical_axes``, ``param_specs`` and ``cache_specs``
+give the reference's partition specs of the parameter and cache trees
+(``models/sharding.py``; the launch tooling's step bundles carry them),
+and ``_embed_lookup`` takes a tensor-parallel process group for the
+reference's vocab-parallel lookup (a rank's slice of the table, one
+all-reduce). The reference's ``constrain`` layout hints change no value
+and are left out.
 """
 from __future__ import annotations
 
@@ -41,10 +46,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, moe
 from repro_torch.models.moe import MoEConfig
+from repro_torch.models.sharding import (MeshRules, logical_to_spec,
+                                         sum_over_group)
 
 __all__ = ["TransformerConfig", "init", "cache_len", "init_cache",
            "prefill_step", "decode_step", "param_count", "train_loss",
-           "blocked_layout", "blocked_view"]
+           "blocked_layout", "blocked_view", "param_logical_axes",
+           "param_specs", "cache_specs"]
 
 
 @dataclass(frozen=True)
@@ -128,6 +136,67 @@ def init(cfg: TransformerConfig, seed: int = 0, device=None):
     }
 
 
+def _map_axes(fn, tree_):
+    """``fn`` on every logical-axes tuple of a nested dict."""
+    if isinstance(tree_, dict):
+        return {k: _map_axes(fn, v) for k, v in tree_.items()}
+    return fn(tree_)
+
+
+def param_logical_axes(cfg: TransformerConfig):
+    """Logical per-dim axis names mirroring ``init``'s tree (the
+    reference's blocked (n_blocks, block, ...) layout adds a leading None
+    where ``blocked_layout``)."""
+    lay = {
+        "ln1": {"scale": (None,)},
+        "wq": (None, "fsdp", "tp"),
+        "wk": (None, "fsdp", None),   # KV replicated over tp (n_kv < tp)
+        "wv": (None, "fsdp", None),
+        "wo": (None, "tp", "fsdp"),
+        "ln2": {"scale": (None,)},
+    }
+    if cfg.qkv_bias:
+        lay["bq"] = (None, "tp")
+        lay["bk"] = (None, None)
+        lay["bv"] = (None, None)
+    if cfg.moe is not None:
+        ep = cfg.moe.sharding == "ep"
+        lay["moe"] = {
+            "router": (None, "fsdp", None),
+            "w_up": (None, "ep", "fsdp", None) if ep
+            else (None, None, "fsdp", "tp"),
+            "w_down": (None, "ep", None, "fsdp") if ep
+            else (None, None, "tp", "fsdp"),
+        }
+        if cfg.glu:
+            lay["moe"]["w_gate"] = lay["moe"]["w_up"]
+    else:
+        lay["w_up"] = (None, "fsdp", "tp")
+        lay["w_down"] = (None, "tp", "fsdp")
+        if cfg.glu:
+            lay["w_gate"] = (None, "fsdp", "tp")
+    if blocked_layout(cfg):
+        lay = _map_axes(lambda t: (None,) + t, lay)
+    return {"embed": ("vocab", None), "layers": lay,
+            "final_norm": {"scale": (None,)}, "lm_head": (None, "vocab")}
+
+
+def param_specs(cfg: TransformerConfig, rules: MeshRules):
+    """``param_logical_axes`` under ``rules``: a tree of partition specs."""
+    return _map_axes(lambda t: logical_to_spec(rules, t),
+                     param_logical_axes(cfg))
+
+
+def cache_specs(cfg: TransformerConfig, rules: MeshRules):
+    """The KV cache's specs: batch over dp, the sequence over tp
+    (flash-decoding), a leading None in the blocked layout."""
+    logical = (None, "batch", "seq_tp", None, None)
+    if blocked_layout(cfg):
+        logical = (None,) + logical
+    spec = logical_to_spec(rules, logical)
+    return {"k": spec, "v": spec}
+
+
 def param_count(params) -> int:
     if isinstance(params, dict):
         return sum(param_count(v) for v in params.values())
@@ -146,8 +215,21 @@ def _layer(stacked, i: int):
 
 
 def _embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
-                  compute_dtype) -> torch.Tensor:
-    return table[tokens.long()].to(compute_dtype)
+                  compute_dtype, tp_group=None) -> torch.Tensor:
+    """``table[tokens]`` in ``compute_dtype``. With ``tp_group`` the
+    reference's vocab-parallel lookup: ``table`` is this rank's slice of
+    the vocab (rows ``[rank * V / tp, (rank + 1) * V / tp)``), ``tokens``
+    its batch; each rank takes the tokens its slice holds, zeros the rest
+    and one all-reduce over the group sums the slices."""
+    if tp_group is None:
+        return table[tokens.long()].to(compute_dtype)
+    import torch.distributed as dist
+    rows = table.shape[0]
+    loc = tokens.long() - dist.get_rank(tp_group) * rows
+    hit = (loc >= 0) & (loc < rows)
+    emb = table[loc.clamp(0, rows - 1)].to(compute_dtype)
+    emb = torch.where(hit[..., None], emb, torch.zeros_like(emb))
+    return sum_over_group(emb, tp_group)
 
 
 def _qkv(p, cfg: TransformerConfig, h: torch.Tensor):
@@ -399,29 +481,35 @@ def prefill_step(params, tokens: torch.Tensor, cfg: TransformerConfig):
 # ---------------------------------------------------------------------------
 
 
-def decode_step(params, cache, tokens: torch.Tensor, pos: int,
+def decode_step(params, cache, tokens: torch.Tensor, pos,
                 cfg: TransformerConfig):
-    """One decode step: ``tokens (B,)`` at absolute position ``pos``.
-    Writes the new keys and values into ``cache`` in place (slot ``pos %
-    cache_len`` for SWA archs: a ring; ``pos`` otherwise) and returns
-    (logits (B, V) f32, cache)."""
+    """One decode step: ``tokens (B,)`` at absolute position ``pos`` (an
+    int, or a 0-d integer tensor as the reference's abstract argument; an
+    int becomes one on the device, so the slot and length arithmetic stays
+    there, no host sync). Writes the new keys and values into ``cache`` in
+    place (slot ``pos % cache_len`` for SWA archs: a ring; ``pos``
+    otherwise) and returns (logits (B, V) f32, cache); the reference
+    returns a new cache."""
     b = tokens.shape[0]
     cd = cfg.compute_dtype
     nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     h = _embed_lookup(params["embed"], tokens, cd)            # (B, D)
     s_cache = cache["k"].shape[2]
-    slot = pos % s_cache if cfg.swa_window is not None else pos
-    length = min(pos + 1, s_cache)
-    rot = layers.rope_tables(torch.full((b, 1), pos, device=h.device), dh,
-                             cfg.rope_theta)
+    if not isinstance(pos, torch.Tensor):       # a fill on the device
+        pos = torch.full((), pos, dtype=torch.int64, device=h.device)
+    pos = pos.to(device=h.device, dtype=torch.int64)
+    slot = (pos % s_cache if cfg.swa_window is not None else pos).reshape(1)
+    length = torch.clamp(pos + 1, max=s_cache)
+    positions = pos.reshape(1, 1).expand(b, 1)
+    rot = layers.rope_tables(positions, dh, cfg.rope_theta)
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
         q, k, v = _qkv(p, cfg, layers.rmsnorm(p["ln1"], h))
         q = layers.apply_rope(q.view(b, 1, nh, dh), rot)[:, 0]
         k = layers.apply_rope(k.view(b, 1, nkv, dh), rot)[:, 0]
         k_c, v_c = cache["k"][i], cache["v"][i]
-        k_c[:, slot] = k.to(k_c.dtype)
-        v_c[:, slot] = v.view(b, nkv, dh).to(v_c.dtype)
+        k_c.index_copy_(1, slot, k.to(k_c.dtype)[:, None])
+        v_c.index_copy_(1, slot, v.view(b, nkv, dh).to(v_c.dtype)[:, None])
         attn = attention.decode_attention(q, k_c, v_c, length)
         h = h + attn.reshape(b, nh * dh) @ p["wo"].to(cd)
         h = h + _mlp(p, cfg, layers.rmsnorm(p["ln2"], h))[0]

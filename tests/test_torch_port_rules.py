@@ -183,6 +183,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
              lambda: data.molecule_batch(0, 0, 2, 5, 4, 3, 1),
              lambda: data.graph_minibatch_seeds(0, 0, 4, 10),
              lambda: steps.build_bundle("gcn-cora", "molecule", smoke=True),
+             lambda: steps.build_bundle("h2o-danube-3-4b", "prefill_32k",
+                                        smoke=True),
+             lambda: steps.build_bundle("h2o-danube-3-4b", "decode_32k",
+                                        smoke=True),
+             lambda: steps.build_bundle("mind", "serve_p99", smoke=True),
+             lambda: steps.build_bundle("dlrm-mlperf", "retrieval_cand",
+                                        smoke=True),
+             lambda: steps.build_bundle("gleanvec-paper", "learn_oi13m",
+                                        smoke=True),
+             lambda: steps.build_bundle("gleanvec-paper",
+                                        "search_oi13m_sorted", smoke=True),
              lambda: train.main(["--arch", "gcn-cora", "--shape",
                                  "minibatch_lg", "--smoke", "--steps", "1"]),
              lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4"])]
@@ -494,6 +505,50 @@ def test_cuda_gnn_steps_run_on_the_card(cuda):
     want = gnn.sample_neighbors(cpu["indptr"], cpu["indices"], cpu["seeds"],
                                 cpu["rand1"])
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["search_oi13m", "search_oi13m_sorted"])
+def test_cuda_vs_search_launches_b1_without_host_sync(cuda, shape):
+    """The paper's search bundle at smoke on the card: one
+    ``gleanvec_sq_topk`` launch a step, no host sync (after a warm-up),
+    and the CPU bundle's top 10 on the same inputs."""
+    from repro_torch import kernels as K
+    from repro_torch.analysis.trace_rules import sync_count
+    from repro_torch.launch import steps
+    from repro_torch.testing import assert_topk_close, dot_tol
+    bundle = steps.build_bundle("gleanvec-paper", shape, smoke=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, tags, x_low, x_full, a = bundle.args
+    c, d, dim = a.shape
+    # full rows: their cluster's view (orthonormal rows) plus N(0, 0.05^2)
+    # noise, so the rerank reorders the candidates, while the reduced
+    # ranking stays close enough that the card's and the CPU's top kappa
+    # hold the same top 10
+    a = torch.linalg.qr(torch.randn(c, dim, d, device=cuda,
+                                    generator=gen))[0].transpose(1, 2)
+    tags = torch.randint(0, c, tags.shape, device=cuda, generator=gen,
+                         dtype=torch.int32)
+    x_low = torch.randn(x_low.shape, device=cuda, generator=gen)
+    rows = tags.long().repeat_interleave(x_low.shape[0] // tags.shape[0])
+    noise = torch.randn((x_low.shape[0], dim), device=cuda, generator=gen)
+    x_full = torch.bmm(x_low[:, None, :], a[rows])[:, 0] + 0.05 * noise
+    args = [torch.randn(q.shape, device=cuda, generator=gen), tags, x_low,
+            x_full, a.contiguous()]
+    bundle.fn(*args)                                     # warm-up
+    before = K.gleanvec_sq_topk.launches
+    out = {}
+    n_sync = sync_count(lambda: out.update(r=bundle.fn(*args)))
+    vals, ids = out["r"]
+    assert K.gleanvec_sq_topk.launches == before + 1
+    assert n_sync == 0, n_sync
+    cpu = steps.build_bundle("gleanvec-paper", shape, smoke=True,
+                             device="cpu")
+    want = cpu.fn(*[a.cpu() for a in args])
+    assert_topk_close((vals.cpu(), ids.cpu()), want,
+                      dot_tol(float(args[0].norm(dim=1).max()),
+                              float(args[3].norm(dim=1).max()),
+                              args[3].shape[1]), shape)
 
 
 @pytest.mark.cuda

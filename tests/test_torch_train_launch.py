@@ -6,8 +6,9 @@ driver's drill and the int8 all-reduce over a process group.
   parameters (``convert.recsys_params``): f32 towers within 1e-5 (loss)
   and 1e-4 of each gradient's norm (f32 sums in another order); DLRM's
   bf16 towers within 2e-2 and 5e-2 (its serving test's bf16 tolerance).
-* ``launch/steps.build_bundle``: the abstract arguments, the optimizer
-  and the model flops of the reference's bundles (equal).
+* ``launch/steps.build_bundle`` for all 41 of the reference's cells:
+  the abstract arguments, the optimizer, the model flops and the
+  partition specs of the reference's bundles under the host mesh (equal).
 * ``launch/train.py`` in subprocesses, each with its own
   ``PYTHONHASHSEED``: a run that exits 42 at ``REPRO_FAIL_AT_STEP``, then
   ``--resume``, ends bit for bit where an uninterrupted run ends (CPU), for
@@ -176,41 +177,54 @@ def _gnn_sampling_draws(got_batch, want_batch, cfg):
     return got, {k: v for k, v in want_batch.items() if k != "rng"}
 
 
-@pytest.mark.parametrize("arch,shape", [
-    ("h2o-danube-3-4b", "train_4k"), ("qwen2-72b", "train_4k"),
-    ("grok-1-314b", "train_4k"), ("mind", "train_batch"),
-    ("dlrm-mlperf", "train_batch"), ("gcn-cora", "full_graph_sm"),
-    ("gcn-cora", "minibatch_lg"), ("gcn-cora", "ogb_products"),
-    ("gcn-cora", "molecule")])
+def _without_draws(got, want):
+    """The batch's specs without the GNN minibatch's sampling draws (the
+    port's ``rand1`` / ``rand2``, the reference's ``rng``)."""
+    got = {k: v for k, v in got.items() if k not in ("rand1", "rand2")}
+    return got, {k: v for k, v in want.items() if k != "rng"}
+
+
+# every (arch, shape) cell of the reference's registry: 13 training, 5
+# prefill, 6 decode, 8 recsys serving, 4 retrieval and the paper's 5
+BUNDLE_CELLS = [(arch, shape) for arch, mod in ref_registry.ARCHS.items()
+                for shape in mod.SHAPES]
+
+
+@pytest.mark.parametrize("arch,shape", BUNDLE_CELLS)
 def test_bundles_match_reference(arch, shape):
-    """Smoke and full: the step's model flops, trip counts, abstract
-    parameters (the reference's blocked layout for qwen2 and grok-1),
-    optimizer state (AdamW or Adafactor, as the config module says) and
-    batch shapes, bar the GNN minibatch's sampling draws
+    """Smoke and full, under the host mesh: the name, notes, model flops,
+    trip counts, the abstract arguments' shapes and dtypes (parameters in
+    the reference's blocked layout for qwen2 and grok-1 training, the flat
+    one for serving; the optimizer state, AdamW or Adafactor as the config
+    module says; a decode step's 0-d int32 ``pos``), all ``meta``, and the
+    in / out partition specs, bar the GNN minibatch's sampling draws
     (:func:`_gnn_sampling_draws`). Nothing is allocated."""
     mesh = make_host_mesh()
+    assert len(BUNDLE_CELLS) == 41
     for smoke in (True, False):
         want = ref_steps.build_bundle(arch, shape, mesh, smoke=smoke)
         got = steps.build_bundle(arch, shape, smoke=smoke, device="cpu")
-        assert got.name == want.name
+        assert (got.name, got.notes) == (want.name, want.notes)
         assert got.model_flops == want.model_flops
         assert got.trip_counts == want.trip_counts
-        batches = _gnn_sampling_draws(got.args[2], want.args[2], got.config)
-        for g, w in zip(got.args[:2] + batches[:1],
-                        want.args[:2] + batches[1:]):
-            gl = [(tuple(x.shape), str(x.dtype).split(".")[-1])
-                  for x in tree.leaves(g)]
-            wl = [(tuple(x.shape), jnp.dtype(x.dtype).name)
-                  for x in jax.tree.leaves(w)]
-            assert gl == wl
-            assert all(x.device.type == "meta" for x in tree.leaves(g))
-        assert type(got.args[1]).__name__ == type(want.args[1]).__name__
-        assert isinstance(got.args[1], (AdamWState, AdafactorState))
-    with pytest.raises(NotImplementedError, match="A5"):
-        steps.build_bundle("mind", "serve_p99", smoke=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        steps.build_bundle("h2o-danube-3-4b", "decode_32k", smoke=True,
-                           device="cpu")
+        got_args, want_args = list(got.args), list(want.args)
+        in_specs, want_in = list(got.in_specs), list(want.in_shardings)
+        if "rng" in getattr(want_args[-1], "keys", lambda: ())():
+            got_args[2], want_args[2] = _gnn_sampling_draws(
+                got_args[2], want_args[2], got.config)
+            in_specs[2], want_in[2] = _without_draws(in_specs[2], want_in[2])
+        gl = [(tuple(x.shape), str(x.dtype).split(".")[-1])
+              for x in tree.leaves(tuple(got_args))]
+        wl = [(tuple(x.shape), jnp.dtype(x.dtype).name)
+              for x in jax.tree.leaves(tuple(want_args))]
+        assert gl == wl
+        assert all(x.device.type == "meta"
+                   for x in tree.leaves(tuple(got_args)))
+        assert in_specs == want_in
+        assert got.out_specs == want.out_shardings
+        if len(got.args) == 3 and hasattr(want.args[1], "_fields"):
+            assert type(got.args[1]).__name__ == type(want.args[1]).__name__
+            assert isinstance(got.args[1], (AdamWState, AdafactorState))
 
 
 def test_lm_batch_is_a_pure_function_of_seed_and_step():
