@@ -7,7 +7,8 @@ recommenders' serving and candidate retrieval, and its LM serving paths
 (dense and mixture-of-experts), and its training (the LMs at published
 widths, MIND train-then-retrieve, the training CLI's drill, the GCN at
 its four published graph shapes), and the step bundles of every serving
-and search kind, on one NVIDIA GPU.
+and search kind, then the dry run against those steps and the four
+examples, on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # the whole check
     python3 chip_smoke.py --kernels-only   # build + phase 2 only
@@ -320,6 +321,21 @@ Phases (any failure raises and the script exits non-zero):
    equal to ``embedding_lookup`` exactly, in its serve step too. Last, how
    many of 40 short ``torch.profiler`` sessions record no device event at
    that point of the process (a reading, not a check).
+3p. The dry run (``repro_torch.launch.dryrun``) and the spec-sheet H100
+   roofline (``repro_torch.utils.roofline.H100``, its HBM and SMs printed
+   beside ``torch.cuda.get_device_properties(0)``), after 3o. (a) Every
+   step phase 3o measured, traced on fake CUDA tensors of 3o's shapes on
+   one device: the predicted bound (compute, memory) beside 3o's median,
+   the predicted peak above the data beside 3o's; fails if a step ran
+   faster than DRYRUN_BOUND_SLACK x its bound (a wrong count) or if the
+   dry run's argument bytes differ from the bytes of the storages 3o
+   allocated. (b) DRYRUN_CELLS (one a family) at full size on both
+   production meshes, (16, 16) and (2, 16, 16), in the fake process group
+   of 256 / 512 ranks: each record's trace seconds, bound and collectives.
+   (c) ``examples/torch_{quickstart,serve_vector_search,
+   streaming_updates,train_recsys_retrieval}.py`` at their defaults, each
+   in a process of its own on the card, the four at once: rc 0, wall
+   seconds, recall.
 
 Then the card's name and power limit, one JSON line with the kernel table,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -336,10 +352,12 @@ import hashlib
 import importlib
 import inspect
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -597,6 +615,13 @@ LEARN_CENTER_TOL, LEARN_ATB_TOL = 1e-5, 1e-3
 VS_NOISE = 0.05
 PROFILE_SESSIONS = 15
 PROFILE_PAUSE_S = 2.0
+# Phase 3p: a measured 3o step faster than DRYRUN_BOUND_SLACK x the dry
+# run's predicted bound means a wrong count; DRYRUN_CELLS are traced at
+# full size on both production meshes, one a family.
+DRYRUN_BOUND_SLACK = 0.9
+DRYRUN_CELLS = (("gleanvec-paper", "search_oi13m"),
+                ("h2o-danube-3-4b", "prefill_32k"),
+                ("dlrm-mlperf", "serve_p99"), ("gcn-cora", "ogb_products"))
 T_IMPORT = time.perf_counter()
 
 
@@ -4833,7 +4858,7 @@ def vs_plain_step(K, steps_mod, args, kappa, k, layout_block):
     return _merge_topk(steps_mod.vs_rerank(q, ids, x_full), ids, k)
 
 
-def vs_search_cell(K, testing, shape_name, gen):
+def vs_search_cell(K, testing, shape_name, gen, measured):
     """One ``vs_search*`` cell through ``build_bundle`` at its published
     n: the step's ms (median, max), QPS, peak, host syncs (none, under
     ``set_sync_debug_mode("error")``), B1 launches (the counter and the
@@ -4863,6 +4888,8 @@ def vs_search_cell(K, testing, shape_name, gen):
     med, mx, (vals, ids) = bundle_ms(lambda: bundle.fn(*args))
     launches = K.gleanvec_sq_topk.launches
     peak = peak_gb(base)
+    measured.append(measured_step(shape_name, bundle.fn, args,
+                                  bundle.model_flops, med, peak))
     with uncounted(K):
         no_host_sync(lambda: bundle.fn(*args))
         key = "ip_scan_kernel" if sorted_layout else "gemm_scan_topk_kernel"
@@ -4959,7 +4986,7 @@ def learn_f64(x, q, tags, centers_in, c, d):
     return new, torch.stack(atb)
 
 
-def vs_learn_cell(K, testing, gen):
+def vs_learn_cell(K, testing, gen, measured):
     """``learn_oi13m``'s data pass (n 1,000,448, m 10,000, C 48, d 160) on
     rows and queries N(0, 1) on their first d coordinates and N(0, 0.01)
     on the rest (every fit's top-d eigenspace stands clear of the rest, so
@@ -4986,6 +5013,9 @@ def vs_learn_cell(K, testing, gen):
     med, mx, (cent, a, b) = bundle_ms(lambda: bundle.fn(x, q, centers))
     launches = K.kmeans_assign.launches
     peak = peak_gb(base)
+    measured.append(measured_step("learn_oi13m", bundle.fn,
+                                  (x, q, centers), bundle.model_flops, med,
+                                  peak))
     with uncounted(K):
         x_unit = skm.normalize_rows(x)
         want_c, want_atb = learn_f64(x, q, skm.assign(x_unit, centers),
@@ -5054,7 +5084,7 @@ def prefill_flash_row(K, testing, b, s, window, launches):
             "library_ms": lib_ms}
 
 
-def lm_bundle_cells(K, testing):
+def lm_bundle_cells(K, testing, measured):
     """h2o-danube-3-4b's prefill_32k (batch cut), decode_32k and long_500k
     bundles at published widths on one set of random weights. Returns the
     flash_attention row."""
@@ -5092,6 +5122,8 @@ def lm_bundle_cells(K, testing):
                              f"{hits} {LM_FLASH_KERNEL} a step, or "
                              "malformed outputs")
     flops = pre.model_flops * b / pre.args[1].shape[0]
+    measured.append(measured_step(f"prefill_32k B={b}", pre.fn,
+                                  (params, tokens), flops, med, peak))
     log(f"  prefill_32k (B {pre.args[1].shape[0]} cut to {b}, S={s}, all "
         f"{cfg.n_layers} layers, {w_gb:.1f} GB weights): median={med:.1f} ms"
         f" max={mx:.1f} ms tokens/s={b * s / med * 1e3:.0f} model TFLOP/s="
@@ -5123,6 +5155,9 @@ def lm_bundle_cells(K, testing):
         med, mx, (logits, _) = bundle_ms(lambda: bun.fn(params, cache, tok,
                                                         pos))
         peak = peak_gb(base)
+        measured.append(measured_step(shape_name, bun.fn,
+                                      (params, cache, tok, pos),
+                                      bun.model_flops, med, peak))
         no_host_sync(lambda: bun.fn(params, cache, tok, pos))
         with uncounted(K):
             _, rows, intact = profile_kernels(
@@ -5152,7 +5187,7 @@ def lm_bundle_cells(K, testing):
     return row
 
 
-def recsys_cell(label, fn, args, b, kind):
+def recsys_cell(label, fn, args, b, kind, measured, model_flops):
     """One serve or retrieval call: ms (median, max), rows or users a
     second, peak and host syncs; finite scores, ids valid and distinct."""
     from repro_torch.analysis.trace_rules import sync_count
@@ -5160,6 +5195,7 @@ def recsys_cell(label, fn, args, b, kind):
     torch.cuda.reset_peak_memory_stats()
     med, mx, out = bundle_ms(lambda: fn(*args))
     peak = peak_gb(base)
+    measured.append(measured_step(label, fn, args, model_flops, med, peak))
     syncs = sync_count(lambda: fn(*args))
     if kind == "recsys_serve":
         ok = out.shape == (b,) and bool(torch.isfinite(out.float()).all())
@@ -5175,7 +5211,7 @@ def recsys_cell(label, fn, args, b, kind):
         f"host syncs={syncs}")
 
 
-def recsys_bundle_cells():
+def recsys_bundle_cells(measured):
     """The recommenders' serve_p99, serve_bulk and retrieval_cand bundles
     at published widths (DLRM with its table cut); then DLRM's
     ``make_sharded_lookup`` on a one-rank NCCL group, (1, 1) mesh."""
@@ -5216,7 +5252,7 @@ def recsys_bundle_cells():
                                     generator=gen)
                 args = (params, batch, cands)
             recsys_cell(f"{arch}:{shape_name}", fn, args, shape["batch"],
-                        shape["kind"])
+                        shape["kind"], measured, bun.model_flops)
             del batch, args
         if model == "dlrm":
             dlrm_sharded_lookup(params, cfg)
@@ -5270,7 +5306,7 @@ def dlrm_sharded_lookup(params, cfg):
 def phase_bundles(K, testing):
     """Phase 3o: every serving and search kind of ``build_bundle`` on the
     card. Returns (kernel-table rows, launches to add to phase 3i's
-    rows)."""
+    rows, each cell's :class:`Measured` step for phase 3p)."""
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -5278,22 +5314,179 @@ def phase_bundles(K, testing):
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated at the "
         "start")
     gen = torch.Generator(device="cuda").manual_seed(BUNDLE_SEED)
-    rows, extra = [], {}
+    rows, extra, measured = [], {}, []
     for shape_name in ("search_oi13m", "search_oi13m_sorted",
                        "search_rqa10m", "search_t2i10m"):
-        launches, row = vs_search_cell(K, testing, shape_name, gen)
+        launches, row = vs_search_cell(K, testing, shape_name, gen, measured)
         if row is None:
             layout = "sorted" if shape_name.endswith("sorted") else "gathered"
             extra[f"gleanvec_sq_topk[oi13m {layout}]"] = launches
         else:
             rows.append(row)
-    rows.append(vs_learn_cell(K, testing, gen))
-    rows.append(lm_bundle_cells(K, testing))
-    recsys_bundle_cells()
+    rows.append(vs_learn_cell(K, testing, gen, measured))
+    rows.append(lm_bundle_cells(K, testing, measured))
+    recsys_bundle_cells(measured)
     log("  " + profiler_empty_sessions())
     log(f"  phase 3o: {time.perf_counter() - t_phase:.0f} s on "
         f"{card_line()}")
-    return rows, extra
+    return rows, extra, measured
+
+
+# ---------------------------------------------------------------------------
+# Phase 3p: the dry run and the H100 roofline against phase 3o's steps.
+# ---------------------------------------------------------------------------
+
+
+class Measured(NamedTuple):
+    """One phase 3o step as phase 3p reads it: ``args`` as ``meta``
+    tensors of the shapes 3o allocated, ``arg_bytes`` the bytes of their
+    storages on the card, ``ms`` the step's median, ``peak_gb`` the peak
+    above its data."""
+    label: str
+    fn: Any
+    args: Any
+    arg_bytes: int
+    model_flops: float
+    ms: float
+    peak_gb: float
+
+
+def measured_step(label, fn, args, model_flops, ms, peak) -> Measured:
+    """A :class:`Measured` of a step run on ``args`` (no reference to them
+    is kept: 3o frees each cell's data)."""
+    from torch.utils._pytree import tree_leaves, tree_map
+    stores = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+              for t in tree_leaves(args) if isinstance(t, torch.Tensor)}
+    meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta")
+                    if isinstance(t, torch.Tensor) else t, args)
+    return Measured(label, fn, meta, sum(stores.values()), model_flops, ms,
+                    peak)
+
+
+def dryrun_of_measured(m: Measured):
+    """The dry run's record of ``m``'s step on one device at its shapes."""
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import Mesh
+    one = Mesh(("data",), (1,))
+    trace = dryrun.trace_step(m.fn, m.args, device="cuda")
+    bundle = steps.StepBundle(name=m.label, fn=m.fn, args=m.args, config=None,
+                              device=torch.device("cuda"),
+                              model_flops=m.model_flops)
+    return dryrun.record_of("3o", m.label, "one", bundle, one, trace,
+                            "traced")
+
+
+def tflops_by_dtype(rec) -> dict:
+    return {k: round(v / 1e12, 4)
+            for k, v in rec["cost"]["flops_by_dtype"].items()}
+
+
+def example_runs(names, timeout: int = 300) -> dict:
+    """``examples/torch_<name>.py`` at its defaults on the card, each in a
+    process of its own, all started together: {name: (rc, wall s from
+    the start to its exit, its recall@10 / agreement / QPS lines)}."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"torch_{name}.py")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        for name in names}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            keep = [ln.strip() for ln in stdout.splitlines()
+                    if "recall@10" in ln or "agreement" in ln or "QPS" in ln]
+            if proc.returncode != 0:
+                log(stdout[-2000:] + stderr[-3000:])
+            out[name] = (proc.returncode, time.perf_counter() - t0, keep)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def phase_dryrun(measured) -> None:
+    """Phase 3p: (a) the dry run of every step phase 3o measured, at 3o's
+    shapes on one device, beside 3o's ms and peak; fails if a step ran
+    faster than DRYRUN_BOUND_SLACK x its predicted bound (the count is
+    wrong) or if the dry run's argument bytes are not those 3o allocated.
+    (b) One full-size cell a family on both production meshes (the fake
+    process group of 256 / 512 ranks on this torch), each trace's
+    seconds. (c) The four examples at their defaults on the card, in
+    processes of their own started together."""
+    from repro_torch.launch import dryrun
+    from repro_torch.utils import roofline
+    t_phase = time.perf_counter()
+    props = torch.cuda.get_device_properties(0)
+    h = roofline.H100
+    log(f"phase 3p: the dry run and the H100 roofline on {card_line()}; "
+        f"spec sheet (roofline.H100): {h.hbm_bytes / 1e9:.0f} GB HBM at "
+        f"{h.hbm_bw / 1e12:.2f} TB/s, {h.n_sms} SMs, {h.peak_flops / 1e12:.1f}"
+        f" / {h.peak_flops_f32 / 1e12:.1f} TFLOP/s bf16 / f32; this card: "
+        f"{props.total_memory / 1e9:.1f} GB, {props.multi_processor_count} "
+        f"SMs ({props.name})")
+    log("  (a) phase 3o's steps: predicted (dry run, spec-sheet H100) "
+        "beside measured")
+    for m in measured:
+        rec = dryrun_of_measured(m)
+        rf, mem = rec["roofline"], rec["memory"]
+        bound_ms = rf["bound_s"] * 1e3
+        above = (mem["temp_bytes"] + mem["output_bytes"]
+                 - mem["alias_bytes"]) / 1e9
+        log(f"    {m.label}: measured {m.ms:.3f} ms, predicted bound "
+            f"{bound_ms:.3f} ms ({rf['bottleneck']}; compute "
+            f"{rf['compute_s'] * 1e3:.3f} / memory {rf['memory_s'] * 1e3:.3f}"
+            f" ms; {rec['cost']['flops'] / 1e12:.4f} TFLOP "
+            f"{tflops_by_dtype(rec)}"
+            f", {rec['cost']['bytes_written'] / 1e9:.3f} GB written), "
+            f"measured / bound {m.ms / max(bound_ms, 1e-9):.2f}; peak above "
+            f"the data measured {m.peak_gb:.3f} GB, predicted {above:.3f} GB;"
+            f" argument bytes {mem['argument_bytes']:,} (allocated "
+            f"{m.arg_bytes:,}); traced in {rec['trace_s']:.2f} s, "
+            f"{rec['ops']} ops")
+        if m.ms < DRYRUN_BOUND_SLACK * bound_ms:
+            raise AssertionError(f"phase 3p {m.label}: measured {m.ms:.3f} "
+                                 f"ms < {DRYRUN_BOUND_SLACK} x the predicted "
+                                 f"bound {bound_ms:.3f} ms")
+        if mem["argument_bytes"] != m.arg_bytes:
+            raise AssertionError(f"phase 3p {m.label}: argument bytes "
+                                 f"{mem['argument_bytes']} != allocated "
+                                 f"{m.arg_bytes}")
+    log("  (b) full-size cells on the production meshes (fake process "
+        "group)")
+    for arch, shape in DRYRUN_CELLS:
+        for mk in ("single", "multi"):
+            rec = dryrun.run_cell(arch, shape, mk, device="cuda")
+            rf, mem = rec["roofline"], rec["memory"]
+            log(f"    {arch}:{shape}:{mk} split={rec['split']} "
+                f"trace_s={rec['trace_s']:.2f} peak/dev="
+                f"{mem['peak_bytes'] / 1e9:.2f} GB (args "
+                f"{mem['argument_bytes'] / 1e9:.2f}) bound "
+                f"{rf['bound_s'] * 1e3:.3f} ms ({rf['bottleneck']}; compute "
+                f"{rf['compute_s'] * 1e3:.3f} / memory "
+                f"{rf['memory_s'] * 1e3:.3f} / collective "
+                f"{rf['collective_s'] * 1e3:.3f} ms; "
+                f"{rec['collectives']['count']} collectives, "
+                f"{rec['collectives']['bytes'] / 1e6:.2f} MB)")
+            if not rec["ok"] or rf["bound_s"] <= 0:
+                raise AssertionError(f"phase 3p {arch}:{shape}:{mk}")
+    log("  (c) the examples at their defaults on the card, the four at "
+        "once")
+    runs = example_runs(("quickstart", "serve_vector_search",
+                         "streaming_updates", "train_recsys_retrieval"))
+    for name, (rc, wall, lines) in runs.items():
+        log(f"    examples/torch_{name}.py: rc={rc} wall={wall:.1f} s; "
+            + " | ".join(lines))
+        if rc != 0 or not lines:
+            raise AssertionError(f"phase 3p: examples/torch_{name}.py "
+                                 f"failed (rc {rc})")
+    log(f"  phase 3p: {time.perf_counter() - t_phase:.0f} s on "
+        f"{card_line()}")
 
 
 # ---------------------------------------------------------------------------
@@ -6984,8 +7177,10 @@ def main(argv=None) -> int:
     table += phase_moe(K, testing)
     table += phase_train(K, testing)
     phase_gnn()
-    bundle_rows, bundle_launches = phase_bundles(K, testing)
+    bundle_rows, bundle_launches, measured = phase_bundles(K, testing)
     table += bundle_rows
+    phase_dryrun(measured)
+    del measured
     add_launches(table, bundle_launches)
     add_launches(table, sharded_launches)
     # phase 3j's d = 160 scans run the linear mode's shape and the

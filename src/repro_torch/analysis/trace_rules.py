@@ -9,8 +9,9 @@ records it (:class:`StepTrace`):
   output shapes, dtypes and devices, its input shapes, and the kernel plain
   version it ran inside, if any (``*_plain`` functions of
   :mod:`repro_torch.kernels`: on CPU tensors every kernel wrapper runs its
-  plain version). Tensors that the kernel wrappers allocate through torch
-  are seen; the ctypes launches are not;
+  plain version; a kernel that is a custom op, ``repro_torch::*``, is
+  stepped into there). Tensors that the kernel wrappers allocate through
+  torch are seen, outside the custom ops; the ctypes launches are not;
 * on a CUDA device also the synchronizing calls
   (``torch.cuda.set_sync_debug_mode("warn")``, :func:`sync_count`), the
   peak of ``torch.cuda.max_memory_allocated`` above the call's starting
@@ -132,6 +133,14 @@ def _recorder(ops: List[OpRecord]):
 
     class _Record(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "repro_torch" and all(
+                    t.device.type == "cpu" for t in _tensors((args, kwargs))):
+                # a kernel's custom op on CPU tensors is its plain version:
+                # record the plain version's ops, as for the other kernels
+                from torch._library.custom_ops import OPDEFS
+                with self:
+                    return OPDEFS[func._schema.name]._init_fn(
+                        *args, **(kwargs or {}))
             out = func(*args, **(kwargs or {}))
             ops.append(OpRecord(
                 name=str(func),

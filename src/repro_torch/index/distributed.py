@@ -82,11 +82,12 @@ def _group_rank(group):
 def _all_gather_cols(t: torch.Tensor, group, world: int) -> torch.Tensor:
     """(m, w) on every rank -> (m, world * w), rank r's block at columns
     [r w, (r + 1) w): the reference's ``all_gather(..., axis=1,
-    tiled=True)``. NCCL for CUDA tensors, gloo for CPU ones."""
+    tiled=True)``. NCCL for CUDA tensors, gloo for CPU ones (the dry
+    run's fake group for either)."""
     import torch.distributed as dist
     backend = str(dist.get_backend(group))
     want = "nccl" if t.is_cuda else "gloo"
-    if want not in backend:
+    if want not in backend and backend != "fake":
         raise ValueError(f"{t.device.type} tensors need a {want} process "
                          f"group; this one is {backend}")
     t = t.contiguous()

@@ -18,9 +18,11 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 __all__ = ["flash_attention", "flash_attention_plain", "NEG_INF",
-           "VARIANTS", "wgmma_work", "wgmma_profile", "PROFILE_PARTS"]
+           "VARIANTS", "wgmma_work", "wgmma_profile", "PROFILE_PARTS",
+           "attention_pairs"]
 
 NEG_INF = -3.4e38       # the reference's mask value
 MAX_DH = 128            # widest head the kernel takes (zero-padded to 32/64/128)
@@ -187,15 +189,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """``q (B, H, S, dh)``, ``k/v (B, KV, S, dh)`` -> (B, H, S, dh), the
-    function of :func:`flash_attention_plain`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel that ``_variant`` picks (bf16 on
-    the tensor cores, f32 on fp32 FMA; dh <= 128) or raise. Inputs may be
-    strided views with a contiguous last dim (e.g. ``x.transpose(1, 2)`` of
-    a (B, S, H, dh) tensor); the output takes q's memory layout."""
+    function of :func:`flash_attention_plain`. Inputs may be strided views
+    with a contiguous last dim (e.g. ``x.transpose(1, 2)`` of a (B, S, H,
+    dh) tensor); the output takes q's memory layout.
+
+    The custom op ``repro_torch::flash_attention``: CPU tensors take the
+    plain version; CUDA tensors launch the kernel that ``_variant`` picks
+    (bf16 on the tensor cores, f32 on fp32 FMA; dh <= 128) or raise; fake
+    tensors get the output's shape and the kernel's flop count (4 dh an
+    unmasked (query, key) pair, :func:`attention_pairs`), for the dry
+    run."""
     from repro_torch import kernels as K
     _check(q, k, v, window)
-    if K.on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal, window)
+    K.on_cpu(q, k, v)                           # raises on mixed devices
+    return _flash_attention_op(q, k, v, causal, window)
+
+
+def attention_pairs(s: int, causal: bool = True,
+                    window: Optional[int] = None) -> int:
+    """Unmasked (query, key) pairs of one (b, h) over ``s`` positions:
+    query i sees keys j <= i (``causal``) with i - j < ``window``."""
+    w = s if window is None else min(window, s)
+    if causal:                  # sum over i of min(i + 1, w)
+        return w * (w + 1) // 2 + (s - w) * w
+    # sum over i of s - max(0, i - w + 1)
+    return s * s - (s - w) * (s - w + 1) // 2
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: Optional[int]) -> torch.Tensor:
+    return flash_attention_plain(q, k, v, causal, window)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, window, out_shape=None,
+      **kwargs) -> int:
+    b, h, s, dh = q_shape
+    return 4 * dh * b * h * attention_pairs(s, causal, window)
+
+
+@_flash_attention_op.register_kernel("cuda")
+def _(q, k, v, causal, window):
+    from repro_torch import kernels as K
     cur = torch.cuda.current_device()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.index != cur:

@@ -20,8 +20,10 @@ tile-shrink / gathered fallbacks are not needed); the launch shapes are
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.index.topk import NEG_INF, blocked_topk
 from repro_torch.kernels.ip_topk import ScanPlan, split_plan
@@ -265,16 +267,47 @@ def gleanvec_sq_topk(q_scaled, q_lo, tags, codes, k: int, row_ids=None,
     ids (M, k) i32), best first. Any k >= 1 (above ``K.PASS_K`` the kernel
     scans in passes).
 
-    CPU tensors take :func:`gleanvec_sq_topk_plain`; CUDA tensors launch
-    the kernel or raise."""
+    The custom op ``repro_torch::gleanvec_sq_topk``: CPU tensors take
+    :func:`gleanvec_sq_topk_plain`; CUDA tensors launch the kernel or
+    raise; fake tensors get the output shapes and the kernel's flop count
+    (2 d a (query, row)), for the dry run."""
+    from repro_torch import kernels as K
+    K.on_cpu(*(t for t in (q_scaled, q_lo, tags, codes, row_ids)
+               if t is not None))               # raises on mixed devices
+    return _gleanvec_sq_topk_op(q_scaled, q_lo, tags, codes, k, row_ids,
+                                layout_block)
+
+
+@torch.library.custom_op("repro_torch::gleanvec_sq_topk", mutates_args=(),
+                         device_types="cpu")
+def _gleanvec_sq_topk_op(q_scaled: torch.Tensor, q_lo: torch.Tensor,
+                         tags: torch.Tensor, codes: torch.Tensor, k: int,
+                         row_ids: Optional[torch.Tensor],
+                         layout_block: int) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    return gleanvec_sq_topk_plain(q_scaled, q_lo, tags, codes, k,
+                                  row_ids=row_ids, layout_block=layout_block)
+
+
+@_gleanvec_sq_topk_op.register_fake
+def _(q_scaled, q_lo, tags, codes, k, row_ids, layout_block):
+    m = q_scaled.shape[0]
+    return (q_scaled.new_empty((m, k), dtype=torch.float32),
+            q_scaled.new_empty((m, k), dtype=torch.int32))
+
+
+@register_flop_formula(torch.ops.repro_torch.gleanvec_sq_topk)
+def _(q_scaled_shape, q_lo_shape, tags_shape, codes_shape, *args,
+      out_shape=None, **kwargs) -> int:
+    return 2 * q_scaled_shape[0] * codes_shape[0] * codes_shape[1]
+
+
+@_gleanvec_sq_topk_op.register_kernel("cuda")
+def _(q_scaled, q_lo, tags, codes, k, row_ids, layout_block):
     from repro_torch import kernels as K
     args = dict(q_scaled=q_scaled, q_lo=q_lo, tags=tags, codes=codes)
     if row_ids is not None:
         args["row_ids"] = row_ids
-    if K.on_cpu(*args.values()):
-        return gleanvec_sq_topk_plain(q_scaled, q_lo, tags, codes, k,
-                                      row_ids=row_ids,
-                                      layout_block=layout_block)
     K.check_cuda_inputs("gleanvec_sq_topk", **args)
     if q_scaled.dtype != torch.float32 or q_lo.dtype != torch.float32 \
             or codes.dtype not in (torch.float32, torch.uint8) \

@@ -5,8 +5,10 @@ Port of ``repro/kernels/kmeans_assign`` (TPU kernel ``kmeans_assign``)."""
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 __all__ = ["kmeans_assign", "kmeans_assign_plain"]
 
@@ -37,11 +39,38 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor):
     maxsim (N,) f32), ties to the first center. Any C >= 1 and any D in
     one launch: the kernel streams the centers with the rows, one pass
     over x for up to 128 centers (more re-read each row tile from L2 per
-    further tile of centers). CPU tensors take :func:`kmeans_assign_plain`;
-    CUDA tensors launch the kernel or raise."""
+    further tile of centers).
+
+    The custom op ``repro_torch::kmeans_assign``: CPU tensors take
+    :func:`kmeans_assign_plain`; CUDA tensors launch the kernel or raise;
+    fake tensors get the output shapes and the kernel's flop count (2 D a
+    (row, center)), for the dry run."""
     from repro_torch import kernels as K
-    if K.on_cpu(x, centers):
-        return kmeans_assign_plain(x, centers)
+    K.on_cpu(x, centers)                        # raises on mixed devices
+    return _kmeans_assign_op(x, centers)
+
+
+@torch.library.custom_op("repro_torch::kmeans_assign", mutates_args=(),
+                         device_types="cpu")
+def _kmeans_assign_op(x: torch.Tensor, centers: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return kmeans_assign_plain(x, centers)
+
+
+@_kmeans_assign_op.register_fake
+def _(x, centers):
+    return (x.new_empty((x.shape[0],), dtype=torch.int32),
+            x.new_empty((x.shape[0],), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.kmeans_assign)
+def _(x_shape, centers_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * x_shape[0] * centers_shape[0] * x_shape[1]
+
+
+@_kmeans_assign_op.register_kernel("cuda")
+def _(x, centers):
+    from repro_torch import kernels as K
     K.check_cuda_inputs("kmeans_assign", x=x, centers=centers)
     if x.dtype != torch.float32 or centers.dtype != torch.float32:
         raise TypeError("kmeans_assign takes f32 x and centers")

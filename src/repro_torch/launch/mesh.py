@@ -71,17 +71,22 @@ def device_mesh(mesh: Mesh, device_type: str = "cuda"):
         raise RuntimeError(f"mesh {dict(mesh.shape)} needs a process group "
                            f"of {mesh.size} ranks; the default group has "
                            f"{world or 'none'}")
-    return init_device_mesh(device_type, mesh.axis_sizes,
-                            mesh_dim_names=mesh.axis_names)
+    # made on the host, outside the fake tensors of a dry run's trace
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return init_device_mesh(device_type, mesh.axis_sizes,
+                                mesh_dim_names=mesh.axis_names)
 
 
 def axis_group(dmesh, axes: Sequence[str]):
     """The process group of ``axes`` of a live ``DeviceMesh`` (their
     product for several, ranks in row-major order over them); None for no
     axes."""
+    from torch.utils._python_dispatch import _disable_current_modes
     axes = tuple(axes)
     if not axes:
         return None
     if len(axes) == 1:
         return dmesh.get_group(axes[0])
-    return dmesh[axes]._flatten().get_group()
+    with _disable_current_modes():
+        return dmesh[axes]._flatten().get_group()

@@ -137,7 +137,7 @@ class dlrm:
         """(B,) logits of a batch: its packed ids looked up with
         ``lookup_fn(table, idx)`` where given (``make_sharded_lookup``'s on
         a mesh), else with a plain take."""
-        idx = batch["sparse"] + _dlrm_offsets(cfg, batch["sparse"].device)
+        idx = batch["sparse"] + _dlrm_offsets(cfg, batch["sparse"])
         emb = (emb_mod.embedding_lookup(params["table"], idx)
                if lookup_fn is None else lookup_fn(params["table"], idx))
         return dlrm.forward(params, batch["dense"], emb, cfg)
@@ -158,10 +158,18 @@ class dlrm:
                                 compute_dtype=cd).to(torch.float32)
 
 
+def _dlrm_offsets(cfg: DLRMConfig, like: torch.Tensor) -> torch.Tensor:
+    """(1, 26) row offsets of the packed tables on ``like``'s device,
+    copied there once (a copy a step would be a host sync); a fake tensor
+    (the dry run's trace) gets its own, so none outlives its fake mode."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if isinstance(like, FakeTensor):
+        return _offsets_on.__wrapped__(cfg, like.device)
+    return _offsets_on(cfg, like.device)
+
+
 @functools.lru_cache(maxsize=None)
-def _dlrm_offsets(cfg: DLRMConfig, device: torch.device) -> torch.Tensor:
-    """(1, 26) row offsets of the packed tables, copied to ``device`` once
-    (a copy a step would be a host sync)."""
+def _offsets_on(cfg: DLRMConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(dlrm.offsets(cfg), device=device)[None, :]
 
 

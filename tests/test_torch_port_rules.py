@@ -1,10 +1,12 @@
 """Rules the PyTorch port keeps.
 
-* No module of ``repro_torch`` and not ``chip_smoke.py`` imports JAX or
-  anything of the JAX package (checked on the source with ``ast``, and by
-  importing the port in a fresh interpreter).
+* No module of ``repro_torch``, not ``chip_smoke.py`` and no
+  ``examples/torch_*.py`` imports JAX or anything of the JAX package
+  (checked on the source with ``ast``, and by importing the port in a
+  fresh interpreter).
 * Entry points run on the GPU by default and raise, rather than carry on
-  on the CPU, when there is none.
+  on the CPU, when there is none; so do the examples without ``--device
+  cpu``.
 * A kernel wrapper given CUDA tensors launches its kernel and never takes
   the plain path (``cuda`` marker: needs a GPU, skipped elsewhere).
 * ``chip_smoke.py`` exits non-zero and prints no result without a GPU or
@@ -27,7 +29,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imports(path):
@@ -74,6 +77,8 @@ def test_port_imports_without_jax():
             "import repro_torch.train, repro_torch.train.optimizer\n"
             "import repro_torch.train.trainstep, repro_torch.train.grad_compress\n"
             "import repro_torch.launch.steps, repro_torch.launch.train\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.report\n"
+            "import repro_torch.utils.roofline\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'repro was imported'\n")
@@ -116,7 +121,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     lm_params = tfm.init(lm_cfg, device="cpu")
     from repro_torch.models import moe
     moe_cfg = registry.get("grok-1-314b").make_config(smoke=True)
-    from repro_torch.launch import steps, train
+    from repro_torch.launch import dryrun, steps, train
     from repro_torch.models import gnn
     gcn_cfg = registry.get("gcn-cora").make_config(smoke=True)
 
@@ -196,11 +201,31 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                         "search_oi13m_sorted", smoke=True),
              lambda: train.main(["--arch", "gcn-cora", "--shape",
                                  "minibatch_lg", "--smoke", "--steps", "1"]),
+             lambda: dryrun.run_cell("gleanvec-paper", "search_oi13m",
+                                     "single", smoke=True),
+             lambda: dryrun.main(["--arch", "fm", "--shape", "serve_p99"]),
              lambda: serve.main(["--n", "100", "--dim", "8", "--d", "4"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["quickstart", "serve_vector_search",
+                                  "streaming_updates",
+                                  "train_recsys_retrieval"])
+def test_examples_need_a_gpu_or_device_cpu(name):
+    """Each ``examples/torch_*.py`` runs on the GPU by default and raises
+    without one, before any work (``--device cpu``:
+    ``tests/test_torch_examples.py``)."""
+    import importlib.util
+    _no_cuda()
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
 
 
 def test_recsys_init_refuses_a_generator_on_another_device():
@@ -305,6 +330,77 @@ def test_cuda_wrappers_launch_kernels_not_plain(cuda, monkeypatch):
              K.kmeans_assign.launches, K.sq_dot.launches,
              K.gleanvec_ip.launches, K.gleanvec_sq.launches)
     assert after == tuple(b + 1 for b in before)
+
+
+@pytest.mark.cuda
+def test_cuda_custom_ops_launch_kernels_not_plain(cuda, monkeypatch):
+    """B1, B3 and B9 are the custom ops ``repro_torch::gleanvec_sq_topk``,
+    ``::kmeans_assign`` and ``::flash_attention``: on CUDA tensors the
+    wrapper and the op alike launch the hand-written kernel (one launch
+    each, counted) and never the plain version; on fake CUDA tensors (the
+    dry run) the op gives its output shapes and its flop count, and
+    launches nothing."""
+    import importlib
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels as K
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{name}")
+            for name in ("gleanvec_sq", "kmeans_assign", "flash_attention")}
+
+    def refuse(*a, **k):
+        raise AssertionError("plain path taken for a CUDA tensor")
+
+    for name, plain in (("gleanvec_sq", "gleanvec_sq_topk_plain"),
+                        ("kmeans_assign", "kmeans_assign_plain"),
+                        ("flash_attention", "flash_attention_plain")):
+        monkeypatch.setattr(mods[name], plain, refuse)
+
+    def args(dev, fake: bool):
+        if fake:
+            def mk(*s, **k):
+                return torch.empty(*s, device=dev, **k)
+        else:
+            g = torch.Generator(device=dev).manual_seed(0)
+
+            def mk(*s, **k):
+                return torch.randn(*s, device=dev, generator=g, **k)
+        return ((mk(5, 3, 16), torch.zeros(5, 3, device=dev),
+                 torch.zeros(300, dtype=torch.int32, device=dev),
+                 mk(300, 16), 10),
+                (mk(300, 16), mk(4, 16)),
+                (mk(2, 4, 200, 128, dtype=torch.bfloat16),
+                 mk(2, 2, 200, 128, dtype=torch.bfloat16),
+                 mk(2, 2, 200, 128, dtype=torch.bfloat16), True, 64))
+
+    wrappers = (K.gleanvec_sq_topk, K.kmeans_assign, K.flash_attention)
+    ops = (torch.ops.repro_torch.gleanvec_sq_topk,
+           torch.ops.repro_torch.kmeans_assign,
+           torch.ops.repro_torch.flash_attention)
+    before = [w.launches for w in wrappers]
+    b1, b3, b9 = args(cuda, fake=False)
+    K.gleanvec_sq_topk(*b1)
+    ops[0](*b1, None, 0)
+    K.kmeans_assign(*b3)
+    ops[1](*b3)
+    K.flash_attention(*b9)
+    ops[2](*b9)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [b + 2 for b in before]
+    with FakeTensorMode():
+        f1, f3, f9 = args("cuda", fake=True)
+        with FlopCounterMode(display=False) as fc:
+            (v, i), (t, m), o = (K.gleanvec_sq_topk(*f1),
+                                 K.kmeans_assign(*f3), K.flash_attention(*f9))
+    assert (v.shape, i.dtype, t.shape, o.shape) == (
+        (5, 10), torch.int32, (300,), (2, 4, 200, 128))
+    counts = fc.get_flop_counts()["Global"]
+    assert counts[ops[0]] == 2 * 5 * 300 * 16
+    assert counts[ops[1]] == 2 * 300 * 4 * 16
+    pairs = mods["flash_attention"].attention_pairs(200, True, 64)
+    assert counts[ops[2]] == 4 * 128 * 2 * 4 * pairs
+    assert [w.launches for w in wrappers] == [b + 2 for b in before]
 
 
 @pytest.mark.cuda
@@ -480,7 +576,7 @@ def test_cuda_gnn_steps_run_on_the_card(cuda):
     from repro_torch import tree
     from repro_torch.analysis.trace_rules import sync_count
     from repro_torch.configs import registry
-    from repro_torch.launch import steps, train
+    from repro_torch.launch import dryrun, steps, train
     from repro_torch.models import gnn
     module = registry.get("gcn-cora")
     for shape in ("ogb_products", "minibatch_lg"):
