@@ -77,11 +77,15 @@ Phases (any failure raises and the script exits non-zero):
    device build (k-NN self-join through ``ip_topk``, detour prune, reverse
    fill, entry points through ``kmeans_assign``), then beam search (beam
    128, max_hops 200, expand 4) behind a ServingEngine (batch 1024, k = 10,
-   kappa = 100, 5 batches) with both sorted modes fused (the whole search
-   of a batch one ``graph_beam_search`` launch, ``graph_scan_beam_step``
-   never) and sphering gathered: QPS, p50, p99, recall@10 against the
+   kappa = 100, 5 batches) in all seven modes, each batch's whole search
+   one ``graph_beam_search`` launch (``graph_scan_beam_step`` never): both
+   sorted modes fused, and the five gathered modes (full, sphering,
+   gleanvec, sphering-int8, gleanvec-int8) over the id table at layout
+   block 1, each first timed on the per-hop loop it ran before (ms a
+   batch, hops, host syncs) and its one launch held against that loop on
+   the same batch: QPS, p50, p99, recall@10 against the
    exact top-10 on the card and its floor, hops per batch, device kernels
-   and host syncs a batch (none inside ``candidates`` on the fused path),
+   and host syncs a batch (none inside ``candidates``),
    the kernel's share of a batch; counters zeroed just before the build,
    and the kernel table's launches are those of the build, each mode's
    serving and the churn's updates and serving, each read just after it
@@ -152,12 +156,13 @@ Phases (any failure raises and the script exits non-zero):
    trace rules at full width on the states of phases 3-3g: the flat path
    in 7 modes (no (1024, n_rows) buffer, 8.2 GB at 2M rows, and a peak
    below its bytes), the aligned IVF in both sorted modes (also no (1024,
-   nprobe * max_len)), the fused graph (exactly one graph_search_kernel),
+   nprobe * max_len)), the graph in all seven modes (exactly one
+   graph_search_kernel: the two fused, the five gathered),
    the host tier (no (2M, 512) f32 buffer on the card), S = 4 shards (no
    (1024, rows of a shard)), every cell without a host sync in
    ``state_candidates``; ``SwapWithoutCopy`` on one stream cycle's swap.
-   A failure ``run.KNOWN_DEVIATIONS`` does not list, or a listed one that
-   passes, fails the phase.
+   A failure ``run.KNOWN_DEVIATIONS`` (empty) does not list, or a listed
+   one that passes, fails the phase.
 4. Each kernel at its path's shapes and inputs: its time beside its bound,
    its plain version's time, the time of the composed PyTorch calls that
    compute the same function (``library_ms``), and its agreement with the
@@ -167,8 +172,9 @@ Phases (any failure raises and the script exits non-zero):
    device time by kernel; ivf_scan_topk with its time at k = 1, its fold
    profile and its device time by kernel, the sorted top-k also at the
    stream's layout block 256 (its final sorted stores, with a digest of the
-   dense sorted scores); graph_beam_search on each fused mode's batch
-   beside its plain version and the gathered torch traversal.
+   dense sorted scores); graph_beam_search on each graph mode's batch
+   beside its plain version and the torch traversal (the fused modes'
+   gathered one; the gathered modes' own per-hop loop).
 3j. The paper's linear baselines and flexible d on phase 3's data (n =
    2M, D 512; d 160, C 48 from ``gleanvec-paper``): SVD, LeanVec-FW,
    LeanVec-ES, LeanVec-ES+FW (``core.baselines``, on the moments of the
@@ -336,6 +342,21 @@ Phases (any failure raises and the script exits non-zero):
    streaming_updates,train_recsys_retrieval}.py`` at their defaults, each
    in a process of its own on the card, the four at once: rc 0, wall
    seconds, recall.
+3q. The LM serving steps partitioned under the bundles' specs
+   (``transformer.prefill_step`` / ``decode_step`` with the
+   ``partitioned.Groups`` of a one-rank NCCL group over a (1, 1) ("data",
+   "model") mesh; ``models/partitioned.py``), after 3p: danube
+   prefill_32k (batch 4) and decode_32k (batch 128, a 0-d tensor pos, the
+   ring's last slot) under their bundles' specs and grok-1's prefill at
+   phase 3l's depth and prompt, each equal bit for bit to the
+   plain-tensor step on the same inputs (logits and cache; decode's slot
+   written by both), both times printed. One-rank groups take the steps'
+   one-process branches (the tp > 1 branches are checked by the 4-rank
+   gloo test on the CPU). Their flash_attention launches go to 3o's and
+   3l's rows. Then flash_attention at a tensor-parallel rank's local GQA
+   groups 1, 2 and 3 (``FLASH_LOCAL_SHAPES``) against its plain version,
+   with its bound and the library's time (PyTorch's flash backend at
+   is_causal without a window; SDPA with a dense mask with one).
 
 Then the card's name and power limit, one JSON line with the kernel table,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -483,7 +504,16 @@ GRAPH_BEAM, GRAPH_HOPS, GRAPH_EXPAND = 128, 200, 4
 # own) x decades left to 1M - 0.05.
 GRAPH_RECALL_FLOORS = {"gleanvec-sorted": 0.857,
                        "gleanvec-int8-sorted": 0.857, "sphering": 0.840}
+# the other gathered modes: the lower of the mode's flat floor (PERF.md,
+# "Recall floors") and its unquantized sibling's graph floor (exact
+# scoring: GleanVec's)
+GRAPH_RECALL_FLOORS.update({"full": 0.857, "gleanvec": 0.857,
+                            "gleanvec-int8": 0.857, "sphering-int8": 0.126})
 GRAPH_FUSED = ("gleanvec-sorted", "gleanvec-int8-sorted")
+# the gathered scorers: one graph_beam_search launch a batch over the id
+# table (layout block 1), held against the per-hop loop they ran before
+GRAPH_GATHERED = ("full", "sphering", "gleanvec", "sphering-int8",
+                  "gleanvec-int8")
 GRAPH_MIN_OVERLAP = 0.99    # fused vs gathered kappa-candidate overlap
 GRAPH_MAX_RECALL_GAP = 0.005
 CHURN_REMOVES, CHURN_INSERTS = 10_000, 2_000
@@ -622,6 +652,18 @@ DRYRUN_BOUND_SLACK = 0.9
 DRYRUN_CELLS = (("gleanvec-paper", "search_oi13m"),
                 ("h2o-danube-3-4b", "prefill_32k"),
                 ("dlrm-mlperf", "serve_p99"), ("gcn-cora", "ogb_products"))
+# Phase 3q: the LM serving steps partitioned under the bundles' specs
+# (the steps with the groups of a one-rank NCCL group over a (1, 1)
+# ("data", "model") mesh): danube's prefill_32k (batch cut as 3o's) and decode_32k,
+# grok-1's prefill (its depth and prompt as phase 3l's), each against the
+# plain-tensor step on the same inputs, bit for bit (no reduction crosses
+# a rank), PART_REPS timed runs each after a warm-up. Then flash_attention
+# at the local GQA groups of a tensor-parallel rank, prefill_32k's batch
+# over 16 data ranks (32 / 16 = 2): (label, B, H, KV, S, dh, window).
+PART_REPS = 2
+FLASH_LOCAL_SHAPES = (("group 1", 2, 1, 1, 32768, 128, None),
+                      ("group 2 danube tp 16", 2, 2, 1, 32768, 120, 4096),
+                      ("group 3 grok-1 tp 16", 2, 3, 1, 32768, 128, None))
 T_IMPORT = time.perf_counter()
 
 
@@ -2017,6 +2059,56 @@ def hop_args(hop):
              bi), scorer.layout_block)
 
 
+def gathered_args(scorer, qstate, index, entry):
+    """``graph_beam_search``'s arguments as ``kernels.scorer_beam_search``
+    lowers a gathered scorer: (q_scaled (m, C, d), q_lo, per-row tags, row
+    ids, codes, the id table, the entry beam)."""
+    from repro_torch import kernels as K
+    q = qstate.q_scaled if isinstance(qstate, tuple) else qstate
+    q = q[:, None, :] if q.ndim == 2 else q
+    if isinstance(qstate, tuple):
+        q_lo = qstate.q_lo[:, None] if qstate.q_lo.ndim == 1 else qstate.q_lo
+    else:
+        q_lo = torch.zeros(q.shape[:2], dtype=torch.float32, device=q.device)
+    codes = getattr(scorer, "codes", None)
+    codes = scorer.x_low if codes is None else codes
+    btags, rid = K._gathered_layout(codes, getattr(scorer, "tags", None),
+                                    scorer.live)
+    return (q.contiguous(), q_lo.contiguous(), btags, rid, codes,
+            index.neighbors, *entry)
+
+
+def gathered_loop(index, scorer, qstate, record=None):
+    """The gathered traversal as it ran before its one launch: the per-hop
+    ``_beam_loop`` over ``gathered_beam_step`` (a host sync a hop). With
+    ``record`` (the lowering's arguments), each hop's inputs as
+    :func:`search_work` reads them are appended to it: the popped vertices'
+    neighbor rows (ids are rows) and the beam."""
+    from repro_torch.index import graph
+    m = (qstate.q_scaled if isinstance(qstate, tuple) else qstate).shape[0]
+    step = graph.gathered_beam_step
+    if record is not None:
+        args, seen = record
+
+        def spy(score_ids, nbr_tbl, scores, ids, visited, best_ids, sel_ok,
+                beam):
+            safe = torch.where(best_ids >= 0, best_ids,
+                               torch.zeros_like(best_ids))
+            rows = nbr_tbl[safe.long()]
+            rows = torch.where((rows >= 0) & sel_ok[:, :, None], rows,
+                               torch.full_like(rows, -1)).reshape(m, -1)
+            seen.append(((*args[:5], rows, scores.clone(), ids.clone()), 1))
+            return step(score_ids, nbr_tbl, scores, ids, visited, best_ids,
+                        sel_ok, beam)
+
+        graph.gathered_beam_step = spy
+    try:
+        return graph._beam_loop(graph._score_ids_of(qstate, scorer), index,
+                                m, index.beam, index.max_hops, index.expand)
+    finally:
+        graph.gathered_beam_step = step
+
+
 def overlap(a, b) -> float:
     """Mean share of common ids of two (m, kappa) candidate sets (-1 slots
     are no members)."""
@@ -2113,11 +2205,23 @@ def phase_graph(K, testing, ds, x, sph, glv):
     g = dataclasses.replace(g, beam=GRAPH_BEAM, max_hops=GRAPH_HOPS,
                             expand=GRAPH_EXPAND)
     arts, per_batch, searches = {}, {}, {}
-    for mode in (*GRAPH_FUSED, "sphering"):
+    for mode in (*GRAPH_FUSED, *GRAPH_GATHERED):
         fused = mode in GRAPH_FUSED
-        art = msearch.build_artifacts(mode, xg, sph if mode == "sphering"
-                                      else glv, device=dev)
+        art = msearch.build_artifacts(
+            mode, xg, None if mode == "full" else
+            sph if mode.startswith("sphering") else glv, device=dev)
         index = graph.with_fused_scan(g, art.scorer) if fused else g
+        if not fused:
+            qstate = art.scorer.prepare_queries(q)
+            loop_ms, loop = timed(lambda: gathered_loop(index, art.scorer,
+                                                        qstate), 2)
+            loop_syncs = sync_count(lambda: gathered_loop(index, art.scorer,
+                                                          qstate))
+            log(f"  mode={mode} gathered, the per-hop loop (the path before "
+                f"its one launch; _beam_loop over gathered_beam_step): "
+                f"{loop_ms:.2f} ms a batch (candidates alone), "
+                f"{loop[2]} hops, {loop_syncs} host syncs")
+            del qstate
         before = counts(K)
         engine = ServingEngine(msearch.make_state(art, index=index), k=10,
                                kappa=100, batch_size=1024, dim=512)
@@ -2145,7 +2249,8 @@ def phase_graph(K, testing, ds, x, sph, glv):
                            / (served + 1), "p50": p50, "p99": p99,
                            "qps": qps, "recall": rec, "syncs_cand": syncs_cand,
                            "build_s": sum(steps.values())}
-        log(f"  mode={mode} {'fused' if fused else 'gathered'}: batches="
+        log(f"  mode={mode} {'fused' if fused else 'gathered'} (one "
+            f"graph_beam_search launch a batch): batches="
             f"{served} QPS={qps:.0f} p50={p50:.1f}ms "
             f"p99={p99:.1f}ms recall@10={rec:.4f} (floor "
             f"{GRAPH_RECALL_FLOORS[mode]}) hops/batch={hops} ms/hop="
@@ -2164,7 +2269,7 @@ def phase_graph(K, testing, ds, x, sph, glv):
         if rec < GRAPH_RECALL_FLOORS[mode]:
             raise AssertionError(f"graph {mode}: recall@10 {rec:.4f} below "
                                  f"its floor {GRAPH_RECALL_FLOORS[mode]}")
-        want = (served + 1, 0) if fused else (0, 0)
+        want = (served + 1, 0)
         got = (delta["graph_beam_search"], delta["graph_scan_beam_step"])
         if got != want:
             raise AssertionError(f"graph {mode}: (graph_beam_search, "
@@ -2172,10 +2277,38 @@ def phase_graph(K, testing, ds, x, sph, glv):
                                  f"the {'fused' if fused else 'gathered'} "
                                  f"path over {served} batches and the "
                                  f"warm-up, not {want}")
-        if fused:
-            if syncs_cand:
-                raise AssertionError(f"graph {mode}: {syncs_cand} host syncs "
-                                     "inside the fused candidates")
+        if syncs_cand:
+            raise AssertionError(f"graph {mode}: {syncs_cand} host syncs "
+                                 "inside candidates")
+        if not fused:
+            entry = graph._entry_beam(graph._score_ids_of(qstate, art.scorer),
+                                      index, q.shape[0], GRAPH_BEAM)
+            args = gathered_args(art.scorer, qstate, index, entry)
+            seen = []
+            loop = gathered_loop(index, art.scorer, qstate, (args, seen))
+            one = K.scorer_beam_search(art.scorer, qstate, index.neighbors,
+                                       *entry, GRAPH_HOPS, GRAPH_EXPAND)
+            tol = testing.dot_tol(row_norm_max(args[0]),
+                                  row_norm_max(args[4]), args[0].shape[2],
+                                  float(args[1].abs().max()))
+            sel = graph._best_slots(loop[0], GRAPH_BEAM)
+            rep = testing.topk_agreement(
+                one[:2], (torch.gather(loop[0], 1, sel),
+                          torch.gather(loop[1], 1, sel)), tol)
+            log(f"    one launch against the per-hop loop on the same "
+                f"batch: beams id_agreement={rep['id_agreement']:.4f} "
+                f"max_abs_err={rep['max_abs_err']:.3e} (dot_tol {tol:.2e}; "
+                f"the kernel sums each score in another order), hops "
+                f"{int(one[2].max())} / {loop[2]}")
+            if rep["id_agreement"] < GRAPH_MIN_OVERLAP:
+                raise AssertionError(f"graph {mode}: the one launch and the "
+                                     "per-hop loop disagree")
+            per_batch[mode]["loop_ms"] = loop_ms
+            searches[mode] = (args, 1,
+                              search_work(seen, index.neighbors.shape[1]),
+                              qstate, art.scorer, g)
+            del seen, loop, one
+        else:
             seen, loop = capture_hops(K, lambda: per_hop_search(
                 index, art.scorer, qstate, 100, GRAPH_EXPAND))
             same = (torch.equal(cand[0], loop[0])
@@ -2192,11 +2325,13 @@ def phase_graph(K, testing, ds, x, sph, glv):
                                       index, q.shape[0], GRAPH_BEAM)
             args, lb = hop_args((art.scorer, qstate, index.nbr_rows,
                                  *entry))
-            searches[mode] = (args, lb, search_work(seen), qstate,
-                              art.scorer, g)
+            searches[mode] = (args, lb,
+                              search_work([hop_args(h) for h in seen],
+                                          index.nbr_rows.shape[1]),
+                              qstate, art.scorer, g)
             del seen
-        arts[mode] = art
-        del engine
+            arts[mode] = art
+        del engine, art
     # the fused graph with its rerank store in host memory
     before = counts(K)
 
@@ -3274,10 +3409,12 @@ def phase_contracts(K, ds, x, sph, glv, states, searches):
                      1024, index.nprobe * index.max_len)])
             del index
     # (1024, expand * degree) is not checked here: it is the shape of the
-    # entry beam's padding, (1024, beam - entries) = (1024, 112)
-    for mode in GRAPH_FUSED:
+    # entry beam's padding, (1024, beam - entries) = (1024, 112). Every
+    # mode, fused and gathered, is one traversal launch with no host sync
+    for mode in (*GRAPH_FUSED, *GRAPH_GATHERED):
         _, _, _, _, scorer, g = searches[mode]
-        index = graph.with_fused_scan(g, scorer)
+        index = graph.with_fused_scan(g, scorer) if mode in GRAPH_FUSED \
+            else g
         art = msearch.SearchArtifacts(scorer=scorer, x_full=x[:GRAPH_ROWS])
         cell(f"graph/{mode}", msearch.state_candidates,
              (q, msearch.make_state(art, index=index), 100),
@@ -3390,20 +3527,20 @@ def phase_lm(K, testing):
     orig_pre, orig_dec = tfm.prefill_step, tfm.decode_step
     orig_fa = attention.flash_attention
 
-    def timed_call(kind, fn, *a):
+    def timed_call(kind, fn, *a, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = fn(*a)
+        out = fn(*a, **kw)
         end.record()
         events[kind].append((start, end))
         return out
 
-    def spy_pre(*a):
-        return timed_call("prefill", orig_pre, *a)
+    def spy_pre(*a, **kw):
+        return timed_call("prefill", orig_pre, *a, **kw)
 
-    def spy_dec(*a):
-        out = timed_call("decode", orig_dec, *a)
+    def spy_dec(*a, **kw):
+        out = timed_call("decode", orig_dec, *a, **kw)
         seen.setdefault("logits", out[0].clone())
         return out
 
@@ -3874,22 +4011,22 @@ def moe_run(K, testing, cfg, published: int, label: str):
     orig_fa, orig_route = attention.flash_attention, moe.route
     orig_apply, orig_experts = moe.moe_apply, moe._experts
 
-    def timed_call(kind, fn, *a):
+    def timed_call(kind, fn, *a, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = fn(*a)
+        out = fn(*a, **kw)
         end.record()
         events[kind].append((start, end))
         return out
 
-    def spy_pre(*a):
-        out = timed_call("prefill", orig_pre, *a)
+    def spy_pre(*a, **kw):
+        out = timed_call("prefill", orig_pre, *a, **kw)
         seen["prefill"] = out[0].clone()
         return out
 
-    def spy_dec(*a):
-        out = timed_call("decode", orig_dec, *a)
+    def spy_dec(*a, **kw):
+        out = timed_call("decode", orig_dec, *a, **kw)
         seen["steps"].append(out[0])
         return out
 
@@ -3903,11 +4040,11 @@ def moe_run(K, testing, cfg, published: int, label: str):
         seen["routes"].append(orig_route(*a))
         return seen["routes"][-1]
 
-    def spy_apply(p, x, *a):
+    def spy_apply(p, x, *a, **kw):
         if "moe_x" not in seen:
             seen["moe_x"] = x.reshape(-1, x.shape[-1])[
                 :max(tg, MOE_DECODE_TOKENS)].clone()
-        return orig_apply(p, x, *a)
+        return orig_apply(p, x, *a, **kw)
 
     tfm.prefill_step, tfm.decode_step = spy_pre, spy_dec
     attention.flash_attention = spy_fa
@@ -4022,11 +4159,11 @@ def moe_run(K, testing, cfg, published: int, label: str):
     parts = {"moe": [], "experts": []}
 
     def evented(kind, fn):
-        def run(*a):
+        def run(*a, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = fn(*a)
+            out = fn(*a, **kw)
             end.record()
             parts[kind].append((start, end))
             return out
@@ -5490,6 +5627,204 @@ def phase_dryrun(measured) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3q: the LM serving steps partitioned under the bundles' specs.
+# ---------------------------------------------------------------------------
+
+
+def same_out(a, b) -> bool:
+    """Two step outputs (logits, cache) equal bit for bit."""
+    return torch.equal(a[0], b[0]) and all(torch.equal(a[1][k], b[1][k])
+                                           for k in ("k", "v"))
+
+
+def partitioned_pair(K, label, plain, part, check):
+    """``plain`` and ``part`` (the partitioned step; its launches count),
+    each PART_REPS times after a warm-up: (plain median ms, partitioned
+    median ms), after ``check(plain out, part out)`` holds."""
+    with uncounted(K):
+        pt, p_out = event_ms(plain, PART_REPS)
+    qt, q_out = event_ms(part, PART_REPS)
+    ok = check(p_out, q_out)
+    log(f"  {label}: plain-tensor step {pt[PART_REPS // 2]:.2f} ms, "
+        f"partitioned step {qt[PART_REPS // 2]:.2f} ms (median of "
+        f"{PART_REPS}); outputs {'equal bit for bit' if ok else 'DIFFER'}")
+    if not ok:
+        raise AssertionError(f"phase 3q {label}: the partitioned step is not "
+                             "the plain-tensor step")
+    return pt[PART_REPS // 2], qt[PART_REPS // 2]
+
+
+def flash_local_rows(K, testing):
+    """flash_attention at FLASH_LOCAL_SHAPES against its plain version: the
+    kernel-table rows (no launch on the main path: a one-rank mesh runs
+    whole groups)."""
+    g = torch.Generator(device="cuda").manual_seed(BUNDLE_SEED)
+    rows = []
+    for label, b, h, kv, s, dh, window in FLASH_LOCAL_SHAPES:
+        def heads(n):
+            return torch.randn((b, s, n, dh), device="cuda", generator=g,
+                               dtype=torch.bfloat16).transpose(1, 2)
+        q, k, v = heads(h), heads(kv), heads(kv)
+        name = flash_kernel_name(q, k, v)
+        flops, nbytes = flash_work(q, k, v, window)
+        ms, out_k = timed(lambda: K.flash_attention(q, k, v, True, window), 3)
+        plain_ms, out_p = timed_once(
+            lambda: K.flash_attention_plain(q, k, v, True, window))
+        err, used = testing.attention_error(
+            out_k, out_p, testing.attention_abs_mix(q, k, v, True, window))
+        if window is None:      # the flash backend skips masked tiles too
+            lib_ms, _, how = sdpa_flash_causal(q, k, v, 2)
+            how = f"SDPA flash backend at is_causal, {how}"
+        else:
+            lib_ms, _, how = sdpa_library(q, k, v, window, 2)
+            how = f"SDPA, {how}, a dense (S, S) mask"
+        bnd, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        log(f"  flash_attention[local GQA {label}: B={b} H={h} KV={kv} S={s} "
+            f"dh={dh} W={window}, {name}]: ms={ms:.3f} plain_ms="
+            f"{plain_ms:.3f} bound_ms={bnd:.3f} ({by}) library_ms={lib_ms:.3f}"
+            f" ({how}) max_abs_err={err:.3e} (worst element at {used:.3f} "
+            f"of its tolerance)")
+        if used > 1 or name != LM_FLASH_KERNEL:
+            raise AssertionError(f"flash_attention at local GQA {label}: "
+                                 f"{name}, or disagrees with its plain "
+                                 "version")
+        src, repl = KERNEL_FILES["flash_attention"]
+        rows.append({"name": f"flash_attention[local GQA {label} B={b} "
+                     f"H={h} KV={kv} S={s}]", "route": "cuda",
+                     "source": src, "replaces": repl, "launches": 0,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms})
+        del q, k, v, out_k, out_p
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_partitioned(K, testing):
+    """Phase 3q. Returns (flash_attention's rows at the local GQA groups,
+    the partitioned steps' launches to add to 3o's prefill row)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import partitioned
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_mod.Mesh(("data", "model"), (1, 1))
+    log(f"phase 3q: partitioned LM serving, one-rank NCCL group over a "
+        f"{dict(mesh.shape)} mesh, on {card_line()}")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0, device_id=dev)
+    zero_counters(K)
+    try:
+        rules = MeshRules.for_mesh(mesh)
+        groups = partitioned.groups_on(mesh, rules, dev.type)
+        log(f"  groups on the live mesh: tp {groups.tp_size} rank(s), batch "
+            f"{groups.batch_size}, fsdp {groups.fsdp_size} over "
+            f"{groups.fsdp_axes}")
+        if groups.tp is None or groups.tp_size != 1:
+            raise AssertionError(f"phase 3q: no live one-rank \"model\" "
+                                 f"group ({groups})")
+        shapes = registry.get(LM_ARCH).SHAPES
+        gen = torch.Generator(device=dev).manual_seed(BUNDLE_SEED)
+        pre = steps_mod.build_bundle(LM_ARCH, "prefill_32k", mesh=mesh)
+        cfg, specs = pre.config, pre.in_specs[0]
+        params = tfm.init(cfg, seed=BUNDLE_SEED, device=dev)
+        b, s = PREFILL_BATCH, shapes["prefill_32k"]["seq"]
+        tokens = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                               generator=gen, dtype=torch.int32)
+        partitioned_pair(K, f"danube prefill_32k (B {b}, S {s}, 24 layers)",
+                         lambda: tfm.prefill_step(params, tokens, cfg),
+                         lambda: tfm.prefill_step(params, tokens, cfg,
+                                                  groups, specs), same_out)
+        launched = {"danube": K.flash_attention.launches}
+        del tokens
+        torch.cuda.empty_cache()
+        dec = steps_mod.build_bundle(LM_ARCH, "decode_32k", mesh=mesh)
+        cache = {k_: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                 for k_, v in dec.args[1].items()}
+        for t in cache.values():
+            for layer in t:
+                layer.normal_(generator=gen)
+        nb, seq = dec.args[2].shape[0], shapes["decode_32k"]["seq"]
+        tok = torch.randint(0, cfg.vocab, (nb,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        pos = torch.tensor(seq - 1, dtype=torch.int32, device=dev)
+        slot = (seq - 1) % cache["k"].shape[2]
+        before = {k_: c[:, :, slot].clone() for k_, c in cache.items()}
+        written = {}
+
+        def plain_decode():
+            out = tfm.decode_step(params, cache, tok, pos, cfg)
+            written["plain"] = {k_: c[:, :, slot].clone()
+                                for k_, c in cache.items()}
+            return out[0]
+
+        def part_decode():
+            if "part" not in written:    # the plain steps' write undone
+                for k_, c in cache.items():
+                    c[:, :, slot] = before[k_]
+            out = tfm.decode_step(params, cache, tok, pos, cfg, groups,
+                                  dec.in_specs[0])
+            written["part"] = {k_: c[:, :, slot].clone()
+                               for k_, c in cache.items()}
+            return out[0]
+
+        partitioned_pair(
+            K, f"danube decode_32k (B {nb}, pos {seq - 1}, ring slot {slot})",
+            plain_decode, part_decode,
+            lambda a, b_: torch.equal(a, b_) and all(
+                torch.equal(written["plain"][k_], written["part"][k_])
+                for k_ in ("k", "v")))
+        del cache, params, before, written
+        torch.cuda.empty_cache()
+
+        arch, depth, _ = MOE_ARCHS[0]
+        full = registry.get(arch).make_config()
+        gcfg = dataclasses.replace(full, n_layers=depth)
+        gspecs = tfm.param_specs(gcfg, rules)
+        gparams = tfm.init(gcfg, seed=MOE_SEED, device=dev)
+        prompt = torch.randint(0, gcfg.vocab, (MOE_BATCH, MOE_PROMPT),
+                               device=dev, generator=gen)
+        partitioned_pair(
+            K, f"grok-1 prefill ({depth} of {full.n_layers} layers, B "
+            f"{MOE_BATCH}, S {MOE_PROMPT})",
+            lambda: tfm.prefill_step(gparams, prompt, gcfg),
+            lambda: tfm.prefill_step(gparams, prompt, gcfg, groups, gspecs),
+            same_out)
+        launched["grok-1"] = K.flash_attention.launches - launched["danube"]
+        del gparams, prompt
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    want = {"danube": (1 + PART_REPS) * cfg.n_layers,
+            "grok-1": (1 + PART_REPS) * depth}
+    log(f"  partitioned steps: flash_attention launches {launched}; all "
+        f"launches {counts(K)}")
+    if launched != want:
+        raise AssertionError(f"phase 3q: flash_attention launched "
+                             f"{launched} times in the partitioned steps, "
+                             f"not {want}")
+    with uncounted(K):
+        rows = flash_local_rows(K, testing)
+    log(f"  phase 3q: {time.perf_counter() - t_phase:.0f} s")
+    return rows, {
+        f"flash_attention[danube prefill B={PREFILL_BATCH} S=32768]":
+            launched["danube"],
+        f"flash_attention[grok-1 prefill B={MOE_BATCH} S={MOE_PROMPT}]":
+            launched["grok-1"]}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: each kernel at the main path's shapes.
 # ---------------------------------------------------------------------------
 
@@ -5969,23 +6304,27 @@ def hop_work(qs, qlo, btags, rid, codes, nbr, bv, bi, lb):
     return 2.0 * d * n_scored, float(nbytes)
 
 
-def search_work(hops):
+def search_work(hops, degree: int):
     """(flops, bytes) a whole traversal needs on the inputs of its hops
-    (the per-hop loop's, :func:`capture_hops`): at each hop, for the
-    queries still searching, the neighbor rows read from the table (4 bytes
-    each), each distinct valid row's id and block tag (8 bytes), and the
-    codes of the rows it scores (live, not in the beam; 2 d flops each);
-    over the search, the view row (d + 1 floats) of each distinct (query,
-    tag) it scores once, the entry beam read and the final beam and hop
+    (the per-hop loop's: ``(args, layout_block)`` of each hop as
+    :func:`hop_args` gives them for the fused loop, :func:`gathered_loop`
+    for the gathered one; ``degree`` the table's row width), each input
+    byte counted once however many queries read it: the table rows of the
+    popped vertices (``degree`` ids of 4 bytes each), the id and block
+    tag (8 bytes) of each distinct valid row a hop reads, the codes of
+    each distinct row some query scores (live, not in its beam; 2 d flops
+    a query that scores it), the view row (d + 1 floats) of each distinct
+    (query, tag) scored, the entry beam read and the final beam and hop
     counts written once."""
-    flops = nbytes = 0.0
-    pairs = []
-    for hop in hops:
-        (qs, qlo, btags, rid, codes, nbr, bv, bi), lb = hop_args(hop)
+    flops = 0.0
+    pairs, table, read, scored_rows = [], [], [], []
+    for (qs, qlo, btags, rid, codes, nbr, bv, bi), lb in hops:
         act = (nbr >= 0).any(dim=1)
         nbr, bi = nbr[act], bi[act]
         n = codes.shape[0]
         m, c, d = qs.shape
+        chunks = nbr.reshape(-1, degree)
+        table.append(chunks[(chunks >= 0).any(dim=1)])
         rows = torch.sort(torch.where((nbr >= 0) & (nbr < n), nbr,
                                       torch.full_like(nbr, n)), dim=1).values
         valid = rows < n
@@ -5997,14 +6336,17 @@ def search_work(hops):
             & ~(ids[:, :, None] == bi[:, None, :]).any(2)
         q_idx = torch.nonzero(act).squeeze(1)
         pairs.append((q_idx[:, None] * c + btags[safe // lb].long())[scored])
-        n_scored = int(scored.sum())
-        flops += 2.0 * d * n_scored
-        nbytes += nbr.numel() * 4 + int(first.sum()) * 8 \
-            + n_scored * d * codes.element_size()
-    (qs, _, _, _, _, _, bv, _), _ = hop_args(hops[0])
+        read.append(safe[first])
+        scored_rows.append(safe[scored])
+        flops += 2.0 * d * int(scored.sum())
+    (qs, _, _, _, codes, _, bv, _), _ = hops[0]
     d = qs.shape[2]
-    nbytes += torch.unique(torch.cat(pairs)).numel() * (d + 1) * 4 \
-        + 2 * bv.numel() * 8 + bv.shape[0] * 4
+    nbytes = (torch.unique(torch.cat(table), dim=0).shape[0] * degree * 4
+              + torch.unique(torch.cat(read)).numel() * 8
+              + torch.unique(torch.cat(scored_rows)).numel() * d
+              * codes.element_size()
+              + torch.unique(torch.cat(pairs)).numel() * (d + 1) * 4
+              + 2 * bv.numel() * 8 + bv.shape[0] * 4)
     return flops, float(nbytes)
 
 
@@ -6052,18 +6394,25 @@ def graph_timing(K, testing, x, hops, totals, per_batch, searches):
         ms, out_k = timed(lambda: K.graph_beam_search(*args, **kw), 20)
         plain_ms, out_p = timed_once(
             lambda: K.graph_beam_search_plain(*args, **kw))
-        lib_ms, out_l = timed(lambda: graph._beam_qstate(
-            qstate, scorer, gathered, GRAPH_BEAM, GRAPH_BEAM, GRAPH_HOPS,
-            expand=GRAPH_EXPAND), 2)
+        if mode in GRAPH_GATHERED:      # its own path before the one launch
+            lib_what = "the per-hop loop over gathered_beam_step"
+            lib_ms, out_l = timed(lambda: gathered_loop(gathered, scorer,
+                                                        qstate), 2)
+        else:
+            lib_what = "the gathered torch traversal"
+            lib_ms, out_l = timed(lambda: graph._beam_qstate(
+                qstate, scorer, gathered, GRAPH_BEAM, GRAPH_BEAM,
+                GRAPH_HOPS, expand=GRAPH_EXPAND), 2)
         rep = testing.topk_agreement(out_k[:2], out_p[:2], tol)
         lib = testing.topk_agreement(out_k[:2], out_l[:2], tol)
         b, by = bound_ms(*work)
         pb = per_batch[mode]
         label = (f"graph_beam_search[{mode} expand={GRAPH_EXPAND} "
-                 f"B={GRAPH_BEAM}]")
+                 f"B={GRAPH_BEAM}"
+                 + (" layout block 1]" if mode in GRAPH_GATHERED else "]"))
         log(f"  {label}: ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms="
             f"{b:.4f} ({by}; flops {work[0]:.3e}, bytes {work[1]:.3e}) "
-            f"library_ms={lib_ms:.3f} (the gathered torch traversal) "
+            f"library_ms={lib_ms:.3f} ({lib_what}) "
             f"launches={totals['graph_beam_search']}; hops max "
             f"{int(out_k[2].max())}, per query {int(out_k[2].min())}-"
             f"{int(out_k[2].max())} (mean {float(out_k[2].float().mean()):.1f})"
@@ -7181,6 +7530,11 @@ def main(argv=None) -> int:
     table += bundle_rows
     phase_dryrun(measured)
     del measured
+    part_rows, part_launches = phase_partitioned(K, testing)
+    table += part_rows
+    # the partitioned prefills' flash_attention launches: danube's at 3o's
+    # prefill shape, grok-1's at phase 3l's
+    add_launches(table, part_launches)
     add_launches(table, bundle_launches)
     add_launches(table, sharded_launches)
     # phase 3j's d = 160 scans run the linear mode's shape and the

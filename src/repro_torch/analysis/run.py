@@ -67,24 +67,15 @@ TOPOLOGIES = ("flat", "ivf", "graph", "sharded", "host-rerank")
 # Device kernels one main search may launch (copies and sets count): a
 # scan-based step (prepare the queries, the scan and its merge, the id
 # translation) within STEP_LAUNCHES, a sharded one within that a shard
-# (the merge included), a gathered graph traversal STEP_LAUNCHES plus
-# HOP_LAUNCHES a hop, the fused one STEP_LAUNCHES with exactly one
-# traversal kernel. On an H100 the matrix's cells launch 2-45 kernels, the
-# gathered traversal ~75 a hop, the fused one 45-50 (PERF.md).
+# (the merge included), a graph step within it too, with exactly one
+# traversal kernel. On an H100 the matrix's cells launch 2-50 kernels
+# (PERF.md).
 STEP_LAUNCHES = 64
-HOP_LAUNCHES = 96
 TRAVERSAL_KERNEL = "graph_search_kernel"
 
 # (cell, rule) -> the ROADMAP C entry recording a contract the port breaks
-# where the reference keeps it.
-_GATHERED_GRAPH_SYNC = (
-    "ROADMAP C 4: the gathered graph traversal (graph._beam_loop) reads "
-    "any(expandable) from the device once a hop, where the reference's "
-    "while_loop stays on the device")
-KNOWN_DEVIATIONS: Dict[Tuple[str, str], str] = {
-    (f"graph/{mode}", "NoHostSyncInStep"): _GATHERED_GRAPH_SYNC
-    for mode in ("full", "sphering", "gleanvec", "sphering-int8",
-                 "gleanvec-int8")}
+# where the reference keeps it. None is open.
+KNOWN_DEVIATIONS: Dict[Tuple[str, str], str] = {}
 
 
 class MatrixContext(protocol_rules.ProtocolContext):
@@ -191,15 +182,12 @@ def _audit_cell(ctx: MatrixContext, mode: str, topo: str) -> Cell:
                                   max_hops=MAX_HOPS, expand=EXPAND)
         if fused:
             idx = graph.with_fused_scan(idx, scorer)
-            rules = _cell_rules((M, n_rows), fused, STEP_LAUNCHES,
-                                exact={TRAVERSAL_KERNEL: 1})
-            # no (m, expand * degree) score matrix over the gathered
-            # neighbor rows: the traversal scores them inside the kernel
-            rules.append(trace_rules.NoDenseScoreMatrix(
-                M, EXPAND * idx.neighbors.shape[1], peak=False))
-        else:
-            rules = _cell_rules((M, n_rows), fused,
-                                STEP_LAUNCHES + MAX_HOPS * HOP_LAUNCHES)
+        # every mode's traversal is one kernel launch; none makes an (m,
+        # expand * degree) score matrix over the gathered neighbor rows
+        rules = _cell_rules((M, n_rows), fused, STEP_LAUNCHES,
+                            exact={TRAVERSAL_KERNEL: 1})
+        rules.append(trace_rules.NoDenseScoreMatrix(
+            M, EXPAND * idx.neighbors.shape[1], peak=False))
         trace = traced(msearch.state_candidates, ctx.Q,
                        msearch.make_state(art, index=idx), KAPPA)
         return Cell(run_rules(trace, rules, target=target), trace)

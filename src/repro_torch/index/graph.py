@@ -8,24 +8,24 @@ classic best-first loop) and scores their (batch, expand * R) neighbors.
 The scoring goes through the scorer protocol (``score_ids``), so the same
 traversal serves every scorer mode; graph edges hold ORIGINAL ids.
 
-Gather-free traversal: a :class:`GraphIndex` carrying ``nbr_rows`` -- its
-edge lists translated into a tag-sorted scorer's SORTED-ROW space
-(:func:`with_fused_scan`) -- runs the whole search of a batch as one
-``graph_beam_search`` launch (``kernels.scorer_beam_search``): one block a
-query keeps its beam on the chip from the entry points to its last hop,
-each hop the gather-free ``graph_scan_beam_step`` body, with no host sync
-and no torch op between hops. A graph that is not fused, or a scorer
-without ``scan_neighbors``, runs the gathered hop
-(:func:`gathered_beam_step`): that is the reference's own semantics, not a
-fallback. ``nbr_rows`` is bound to the layout's slot assignment: re-derive
-it (``refreshed``, :func:`with_fused_scan`) after slot churn, since an
-insert after a remove may reuse a freed slot.
+One launch: every search of a batch whose scorer has a lowering runs as
+one ``graph_beam_search`` launch (``kernels.scorer_beam_search``): one
+block a query keeps its beam on the chip from the entry points to its last
+hop, with no host sync and no torch op between hops. The four gathered
+scorers hop through the graph's id table as rows of their own store
+(layout block 1; a removed id's row reads -1); a tag-sorted scorer hops
+through a fused graph's ``nbr_rows`` -- its edge lists translated into the
+scorer's SORTED-ROW space (:func:`with_fused_scan`). ``nbr_rows`` is bound
+to the layout's slot assignment: re-derive it (``refreshed``,
+:func:`with_fused_scan`) after slot churn, since an insert after a remove
+may reuse a freed slot.
 
-The gathered traversal, and a fused one asked for Figure 7's tag trace,
-run the reference's ``jax.lax.while_loop`` as a Python loop (``_beam_loop``)
-whose condition, ``hop < max_hops and any(expandable)``, reads one flag
-from the device per hop (a host sync per hop); the traced fused loop hops
-through ``scan_neighbors`` (:func:`fused_hop_step`, one
+Figure 7's tag trace, and a scorer without a lowering, run the reference's
+``jax.lax.while_loop`` as a Python loop (``_beam_loop``) whose condition,
+``hop < max_hops and any(expandable)``, reads one flag from the device per
+hop (a host sync per hop): its hops are the gathered merge
+(:func:`gathered_beam_step`, the reference's own semantics) or, on a fused
+graph, ``scan_neighbors`` (:func:`fused_hop_step`, one
 ``graph_scan_beam_step`` launch a hop).
 
 Streamed growth: :func:`with_capacity` pads the edge table and
@@ -761,23 +761,27 @@ def _beam_qstate(qstate, scorer, graph: GraphIndex, k: int, beam: int,
                  trace_tags: Optional[torch.Tensor] = None):
     """Traversal over any scorer with prepared queries ``qstate``.
 
-    A fused graph (``with_fused_scan``) paired with a scorer exposing
-    ``scan_neighbors`` runs the whole search in one ``graph_beam_search``
-    launch (``kernels.scorer_beam_search``) from the scored entry beam; its
-    hop count comes back as a device scalar (the most hops of any query),
-    so nothing waits on the device between the query upload and the
-    result. Asked for the tag trace, the fused graph hops through
-    :func:`_beam_loop` with :func:`fused_hop_step`; any other graph or
-    scorer runs the gathered loop. The hop count is then a Python int."""
+    Every scorer with a lowering (the four gathered classes over the id
+    table; a tag-sorted one over a fused graph's ``nbr_rows``) runs the
+    whole search in one ``graph_beam_search`` launch
+    (``kernels.scorer_beam_search``) from the scored entry beam; its hop
+    count comes back as a device scalar (the most hops of any query), so
+    nothing waits on the device between the query upload and the result.
+    Asked for the tag trace (Figure 7), the search hops through
+    :func:`_beam_loop` instead (a fused graph with :func:`fused_hop_step`,
+    else :func:`gathered_beam_step`), as does a scorer with no lowering.
+    The hop count is then a Python int."""
+    from repro_torch import kernels
     m = (qstate.q_scaled if isinstance(qstate, tuple) else qstate).shape[0]
     score_ids = _score_ids_of(qstate, scorer)
     fused = graph.fused and graph.nbr_rows is not None \
         and hasattr(scorer, "scan_neighbors")
-    if fused and trace_tags is None:
-        from repro_torch import kernels
+    table = graph.nbr_rows if fused else (
+        graph.neighbors if kernels.gathered_beam_lowering(scorer) else None)
+    if table is not None and trace_tags is None:
         scores, ids = _entry_beam(score_ids, graph, m, beam)
         scores, ids, q_hops = kernels.scorer_beam_search(
-            scorer, qstate, graph.nbr_rows, scores, ids, max_hops, expand)
+            scorer, qstate, table, scores, ids, max_hops, expand)
         hops = q_hops.amax() if m else q_hops.new_zeros(())
         tag_hist = None
     else:

@@ -34,6 +34,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 
 import torch
@@ -69,7 +70,8 @@ __all__ = ["ip_topk", "ip_topk_plain", "gleanvec_sq_topk",
            "graph_scan_scores_plain", "graph_beam_search",
            "graph_beam_search_plain", "scorer_topk", "scorer_topk_prepared",
            "scorer_scores", "scorer_scores_prepared", "scorer_scan_lists",
-           "scorer_scan_neighbors", "scorer_beam_search", "flash_attention",
+           "scorer_scan_neighbors", "scorer_beam_search",
+           "gathered_beam_lowering", "flash_attention",
            "flash_attention_plain", "build", "count_launch",
            "load_library", "library_path", "KERNEL_SOURCES", "BUILD_DIR"]
 
@@ -432,15 +434,66 @@ def scorer_scan_neighbors(scorer, qstate, nbr_rows, beam_vals, beam_ids,
                     f"{type(scorer).__name__}")
 
 
+# id(rows) -> (weak references to (rows, tags, live), (block_tags, row_ids)):
+# one entry a store tensor, replaced when a scorer over the same rows
+# brings new tags or a new live mask, dropped when the rows die
+_GATHERED_LAYOUTS: dict = {}
+
+
+def _gathered_layout(rows, tags, live):
+    """``(block_tags, row_ids)`` of a gathered store as
+    ``graph_beam_search`` reads it at layout block 1: each row's tag (int32;
+    zeros for a one-view store) and each row's id, which is the row itself
+    (-1 where ``live`` marks the row removed). Made once for a scorer's
+    tensors: the scorers are immutable (every update makes new tensors),
+    so the batches of one scorer reuse it. Only the newest layout of a
+    store tensor is kept (a stream of removes keeps the codes and makes a
+    new live mask each time)."""
+    key = id(rows)
+    hit = _GATHERED_LAYOUTS.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0],
+                                                        (rows, tags, live))):
+        return hit[1]
+    n, dev = rows.shape[0], rows.device
+    block_tags = (torch.zeros((n,), dtype=torch.int32, device=dev)
+                  if tags is None else tags.to(torch.int32).contiguous())
+    row_ids = torch.arange(n, dtype=torch.int32, device=dev)
+    if live is not None:
+        row_ids = torch.where(live, row_ids, torch.full_like(row_ids, -1))
+    refs = tuple((lambda: None) if t is None else weakref.ref(t)
+                 for t in (rows, tags, live))
+    if hit is None or hit[0][0]() is not rows:
+        weakref.finalize(rows, _GATHERED_LAYOUTS.pop, key, None)
+    _GATHERED_LAYOUTS[key] = (refs, (block_tags, row_ids))
+    return block_tags, row_ids
+
+
+def gathered_beam_lowering(scorer) -> bool:
+    """True for the four gathered scorer classes, whose whole graph
+    traversal :func:`scorer_beam_search` lowers over the graph's id table
+    (rows are ids)."""
+    from repro_torch.core import scorer as sc
+    return isinstance(scorer, (sc.LinearScorer, sc.QuantizedScorer,
+                               sc.GleanVecScorer,
+                               sc.GleanVecQuantizedScorer))
+
+
 def scorer_beam_search(scorer, qstate, nbr_tbl, beam_vals, beam_ids,
                        max_hops: int, expand: int):
-    """The whole fused graph traversal of a sorted scorer: from the scored
-    entry beam ``(beam_vals, beam_ids) (m, B)`` (slot order), hops through
-    the graph's sorted-row table ``nbr_tbl (n, R)`` (``GraphIndex.nbr_rows``)
-    by ``graph_beam_search`` with the scorer's layout, each hop the one
-    :func:`scorer_scan_neighbors` lowers. Returns (vals, ids) (m, B), ids
-    ORIGINAL and best first, and each query's hop count (m,) i32, on the
-    device."""
+    """The whole graph traversal in one ``graph_beam_search`` launch: from
+    the scored entry beam ``(beam_vals, beam_ids) (m, B)`` (slot order),
+    hops through ``nbr_tbl (n, R)`` with the scorer's layout, each hop the
+    one :func:`scorer_scan_neighbors` lowers. Returns (vals, ids) (m, B),
+    ids ORIGINAL and best first, and each query's hop count (m,) i32, on
+    the device.
+
+    A tag-sorted scorer reads a fused graph's sorted-row table
+    (``GraphIndex.nbr_rows``). A gathered scorer reads the graph's id table
+    (``GraphIndex.neighbors``) as rows of its own store at layout block 1:
+    codes ``x_low`` or the u8 codes, its per-row tags (zeros with one
+    view), ``row_ids`` the rows themselves (-1 for a removed row), and its
+    query state as ``q_scaled (m, C, d)`` / ``q_lo (m, C)`` (zeros where
+    the mode has no affine term)."""
     from repro_torch.core import scorer as sc
 
     if isinstance(scorer, sc.SortedGleanVecScorer):
@@ -457,4 +510,24 @@ def scorer_beam_search(scorer, qstate, nbr_tbl, beam_vals, beam_ids,
                                  scorer.codes, nbr_tbl, beam_vals, beam_ids,
                                  layout_block=scorer.layout_block,
                                  max_hops=max_hops, expand=expand)
-    raise TypeError(f"no beam_search lowering for {type(scorer).__name__}")
+    if not gathered_beam_lowering(scorer):
+        raise TypeError(f"no beam_search lowering for "
+                        f"{type(scorer).__name__}")
+    quant = isinstance(qstate, sc.QuantQueryState)
+    q = qstate.q_scaled if quant else qstate
+    rows = getattr(scorer, "codes", None)
+    rows = scorer.x_low if rows is None else rows
+    tags = getattr(scorer, "tags", None)
+    if q.ndim == 2:                                      # one view: C = 1
+        q = q[:, None, :]
+    if quant:
+        q_lo = qstate.q_lo
+        q_lo = q_lo[:, None] if q_lo.ndim == 1 else q_lo
+    else:
+        q_lo = torch.zeros(q.shape[:2], dtype=torch.float32,
+                           device=q.device)              # no affine term
+    block_tags, row_ids = _gathered_layout(rows, tags, scorer.live)
+    return graph_beam_search(q.contiguous(), q_lo.contiguous(), block_tags,
+                             row_ids, rows.contiguous(), nbr_tbl, beam_vals,
+                             beam_ids, layout_block=1, max_hops=max_hops,
+                             expand=expand)

@@ -24,9 +24,13 @@ reference's ``shard_map``s do: DLRM's 2D lookup
 (``embedding.make_sharded_lookup``, when the mesh has a "model" axis and
 the config is not smoke), the ``vs_search`` merge (each rank scans its
 rows, lifts its ids by its shard's offset, one all-gather and a stable
-top k) and the ``vs_learn`` moments (each rank's partial sums and moments
-all-reduced before the fit). Each rank then passes its own blocks of the
-arguments (``sharding.local_block`` under ``in_specs``).
+top k), the ``vs_learn`` moments (each rank's partial sums and moments
+all-reduced before the fit) and the LM serving steps, prefill and decode
+(``transformer.prefill_step`` / ``decode_step`` with the mesh's
+``partitioned.Groups``: tensor-, expert- and data-parallel under the
+specs, on a mesh of more than one position). Each
+rank then passes its own blocks of the arguments (``sharding.local_block``
+under ``in_specs``) and gets its blocks of ``out_specs``.
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ from repro_torch.core import linalg, spherical_kmeans
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import embedding as emb_mod
-from repro_torch.models import gnn, recsys
+from repro_torch.models import gnn, partitioned, recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.models.sharding import P, MeshRules, logical_to_spec
 from repro_torch.train.optimizer import (AdafactorConfig, AdafactorState,
@@ -115,6 +119,19 @@ def _live_group(mesh, axes, dev):
     ``mesh.size`` ranks)."""
     return functools.cache(lambda: mesh_mod.axis_group(
         mesh_mod.device_mesh(mesh, dev.type), axes))
+
+
+def _lm_groups(mesh, rules: MeshRules, dev):
+    """``get()`` -> the process groups (``partitioned.Groups``) of the LM
+    serving steps under ``rules`` on ``mesh``'s live ``DeviceMesh``, made
+    at the first call; ``partitioned.NO_GROUPS`` on a one-position
+    mesh."""
+    def get():
+        if mesh.size == 1:
+            return partitioned.NO_GROUPS
+        return partitioned.groups_on(mesh, rules, dev.type)
+
+    return functools.cache(get)
 
 
 def _zip_specs(fn, specs, shapes):
@@ -262,10 +279,13 @@ def _lm_bundle(module, shape_name: str, mesh, rules: MeshRules, smoke: bool,
     cfg = dataclasses.replace(cfg, remat_block=0)
     p_abstract = _abstract(lambda: tfm.init(cfg, device="cpu"))
     if kind == "prefill":
+        p_specs = tfm.param_specs(cfg, rules)
+        groups = _lm_groups(mesh, rules, dev)
         return StepBundle(
-            name=name, fn=lambda p, t: tfm.prefill_step(p, t, cfg),
+            name=name,
+            fn=lambda p, t: tfm.prefill_step(p, t, cfg, groups(), p_specs),
             args=(p_abstract, _meta((b, s))), config=cfg, device=dev,
-            in_specs=(tfm.param_specs(cfg, rules), rules.batch(None)),
+            in_specs=(p_specs, rules.batch(None)),
             out_specs=(logical_to_spec(rules, ("batch", "vocab")),
                        tfm.cache_specs(cfg, rules)),
             trip_counts={"layers": cfg.n_layers,
@@ -283,13 +303,17 @@ def _lm_bundle(module, shape_name: str, mesh, rules: MeshRules, smoke: bool,
         ep=rules.ep)
     c_specs = tfm.cache_specs(cfg, decode_rules)
     kv_len = tfm.cache_len(cfg, s)
+    p_specs = tfm.param_specs(cfg, decode_rules)
+    groups = _lm_groups(mesh, decode_rules, dev)
     return StepBundle(
-        name=name, fn=lambda p, c, t, q: tfm.decode_step(p, c, t, q, cfg),
+        name=name,
+        fn=lambda p, c, t, q: tfm.decode_step(p, c, t, q, cfg, groups(),
+                                              p_specs),
         args=(p_abstract,
               _abstract(lambda: tfm.init_cache(cfg, b, s, device="cpu")),
               _meta((b,)), _meta(())),
         config=cfg, device=dev,
-        in_specs=(tfm.param_specs(cfg, decode_rules), c_specs,
+        in_specs=(p_specs, c_specs,
                   decode_rules.batch(), P()),
         out_specs=(logical_to_spec(decode_rules, ("batch", "vocab")),
                    c_specs),

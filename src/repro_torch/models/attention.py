@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 
-__all__ = ["chunked_attention", "prefill_attention", "decode_attention"]
+__all__ = ["chunked_attention", "prefill_attention", "decode_attention",
+           "decode_attention_partial"]
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,22 +73,31 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
+def _decode_scores(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor):
+    """One step's scores in f32 on ``q * scale``: ``q (B, H, dh)``, caches
+    ``(B, S, KV, dh)`` -> (scores (B, KV, G, S), values (B, KV, S, dh) in
+    f32)."""
+    b, h, dh = q.shape
+    kv = k_cache.shape[2]
+    scale = 1.0 / float(dh) ** 0.5
+    qr = q.reshape(b, kv, h // kv, dh).to(torch.float32) * scale
+    # f32 copies of the caches made straight into (B, KV, S, dh): one copy
+    # each, and both products take them without another
+    kf, vf = (c.transpose(1, 2).to(torch.float32,
+                                   memory_format=torch.contiguous_format)
+              for c in (k_cache, v_cache))
+    return qr @ kf.transpose(-1, -2), vf
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length) -> torch.Tensor:
     """One-step attention: ``q (B, H, dh)``, caches ``(B, S, KV, dh)``;
     ``length``: the number of valid cache entries (int, or a (B,)
     tensor). Scores in f32 on ``q * scale``, output in q's type."""
     b, h, dh = q.shape
-    s, kv = k_cache.shape[1], k_cache.shape[2]
-    group = h // kv
-    scale = 1.0 / float(dh) ** 0.5
-    qr = q.reshape(b, kv, group, dh).to(torch.float32) * scale
-    # f32 copies of the caches made straight into (B, KV, S, dh): one copy
-    # each, and both products take them without another
-    kf, vf = (c.transpose(1, 2).to(torch.float32,
-                                   memory_format=torch.contiguous_format)
-              for c in (k_cache, v_cache))
-    scores = qr @ kf.transpose(-1, -2)                    # (B, KV, G, S)
+    s = k_cache.shape[1]
+    scores, vf = _decode_scores(q, k_cache, v_cache)      # (B, KV, G, S)
     pos = torch.arange(s, device=q.device)
     if isinstance(length, torch.Tensor):    # an int stays on the host:
         length = length.to(q.device).reshape(-1, 1)    # no copy, no sync
@@ -96,3 +106,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = probs @ vf                                      # (B, KV, G, dh)
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, valid: torch.Tensor):
+    """:func:`decode_attention` over one slice of the cache, before the
+    softmax's sums meet: ``valid (S,)`` the slice's filled positions ->
+    (m, l, o), its largest score (..., 1), its sum of ``exp(score - m)``
+    (..., 1) and of ``exp(score - m) v`` (..., dh), shaped (B, KV, G, .)
+    for ``partitioned.lse_combine``."""
+    scores, vf = _decode_scores(q, k_cache, v_cache)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m).masked_fill(~valid, 0.0)
+    return m, e.sum(dim=-1, keepdim=True), e @ vf

@@ -95,26 +95,64 @@ class Routing(NamedTuple):
     capacity: int
 
 
-def route(router: torch.Tensor, xg: torch.Tensor, cfg: MoEConfig) -> Routing:
-    """Softmax router in f32 and slot assignment in priority order for
-    tokens ``xg (G, T_g, D)``."""
-    e, k = cfg.n_experts, cfg.top_k
-    logits = xg.to(torch.float32) @ router.to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)                     # (G, Tg, E)
-    gates, idx = torch.topk(probs, k, dim=-1)                 # (G, Tg, K)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    cap = _capacity(xg.shape[1], cfg)
-    counts = torch.zeros(xg.shape[0], 1, e, dtype=torch.int64,
-                         device=xg.device)
+def _slots(idx: torch.Tensor, e: int, cap: int) -> torch.Tensor:
+    """Each choice's slot ``pos`` (G, T_g, K) in its expert's buffer: the
+    choices claim slots in priority order (every token's first choice
+    before any token's second), each by a running count over the group's
+    tokens of the choices at that priority that were kept."""
+    counts = torch.zeros(idx.shape[0], 1, e, dtype=torch.int64,
+                         device=idx.device)
     pos = []
-    for slot in range(k):
+    for slot in range(idx.shape[-1]):
         onehot = F.one_hot(idx[..., slot], e)                 # (G, Tg, E)
         p = (torch.cumsum(onehot, dim=1) - 1 + counts).gather(
             -1, idx[..., slot:slot + 1])                      # (G, Tg, 1)
         pos.append(p)
         counts = counts + (onehot * (p < cap)).sum(1, keepdim=True)
-    pos = torch.cat(pos, dim=-1)
+    return torch.cat(pos, dim=-1)
+
+
+def _router(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig):
+    """Softmax router in f32 on tokens ``x (..., D)``: (probs, the
+    renormalised top-k gates, their experts)."""
+    logits = x.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return probs, gates, idx
+
+
+def route(router: torch.Tensor, xg: torch.Tensor, cfg: MoEConfig) -> Routing:
+    """Softmax router in f32 and slot assignment in priority order for
+    tokens ``xg (G, T_g, D)``."""
+    probs, gates, idx = _router(router, xg, cfg)
+    cap = _capacity(xg.shape[1], cfg)
+    pos = _slots(idx, cfg.n_experts, cap)
     return Routing(probs, idx, gates, pos, pos < cap, cap)
+
+
+def _spread_route(router: torch.Tensor, xt: torch.Tensor, cfg: MoEConfig,
+                  tg: int, group, size: int):
+    """:func:`route` of groups of ``tg`` tokens spread over the ``size``
+    ranks of ``group``: this rank's ``xt (t, D)`` are tokens ``[rank * t,
+    (rank + 1) * t)`` of the ranks' concatenation, and a group holds whole
+    blocks (``tg % t == 0``). Each rank routes its tokens, one all-gather
+    of the choices gives every rank the groups' running counts, and each
+    keeps its own tokens' slots: the one-process routing of the whole
+    batch. Returns (Routing over (1, t, ...), each token's group (t,))."""
+    import torch.distributed as dist
+    t = xt.shape[0]
+    probs, gates, idx = _router(router, xt, cfg)
+    every = torch.empty((size * t, cfg.top_k), dtype=idx.dtype,
+                        device=idx.device)
+    dist.all_gather_into_tensor(every, idx.contiguous(), group=group)
+    cap = _capacity(tg, cfg)
+    rank = dist.get_rank(group)
+    pos = _slots(every.view(-1, tg, cfg.top_k), cfg.n_experts, cap)
+    pos = pos.reshape(-1, cfg.top_k)[rank * t:(rank + 1) * t]
+    tok_group = (rank * t + torch.arange(t, device=xt.device)) // tg
+    return (Routing(probs[None], idx[None], gates[None], pos[None],
+                    (pos < cap)[None], cap), tok_group)
 
 
 def _experts(params, x_e: torch.Tensor, act: str, glu: bool,
@@ -133,42 +171,71 @@ def _experts(params, x_e: torch.Tensor, act: str, glu: bool,
 
 
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, act: str, glu: bool,
-              compute_dtype=torch.bfloat16):
+              compute_dtype=torch.bfloat16, experts=None, token_group=None):
     """``x (..., D)`` -> (y in x's shape and type, aux loss f32 scalar).
     The leading dims are flattened to tokens in row-major order and cut
     into groups of ``min(group_size, tokens)``; a token count that is not a
     multiple of the group raises ``ValueError``, where the reference
-    asserts."""
+    asserts.
+
+    The partitioned serving steps pass two more arguments. ``experts``:
+    ``(first, count)``, the experts ``params`` holds (an expert-parallel
+    rank's block); the other experts' choices keep their slots but are
+    left out here, and the ranks' outputs summed make the whole layer's.
+    ``token_group``: ``(group, size)``, the data-parallel ranks whose
+    token blocks (this rank's ``x`` is block ``rank``) make the batch;
+    groups are cut over the whole batch and routed as one process routes
+    it (:func:`_spread_route` where a group spans ranks). The auxiliary
+    loss is then this rank's tokens' (serving drops it)."""
     cd = compute_dtype
     shape, d = x.shape, x.shape[-1]
     xt = x.reshape(-1, d)
     t = xt.shape[0]
-    tg = min(cfg.group_size, t)
-    if t % tg:
-        raise ValueError(f"token count {t} not divisible by group {tg}")
-    g, e, k = t // tg, cfg.n_experts, cfg.top_k
-    xg = xt.reshape(g, tg, d)
-    r = route(params["router"], xg, cfg)
+    group, size = token_group if token_group is not None else (None, 1)
+    tg = min(cfg.group_size, t * size)
+    if (t * size) % tg:
+        raise ValueError(f"token count {t * size} not divisible by group "
+                         f"{tg}")
+    e, k = cfg.n_experts, cfg.top_k
+    e0, e_here = experts if experts is not None else (0, e)
+    if t % tg == 0:                     # every group on this rank
+        g = t // tg
+        xg = xt.reshape(g, tg, d)
+        r = route(params["router"], xg, cfg)
+        tok_group = torch.arange(g, device=x.device)[:, None, None]
+    elif tg % t == 0:                   # a group spans whole ranks' blocks
+        r, tok_group = _spread_route(params["router"], xt, cfg, tg, group,
+                                     size)
+        g = size * t // tg
+        xg = xt[None]
+        tok_group = tok_group[None, :, None]
+    else:
+        raise ValueError(f"{t} tokens a rank do not cut into groups of "
+                         f"{tg}")
     cap = r.capacity
 
-    # dispatch: each kept choice's token row into its expert's slot of an
-    # (E, G, C, D) buffer; dropped choices go to one spare row past its end
-    # (no host sync for a mask)
-    n_slots = e * g * cap
-    group = torch.arange(g, device=x.device)[:, None, None]
-    rows = torch.where(r.keep, (r.idx * g + group) * cap + r.pos, n_slots)
-    src = xg.to(cd)[:, :, None, :].expand(g, tg, k, d).reshape(-1, d)
+    # dispatch: each kept choice of this rank's experts, its token row into
+    # the expert's slot of an (E, G, C, D) buffer; dropped choices (and
+    # other ranks' experts') go to one spare row past its end (no host
+    # sync for a mask)
+    n_slots = e_here * g * cap
+    mine = r.keep & (r.idx >= e0) & (r.idx < e0 + e_here)
+    rows = torch.where(mine, ((r.idx - e0) * g + tok_group) * cap + r.pos,
+                       n_slots)
+    n_tok = xg.shape[0] * xg.shape[1]
+    src = xg.to(cd)[:, :, None, :].expand(*xg.shape[:2], k, d).reshape(-1,
+                                                                       d)
     buf = torch.zeros(n_slots + 1, d, dtype=cd, device=x.device)
     buf.index_copy_(0, rows.reshape(-1), src)
-    x_e = buf[:n_slots].view(e, g * cap, d)
+    x_e = buf[:n_slots].view(e_here, g * cap, d)
 
     y_e = _experts(params, x_e, act, glu, cd).view(n_slots, d)
 
     # combine: each token's K expert rows weighted by its gates (cast to
     # compute_dtype, 0 for a dropped choice), summed in f32, rounded once
-    w = torch.where(r.keep, r.gates, 0.0).to(cd)
-    picked = y_e[torch.where(r.keep, rows, 0).reshape(-1)].view(g * tg, k, d)
-    y = torch.bmm(w.view(g * tg, 1, k), picked).view(t, d)
+    w = torch.where(mine, r.gates, 0.0).to(cd)
+    picked = y_e[torch.where(mine, rows, 0).reshape(-1)].view(n_tok, k, d)
+    y = torch.bmm(w.view(n_tok, 1, k), picked).view(t, d)
 
     frac = F.one_hot(r.idx[..., 0], e).to(torch.float32).mean(dim=(0, 1))
     aux = cfg.aux_loss_weight * e * torch.sum(

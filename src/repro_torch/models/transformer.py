@@ -30,8 +30,12 @@ give the reference's partition specs of the parameter and cache trees
 (``models/sharding.py``; the launch tooling's step bundles carry them),
 and ``_embed_lookup`` takes a tensor-parallel process group for the
 reference's vocab-parallel lookup (a rank's slice of the table, one
-all-reduce). The reference's ``constrain`` layout hints change no value
-and are left out.
+all-reduce). ``prefill_step`` and ``decode_step`` take the process
+groups of a mesh (``partitioned.Groups``) and then run on one rank's
+blocks under those specs with explicit collectives (``models/
+partitioned.py`` sets out the layout); the one-process step is the same
+body with every group of one rank. The reference's ``constrain`` layout
+hints change no value and are left out.
 """
 from __future__ import annotations
 
@@ -46,6 +50,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, moe
 from repro_torch.models.moe import MoEConfig
+from repro_torch.models.partitioned import (NO_GROUPS, Groups, gather_dim,
+                                            local_kv, lse_combine, sum_tp)
 from repro_torch.models.sharding import (MeshRules, logical_to_spec,
                                          sum_over_group)
 
@@ -203,10 +209,23 @@ def param_count(params) -> int:
     return params.numel()
 
 
-def _layer(stacked, i: int):
-    """Layer ``i``'s parameters: views into the stacked tensors."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stacked.items()}
+def _layer(stacked, i: int, groups: Groups = NO_GROUPS, specs=None):
+    """Layer ``i``'s parameters: views into the stacked tensors, each
+    dimension that ``groups``' fsdp axes cut all-gathered over them
+    (``specs``: the stacked tensors' specs, each led by the layer's
+    None)."""
+    out = {}
+    for k, v in stacked.items():
+        if isinstance(v, dict):
+            out[k] = _layer(v, i, groups, None if specs is None else specs[k])
+            continue
+        x = v[i]
+        if groups.fsdp_axes:
+            for d, entry in enumerate(tuple(specs[k])[1:]):
+                if entry == groups.fsdp_axes:
+                    x = gather_dim(x, d, groups.fsdp, groups.fsdp_size)
+        out[k] = x
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -244,20 +263,32 @@ def _qkv(p, cfg: TransformerConfig, h: torch.Tensor):
     return q, k, v
 
 
-def _mlp(p, cfg: TransformerConfig, h: torch.Tensor):
+def _mlp(p, cfg: TransformerConfig, h: torch.Tensor,
+         groups: Groups = NO_GROUPS):
     """The FFN on ``h (..., D)``: dense, or the MoE layer on the flattened
     tokens (prefill's (B, S) in (batch, position) order; a decode step's B
     tokens one group). Returns (output, the MoE auxiliary loss or None):
-    training adds it, prefill and decode drop it as the reference's do."""
+    training adds it, prefill and decode drop it as the reference's do.
+    Under ``groups`` each rank's partial output (its FFN columns or, for an
+    expert-parallel MoE, its experts) is summed over "model", and the MoE's
+    groups of tokens are cut over the data ranks' whole batch."""
     cd = cfg.compute_dtype
     if cfg.moe is not None:
-        return moe.moe_apply(p["moe"], h, cfg.moe, cfg.act, cfg.glu, cd)
+        experts = None
+        if cfg.moe.sharding == "ep":
+            e_here = p["moe"]["w_up"].shape[0]
+            experts = (groups.tp_rank * e_here, e_here)
+        token_group = ((groups.batch, groups.batch_size)
+                       if groups.batch_size > 1 else None)
+        out, aux = moe.moe_apply(p["moe"], h, cfg.moe, cfg.act, cfg.glu, cd,
+                                 experts=experts, token_group=token_group)
+        return sum_tp(out, groups), aux
     up = h @ p["w_up"].to(cd)
     if cfg.glu:
         act = layers.activation(cfg.act, h @ p["w_gate"].to(cd)) * up
     else:
         act = layers.activation(cfg.act, up)
-    return act @ p["w_down"].to(cd), None
+    return sum_tp(act @ p["w_down"].to(cd), groups), None
 
 
 def _head(params, h: torch.Tensor) -> torch.Tensor:
@@ -447,32 +478,117 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
 
 
-def prefill_step(params, tokens: torch.Tensor, cfg: TransformerConfig):
+def _q_cols(cfg: TransformerConfig, groups: Groups) -> Tuple[int, int]:
+    """(first column, columns) of this rank's block of the q projection."""
+    dq = cfg.n_heads * cfg.d_head
+    if dq % groups.tp_size:
+        raise ValueError(f"{dq} q columns do not cut into {groups.tp_size} "
+                         "equal blocks")
+    n = dq // groups.tp_size
+    return groups.tp_rank * n, n
+
+
+def _kv_heads(t: torch.Tensor, heads, dim: int) -> torch.Tensor:
+    """``t``'s KV heads ``heads`` along ``dim``: a view where they run in
+    order, else an index copy."""
+    if heads == list(range(heads[0], heads[0] + len(heads))):
+        return t.narrow(dim, heads[0], len(heads))
+    return t.index_select(dim, torch.tensor(heads, device=t.device))
+
+
+def _prefill_attention(q, k, v, rot, cfg: TransformerConfig,
+                       groups: Groups) -> torch.Tensor:
+    """``q (B, S, n_cols)`` the rank's q columns, ``k / v (B, S, KV, dh)``
+    every KV head (k roped) -> the rank's columns of the causal attention
+    output (B, S, n_cols). Whole local heads are roped and attend the KV
+    heads they map to; heads cut across ranks are gathered over "model"
+    first, and the rank attends every head its columns touch."""
+    b, s, _ = q.shape
+    dh = cfg.d_head
+    c0, n_cols = _q_cols(cfg, groups)
+    if c0 % dh == 0 and n_cols % dh == 0:
+        h0, n_q = c0 // dh, n_cols // dh
+        qh = layers.apply_rope(q.view(b, s, n_q, dh), rot)
+    else:
+        h0, h1 = c0 // dh, -(-(c0 + n_cols) // dh)
+        n_q = h1 - h0
+        full = gather_dim(q, 2, groups.tp, groups.tp_size)
+        qh = layers.apply_rope(full[:, :, h0 * dh:h1 * dh].reshape(
+            b, s, n_q, dh), rot)
+    heads, _ = local_kv(h0, n_q, cfg.n_heads, cfg.n_kv_heads)
+    out = attention.prefill_attention(
+        qh, _kv_heads(k, heads, 2), _kv_heads(v, heads, 2),
+        cfg.swa_window).reshape(b, s, n_q * dh)
+    return out if n_q * dh == n_cols else \
+        out[:, :, c0 - h0 * dh:c0 - h0 * dh + n_cols]
+
+
+def _ring_runs(s: int, keep: int, ring: int, off: int, n_loc: int):
+    """The kept positions ``[s - keep, s)`` whose ring slot ``p % ring``
+    lies in a rank's block of slots ``[off, off + n_loc)``, as runs
+    (first position, first slot in the block, length): at most two a turn
+    of the ring, copied as slices (no index tensor, no host copy)."""
+    runs, p = [], s - keep
+    while p < s:
+        slot = p % ring
+        n = min(s - p, ring - slot)                 # up to the ring's end
+        lo, hi = max(slot, off), min(slot + n, off + n_loc)
+        if lo < hi:
+            runs.append((p + lo - slot, lo - off, hi - lo))
+        p += n
+    return runs
+
+
+def prefill_step(params, tokens: torch.Tensor, cfg: TransformerConfig,
+                 groups: Groups = NO_GROUPS, specs=None,
+                 ring: Optional[int] = None):
     """Forward over the prompt ``tokens (B, S)``: returns the last token's
     logits (B, V) f32 and the KV cache ``{"k", "v"}`` (L, B, keep, KV, dh)
     of the trailing ``keep = cache_len(cfg, S)`` positions (the window for
-    SWA archs), in position order."""
+    SWA archs), in position order. With ``ring`` the cache is instead a
+    ring of ``ring`` slots (position p at slot ``p % ring``, unfilled
+    slots zero), the layout ``decode_step`` reads.
+
+    With ``groups`` (``partitioned.Groups`` of a live mesh) this is one
+    rank's step on its blocks: ``params`` under ``specs``
+    (``param_specs``; read only where ``groups`` has fsdp axes),
+    ``tokens`` its batch block; it returns the logits over the rank's
+    vocab slice and its sequence block of the cache (block ``tp_rank`` of
+    the ``keep`` positions or of the ring)."""
     b, s = tokens.shape
     cd = cfg.compute_dtype
-    nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    h = _embed_lookup(params["embed"], tokens, cd)
-    positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
-    rot = layers.rope_tables(positions, dh, cfg.rope_theta)
+    nkv, dh = cfg.n_kv_heads, cfg.d_head
+    h = _embed_lookup(params["embed"], tokens, cd,
+                      tp_group=groups.tp if groups.tp_size > 1 else None)
+    rot = layers.rope_tables(
+        torch.arange(s, device=h.device)[None, :].expand(b, s), dh,
+        cfg.rope_theta)
     keep = cache_len(cfg, s)
-    shape = (cfg.n_layers, b, keep, nkv, dh)
-    cache = {"k": torch.empty(shape, dtype=cd, device=h.device),
-             "v": torch.empty(shape, dtype=cd, device=h.device)}
+    n_slots = keep if ring is None else ring
+    if n_slots % groups.tp_size:
+        raise ValueError(f"a cache of {n_slots} positions does not cut "
+                         f"into {groups.tp_size} equal blocks")
+    n_loc = n_slots // groups.tp_size
+    off = groups.tp_rank * n_loc
+    runs = (((s - keep + off, 0, n_loc),) if ring is None else
+            _ring_runs(s, keep, ring, off, n_loc))
+    shape = (cfg.n_layers, b, n_loc, nkv, dh)
+    make = torch.empty if ring is None else torch.zeros
+    cache = {"k": make(shape, dtype=cd, device=h.device),
+             "v": make(shape, dtype=cd, device=h.device)}
+    layer_specs = specs["layers"] if groups.fsdp_axes else None
     for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+        p = _layer(params["layers"], i, groups, layer_specs)
         q, k, v = _qkv(p, cfg, layers.rmsnorm(p["ln1"], h))
-        q = layers.apply_rope(q.view(b, s, nh, dh), rot)
         k = layers.apply_rope(k.view(b, s, nkv, dh), rot)
         v = v.view(b, s, nkv, dh)
-        attn = attention.prefill_attention(q, k, v, cfg.swa_window)
-        h = h + attn.reshape(b, s, nh * dh) @ p["wo"].to(cd)
-        h = h + _mlp(p, cfg, layers.rmsnorm(p["ln2"], h))[0]
-        cache["k"][i] = k[:, s - keep:]
-        cache["v"][i] = v[:, s - keep:]
+        attn = _prefill_attention(q, k, v, rot, cfg, groups)
+        h = h + sum_tp(attn @ p["wo"].to(cd), groups)
+        h = h + _mlp(p, cfg, layers.rmsnorm(p["ln2"], h), groups)[0]
+        for name, t in (("k", k), ("v", v)):
+            for src, dst, n in runs:
+                cache[name][i][:, dst:dst + n] = t[:, src:src + n]
+        del p               # the layer's gathered weights, before the next
     return _head(params, h[:, -1]), cache
 
 
@@ -481,20 +597,62 @@ def prefill_step(params, tokens: torch.Tensor, cfg: TransformerConfig):
 # ---------------------------------------------------------------------------
 
 
+def _decode_attention(q, k, v, k_c, v_c, rot, at, cfg: TransformerConfig,
+                      groups: Groups) -> torch.Tensor:
+    """One step's attention for one layer: the new token's ``q (B,
+    n_cols)`` (the rank's q columns), ``k`` (roped) / ``v`` (B, KV, dh)
+    written into the caches ``k_c / v_c (B, S_l, KV, dh)`` at ``at`` ->
+    the rank's columns of the output (B, n_cols). ``at``: (slot, length)
+    in one process; (the slot within the rank's slice, whether the rank
+    owns it, its slice's filled positions) under a "model" group, where q
+    is gathered, every head attends the slice and the slices meet by
+    their log-sum-exp."""
+    b = q.shape[0]
+    nh, dh = cfg.n_heads, cfg.d_head
+    if groups.tp_size == 1:
+        slot, length = at
+        q = layers.apply_rope(q.view(b, 1, nh, dh), rot)[:, 0]
+        k_c.index_copy_(1, slot, k.to(k_c.dtype)[:, None])
+        v_c.index_copy_(1, slot, v.to(v_c.dtype)[:, None])
+        return attention.decode_attention(q, k_c, v_c, length).reshape(
+            b, nh * dh)
+    here, owner, valid = at
+    for c, new in ((k_c, k), (v_c, v)):
+        old = c.index_select(1, here)
+        c.index_copy_(1, here, torch.where(owner, new.to(c.dtype)[:, None],
+                                           old))
+    q = gather_dim(q, 1, groups.tp, groups.tp_size)
+    q = layers.apply_rope(q.view(b, 1, nh, dh), rot)[:, 0]
+    m, l_, o = attention.decode_attention_partial(q, k_c, v_c, valid)
+    out = lse_combine(m, l_, o, groups.tp, groups.tp_size)
+    c0, n_cols = _q_cols(cfg, groups)
+    return out.reshape(b, nh * dh).to(q.dtype)[:, c0:c0 + n_cols]
+
+
 def decode_step(params, cache, tokens: torch.Tensor, pos,
-                cfg: TransformerConfig):
+                cfg: TransformerConfig, groups: Groups = NO_GROUPS,
+                specs=None):
     """One decode step: ``tokens (B,)`` at absolute position ``pos`` (an
     int, or a 0-d integer tensor as the reference's abstract argument; an
     int becomes one on the device, so the slot and length arithmetic stays
     there, no host sync). Writes the new keys and values into ``cache`` in
     place (slot ``pos % cache_len`` for SWA archs: a ring; ``pos``
     otherwise) and returns (logits (B, V) f32, cache); the reference
-    returns a new cache."""
+    returns a new cache.
+
+    With ``groups`` (``partitioned.Groups`` of a live mesh) this is one
+    rank's step on its blocks: ``params`` under ``specs`` (read only where
+    ``groups`` has fsdp axes), ``cache`` its sequence block (L, B_l, S_l,
+    KV, dh) of ``S_l * tp`` slots, ``tokens`` its batch block; only the
+    rank whose block holds the slot writes it, and the logits are over the
+    rank's vocab slice."""
     b = tokens.shape[0]
     cd = cfg.compute_dtype
-    nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    h = _embed_lookup(params["embed"], tokens, cd)            # (B, D)
-    s_cache = cache["k"].shape[2]
+    nkv, dh = cfg.n_kv_heads, cfg.d_head
+    h = _embed_lookup(params["embed"], tokens, cd,
+                      tp_group=groups.tp if groups.tp_size > 1 else None)
+    s_loc = cache["k"].shape[2]
+    s_cache = s_loc * groups.tp_size
     if not isinstance(pos, torch.Tensor):       # a fill on the device
         pos = torch.full((), pos, dtype=torch.int64, device=h.device)
     pos = pos.to(device=h.device, dtype=torch.int64)
@@ -502,15 +660,21 @@ def decode_step(params, cache, tokens: torch.Tensor, pos,
     length = torch.clamp(pos + 1, max=s_cache)
     positions = pos.reshape(1, 1).expand(b, 1)
     rot = layers.rope_tables(positions, dh, cfg.rope_theta)
+    if groups.tp_size == 1:
+        at = (slot, length)
+    else:                   # this rank's slice of the sequence
+        off = groups.tp_rank * s_loc
+        here = slot - off
+        at = (here.clamp(0, s_loc - 1), (here >= 0) & (here < s_loc),
+              (off + torch.arange(s_loc, device=h.device)) < length)
+    layer_specs = specs["layers"] if groups.fsdp_axes else None
     for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+        p = _layer(params["layers"], i, groups, layer_specs)
         q, k, v = _qkv(p, cfg, layers.rmsnorm(p["ln1"], h))
-        q = layers.apply_rope(q.view(b, 1, nh, dh), rot)[:, 0]
         k = layers.apply_rope(k.view(b, 1, nkv, dh), rot)[:, 0]
-        k_c, v_c = cache["k"][i], cache["v"][i]
-        k_c.index_copy_(1, slot, k.to(k_c.dtype)[:, None])
-        v_c.index_copy_(1, slot, v.view(b, nkv, dh).to(v_c.dtype)[:, None])
-        attn = attention.decode_attention(q, k_c, v_c, length)
-        h = h + attn.reshape(b, nh * dh) @ p["wo"].to(cd)
-        h = h + _mlp(p, cfg, layers.rmsnorm(p["ln2"], h))[0]
+        attn = _decode_attention(q, k, v.view(b, nkv, dh), cache["k"][i],
+                                 cache["v"][i], rot, at, cfg, groups)
+        h = h + sum_tp(attn @ p["wo"].to(cd), groups)
+        h = h + _mlp(p, cfg, layers.rmsnorm(p["ln2"], h), groups)[0]
+        del p
     return _head(params, h), cache

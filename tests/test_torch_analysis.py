@@ -539,6 +539,14 @@ def test_whole_matrix_audit_on_the_cpu(tmp_path):
             assert f"{topo}/{mode}" in targets
     assert {r["family"] for r in payload["results"]} == \
         {"source", "protocol", "trace"}
+    # no contract is listed as broken (ROADMAP C 4 closed): every graph
+    # cell, gathered or fused, carries the one-traversal-launch budget
+    assert run.KNOWN_DEVIATIONS == {} and payload["known_deviations"] == []
+    for mode in MODES:
+        rules = {r["rule"] for r in payload["results"]
+                 if r["target"] == f"graph/{mode}"}
+        assert {"NoHostSyncInStep", "LaunchBudget",
+                "NoDenseScoreMatrix"} <= rules, (mode, rules)
     # every card-only reading skipped, saying why; nothing failed
     assert payload["counts"]["failed"] == 0
     for r in payload["results"]:

@@ -16,8 +16,8 @@ own with one XLA thread.
 
 Part 2: every non-skipped cell of the registry at smoke size on a fake
 4-rank (2, 2) ("data", "model") group gives an ``ok`` record; the
-``vs_*`` cells are traced per device (collectives over the group seen),
-the others ideal; ``report.py``'s tables equal the reference's
+``vs_*`` cells and the LM serving cells (prefill and decode) are traced
+per device (collectives over the group seen), the others ideal; ``report.py``'s tables equal the reference's
 ``dryrun_table`` / ``roofline_table`` on the same rows, apart from the
 fits column (80 GB here, 16 GB there), the trace time in the reference's
 compile-time column, and the roofline's added ``split``.
@@ -32,6 +32,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.kernels.flash_attention import attention_pairs
 from repro_torch.launch import dryrun, report
 from repro_torch.launch import mesh as mesh_mod
@@ -122,9 +123,11 @@ def test_every_cell_traces_on_a_fake_group(arch, shape, grid_records):
     assert mem["peak_bytes"] >= mem["argument_bytes"] and mem["fits_h100_80g"]
     assert cost["flops"] >= 0 and cost["bytes_written"] > 0
     assert rec["roofline"]["bound_s"] > 0
-    if arch == "gleanvec-paper":
-        # each rank's blocks over the group: the moments' all-reduces or
-        # the candidates' all-gathers, among 4 ranks (one node)
+    kind = registry.get(arch).SHAPES[shape]["kind"]
+    if arch == "gleanvec-paper" or kind in ("prefill", "decode"):
+        # each rank's blocks over the group: the moments' all-reduces, the
+        # candidates' all-gathers, or the LM serving steps' tensor- and
+        # data-parallel collectives, among 4 ranks (one node)
         assert rec["split"] == "traced" and rec["collectives"]["count"] > 0
         assert all(g["link"] == "nvlink" and g["n_ranks"] > 1
                    for g in rec["collectives"]["groups"])

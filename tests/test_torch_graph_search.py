@@ -29,8 +29,10 @@ On the card (``cuda`` marker, skipped elsewhere): a fused
 ``GraphIndex.candidates`` launches ``graph_beam_search`` once and
 ``graph_scan_beam_step`` never, makes no host sync
 (``torch.cuda.set_sync_debug_mode("error")``), and returns exactly what
-the per-hop loop over the ``graph_scan_beam_step`` kernel returns; the
-kernel equals its plain version bit for bit on integer data.
+the per-hop loop over the ``graph_scan_beam_step`` kernel returns; a
+gathered scorer's search (five modes) is one launch with no host sync and
+agrees with its per-hop loop; the kernel equals its plain version bit for
+bit on integer data.
 """
 import dataclasses
 
@@ -190,9 +192,10 @@ def test_wrapper_takes_plain_on_cpu_and_counts_nothing(world):
     with pytest.raises(ValueError, match="max_hops"):
         K.graph_beam_search(*args, layout_block=s.layout_block, max_hops=-1,
                             expand=1)
+    # every scorer class of the port has a lowering (the gathered ones
+    # over the id table); anything else, here a graph, is refused
     with pytest.raises(TypeError, match="beam_search"):
-        K.scorer_beam_search(sc.LinearScorer(x_low=torch.zeros(3, 2)), None,
-                             None, None, None, 1, 1)
+        K.scorer_beam_search(gi, None, None, None, None, 1, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +300,41 @@ def test_cuda_fused_candidates_one_launch_no_sync(cuda, expand,
         assert torch.equal(ids, torch.where(top > NEG_INF, want_ids,
                                             torch.full_like(want_ids, -1)))
         assert int(hops) == want[2] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "sphering", "gleanvec",
+                                  "sphering-int8", "gleanvec-int8"])
+def test_cuda_gathered_candidates_one_launch_no_sync(cuda, mode):
+    """A gathered scorer over a graph that is not fused: one
+    ``graph_beam_search`` launch a search at layout block 1, no host sync,
+    and the per-hop loop's beams (within ``testing.dot_tol``: the kernel
+    sums each score in another order)."""
+    from repro_torch.core import leanvec_sphering as lvs
+    from repro_torch.testing import topk_agreement
+    g = torch.Generator(device=cuda).manual_seed(len(mode))
+    x = torch.randn(4000, 32, device=cuda, generator=g)
+    q = torch.randn(300, 32, device=cuda, generator=g)
+    model = (None if mode == "full" else
+             lvs.fit(q, x, 16) if mode.startswith("sphering")
+             else gv.fit(q, x, c=6, d=16, kmeans_iters=4, generator=g,
+                         device=cuda))
+    s = sc.build_scorer(mode, x, model, device=cuda)
+    gi = dataclasses.replace(graph.build(x, r=12, n_iters=2, device=cuda),
+                             beam=64, max_hops=200, expand=4)
+    qstate = s.prepare_queries(q)
+    loop = graph._beam_loop(graph._score_ids_of(qstate, s), gi, 300, 64,
+                            200, 4)
+    before = K.graph_beam_search.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = graph._beam_qstate(qstate, s, gi, 64, 64, 200, expand=4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert K.graph_beam_search.launches == before + 1
+    assert topk_agreement(got[:2], loop[:2], 1e-4)["id_agreement"] >= 0.99
+    assert abs(int(got[2]) - loop[2]) <= 2 and loop[2] > 0
 
 
 @pytest.mark.cuda
