@@ -357,6 +357,22 @@ Phases (any failure raises and the script exits non-zero):
    groups 1, 2 and 3 (``FLASH_LOCAL_SHAPES``) against its plain version,
    with its bound and the library's time (PyTorch's flash backend at
    is_causal without a window; SDPA with a dense mask with one).
+3r. LM training partitioned under the bundles' specs
+   (``transformer.train_loss`` under ``trainstep.make_train_step`` with
+   the ``partitioned.Groups`` of a one-rank NCCL group over a (1, 1)
+   ("data", "model") mesh and ``transformer.param_specs``), after 3q:
+   danube at full width (24 layers, phase 3m's batch, sequence and
+   accumulation, AdamW), qwen2-72b at 2 of 80 layers (Adafactor, phase
+   3m's batch) and grok-1 at the depth that fits beside its gradients and
+   their bf16 accumulation (Adafactor; the depth printed). Each model's
+   plain and partitioned steps run PART_TRAIN_STEPS steps each from the
+   same initial weights (drawn again from the seed) on the same batches:
+   the loss, ``grad_norm`` and every parameter and optimizer-state leaf
+   equal bit for bit after the last (a checksum of each leaf's words on
+   the card), its ms and the peak GB printed, the partitioned steps with
+   0 host syncs. One-rank
+   groups leave every collective out (the 4-rank gloo test on the CPU
+   checks the reductions).
 
 Then the card's name and power limit, one JSON line with the kernel table,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -661,6 +677,16 @@ DRYRUN_CELLS = (("gleanvec-paper", "search_oi13m"),
 # at the local GQA groups of a tensor-parallel rank, prefill_32k's batch
 # over 16 data ranks (32 / 16 = 2): (label, B, H, KV, S, dh, window).
 PART_REPS = 2
+# Phase 3r: the training steps partitioned under the specs on the same
+# one-rank mesh, each against its plain step, PART_TRAIN_STEPS steps each
+# (the last one timed): danube as phase 3m's (a),
+# qwen2 as its (b), and grok-1 (Adafactor, bf16 accumulation) at
+# GROK_TRAIN_BATCH rows of TRAIN_SEQ in GROK_TRAIN_ACCUM microbatches, at
+# the most layers whose weights, gradients and accumulator (three bf16
+# copies) leave GROK_TRAIN_HEADROOM_GB of the card's free memory to the
+# activations.
+GROK_TRAIN_BATCH, GROK_TRAIN_ACCUM, GROK_TRAIN_HEADROOM_GB = 4, 4, 20
+PART_TRAIN_STEPS = 2
 FLASH_LOCAL_SHAPES = (("group 1", 2, 1, 1, 32768, 128, None),
                       ("group 2 danube tp 16", 2, 2, 1, 32768, 120, 4096),
                       ("group 3 grok-1 tp 16", 2, 3, 1, 32768, 128, None))
@@ -5699,13 +5725,27 @@ def flash_local_rows(K, testing):
     return rows
 
 
-def phase_partitioned(K, testing):
-    """Phase 3q. Returns (flash_attention's rows at the local GQA groups,
-    the partitioned steps' launches to add to 3o's prefill row)."""
+@contextlib.contextmanager
+def one_rank_nccl(dev):
+    """A one-rank NCCL default process group on ``dev`` (a free localhost
+    port), destroyed on exit."""
     import socket
 
     import torch.distributed as dist
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
+
+def phase_partitioned(K, testing):
+    """Phase 3q. Returns (flash_attention's rows at the local GQA groups,
+    the partitioned steps' launches to add to 3o's prefill row)."""
     from repro_torch.configs import registry
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps as steps_mod
@@ -5719,13 +5759,8 @@ def phase_partitioned(K, testing):
     mesh = mesh_mod.Mesh(("data", "model"), (1, 1))
     log(f"phase 3q: partitioned LM serving, one-rank NCCL group over a "
         f"{dict(mesh.shape)} mesh, on {card_line()}")
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0, device_id=dev)
     zero_counters(K)
-    try:
+    with one_rank_nccl(dev):
         rules = MeshRules.for_mesh(mesh)
         groups = partitioned.groups_on(mesh, rules, dev.type)
         log(f"  groups on the live mesh: tp {groups.tp_size} rank(s), batch "
@@ -5804,8 +5839,6 @@ def phase_partitioned(K, testing):
         launched["grok-1"] = K.flash_attention.launches - launched["danube"]
         del gparams, prompt
         torch.cuda.empty_cache()
-    finally:
-        dist.destroy_process_group()
     want = {"danube": (1 + PART_REPS) * cfg.n_layers,
             "grok-1": (1 + PART_REPS) * depth}
     log(f"  partitioned steps: flash_attention launches {launched}; all "
@@ -5822,6 +5855,172 @@ def phase_partitioned(K, testing):
             launched["danube"],
         f"flash_attention[grok-1 prefill B={MOE_BATCH} S={MOE_PROMPT}]":
             launched["grok-1"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3r: LM training partitioned under the bundles' specs.
+# ---------------------------------------------------------------------------
+
+
+def leaf_checksums(tensors) -> torch.Tensor:
+    """Per tensor, the int64 sums of its words (1, 2, 4 or 8 bytes as an
+    integer type) and of each word times its position mod 65521, computed
+    on the card and read once: two results agree bit for bit but for a
+    vanishing chance where these agree."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    sums = []
+    for t in tensors:
+        w = t.detach().contiguous().view(ints[t.element_size()]).reshape(-1)
+        s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+        s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+        for a in range(0, w.numel(), 1 << 26):
+            c = w[a:a + (1 << 26)].to(torch.int64)
+            pos = torch.arange(a, a + c.numel(), device=t.device) % 65521
+            s1 += c.sum()
+            s2 += (c * pos).sum()
+        sums += [s1, s2]
+    return torch.stack(sums).cpu()
+
+
+def grok_train_depth(cfg) -> tuple:
+    """(layers, GB a layer, GB outside the layers) of grok-1 training on
+    this card: the most layers whose weights, gradients and bf16
+    accumulator (three copies) leave GROK_TRAIN_HEADROOM_GB free."""
+    from repro_torch.launch import steps
+    one = dataclasses.replace(cfg, n_layers=1)
+    _, total = steps._lm_active_params(one)
+    head = 2 * cfg.vocab * cfg.d_model             # embed and lm_head
+    layer_gb = (total - cfg.vocab * cfg.d_model) * 2 / 1e9
+    rest_gb = head * 2 / 1e9
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    depth = int((free_gb - GROK_TRAIN_HEADROOM_GB - 3 * rest_gb)
+                // (3 * layer_gb))
+    if depth < 1:
+        raise AssertionError(f"phase 3r: one grok-1 layer does not fit "
+                             f"({free_gb:.1f} GB free)")
+    return min(depth, cfg.n_layers), layer_gb, rest_gb
+
+
+def part_train_pair(label, arch, cfg, batch, accum, groups, specs):
+    """``arch``'s plain training step and its partitioned step (``groups``,
+    ``specs``) at ``cfg``, each PART_TRAIN_STEPS steps from the same
+    initial weights and optimizer state on the same batches: the last
+    step's ms (the first warms the shapes up), the peak and the
+    partitioned steps' host syncs printed, and after the last step the
+    loss, grad_norm and every leaf equal bit for bit."""
+    from repro_torch.analysis.trace_rules import sync_count
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.partitioned import NO_GROUPS
+    from repro_torch.train import data
+    from repro_torch.train.trainstep import make_train_step
+    from repro_torch.tree import leaves
+    dev = torch.device("cuda")
+    abstract = tfm.blocked_view(steps._abstract(
+        lambda: tfm.init(cfg, device="cpu")), cfg)
+    _, opt_init, opt_cfg, accum_dtype = steps._opt_setup(
+        registry.get(arch), abstract, smoke=False)
+    tokens = batch * TRAIN_SEQ
+    readings = {}
+    for side, g, sp in (("plain", NO_GROUPS, None),
+                        ("partitioned", groups, specs)):
+        step = make_train_step(
+            lambda p, b: tfm.train_loss(p, b, cfg, g, sp), opt_cfg,
+            accum_steps=accum, accum_dtype=accum_dtype, groups=g, specs=sp)
+        params = tfm.blocked_view(tfm.init(cfg, seed=TRAIN_SEED, device=dev),
+                                  cfg)
+        opt = opt_init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        syncs = 0
+        for i in range(PART_TRAIN_STEPS):
+            b = data.lm_batch(TRAIN_SEED, i, batch, TRAIN_SEQ, cfg.vocab,
+                              device=dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            out = {}
+
+            def one():
+                start.record()
+                out["r"] = step(params, opt, b)
+                end.record()
+
+            if side == "plain":
+                one()
+            else:
+                syncs += sync_count(one)
+            end.synchronize()
+            params, opt, metrics = out["r"]
+        ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        sums = leaf_checksums([metrics["loss"], metrics["grad_norm"]]
+                              + leaves(params) + leaves(opt))
+        readings[side] = (ms, peak, syncs, sums, float(metrics["loss"]),
+                          float(metrics["grad_norm"]))
+        del params, opt, metrics, b, out, step
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    (pm, pp, _, ps, loss, gn), (qm, qp, syncs, qs, _, _) = (
+        readings["plain"], readings["partitioned"])
+    same = torch.equal(ps, qs)
+    log(f"  {label}: step {PART_TRAIN_STEPS - 1} plain {pm:.1f} ms (peak "
+        f"{pp:.2f} GB), partitioned {qm:.1f} ms (peak {qp:.2f} GB; host "
+        f"syncs in its {PART_TRAIN_STEPS} steps: {syncs}), "
+        f"{tokens / qm * 1e3:.0f} tokens/s; loss {loss:.6f} grad_norm "
+        f"{gn:.6f}; loss, grad_norm and {ps.numel() // 2 - 2} leaves "
+        f"{'equal bit for bit' if same else 'DIFFER'}")
+    if not same or syncs:
+        raise AssertionError(f"phase 3r {label}: the partitioned step is not "
+                             f"the plain step, or syncs ({syncs})")
+    return pm, qm
+
+
+def phase_partitioned_train() -> None:
+    """Phase 3r: the plain and the partitioned training steps of danube,
+    qwen2 and grok-1 on a one-rank NCCL group, bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import partitioned
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import MeshRules
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_mod.Mesh(("data", "model"), (1, 1))
+    log(f"phase 3r: partitioned LM training, one-rank NCCL group over a "
+        f"{dict(mesh.shape)} mesh, on {card_line()}")
+    with one_rank_nccl(dev):
+        rules = MeshRules.for_mesh(mesh)
+        groups = partitioned.groups_on(mesh, rules, dev.type)
+        for arch, depth, batch, accum, label in (
+                (TRAIN_ARCH, TRAIN_DEPTH, TRAIN_BATCH,
+                 getattr(registry.get(TRAIN_ARCH), "TRAIN_ACCUM", 1),
+                 "danube"),
+                (QWEN_ARCH, QWEN_DEPTH, QWEN_BATCH,
+                 getattr(registry.get(QWEN_ARCH), "TRAIN_ACCUM", 1),
+                 "qwen2"),
+                (MOE_ARCHS[0][0], None, GROK_TRAIN_BATCH, GROK_TRAIN_ACCUM,
+                 "grok-1")):
+            full = registry.get(arch).make_config()
+            note = ""
+            if depth is None:
+                depth, layer_gb, rest_gb = grok_train_depth(full)
+                note = (f"; {depth} layer(s) fit: {layer_gb:.1f} GB of bf16 "
+                        f"weights a layer and {rest_gb:.1f} GB outside the "
+                        f"layers, three copies (weights, gradients, the "
+                        f"bf16 accumulator), {GROK_TRAIN_HEADROOM_GB} GB "
+                        f"left to the activations")
+            cfg = dataclasses.replace(full, n_layers=depth)
+            specs = tfm.param_specs(cfg, rules)
+            log(f"  {label}: {depth} of {full.n_layers} layers, batch "
+                f"{batch} x {TRAIN_SEQ}, accumulation {accum}{note}")
+            part_train_pair(f"{label} ({depth} of {full.n_layers} layers, "
+                            f"B {batch})", arch, cfg, batch, accum, groups,
+                            specs)
+    log(f"  phase 3r: {time.perf_counter() - t_phase:.0f} s on "
+        f"{card_line()}")
 
 
 # ---------------------------------------------------------------------------
@@ -7532,6 +7731,7 @@ def main(argv=None) -> int:
     del measured
     part_rows, part_launches = phase_partitioned(K, testing)
     table += part_rows
+    phase_partitioned_train()
     # the partitioned prefills' flash_attention launches: danube's at 3o's
     # prefill shape, grok-1's at phase 3l's
     add_launches(table, part_launches)

@@ -21,14 +21,15 @@ every trip is counted; ``trip_counts`` is kept for the report.
 
 Per device: arguments and outputs exactly, from the bundle's partition
 specs (``sharding.local_block``). The steps that run on their local blocks
-over a process group -- the ``vs_*`` steps, the LM serving steps (prefill
-and decode, ``models/partitioned.py``) and DLRM's serve step with its 2D
-lookup -- are traced at rank 0's blocks in a fake process group of
-``mesh.size`` ranks (``"split": "traced"``). The LM training, GNN and the
-other recommenders' steps have no partitioned execution in the port yet:
-they are traced whole at global shapes on one position, and flops, bytes
-and the activation peak are divided by ``mesh.size`` (``"split":
-"ideal"``, no collectives).
+over a process group -- the ``vs_*`` steps, the LM steps (training,
+prefill and decode, ``models/partitioned.py``) and DLRM's serve step with
+its 2D lookup -- are traced at rank 0's blocks in a fake process group of
+``mesh.size`` ranks (``"split": "traced"``); a step that fails there
+raises, and is never traced whole instead. The GNN and the other
+recommenders' steps have no partitioned execution in the port yet: they
+are traced whole at global shapes on one position, and flops, bytes and
+the activation peak are divided by ``mesh.size`` (``"split": "ideal"``,
+no collectives).
 
 A host read of a value the trace cannot know has one answer: the counts
 of a ``bincount`` (the data pass's rows a cluster) are equal shares of its
@@ -362,7 +363,7 @@ def trace_step(fn, args, *, device="cuda", mesh=None, in_specs=None) -> dict:
 
 def split_of(arch: str, shape: str, smoke: bool, mesh) -> str:
     """"traced" where the step runs on its local blocks over a process
-    group (the ``vs_*`` steps; the LM serving steps, prefill and decode;
+    group (the ``vs_*`` steps; the LM steps, training, prefill and decode;
     DLRM's serve step with its 2D lookup, which smoke configs and meshes
     without a "model" axis do not take), or on one position; else
     "ideal"."""
@@ -370,8 +371,7 @@ def split_of(arch: str, shape: str, smoke: bool, mesh) -> str:
     module = registry.get(arch)
     if mesh.size == 1 or module.FAMILY == "vectorsearch":
         return "traced"
-    if module.FAMILY == "lm" \
-            and module.SHAPES[shape]["kind"] in ("prefill", "decode"):
+    if module.FAMILY == "lm":
         return "traced"
     if getattr(module, "MODEL", "") == "dlrm" and not smoke \
             and module.SHAPES[shape]["kind"] == "recsys_serve" \

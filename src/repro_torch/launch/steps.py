@@ -25,12 +25,17 @@ reference's ``shard_map``s do: DLRM's 2D lookup
 the config is not smoke), the ``vs_search`` merge (each rank scans its
 rows, lifts its ids by its shard's offset, one all-gather and a stable
 top k), the ``vs_learn`` moments (each rank's partial sums and moments
-all-reduced before the fit) and the LM serving steps, prefill and decode
-(``transformer.prefill_step`` / ``decode_step`` with the mesh's
+all-reduced before the fit) and the LM steps, prefill, decode and
+training (``transformer.prefill_step`` / ``decode_step`` /
+``train_loss`` under ``trainstep.make_train_step``, with the mesh's
 ``partitioned.Groups``: tensor-, expert- and data-parallel under the
-specs, on a mesh of more than one position). Each
-rank then passes its own blocks of the arguments (``sharding.local_block``
-under ``in_specs``) and gets its blocks of ``out_specs``.
+specs, fsdp weights gathered a layer at a time and their gradients
+reduce-scattered, the optimizer on its shards, on a mesh of more than one
+position). Each rank then passes its own blocks of the arguments
+(``sharding.local_block`` under ``in_specs``) and gets its blocks of
+``out_specs``. A training batch is laid out by ``trainstep.rank_major``
+first, so that each data rank's block holds its block of every
+microbatch and the mesh's microbatch i is the one-process step's.
 """
 from __future__ import annotations
 
@@ -123,7 +128,7 @@ def _live_group(mesh, axes, dev):
 
 def _lm_groups(mesh, rules: MeshRules, dev):
     """``get()`` -> the process groups (``partitioned.Groups``) of the LM
-    serving steps under ``rules`` on ``mesh``'s live ``DeviceMesh``, made
+    steps under ``rules`` on ``mesh``'s live ``DeviceMesh``, made
     at the first call; ``partitioned.NO_GROUPS`` on a one-position
     mesh."""
     def get():
@@ -257,13 +262,20 @@ def _lm_bundle(module, shape_name: str, mesh, rules: MeshRules, smoke: bool,
         dp_size = max(_axes_size(mesh, rules.dp), 1)
         while accum > 1 and (b // accum) % dp_size != 0:
             accum //= 2
-        step = make_train_step(lambda p, bt: tfm.train_loss(p, bt, cfg),
-                               opt_cfg, accum_steps=accum,
-                               accum_dtype=accum_dtype)
+        groups = _lm_groups(mesh, rules, dev)
+
+        @functools.cache
+        def step():
+            g = groups()
+            return make_train_step(
+                lambda p, bt: tfm.train_loss(p, bt, cfg, g, p_specs),
+                opt_cfg, accum_steps=accum, accum_dtype=accum_dtype,
+                groups=g, specs=p_specs)
+
         b_specs = {"tokens": rules.batch(None),
                    "labels": rules.batch(None)}
         return StepBundle(
-            name=name, fn=step,
+            name=name, fn=lambda p, o, bt: step()(p, o, bt),
             args=(p_abstract, opt_abstract,
                   {"tokens": _meta((b, s)), "labels": _meta((b, s))}),
             config=cfg, device=dev, opt_init=opt_init,

@@ -85,7 +85,11 @@ def _gnn_batch(bundle, step: int, seed: int, graph):
 
 def make_batch(module, bundle, step: int, seed: int = 0, graph=None):
     """The deterministic batch of ``step`` at the bundle's shapes, on its
-    device. A GNN's graph is ``graph`` (``make_graph``'s) or drawn anew."""
+    device. A GNN's graph is ``graph`` (``make_graph``'s) or drawn anew.
+    The rows are in the one-process step's order; a bundle built for a
+    mesh of several data ranks takes an LM batch laid out by
+    ``trainstep.rank_major(batch, accumulation, data ranks)`` before each
+    rank cuts its block, so that its microbatch i is this batch's."""
     shapes, cfg, dev = bundle.args[2], bundle.config, bundle.device
     if module.FAMILY == "gnn":
         if graph is None:

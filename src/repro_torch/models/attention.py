@@ -34,7 +34,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal and window mask at ``NEG_INF``, the softmax in f32, then the
     probabilities cast to q's type for the product with V (in q's type).
     The reference pads the last chunk with zero queries and drops their
-    rows; here the last chunk is shorter, with the same output."""
+    rows; here the last chunk is shorter, with the same output. A
+    tensor-parallel rank passes its local q heads and the KV heads
+    ``partitioned.local_kv`` maps them to: a whole GQA group of q heads a
+    KV head, or one KV head a q head (repeats allowed) where the heads
+    cut across ranks."""
     b, s, h, dh = q.shape
     group = h // k.shape[2]
     scale = 1.0 / float(dh) ** 0.5

@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.models.partitioned import (NO_GROUPS, Groups, copy_tp,
+                                            mean_batch)
 
 __all__ = ["MoEConfig", "Routing", "moe_init", "route", "moe_apply"]
 
@@ -171,33 +173,42 @@ def _experts(params, x_e: torch.Tensor, act: str, glu: bool,
 
 
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, act: str, glu: bool,
-              compute_dtype=torch.bfloat16, experts=None, token_group=None):
+              compute_dtype=torch.bfloat16, groups: Groups = NO_GROUPS,
+              whole_aux: bool = False):
     """``x (..., D)`` -> (y in x's shape and type, aux loss f32 scalar).
     The leading dims are flattened to tokens in row-major order and cut
     into groups of ``min(group_size, tokens)``; a token count that is not a
     multiple of the group raises ``ValueError``, where the reference
     asserts.
 
-    The partitioned serving steps pass two more arguments. ``experts``:
-    ``(first, count)``, the experts ``params`` holds (an expert-parallel
-    rank's block); the other experts' choices keep their slots but are
-    left out here, and the ranks' outputs summed make the whole layer's.
-    ``token_group``: ``(group, size)``, the data-parallel ranks whose
-    token blocks (this rank's ``x`` is block ``rank``) make the batch;
-    groups are cut over the whole batch and routed as one process routes
-    it (:func:`_spread_route` where a group spans ranks). The auxiliary
-    loss is then this rank's tokens' (serving drops it)."""
+    The partitioned steps pass ``groups`` (``partitioned.Groups``). Under
+    ``sharding="ep"`` ``params`` holds this "model" rank's block of the
+    experts; the other experts' choices keep their slots but are left out
+    here. Under "tp" it holds every expert's block of d_ff columns. Either
+    way the ranks' outputs summed over "model" make the whole layer's (the
+    caller sums them), and the tokens and the gates enter the rank's share
+    through ``partitioned.copy_tp``, so their gradients are summed over
+    "model"; the router runs alike on every rank. The data ranks' token
+    blocks (this rank's ``x`` is block ``rank``) make the batch: groups
+    are cut over the whole batch and routed as one process routes it
+    (:func:`_spread_route` where a group spans ranks). The auxiliary loss
+    is this rank's tokens' (serving drops it), or with ``whole_aux`` the
+    whole batch's, its statistics averaged over the data ranks
+    (``partitioned.mean_batch``), as training needs it."""
     cd = compute_dtype
     shape, d = x.shape, x.shape[-1]
     xt = x.reshape(-1, d)
     t = xt.shape[0]
-    group, size = token_group if token_group is not None else (None, 1)
+    group, size = groups.batch, groups.batch_size
     tg = min(cfg.group_size, t * size)
     if (t * size) % tg:
         raise ValueError(f"token count {t * size} not divisible by group "
                          f"{tg}")
     e, k = cfg.n_experts, cfg.top_k
-    e0, e_here = experts if experts is not None else (0, e)
+    e0, e_here = 0, e
+    if cfg.sharding == "ep" and groups.tp_size > 1:
+        e_here = params["w_up"].shape[0]
+        e0 = groups.tp_rank * e_here
     if t % tg == 0:                     # every group on this rank
         g = t // tg
         xg = xt.reshape(g, tg, d)
@@ -223,8 +234,8 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, act: str, glu: bool,
     rows = torch.where(mine, ((r.idx - e0) * g + tok_group) * cap + r.pos,
                        n_slots)
     n_tok = xg.shape[0] * xg.shape[1]
-    src = xg.to(cd)[:, :, None, :].expand(*xg.shape[:2], k, d).reshape(-1,
-                                                                       d)
+    src = copy_tp(xg, groups).to(cd)[:, :, None, :].expand(
+        *xg.shape[:2], k, d).reshape(-1, d)
     buf = torch.zeros(n_slots + 1, d, dtype=cd, device=x.device)
     buf.index_copy_(0, rows.reshape(-1), src)
     x_e = buf[:n_slots].view(e_here, g * cap, d)
@@ -233,11 +244,14 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, act: str, glu: bool,
 
     # combine: each token's K expert rows weighted by its gates (cast to
     # compute_dtype, 0 for a dropped choice), summed in f32, rounded once
-    w = torch.where(mine, r.gates, 0.0).to(cd)
+    w = torch.where(mine, copy_tp(r.gates, groups), 0.0).to(cd)
     picked = y_e[torch.where(mine, rows, 0).reshape(-1)].view(n_tok, k, d)
     y = torch.bmm(w.view(n_tok, 1, k), picked).view(t, d)
 
     frac = F.one_hot(r.idx[..., 0], e).to(torch.float32).mean(dim=(0, 1))
-    aux = cfg.aux_loss_weight * e * torch.sum(
-        frac * r.probs.mean(dim=(0, 1)))
+    mean_probs = r.probs.mean(dim=(0, 1))
+    if whole_aux:
+        frac, mean_probs = mean_batch(frac, groups), mean_batch(mean_probs,
+                                                                groups)
+    aux = cfg.aux_loss_weight * e * torch.sum(frac * mean_probs)
     return y.reshape(shape).to(x.dtype), aux

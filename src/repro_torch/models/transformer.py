@@ -30,12 +30,13 @@ give the reference's partition specs of the parameter and cache trees
 (``models/sharding.py``; the launch tooling's step bundles carry them),
 and ``_embed_lookup`` takes a tensor-parallel process group for the
 reference's vocab-parallel lookup (a rank's slice of the table, one
-all-reduce). ``prefill_step`` and ``decode_step`` take the process
-groups of a mesh (``partitioned.Groups``) and then run on one rank's
-blocks under those specs with explicit collectives (``models/
-partitioned.py`` sets out the layout); the one-process step is the same
-body with every group of one rank. The reference's ``constrain`` layout
-hints change no value and are left out.
+all-reduce). ``prefill_step``, ``decode_step`` and ``train_loss`` take
+the process groups of a mesh (``partitioned.Groups``) and then run on one
+rank's blocks under those specs with explicit collectives, autograd's
+included (``models/partitioned.py`` sets out the layout); the
+one-process step is the same body with every group of one rank. The
+reference's ``constrain`` layout hints change no value and are left
+out.
 """
 from __future__ import annotations
 
@@ -50,8 +51,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, moe
 from repro_torch.models.moe import MoEConfig
-from repro_torch.models.partitioned import (NO_GROUPS, Groups, gather_dim,
-                                            local_kv, lse_combine, sum_tp)
+from repro_torch.models.partitioned import (NO_GROUPS, Groups, copy_tp,
+                                            gather_dim, local_kv, lse_combine,
+                                            max_tp, sum_tp)
 from repro_torch.models.sharding import (MeshRules, logical_to_spec,
                                          sum_over_group)
 
@@ -209,23 +211,49 @@ def param_count(params) -> int:
     return params.numel()
 
 
-def _layer(stacked, i: int, groups: Groups = NO_GROUPS, specs=None):
-    """Layer ``i``'s parameters: views into the stacked tensors, each
-    dimension that ``groups``' fsdp axes cut all-gathered over them
-    (``specs``: the stacked tensors' specs, each led by the layer's
-    None)."""
+# replicated over "model" but read only for the rank's local KV heads: their
+# gradient is each rank's share, summed over "model" (``copy_tp``)
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
+def _gathered(p, groups: Groups = NO_GROUPS, specs=None):
+    """One layer's parameters ``p`` (the rank's blocks) as its step reads
+    them: each dimension that ``groups``' fsdp axes cut all-gathered over
+    them (``specs``: the layer's specs, read only where ``groups`` has
+    fsdp axes), and the KV projections through ``copy_tp``."""
     out = {}
-    for k, v in stacked.items():
-        if isinstance(v, dict):
-            out[k] = _layer(v, i, groups, None if specs is None else specs[k])
+    for k, x in p.items():
+        if isinstance(x, dict):
+            out[k] = _gathered(x, groups, None if specs is None else specs[k])
             continue
-        x = v[i]
+        if k in _KV_LEAVES:
+            x = copy_tp(x, groups)
         if groups.fsdp_axes:
-            for d, entry in enumerate(tuple(specs[k])[1:]):
+            for d, entry in enumerate(tuple(specs[k])):
                 if entry == groups.fsdp_axes:
                     x = gather_dim(x, d, groups.fsdp, groups.fsdp_size)
         out[k] = x
     return out
+
+
+def _drop_lead(specs, n: int):
+    """The spec tree of ``n`` leading dimensions indexed away (a layer of
+    a stack)."""
+    if isinstance(specs, dict):
+        return {k: _drop_lead(v, n) for k, v in specs.items()}
+    return tuple(specs)[n:]
+
+
+def _layer(stacked, i: int, groups: Groups = NO_GROUPS, specs=None):
+    """Layer ``i``'s parameters: views into the stacked tensors, gathered
+    as :func:`_gathered` says (``specs``: the stacked tensors' specs, each
+    led by the layer's None)."""
+    def index(tree):
+        return {k: index(v) if isinstance(v, dict) else v[i]
+                for k, v in tree.items()}
+
+    return _gathered(index(stacked), groups,
+                     None if specs is None else _drop_lead(specs, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -264,25 +292,21 @@ def _qkv(p, cfg: TransformerConfig, h: torch.Tensor):
 
 
 def _mlp(p, cfg: TransformerConfig, h: torch.Tensor,
-         groups: Groups = NO_GROUPS):
+         groups: Groups = NO_GROUPS, whole_aux: bool = False):
     """The FFN on ``h (..., D)``: dense, or the MoE layer on the flattened
     tokens (prefill's (B, S) in (batch, position) order; a decode step's B
     tokens one group). Returns (output, the MoE auxiliary loss or None):
-    training adds it, prefill and decode drop it as the reference's do.
-    Under ``groups`` each rank's partial output (its FFN columns or, for an
-    expert-parallel MoE, its experts) is summed over "model", and the MoE's
-    groups of tokens are cut over the data ranks' whole batch."""
+    training adds it (``whole_aux``: over the whole batch), prefill and
+    decode drop it as the reference's do. Under ``groups`` each rank's
+    partial output (its FFN columns or, for an expert-parallel MoE, its
+    experts) is summed over "model", and the MoE's groups of tokens are cut
+    over the data ranks' whole batch."""
     cd = cfg.compute_dtype
     if cfg.moe is not None:
-        experts = None
-        if cfg.moe.sharding == "ep":
-            e_here = p["moe"]["w_up"].shape[0]
-            experts = (groups.tp_rank * e_here, e_here)
-        token_group = ((groups.batch, groups.batch_size)
-                       if groups.batch_size > 1 else None)
         out, aux = moe.moe_apply(p["moe"], h, cfg.moe, cfg.act, cfg.glu, cd,
-                                 experts=experts, token_group=token_group)
+                                 groups=groups, whole_aux=whole_aux)
         return sum_tp(out, groups), aux
+    h = copy_tp(h, groups)
     up = h @ p["w_up"].to(cd)
     if cfg.glu:
         act = layers.activation(cfg.act, h @ p["w_gate"].to(cd)) * up
@@ -338,20 +362,24 @@ def _unstack(stacked, n_layers: int, blocked: bool):
 
 
 def _layer_fwd(p, cfg: TransformerConfig, h: torch.Tensor, rot,
-               aux: torch.Tensor):
+               aux: torch.Tensor, groups: Groups = NO_GROUPS, specs=None):
     """One decoder layer, training form, on ``h (B, S, D)``: returns (h,
-    aux plus the layer's MoE auxiliary loss)."""
+    aux plus the layer's MoE auxiliary loss). Under ``groups`` ``p`` is the
+    rank's blocks (``specs`` the layer's), gathered here, inside the
+    remat, so the backward gathers them again (ZeRO-3); the layout is
+    prefill's (``models/partitioned.py``)."""
     b, s, _ = h.shape
     cd = cfg.compute_dtype
-    nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q, k, v = _qkv(p, cfg, layers.rmsnorm(p["ln1"], h))
-    q = layers.apply_rope(q.view(b, s, nh, dh), rot)
-    k = layers.apply_rope(k.view(b, s, nkv, dh), rot)
-    attn = attention.chunked_attention(q, k, v.view(b, s, nkv, dh),
-                                       causal=True, window=cfg.swa_window,
-                                       q_chunk=cfg.q_chunk)
-    h = h + attn.reshape(b, s, nh * dh) @ p["wo"].to(cd)
-    out, layer_aux = _mlp(p, cfg, layers.rmsnorm(p["ln2"], h))
+    p = _gathered(p, groups, specs)
+    q, k, v = _qkv(p, cfg, copy_tp(layers.rmsnorm(p["ln1"], h), groups))
+    k = layers.apply_rope(k.view(b, s, cfg.n_kv_heads, cfg.d_head), rot)
+    attn = _local_attention(
+        q, k, v.view(b, s, cfg.n_kv_heads, cfg.d_head), rot, cfg, groups,
+        functools.partial(attention.chunked_attention, causal=True,
+                          window=cfg.swa_window, q_chunk=cfg.q_chunk))
+    h = h + sum_tp(attn @ p["wo"].to(cd), groups)
+    out, layer_aux = _mlp(p, cfg, layers.rmsnorm(p["ln2"], h), groups,
+                          whole_aux=True)
     return h + out, aux if layer_aux is None else aux + layer_aux
 
 
@@ -389,23 +417,38 @@ def _remat(fn, policy: str):
     return functools.partial(_checkpoint, fn)
 
 
-def _xent_chunk(h_c: torch.Tensor, w_head: torch.Tensor,
-                l_c: torch.Tensor) -> torch.Tensor:
+def _xent_chunk(h_c: torch.Tensor, w_head: torch.Tensor, l_c: torch.Tensor,
+                groups: Groups = NO_GROUPS) -> torch.Tensor:
     """The summed cross entropy of one chunk: bf16 x bf16 logits cast to
     f32, ``logsumexp`` less the label's logit (a gather: the same f32 value
-    as the reference's one-hot product)."""
+    as the reference's one-hot product). Under a "model" group ``w_head``
+    is the rank's vocab slice: the largest logit (the shift) and the sum of
+    exponentials are reduced over "model", and the label's logit comes from
+    the rank whose slice holds it (one all-reduce of both sums)."""
     logits = (h_c.to(torch.bfloat16)
               @ w_head.to(torch.bfloat16)).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    label = logits.gather(-1, l_c.long()[..., None])[..., 0]
-    return torch.sum(lse - label)
+    if groups.tp_size == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        label = logits.gather(-1, l_c.long()[..., None])[..., 0]
+        return torch.sum(lse - label)
+    v_loc = logits.shape[-1]
+    top = max_tp(logits.detach().amax(dim=-1), groups)
+    loc = l_c.long() - groups.tp_rank * v_loc
+    hit = (loc >= 0) & (loc < v_loc)
+    label = logits.gather(-1, loc.clamp(0, v_loc - 1)[..., None])[..., 0]
+    sums = sum_tp(torch.stack([
+        torch.exp(logits - top[..., None]).sum(dim=-1),
+        torch.where(hit, label, 0.0)]), groups)
+    return torch.sum(top + torch.log(sums[0]) - sums[1])
 
 
 def _chunked_xent(h: torch.Tensor, w_head: torch.Tensor,
-                  labels: torch.Tensor, n_chunks: int) -> torch.Tensor:
+                  labels: torch.Tensor, n_chunks: int,
+                  groups: Groups = NO_GROUPS) -> torch.Tensor:
     """Mean cross entropy over ``n_chunks`` chunks of the sequence, each
     under a checkpoint: its (B, S / n_chunks, V) logits are made again in
-    the backward and never outlive the chunk."""
+    the backward and never outlive the chunk (under ``groups``: the rank's
+    vocab slice of them, the mean over the rank's rows)."""
     b, s, _ = h.shape
     n_chunks = min(n_chunks, s)
     if s % n_chunks:
@@ -414,27 +457,41 @@ def _chunked_xent(h: torch.Tensor, w_head: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, s, sc):
         total = total + _checkpoint(_xent_chunk, h[:, c:c + sc], w_head,
-                                    labels[:, c:c + sc])
+                                    labels[:, c:c + sc], groups)
     return total / (b * s)
 
 
 def train_loss(params, batch: Dict[str, torch.Tensor],
-               cfg: TransformerConfig) -> torch.Tensor:
+               cfg: TransformerConfig, groups: Groups = NO_GROUPS,
+               specs=None) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch`` (``tokens`` and
     ``labels``, (B, S)) plus the layers' MoE auxiliary loss over
     ``n_layers``, differentiable in ``params`` (flat (L, ...) layer stacks
-    or ``blocked_view``'s)."""
+    or ``blocked_view``'s).
+
+    With ``groups`` (``partitioned.Groups`` of a live mesh) this is one
+    rank's loss on its blocks: ``params`` under ``specs`` (``param_specs``
+    of the same layout; read only where ``groups`` has fsdp axes),
+    ``batch`` its rows. It returns the mean over the rank's rows plus the
+    auxiliary loss of the whole batch, so the data ranks' mean is the
+    one-process loss, and its backward leaves each leaf's whole gradient on
+    every "model" rank (an fsdp leaf's summed over the data ranks:
+    ``trainstep.make_train_step`` reduces the rest)."""
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = tokens.shape
-    h = _embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    h = _embed_lookup(params["embed"], tokens, cfg.compute_dtype,
+                      tp_group=groups.tp if groups.tp_size > 1 else None)
     rot = layers.rope_tables(
         torch.arange(s, device=h.device)[None, :].expand(b, s), cfg.d_head,
         cfg.rope_theta)
     stacked = params["layers"]
-    per_layer = _unstack(stacked, cfg.n_layers, stacked["wq"].ndim == 4)
+    blocked = stacked["wq"].ndim == 4
+    per_layer = _unstack(stacked, cfg.n_layers, blocked)
+    layer_specs = _drop_lead(specs["layers"], 2 if blocked else 1) \
+        if groups.fsdp_axes else None
 
     def body(p, h, aux):
-        return _layer_fwd(p, cfg, h, rot, aux)
+        return _layer_fwd(p, cfg, h, rot, aux, groups, layer_specs)
 
     layer = _remat(body, cfg.remat_policy)
 
@@ -452,8 +509,9 @@ def train_loss(params, batch: Dict[str, torch.Tensor],
                                  h, aux)
     else:
         h, aux = run(per_layer, h, aux)
-    h = layers.rmsnorm(params["final_norm"], h)
-    loss = _chunked_xent(h, params["lm_head"], labels, cfg.loss_chunks)
+    h = copy_tp(layers.rmsnorm(params["final_norm"], h), groups)
+    loss = _chunked_xent(h, params["lm_head"], labels, cfg.loss_chunks,
+                         groups)
     return loss + aux / cfg.n_layers
 
 
@@ -489,20 +547,24 @@ def _q_cols(cfg: TransformerConfig, groups: Groups) -> Tuple[int, int]:
 
 
 def _kv_heads(t: torch.Tensor, heads, dim: int) -> torch.Tensor:
-    """``t``'s KV heads ``heads`` along ``dim``: a view where they run in
-    order, else an index copy."""
+    """``t``'s KV heads ``heads`` along ``dim``: ``t`` itself where they are
+    all of them, a view where they run in order, else an index copy."""
+    if heads == list(range(t.shape[dim])):
+        return t
     if heads == list(range(heads[0], heads[0] + len(heads))):
         return t.narrow(dim, heads[0], len(heads))
     return t.index_select(dim, torch.tensor(heads, device=t.device))
 
 
-def _prefill_attention(q, k, v, rot, cfg: TransformerConfig,
-                       groups: Groups) -> torch.Tensor:
+def _local_attention(q, k, v, rot, cfg: TransformerConfig, groups: Groups,
+                     attend) -> torch.Tensor:
     """``q (B, S, n_cols)`` the rank's q columns, ``k / v (B, S, KV, dh)``
     every KV head (k roped) -> the rank's columns of the causal attention
-    output (B, S, n_cols). Whole local heads are roped and attend the KV
-    heads they map to; heads cut across ranks are gathered over "model"
-    first, and the rank attends every head its columns touch."""
+    output (B, S, n_cols), ``attend(q, k, v)`` on (B, S, heads, dh) (the
+    flash kernel in prefill, ``chunked_attention`` in training). Whole
+    local heads are roped and attend the KV heads they map to; heads cut
+    across ranks are gathered over "model" first, and the rank attends
+    every head its columns touch."""
     b, s, _ = q.shape
     dh = cfg.d_head
     c0, n_cols = _q_cols(cfg, groups)
@@ -516,9 +578,8 @@ def _prefill_attention(q, k, v, rot, cfg: TransformerConfig,
         qh = layers.apply_rope(full[:, :, h0 * dh:h1 * dh].reshape(
             b, s, n_q, dh), rot)
     heads, _ = local_kv(h0, n_q, cfg.n_heads, cfg.n_kv_heads)
-    out = attention.prefill_attention(
-        qh, _kv_heads(k, heads, 2), _kv_heads(v, heads, 2),
-        cfg.swa_window).reshape(b, s, n_q * dh)
+    out = attend(qh, _kv_heads(k, heads, 2),
+                 _kv_heads(v, heads, 2)).reshape(b, s, n_q * dh)
     return out if n_q * dh == n_cols else \
         out[:, :, c0 - h0 * dh:c0 - h0 * dh + n_cols]
 
@@ -582,7 +643,10 @@ def prefill_step(params, tokens: torch.Tensor, cfg: TransformerConfig,
         q, k, v = _qkv(p, cfg, layers.rmsnorm(p["ln1"], h))
         k = layers.apply_rope(k.view(b, s, nkv, dh), rot)
         v = v.view(b, s, nkv, dh)
-        attn = _prefill_attention(q, k, v, rot, cfg, groups)
+        attn = _local_attention(
+            q, k, v, rot, cfg, groups,
+            functools.partial(attention.prefill_attention,
+                              window=cfg.swa_window))
         h = h + sum_tp(attn @ p["wo"].to(cd), groups)
         h = h + _mlp(p, cfg, layers.rmsnorm(p["ln2"], h), groups)[0]
         for name, t in (("k", k), ("v", v)):

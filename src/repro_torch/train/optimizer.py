@@ -24,6 +24,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.models.partitioned import (NO_GROUPS, Groups, dim_groups,
+                                            spec_leaves)
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
            "AdafactorConfig", "AdafactorState", "adafactor_init",
@@ -72,14 +74,50 @@ def _slices(*tensors):
         yield tuple(t[i:i + per] for t in tensors)
 
 
-def global_norm(grads) -> torch.Tensor:
+def _leaf_cuts(params, groups: Groups, specs) -> list:
+    """Each leaf's ``partitioned.dim_groups`` (its dimensions cut over a
+    group of more than one rank), in leaf order; all empty in one
+    process."""
+    n = len(tree.leaves(params))
+    if specs is None or groups == NO_GROUPS:
+        return [{}] * n
+    cuts = [dim_groups(s, groups) for s in spec_leaves(specs)]
+    if len(cuts) != n:
+        raise ValueError("the specs do not have the parameters' structure")
+    return cuts
+
+
+def _sum_over(x: torch.Tensor, cut: dict) -> torch.Tensor:
+    """``x`` (a rank's partial sum) summed over each distinct group of
+    ``cut``, in place: one all-reduce a group."""
+    import torch.distributed as dist
+    seen = []
+    for group, _ in cut.values():
+        if all(group is not g for g in seen):
+            seen.append(group)
+            dist.all_reduce(x, group=group)
+    return x
+
+
+def global_norm(grads, groups: Groups = NO_GROUPS, specs=None
+                ) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32 (a device scalar);
-    a large leaf is read slice by slice (no f32 copy of it)."""
-    total = None
-    for g in tree.leaves(grads):
+    a large leaf is read slice by slice (no f32 copy of it). Under
+    ``groups`` ``grads`` is one rank's blocks under ``specs``: the leaves
+    cut alike add their squares, each such sum is summed over the groups
+    that cut them, and a leaf replicated over a group counts once."""
+    by_cut = {}                 # the leaves cut over the same groups
+    for g, cut in zip(tree.leaves(grads), _leaf_cuts(grads, groups, specs)):
+        key = frozenset(id(group) for group, _ in cut.values())
         for (gs,) in _slices(g):
             sq = torch.sum(torch.square(gs.to(torch.float32)))
-            total = sq if total is None else total + sq
+            if key in by_cut:
+                sq = by_cut[key][0] + sq
+            by_cut[key] = (sq, cut)
+    total = None
+    for sq, cut in by_cut.values():
+        sq = _sum_over(sq, cut) if cut else sq
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
@@ -109,12 +147,15 @@ def _flat(ref, *trees):
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
-                 lr: Optional[torch.Tensor] = None):
+                 lr: Optional[torch.Tensor] = None,
+                 groups: Groups = NO_GROUPS, specs=None):
     """One AdamW step, in place: global-norm clip, bias-corrected moments,
     decoupled weight decay on the f32 parameter. Consumes ``params`` and
     ``state`` (updated and returned) and leaves ``grads`` as given.
-    Returns (params, state, grad_norm)."""
-    gnorm = global_norm(grads)
+    Returns (params, state, grad_norm). Elementwise, so a rank's shards
+    (under ``groups`` and the parameters' ``specs``) update alone; only
+    the clip's norm is over the whole tree (:func:`global_norm`)."""
+    gnorm = global_norm(grads, groups, specs)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -192,16 +233,31 @@ def adafactor_init(params, cfg: AdafactorConfig = AdafactorConfig()
         mu=treedef.unflatten([mu(p) for p in leaves]))
 
 
-def _second_moments(g, vr, vc, beta2, cfg: AdafactorConfig):
+def _mean(x: torch.Tensor, dim: int, cut, keepdim: bool = False):
+    """The mean of ``x`` over ``dim``; where ``cut`` (group, ranks) cuts
+    that dimension, the mean over the whole of it (one all-reduce of the
+    ranks' means, divided by the ranks)."""
+    m = torch.mean(x, dim=dim, keepdim=keepdim)
+    if cut is None:
+        return m
+    import torch.distributed as dist
+    dist.all_reduce(m, group=cut[0])
+    return m.div_(cut[1])
+
+
+def _second_moments(g, vr, vc, beta2, cfg: AdafactorConfig, cut=None):
     """One leaf's (or one slice's) new ``vr`` and ``vc`` from its gradient
-    and its unclipped update ``g / sqrt(v-hat)``: (u, vr, vc)."""
+    and its unclipped update ``g / sqrt(v-hat)``: (u, vr, vc). ``cut``:
+    the leaf's ``partitioned.dim_groups``; a row or column mean over a
+    dimension a group cuts is that of the whole dimension."""
     gf = g.to(torch.float32)
     g2 = gf * gf + cfg.eps
     if _factored(g):
-        vr = beta2 * vr + (1 - beta2) * torch.mean(g2, dim=-1)
-        vc = beta2 * vc + (1 - beta2) * torch.mean(g2, dim=-2)
-        denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                            min=cfg.eps)
+        cut = cut or {}
+        rows, cols = cut.get(g.ndim - 2), cut.get(g.ndim - 1)
+        vr = beta2 * vr + (1 - beta2) * _mean(g2, -1, cols)
+        vc = beta2 * vc + (1 - beta2) * _mean(g2, -2, rows)
+        denom = torch.clamp(_mean(vr, -1, rows, keepdim=True), min=cfg.eps)
         vhat = (vr[..., None] * vc[..., None, :]) / denom[..., None]
     else:
         vr = beta2 * vr + (1 - beta2) * g2
@@ -212,37 +268,56 @@ def _second_moments(g, vr, vc, beta2, cfg: AdafactorConfig):
 @torch.no_grad()
 def adafactor_update(grads, state: AdafactorState, params,
                      cfg: AdafactorConfig = AdafactorConfig(),
-                     lr: Optional[torch.Tensor] = None):
+                     lr: Optional[torch.Tensor] = None,
+                     groups: Groups = NO_GROUPS, specs=None):
     """One Adafactor step, in place (consumes ``params`` and ``state``).
     A leaf's update is clipped by its RMS over the whole leaf, so a leaf of
     three or more axes that is cut into slices along its first axis (a
     batch axis of its factored moments) is read twice: once for the RMS,
-    once to apply it. Returns (params, state, grad_norm)."""
-    gnorm = global_norm(grads)
+    once to apply it. Under ``groups`` each leaf is a rank's block under
+    its spec (``specs``, the parameters'; the moments' blocks follow
+    ``steps._adafactor_specs``): a row or column mean, and the mean of
+    ``vr`` in the denominator, over a dimension a group cuts is reduced
+    over that group, and the RMS is the whole leaf's (its squares summed
+    over every group that cuts it). Returns (params, state, grad_norm)."""
+    gnorm = global_norm(grads, groups, specs)
     state.step.add_(1)
     beta2 = 1.0 - torch.pow(state.step.to(torch.float32), -cfg.decay)
     lr_t = cfg.lr if lr is None else lr
     leaves, (gs, vrs, vcs, mus) = _flat(params, grads, state.vr, state.vc,
                                         state.mu)
-    for p, g, vr, vc, mu in zip(leaves, gs, vrs, vcs, mus):
+    cuts = _leaf_cuts(params, groups, specs)
+    for p, g, vr, vc, mu, cut in zip(leaves, gs, vrs, vcs, mus, cuts):
         sliced = p.ndim >= 3 and p.numel() > SLICE_ELEMENTS
+        n_whole = p.numel()
+        for _, size in cut.values():
+            n_whole *= size
+
+        def rms_of(sq):
+            return torch.sqrt(_sum_over(sq, cut) / n_whole + cfg.eps)
+
         rms = None
         if sliced:
             sq = None
             for g_s, vr_s, vc_s in _slices(g, vr, vc):
-                u = _second_moments(g_s, vr_s, vc_s, beta2, cfg)[0]
+                u = _second_moments(g_s, vr_s, vc_s, beta2, cfg, cut)[0]
                 part = torch.sum(u * u)
                 sq = part if sq is None else sq + part
-            rms = torch.sqrt(sq / p.numel() + cfg.eps)
+            rms = rms_of(sq)
         parts = _slices(p, g, vr, vc) if sliced else [(p, g, vr, vc)]
         row = 0
         for p_s, g_s, vr_s, vc_s in parts:
-            u, vr_new, vc_new = _second_moments(g_s, vr_s, vc_s, beta2, cfg)
+            u, vr_new, vc_new = _second_moments(g_s, vr_s, vc_s, beta2, cfg,
+                                                cut)
             vr_s.copy_(vr_new)
             if _factored(p):
                 vc_s.copy_(vc_new)
-            rms_s = torch.sqrt(torch.mean(u * u) + cfg.eps) \
-                if rms is None else rms
+            if rms is not None:
+                rms_s = rms
+            elif cut:
+                rms_s = rms_of(torch.sum(u * u))
+            else:
+                rms_s = torch.sqrt(torch.mean(u * u) + cfg.eps)
             u = u / torch.clamp(rms_s / cfg.clip_threshold, min=1.0)
             if cfg.momentum is not None:
                 mu_s = mu[row:row + p_s.shape[0]] if sliced else mu

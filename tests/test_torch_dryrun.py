@@ -16,11 +16,14 @@ own with one XLA thread.
 
 Part 2: every non-skipped cell of the registry at smoke size on a fake
 4-rank (2, 2) ("data", "model") group gives an ``ok`` record; the
-``vs_*`` cells and the LM serving cells (prefill and decode) are traced
-per device (collectives over the group seen), the others ideal; ``report.py``'s tables equal the reference's
-``dryrun_table`` / ``roofline_table`` on the same rows, apart from the
-fits column (80 GB here, 16 GB there), the trace time in the reference's
-compile-time column, and the roofline's added ``split``.
+``vs_*`` cells and the LM cells (training, prefill and decode) are traced
+per device (collectives over the group seen; a training cell's
+all-gathers, reduce-scatters and all-reduces, and its products times the
+ranks no fewer than the whole step's), the others ideal; ``report.py``'s
+tables equal the reference's ``dryrun_table`` / ``roofline_table`` on
+the same rows, apart from the fits column (80 GB here, 16 GB there), the
+trace time in the reference's compile-time column, and the roofline's
+added ``split``.
 """
 import json
 import os
@@ -123,15 +126,26 @@ def test_every_cell_traces_on_a_fake_group(arch, shape, grid_records):
     assert mem["peak_bytes"] >= mem["argument_bytes"] and mem["fits_h100_80g"]
     assert cost["flops"] >= 0 and cost["bytes_written"] > 0
     assert rec["roofline"]["bound_s"] > 0
-    kind = registry.get(arch).SHAPES[shape]["kind"]
-    if arch == "gleanvec-paper" or kind in ("prefill", "decode"):
+    module = registry.get(arch)
+    if arch == "gleanvec-paper" or module.FAMILY == "lm":
         # each rank's blocks over the group: the moments' all-reduces, the
-        # candidates' all-gathers, or the LM serving steps' tensor- and
+        # candidates' all-gathers, or the LM steps' tensor- and
         # data-parallel collectives, among 4 ranks (one node)
         assert rec["split"] == "traced" and rec["collectives"]["count"] > 0
         assert all(g["link"] == "nvlink" and g["n_ranks"] > 1
                    for g in rec["collectives"]["groups"])
-    else:
+    if module.FAMILY == "lm" and module.SHAPES[shape]["kind"] == "train":
+        # the fsdp gathers and their gradients' reduce-scatters; a rank's
+        # products cover its share of the whole step's at least (the
+        # vocab-parallel head and the replicated KV projections add some)
+        kinds = rec["collectives"]["by_kind"]
+        assert kinds["all-gather"] > 0 and kinds["reduce-scatter"] > 0 \
+            and kinds["all-reduce"] > 0
+        whole = dryrun.run_cell(arch, shape, "host", smoke=True,
+                                device="cpu",
+                                mesh=mesh_mod.Mesh(("data",), (1,)))
+        assert rec["cost"]["flops"] * 4 >= whole["cost"]["flops"]
+    elif not (arch == "gleanvec-paper" or module.FAMILY == "lm"):
         assert rec["split"] == "ideal" and rec["collectives"]["bytes"] == 0
 
 
